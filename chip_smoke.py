@@ -6,20 +6,37 @@ Run from the root of a checkout on a machine with an H100:
 
 Phases (each asserts; any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
-  2. build: compile the CUDA kernels from csrc/ (timed);
-  3. kernel vs plain: on real frontiers of a shallow, a deep and the last
-     level of the N = 1e6 NFW tree, for a subset of groups, each kernel
-     against its plain PyTorch version (p99.9 relative error < 2e-5,
-     identical keys), with times of both;
-  4. oracle: wq_gravity at N = 1e6 (theta 0.5, geometric opening) against
-     the direct sum on 4096 random targets (p99 <= 1e-3);
+  2. build: compile the CUDA kernels from csrc/, one nvcc per source, all
+     in parallel (timed);
+  3. walk kernels vs plain: on real frontiers of a shallow, a deep and the
+     last level of the N = 1e6 NFW tree, for a subset of groups, far_level
+     in both modes (walk: p99.9 relative error < 2e-5 and identical keys;
+     record: all four key planes identical) and near_level against their
+     plain PyTorch versions, with times of both;
+  4. oracles: the walk, and the cached lists recorded at skin 0 on the same
+     fresh tree, at N = 1e6 (theta 0.5, geometric opening) against the
+     direct sum on 4096 random targets (p99 <= 1e-3);
   5. main path: bench.py's configuration with SIDMOn 0, TreeWalkEngine wq,
-     ListMode 0 through Simulation: compute_potential, prepare, >= 4 steps
-     (a rebuild and refresh steps), compute_potential; launch counts > 0,
-     no overflow, finite positions, |dE/E| < 1e-3.
+     ListMode 1 through Simulation: prepare, 8 steps, compute_potential;
+     >= 2 record steps (prepare's included), >= 4 list steps, no list or
+     walk overflow, finite positions, |dE/E| < 1e-3, and launches of
+     far_level (record), far_list, near_level and gather_rows;
+  6. list kernels vs plain: far_list and near_level on the main path's
+     recorded lists for 512 groups, with and without the potential (p99.9
+     relative error < 2e-5), gather_rows bit-equal at the compact table's
+     shape;
+  7. the TPU probes' shapes: far_list through the Pallas far prototype's
+     interface (NU = 2048 units) against its XLA reference (max |diff| /
+     max |ref| < 1e-5), gather_rows bit-equal at (65536, 16) x 256 x 2048
+     ids, gather_rowsum at 8M ids from (2^14, 16) and (2^10, 16);
+  8. first slice's path: ListMode 0 (the walk every step) through
+     Simulation: prepare, 2 steps, compute_potential, with far_level and
+     near_level launched, no overflow, |dE/E| < 1e-3.
 Before the last line it prints one JSON object with the per-kernel results
-and the card's name and power limit; the last line is
-{"ok": true, "device": {...}}.
+(``launches``: on this slice's main path, phase 5; ``launches_by_path``:
+phase 5's and phase 8's counts, each path's counters set to 0 just before
+it and read just after) and the card's name and power limit; the last line
+is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -32,9 +49,13 @@ import numpy as np
 import torch
 
 SEED = 12345
-STEPS = 4              # after prepare: refresh and rebuild steps
+STEPS = 8              # list path, after prepare
+WALK_STEPS = 2         # first slice's path, after prepare
 ORACLE_TARGETS = 4096  # random targets held against the direct sum
-SUBSET_GROUPS = 512    # groups per level in the kernel-vs-plain check
+SUBSET_GROUPS = 512    # groups per call in the kernel-vs-plain checks
+K3_UNITS = 2048        # scripts/pallasfar.py NU
+K6_CAP, K6_BLOCKS, K6_IDS = 65536, 256, 2048   # pallas_gather_probe.py
+K45_IDS = 1 << 23      # scripts/gatherbench.py F
 
 
 def card_line() -> str:
@@ -68,6 +89,29 @@ def rel_err(a, b, valid):
     return e, ep
 
 
+def q999(x) -> float:
+    return float(torch.quantile(x.float(), 0.999)) if x.numel() else 0.0
+
+
+class Results:
+    """Per-kernel sums of what this run measured, for the JSON line."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, max_abs, ms, plain_ms, ops, nbytes, library_ms=None):
+        r = self.rows.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
+                                            plain_ms=0.0, ops=0.0, bytes=0.0,
+                                            library_ms=None))
+        r["max_abs_err"] = max(r["max_abs_err"], float(max_abs))
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["ops"] += ops
+        r["bytes"] += nbytes
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -79,28 +123,40 @@ def main():
                          "port on the card only")
     # imported only now: the script alone, without the package, must fail
     from sidm_tpu_torch import _build
+    from sidm_tpu_torch.bounds import (bound_ms, far_level_work,
+                                       far_list_work, gather_work,
+                                       near_level_work)
     from sidm_tpu_torch.flagship import flagship_config, flagship_ics
     from sidm_tpu_torch.ops.direct import direct_gravity
     from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
-    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
+                                             far_units, k3_reference,
+                                             units_to_lists)
+    from sidm_tpu_torch.ops.fused_force import default_depth, pack_tree
+    from sidm_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
+                                           gather_rowsum,
+                                           gather_rowsum_plain)
+    from sidm_tpu_torch.ops.list_force import (eval_inputs, eval_lists,
+                                               flat_tables, record_lists)
     from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
     from sidm_tpu_torch.ops.tree import build_octree
-    from sidm_tpu_torch.ops.wq_force import wq_gravity, wq_gravity_tree
+    from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
     from sidm_tpu_torch.simulation import Simulation
 
     dev = torch.device("cuda:0")
     card = card_line()
     print(f"card: {card}", flush=True)
+    res = Results()
 
     # ---- build ------------------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.kernels_lib()
-    info = lib.build_info
-    print(f"build: {time.perf_counter() - t0:.2f} s wall "
-          f"(nvcc {info['seconds']:.2f} s) -> {info['path'].name} [{card}]",
-          flush=True)
+    info = _build.kernels_lib().build_info
+    print(f"build: {time.perf_counter() - t0:.2f} s wall (parallel nvcc "
+          f"{info['seconds']:.2f} s) -> "
+          + ", ".join(p.name for p in info["paths"].values())
+          + f" [{card}]", flush=True)
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     # ---- the N = 1e6 NFW halo (bench.py's ICs), padded as the main path ---
@@ -110,15 +166,15 @@ def main():
     sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32),
                                   pad_to_multiple=4096)
     p = sim.particles
-    pos_t = p.pos
     mass_t = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
     eps_t = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
     old0 = torch.zeros_like(mass_t)
 
-    # ---- kernel vs plain on real frontiers of the main path's first tree ---
+    # ---- walk kernels vs plain on real frontiers of the first tree ---------
     depth = default_depth(p.n_padded)
-    tree = build_octree(pos_t, mass_t, eps_t, p.valid, depth=depth,
+    tree = build_octree(p.pos, mass_t, eps_t, p.valid, depth=depth,
                         uniform_eps=sim._check_uniform_eps())
+    offs = tree.level_offsets
     levels = {3, (3 + depth) // 2 + 1, depth, depth + 1}
     captured = {}
     sub = None
@@ -140,114 +196,364 @@ def main():
         tree, mass_t, eps_t, old0, theta=0.5, opening=1, need_pot=True,
         return_info=True, on_level=capture)
     torch.cuda.synchronize()
-    results = {"far_level": [], "near_level": []}
-    plains = {"far_level": far_level_plain, "near_level": near_level_plain}
-    kernels = {"far_level": far_level, "near_level": near_level}
+    n_far = n_near = 0
     for (name, level), kw in sorted(captured.items()):
-        valid = kw["te"] != 1.0  # dead target slots carry te = 1
-        out_k = kernels[name](**kw)
+        valid = kw["te"] != 1.0   # dead target slots carry te = 1
+        nvalid = torch.sum(valid, dim=1)
+        if name == "far_level":
+            rkw = dict(kw, xc=None, te=None, record=True,
+                       lvl_base=offs[level])
+            rec_k = far_level(**rkw)
+            rec_p = far_level_plain(**rkw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(rec_k, rec_p)), \
+                ("far_level record", level)
+            r_ms = cuda_ms(lambda: far_level(**rkw), 10)
+            r_plain = cuda_ms(lambda: far_level_plain(**rkw), 2)
+            ops, nb = far_level_work(rkw, rec_k[0], nvalid)
+            res.add("far_level_record", 0, r_ms, r_plain, ops, nb)
+            print(f"kernel far_level (record) level {level}: groups "
+                  f"{nvalid.shape[0]}, four key planes equal, far keys "
+                  f"{int(torch.sum(rec_k[0] != 2147483647))}, kernel "
+                  f"{r_ms:.3f} ms, plain {r_plain:.3f} ms [{card}]",
+                  flush=True)
+        kern, plain = ((far_level, far_level_plain) if name == "far_level"
+                       else (near_level, near_level_plain))
+        out_k = kern(**kw)
         torch.cuda.synchronize()
-        out_p = plains[name](**kw)
+        out_p = plain(**kw)
         torch.cuda.synchronize()
         acc_k = out_k[0] if name == "far_level" else out_k
         acc_p = out_p[0] if name == "far_level" else out_p
         e, ep = rel_err(acc_k, acc_p, valid)
-        p999 = float(torch.quantile(e, 0.999)) if e.numel() else 0.0
-        pp999 = float(torch.quantile(ep, 0.999)) if ep.numel() else 0.0
         keys = ""
         if name == "far_level":
-            keys_equal = all(torch.equal(a, b)
-                             for a, b in zip(out_k[1:], out_p[1:]))
-            assert keys_equal, (name, level)
-            keys = f"keys equal {keys_equal}, "
+            assert all(torch.equal(a, b) for a, b in zip(out_k[1:],
+                                                         out_p[1:]))
+            # the record mode's segment/open/big planes are the walk's
+            assert all(torch.equal(a, b) for a, b in zip(out_k[1:],
+                                                         rec_k[1:]))
+            keys = "keys equal (and equal to record mode's), "
+            ops, nb = far_level_work(kw, rec_k[0], nvalid)
+            n_far += 1
+        else:
+            ops, nb = near_level_work(kw, nvalid)
+            n_near += 1
         max_abs = float(torch.max(torch.abs(acc_k - acc_p)[valid]))
-        ms = cuda_ms(lambda: kernels[name](**kw), 10)
-        plain_ms = cuda_ms(lambda: plains[name](**kw), 2)
+        ms = cuda_ms(lambda: kern(**kw), 10)
+        plain_ms = cuda_ms(lambda: plain(**kw), 2)
         print(f"kernel {name} level {level}: groups {acc_k.shape[0]}, "
-              f"p99.9 acc err {p999:.3e}, p99.9 pot err {pp999:.3e}, "
+              f"p99.9 acc err {q999(e):.3e}, p99.9 pot err {q999(ep):.3e}, "
               f"max abs {max_abs:.3e}, {keys}"
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]",
-              flush=True)
-        assert p999 < 2e-5 and pp999 < 2e-5, (name, level, p999, pp999)
-        results[name].append((max_abs, ms, plain_ms))
-    assert len(results["far_level"]) == 3 and len(results["near_level"]) == 4
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms(ops, nb)[0]:.3f} ms [{card}]", flush=True)
+        assert q999(e) < 2e-5 and q999(ep) < 2e-5, (name, level)
+        res.add(name, max_abs, ms, plain_ms, ops, nb)
+    assert n_far == 3 and n_near == 4, (n_far, n_near)
 
-    # ---- oracle: the walk at N = 1e6 vs the direct sum ----------------------
-    t0 = time.perf_counter()
-    acc_o, _, oinfo = wq_gravity(pos_t, mass_t, eps_t, old0, theta=0.5,
-                                 opening=0, need_pot=False, return_info=True)
-    torch.cuda.synchronize()
-    t_walk = time.perf_counter() - t0
+    # ---- oracles: the walk and the lists at N = 1e6 vs the direct sum -------
     g = torch.Generator().manual_seed(SEED)
     tgt = torch.randperm(n, generator=g)[:ORACLE_TARGETS].to(dev)
-    acc_d, _ = direct_gravity(pos_t, mass_t, eps_t, targets=tgt,
+    acc_d, _ = direct_gravity(p.pos, mass_t, eps_t, targets=tgt,
                               with_potential=False)
-    e = torch.linalg.norm(acc_o[tgt] - acc_d, dim=1) / torch.linalg.norm(
-        acc_d, dim=1)
-    p99 = float(torch.quantile(e, 0.99))
-    print(f"oracle: N {n} ({p.n_padded} padded), {ORACLE_TARGETS} targets, p99 {p99:.3e}, "
-          f"max {float(e.max()):.3e}, walk {t_walk:.3f} s, "
-          f"ovf_open {int(oinfo['ovf_open'])} ovf_big "
-          f"{int(oinfo['ovf_big'])} [{card}]", flush=True)
-    assert p99 <= 1e-3, p99
-    del acc_o, acc_d, tree, acc_w
+    t0 = time.perf_counter()
+    acc_o, _, oinfo = wq_gravity_tree(tree, mass_t, eps_t, old0, theta=0.5,
+                                      opening=0, need_pot=False,
+                                      return_info=True)
+    torch.cuda.synchronize()
+    t_walk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lists0 = record_lists(tree, old0[tree.perm], p.valid[tree.perm],
+                          theta=0.5, use_relative=False, lcfg=sim._lfc,
+                          skin=0.0)
+    acc_l, _ = eval_lists(tree, lists0, mass_t, eps_t, need_pot=False)
+    torch.cuda.synchronize()
+    t_list = time.perf_counter() - t0
+    lovf = lists0.ovf.tolist()
+    for label, acc_x, extra in (
+            ("walk", acc_o, f"walk {t_walk:.3f} s, ovf_open "
+             f"{int(oinfo['ovf_open'])} ovf_big {int(oinfo['ovf_big'])}"),
+            ("lists", acc_l, f"record + eval {t_list:.3f} s, ovf {lovf}")):
+        e = torch.linalg.norm(acc_x[tgt] - acc_d, dim=1) / torch.linalg.norm(
+            acc_d, dim=1)
+        p99 = float(torch.quantile(e, 0.99))
+        print(f"oracle ({label}): N {n} ({p.n_padded} padded), "
+              f"{ORACLE_TARGETS} targets, p99 {p99:.3e}, max "
+              f"{float(e.max()):.3e}, {extra} [{card}]", flush=True)
+        assert p99 <= 1e-3, (label, p99)
+    assert sum(lovf) == 0, lovf
+    del acc_o, acc_d, acc_l, acc_w, lists0, tree
 
-    # ---- main path: the Simulation's step on the card -----------------------
-    far_level.launches = 0
-    near_level.launches = 0
+    # ---- main path: the list-mode Simulation on the card --------------------
+    counters = {"far_level": (far_level, "launches"),
+                "far_level_record": (far_level, "record_launches"),
+                "near_level": (near_level, "launches"),
+                "far_list": (far_list, "launches"),
+                "gather_rows": (gather_rows, "launches"),
+                "gather_rowsum": (gather_rowsum, "launches")}
+
+    def zero_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    zero_counts()
     t0 = time.perf_counter()
     sim.prepare()
+    infos = [dict(sim.last_list_info)]
     sim.compute_potential()
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
     e_start = sim_energy(sim)
-    ovf = 0
-    walls = []
+    ovf, walls = 0, []
     t0 = time.perf_counter()
     for _ in range(STEPS):
         sim.step()
-        inf = sim.last_walk_info
-        ovf += int(inf["ovf_open"]) + int(inf["ovf_big"]) \
-            + int(inf["ovf_items"])
-        walls.append((sim.last_step_rebuilt, dict(sim.last_phase_wall)))
+        li = dict(sim.last_list_info)
+        infos.append(li)
+        if li["ovf"] is not None:
+            ovf += sum(li["ovf"])
+        if sim.last_walk_info is not None:
+            ovf += sum(int(sim.last_walk_info[k]) for k in
+                       ("ovf_open", "ovf_big", "ovf_items"))
+        walls.append((li, dict(sim.last_phase_wall)))
     torch.cuda.synchronize()
     t_steps = time.perf_counter() - t0
     sim.compute_potential()
     torch.cuda.synchronize()
-    launches = {"far_level": far_level.launches,
-                "near_level": near_level.launches}
+    launches = read_counts()
     e_end = sim_energy(sim)
     de = abs(e_end - e_start) / abs(e_start)
     finite = bool(torch.isfinite(sim.particles.pos).all())
     rate = n * STEPS / t_steps
-    for k, (rebuilt, w) in enumerate(walls):
-        print(f"step {k + 1} ({'rebuild' if rebuilt else 'refresh'}): "
-              + ", ".join(f"{p} {s * 1e3:.1f} ms" for p, s in w.items())
-              + f" [{card}]")
-    print(f"main path: N {n}, prepare+potential {t_prep:.2f} s, "
+    kinds = [i["kind"] for i in infos]
+    for k, (li, w) in enumerate(walls):
+        md = "-" if li["md"] is None else f"{li['md']:.4g}"
+        print(f"step {k + 1} ({li['kind']}): "
+              + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in w.items())
+              + f", skin {li['skin']:.4g}, md {md}"
+              + ("" if li["ovf"] is None else
+                 f", ovf {li['ovf']}, need {li['need']}") + f" [{card}]")
+    print(f"main path (ListMode 1): N {n}, prepare+potential {t_prep:.2f} s, "
           f"{STEPS} steps {t_steps:.3f} s, {rate:.1f} particle-steps/s, "
-          f"t = {sim.time:.6g}, |dE/E| {de:.3e}, launches {launches}, "
-          f"overflow {ovf}, finite {finite} [{card}]", flush=True)
+          f"kinds {kinds}, t = {sim.time:.6g}, |dE/E| {de:.3e}, launches "
+          f"{launches}, overflow {ovf}, finite {finite}, diag far "
+          f"{sim._diag_far} near {sim._diag_near} [{card}]", flush=True)
     assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
-    assert launches["far_level"] > 0 and launches["near_level"] > 0, launches
+    assert kinds.count("record") >= 2 and kinds.count("list") >= 4, kinds
+    for key in ("far_level_record", "far_list", "near_level",
+                "gather_rows"):
+        assert launches[key] > 0, (key, launches)
 
+    # ---- list kernels vs plain on the main path's recorded lists ------------
+    lists, btree = sim._lists_cache, sim._tree_cache
+    ctbl, gt, xc, te, gc = eval_inputs(btree, lists)
+    ng = lists.nf.shape[0]
+    sub = torch.linspace(0, ng - 1, min(SUBSET_GROUPS, ng), device=dev).long()
+    fkw = dict(tbl=ctbl, ids=lists.far[sub].contiguous(), nf=lists.nf[sub],
+               xc=xc[sub].contiguous(), te=te[sub].contiguous(),
+               gc=gc[sub].contiguous(), need_pot=False)
+    valid = lists.gvalid[sub]
+    out_k = far_list(**fkw)
+    out_p = far_list_plain(**fkw)
+    e, _ = rel_err(out_k, out_p, valid)
+    fkw_pot = dict(fkw, need_pot=True)
+    e2, ep2 = rel_err(far_list(**fkw_pot), far_list_plain(**fkw_pot), valid)
+    max_abs = float(torch.max(torch.abs(out_k - out_p)[valid]))
+    ms = cuda_ms(lambda: far_list(**fkw), 10)
+    plain_ms = cuda_ms(lambda: far_list_plain(**fkw), 2)
+    ops, nb = far_list_work(ctbl, fkw["nf"], torch.sum(valid, dim=1), False)
+    full_ms = cuda_ms(lambda: far_list(ctbl, lists.far, lists.nf, xc, te, gc,
+                                       need_pot=False), 3)
+    full = far_list_work(ctbl, lists.nf, torch.sum(lists.gvalid, dim=1),
+                         False)
+    print(f"kernel far_list (main path lists): groups {len(sub)} of {ng}, "
+          f"entries {int(fkw['nf'].sum())}, p99.9 acc err {q999(e):.3e} "
+          f"(with pot {q999(e2):.3e}, pot {q999(ep2):.3e}), max abs "
+          f"{max_abs:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms(ops, nb)[0]:.3f} ms; all {ng} groups: kernel "
+          f"{full_ms:.3f} ms, bound {bound_ms(*full)[0]:.3f} ms "
+          f"({bound_ms(*full)[1]}) [{card}]", flush=True)
+    assert q999(e) < 2e-5 and q999(e2) < 2e-5 and q999(ep2) < 2e-5
+    res.add("far_list", max_abs, ms, plain_ms, ops, nb)
+
+    nkw = dict(keys=lists.near[sub].contiguous(), n_seg=lists.nn[sub],
+               pos_s=btree.pos_s, mass_s=btree.mass_s, eps_s=btree.eps_s,
+               xr=gt[sub].contiguous(), te=te[sub].contiguous(),
+               need_pot=False)
+    out_k = near_level(**nkw)
+    out_p = near_level_plain(**nkw)
+    e, _ = rel_err(out_k, out_p, valid)
+    nkw_pot = dict(nkw, need_pot=True)
+    e2, ep2 = rel_err(near_level(**nkw_pot), near_level_plain(**nkw_pot),
+                      valid)
+    max_abs = float(torch.max(torch.abs(out_k - out_p)[valid]))
+    ms = cuda_ms(lambda: near_level(**nkw), 10)
+    plain_ms = cuda_ms(lambda: near_level_plain(**nkw), 2)
+    ops, nb = near_level_work(nkw, torch.sum(valid, dim=1))
+    fnkw = dict(keys=lists.near, n_seg=lists.nn, pos_s=btree.pos_s,
+                mass_s=btree.mass_s, eps_s=btree.eps_s, xr=gt, te=te,
+                need_pot=False)
+    full_ms = cuda_ms(lambda: near_level(**fnkw), 3)
+    full = near_level_work(fnkw, torch.sum(lists.gvalid, dim=1))
+    print(f"kernel near_level (main path lists): groups {len(sub)} of {ng}, "
+          f"segments {int(nkw['n_seg'].sum())}, p99.9 acc err "
+          f"{q999(e):.3e} (with pot {q999(e2):.3e}, pot {q999(ep2):.3e}), "
+          f"max abs {max_abs:.3e}, kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms(ops, nb)[0]:.3f} ms; all "
+          f"{ng} groups: kernel {full_ms:.3f} ms, bound "
+          f"{bound_ms(*full)[0]:.3f} ms ({bound_ms(*full)[1]}) [{card}]",
+          flush=True)
+    assert q999(e) < 2e-5 and q999(e2) < 2e-5 and q999(ep2) < 2e-5
+    res.add("near_level", max_abs, ms, plain_ms, ops, nb)
+
+    tbl_all = flat_tables(pack_tree(btree))
+    src = torch.cat([lists.src, torch.full((1,), tbl_all.shape[0],
+                                           dtype=torch.int32, device=dev)])
+    check_gather(res, "gather_rows", gather_rows, gather_rows_plain, tbl_all,
+                 src, "compact table", card, gather_work, bound_ms)
+    del lists, btree, ctbl, gt, xc, te, gc, tbl_all, src, sim, fkw, fkw_pot
+    del nkw, nkw_pot, fnkw
+
+    # ---- the TPU probes' own shapes -------------------------------------
+    # make_chunk's data as the script's main() draws it (seed 0): random
+    # quadrupoles make the function jump where a pair crosses r = h (the
+    # quadrupole is Newtonian-range only), and this draw has no pair within
+    # rounding of that edge
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((K3_UNITS * 32, 16)).astype(np.float32)
+    rows[:, 3] = np.abs(rows[:, 3])
+    rows[:, 14] = 1.0 / 0.3
+    rng.integers(0, 16384, K3_UNITS)   # make_chunk's unit group ids
+    tgt_k3 = rng.standard_normal((K3_UNITS, 256)).astype(np.float32)
+    tgt_k3[:, 192:] = 1.0 / 0.3
+    rows, tgt_k3 = torch.tensor(rows, device=dev), torch.tensor(tgt_k3,
+                                                                device=dev)
+    ref = k3_reference(rows, tgt_k3)
+    out = far_units(rows, tgt_k3)
+    diffs = [float(torch.max(torch.abs(a - r)) / torch.max(torch.abs(r)))
+             for a, r in zip(out, ref)]
+    ms = cuda_ms(lambda: far_units(rows, tgt_k3), 10)
+    k3_in = units_to_lists(rows, tgt_k3)
+    plain_ms = cuda_ms(lambda: far_list_plain(*k3_in, need_pot=True), 3)
+    ref_ms = cuda_ms(lambda: k3_reference(rows, tgt_k3), 3)
+    k3 = far_list_work(rows, torch.full((K3_UNITS,), 32, device=dev),
+                       torch.full((K3_UNITS,), 64, device=dev), True)
+    print(f"kernel far_list (Pallas prototype's units, NU {K3_UNITS}): max "
+          f"|diff|/max|ref| a0 a1 a2 pot "
+          + " ".join(f"{d:.2e}" for d in diffs)
+          + f", kernel {ms:.3f} ms (units to lists included), plain "
+          f"{plain_ms:.3f} ms, xla_ref in PyTorch {ref_ms:.3f} ms, bound "
+          f"{bound_ms(*k3)[0]:.4f} ms [{card}]", flush=True)
+    assert max(diffs) < 1e-5, diffs
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    tbl6 = torch.randn(K6_CAP, 16, generator=g).to(dev)
+    ids6 = torch.randint(0, K6_CAP, (K6_BLOCKS, K6_IDS), generator=g,
+                         dtype=torch.int32).to(dev)
+    check_gather(res, "gather_rows", gather_rows, gather_rows_plain, tbl6,
+                 ids6, f"probe ({K6_CAP}, 16) x {K6_BLOCKS} x {K6_IDS}",
+                 card, gather_work, bound_ms)
+    for logm in (14, 10):
+        tbl45 = torch.randn(1 << logm, 16, generator=g).to(dev)
+        ids45 = torch.randint(0, 1 << logm, (K45_IDS,), generator=g,
+                              dtype=torch.int32).to(dev)
+        check_gather(res, "gather_rowsum", gather_rowsum, gather_rowsum_plain,
+                     tbl45, ids45, f"probe 8M ids from (2^{logm}, 16)", card,
+                     gather_work, bound_ms)
+
+    # ---- the first slice's path: the walk on every step ---------------------
+    wsim = Simulation(flagship_config(ListMode=0), mode="phased", device=dev)
+    wsim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32),
+                                   pad_to_multiple=4096)
+    zero_counts()
+    wsim.prepare()
+    wsim.compute_potential()
+    e_start = sim_energy(wsim)
+    wovf = 0
+    t0 = time.perf_counter()
+    for _ in range(WALK_STEPS):
+        wsim.step()
+        wovf += sum(int(wsim.last_walk_info[k]) for k in
+                    ("ovf_open", "ovf_big", "ovf_items"))
+        print(f"walk step ({'rebuild' if wsim.last_step_rebuilt else 'refresh'}"
+              "): " + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in
+                               wsim.last_phase_wall.items()) + f" [{card}]")
+    torch.cuda.synchronize()
+    t_walk = time.perf_counter() - t0
+    wsim.compute_potential()
+    torch.cuda.synchronize()
+    walk_launches = read_counts()
+    wl = {k: walk_launches[k] for k in ("far_level", "near_level")}
+    de = abs(sim_energy(wsim) - e_start) / abs(e_start)
+    print(f"walk path (ListMode 0): N {n}, {WALK_STEPS} steps "
+          f"{t_walk:.3f} s, {n * WALK_STEPS / t_walk:.1f} particle-steps/s, "
+          f"|dE/E| {de:.3e}, launches {wl}, overflow {wovf} [{card}]",
+          flush=True)
+    assert wovf == 0 and de < 1e-3 and min(wl.values()) > 0, (wovf, de, wl)
+    assert bool(torch.isfinite(wsim.particles.pos).all())
+
+    replaces = {
+        "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                      "sidm_tpu/ops/pallas_far.py:55"),
+        "far_level_record": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                             "sidm_tpu/ops/pallas_far.py:55"),
+        "near_level": ("sidm_tpu_torch/csrc/near_kernel.cu",
+                       "sidm_tpu/ops/pallas_near.py:30"),
+        "far_list": ("sidm_tpu_torch/csrc/far_list.cu",
+                     "scripts/pallasfar.py:57"),
+        "gather_rows": ("sidm_tpu_torch/csrc/gather.cu",
+                        "scripts/pallas_gather_probe.py:40"),
+        "gather_rowsum": ("sidm_tpu_torch/csrc/gather.cu",
+                          "scripts/gatherbench.py:65,99"),
+    }
     kernels_json = []
-    for name, src, repl in (
-            ("far_level", "sidm_tpu_torch/csrc/far_kernel.cu",
-             "sidm_tpu/ops/pallas_far.py:55"),
-            ("near_level", "sidm_tpu_torch/csrc/near_kernel.cu",
-             "sidm_tpu/ops/pallas_near.py:30")):
-        r = results[name]
+    for name, (src_file, repl) in replaces.items():
+        r = res.rows[name]
+        bms, by = bound_ms(r["ops"], r["bytes"])
         kernels_json.append({
-            "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[name],
-            "max_abs_err": max(x[0] for x in r),
-            "ms": sum(x[1] for x in r), "plain_ms": sum(x[2] for x in r)})
+            "name": name, "route": "cuda", "source": src_file,
+            "replaces": repl, "launches": launches[name],
+            "launches_by_path": {"lists": launches[name],
+                                 "walk": walk_launches[name]},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels_json}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def check_gather(res, name, kern, plain, tbl, ids, label, card, gather_work,
+                 bound_ms):
+    """A gather kernel against its plain version (rows: bit-equal; row
+    sums: 1e-5 of the largest), with times; for rows, one PyTorch call
+    that computes the same function (index_select) as the yardstick."""
+    rowsum = name == "gather_rowsum"
+    out_k, out_p = kern(tbl, ids), plain(tbl, ids)
+    max_abs = float(torch.max(torch.abs(out_k - out_p)))
+    if rowsum:
+        assert max_abs <= 1e-5 * float(torch.max(torch.abs(out_p))), max_abs
+    else:
+        assert torch.equal(out_k, out_p), name
+    ms = cuda_ms(lambda: kern(tbl, ids), 10)
+    plain_ms = cuda_ms(lambda: plain(tbl, ids), 3)
+    lib_ms = None
+    if not rowsum:
+        ext = torch.cat([tbl, torch.zeros(1, 16, device=tbl.device)])
+        flat = ids.reshape(-1).long()
+        lib_ms = cuda_ms(lambda: torch.index_select(ext, 0, flat), 10)
+    ops, nb = gather_work(tbl, ids, rowsum)
+    print(f"kernel {name} ({label}): ids {ids.numel()}, "
+          f"{'max abs ' + format(max_abs, '.3e') if rowsum else 'bit-equal'}"
+          f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          + ("" if lib_ms is None else f", index_select {lib_ms:.4f} ms")
+          + f", bound {bound_ms(ops, nb)[0]:.4f} ms [{card}]", flush=True)
+    res.add(name, max_abs, ms, plain_ms, ops, nb, lib_ms)
 
 
 def sim_energy(sim) -> float:

@@ -1,17 +1,19 @@
 """Build and bind the package's CUDA kernels.
 
-The sources in ``csrc/`` are compiled at first use by ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``:
+Each source in ``csrc/`` is compiled at first use by its own ``nvcc``
+process, all started together, into a shared library with a plain C
+interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -Xptxas -v -shared -Xcompiler -fPIC -o _build/libsidm_kernels_<h>.so
-         csrc/*.cu
+         -Xptxas -v -shared -Xcompiler -fPIC -o _build/lib<name>_<h>.so
+         csrc/<name>.cu
 
-``<h>`` hashes the sources and flags, so an edited source builds anew and
-an unchanged one is reused. ``-fmad=false`` keeps every product and sum
-rounded as in the plain PyTorch versions (the classification, and hence the
-emitted keys, then match them exactly). Each C entry point launches on the
-stream it is given and returns ``cudaGetLastError()``.
+``<h>`` hashes the flags, the source and every header, so an edited file
+builds anew and an unchanged one is reused. ``-fmad=false`` keeps every
+product and sum rounded as in the plain PyTorch versions (the
+classification, and hence the emitted keys, then match them exactly). Each
+C entry point launches on the stream it is given and returns
+``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -34,11 +36,17 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
+# entry point -> (source stem, argument types)
 _SIGNATURES = {
-    "far_level_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _F, _I, _F, _I, _I, _P, _P, _P, _P, _P],
-    "near_level_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
-                          _P],
+    "far_level_launch": ("far_kernel", [
+        _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I,
+        _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "near_level_launch": ("near_kernel", [
+        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P]),
+    "far_list_launch": ("far_list", [
+        _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P]),
+    "gather_launch": ("gather", [_P, _I, _P, _L, _P, _P, _P]),
 }
 
 _lib = None
@@ -56,48 +64,64 @@ def _nvcc() -> str:
     return found
 
 
-def _sources():
-    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
-
-
 def build() -> dict:
-    """Compile the kernels unless an up-to-date library exists. Returns
-    {"path", "seconds", "log"} (seconds = 0.0 when reused)."""
-    cus, hdrs = _sources()
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for f in cus + hdrs:
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
-    out = _BUILD / f"libsidm_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return {"path": out, "seconds": 0.0, "log": ""}
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all in parallel. Returns {"paths": {stem: path}, "seconds":
+    wall seconds of the parallel build (0.0 when all were reused), "log"}."""
+    cus = sorted(_CSRC.glob("*.cu"))
+    base = hashlib.sha256(" ".join(_FLAGS).encode())
+    for f in sorted(_CSRC.glob("*.cuh")):
+        base.update(f.name.encode())
+        base.update(f.read_bytes())
     _BUILD.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
+    paths, jobs = {}, []
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *map(str, cus)],
-                          capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": out, "seconds": secs, "log": proc.stdout + proc.stderr}
+    for f in cus:
+        h = base.copy()
+        h.update(f.read_bytes())
+        out = _BUILD / f"lib{f.stem}_{h.hexdigest()[:16]}.so"
+        paths[f.stem] = out
+        if not out.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *_FLAGS, "-o", tmp, str(f)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            jobs.append((f, tmp, out, proc))
+    logs, failed = [], []
+    for f, tmp, out, proc in jobs:
+        text, _ = proc.communicate()
+        logs.append(f"== {f.name}\n{text}")
+        if proc.returncode:
+            os.unlink(tmp)
+            failed.append(f"{f.name}: nvcc exit {proc.returncode}\n{text}")
+        else:
+            os.replace(tmp, out)
+    secs = time.perf_counter() - t0 if jobs else 0.0
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {"paths": paths, "seconds": secs, "log": "\n".join(logs)}
 
 
-def kernels_lib():
-    """The loaded kernel library, built at first use."""
-    global _lib
-    if _lib is None:
-        info = build()
-        lib = ctypes.CDLL(str(info["path"]))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+class _Kernels:
+    """The C entry points of the built libraries, as attributes."""
+
+    def __init__(self, info: dict):
+        self.build_info = info
+        self._libs = {stem: ctypes.CDLL(str(path))
+                      for stem, path in info["paths"].items()}
+        for name, (stem, argtypes) in _SIGNATURES.items():
+            fn = getattr(self._libs[stem], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.build_info = info
-        _lib = lib
+            setattr(self, name, fn)
+
+
+def kernels_lib() -> _Kernels:
+    """The loaded kernel libraries, built at first use."""
+    global _lib
+    if _lib is None:
+        _lib = _Kernels(build())
     return _lib
 
 

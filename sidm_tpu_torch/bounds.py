@@ -1,0 +1,110 @@
+"""The least time one H100 could take for a kernel's work: the larger of
+the bytes the function must move (each input read once, each output
+written once) over the memory rate, and the operations it does on these
+inputs over the float32 rate outside the tensor cores.
+
+Peaks of the H100 SXM (NVIDIA's data sheet, at the 700 W power limit):
+67 TFLOP/s float32 without tensor cores, 3.35 TB/s HBM3. The operation
+counts are those the function needs, counted from the CUDA sources (each
+add, multiply, min/max, compare, division and square root as one), not
+what the kernels happen to execute: the softened kernels on their
+Newtonian branch (1/r^3 and -1/r, not the softened polynomial), and a
+quantity that depends only on the node, or on the node and the group, once
+per list entry rather than once per pair. Near pairs inside the softening
+length take the longer softened branch; counting them all at the
+Newtonian cost keeps the bound a lower bound. Where the work depends on
+the data it is counted from this call's inputs: live frontier or list
+entries, accepted nodes, covered particles, valid targets.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PEAK_F32 = 67e12        # float32 operations per second, no tensor cores
+PEAK_BYTES = 3.35e12    # HBM bytes per second
+
+# csrc/far_pair.cuh far_pair, no potential: monopole 24 (c.x 5, r^2 4,
+# sqrt, h 2, r >= h, 1/r^3 3, m/r^3, the sums of fac and fac c 7),
+# quadrupole 51 (m > 0, 1/r, r^-5 and r^-7 4, x.u 5, x.Q.x 11, d.Q.d 3,
+# the sums of w5 u 6, w5 Q 12, t7 2, t7 c 6)
+FAR_PAIR_OPS = 75
+FAR_ENTRY_OPS = 25      # ... per (group, node): |c|^2 5, u = Q c 15, c.u 5
+FAR_PAIR_POT_OPS = 5    # ... the potential: -1/r, m (-1/r), d.Q.d r^-5, sums
+# csrc/near_kernel.cu pair loop, no potential: d 3, r 6, h 2, r >= h,
+# 1/r^3 3, m/r^3, the sums of fac d 6
+NEAR_PAIR_OPS = 22
+NEAR_PAIR_POT_OPS = 3   # ... the potential: -1/r, m (-1/r), its sum
+CLASSIFY_OPS = 30       # csrc/far_kernel.cu classify_row, per node
+ROW_BYTES = 64          # one packed node row / table row
+PART_BYTES = 20         # one particle's pos, mass, eps
+
+
+def bound_ms(ops: float, nbytes: float):
+    """(least milliseconds, "operations" or "bytes": which one bounds)."""
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _n(x) -> int:
+    return int(x) if not isinstance(x, torch.Tensor) else int(x.item())
+
+
+def far_level_work(kw: dict, fark, nvalid):
+    """(ops, bytes) of one ``far_level`` call with keyword arguments
+    ``kw``; fark: the record mode's far-key plane for the same inputs
+    (marks the accepted nodes); nvalid (ng,): valid targets per group."""
+    fids, n_live, tbl = kw["fids"], kw["n_live"], kw["tbl"]
+    ng, W = fids.shape
+    live = _n(torch.sum(torch.clamp(n_live.long(), max=W)))
+    ops = CLASSIFY_OPS * live
+    planes = 3
+    nbytes = 4 * (live + ng) + 28 * ng \
+        + ROW_BYTES * min(tbl.shape[0], live)
+    if kw.get("record"):
+        planes = 4
+    else:
+        per = FAR_PAIR_OPS + (FAR_PAIR_POT_OPS if kw["need_pot"] else 0)
+        accepted = torch.sum(fark != 2147483647, dim=1).long()
+        ops += per * _n(torch.sum(accepted * nvalid.long()))
+        ops += FAR_ENTRY_OPS * _n(torch.sum(accepted * (nvalid > 0)))
+        nbytes += 16 * ng * 64 * 2       # targets + softenings in, acc out
+    return ops, nbytes + 4 * planes * ng * W
+
+
+def near_level_work(kw: dict, nvalid):
+    """(ops, bytes) of one ``near_level`` call; nvalid (ng,) valid
+    targets per group."""
+    keys, n_seg, pos_s = kw["keys"], kw["n_seg"], kw["pos_s"]
+    ng, K = keys.shape
+    live = torch.arange(K, device=keys.device)[None, :] < n_seg[:, None]
+    cnt = torch.where(live, keys & 31, torch.zeros_like(keys)).long()
+    per_group = torch.sum(cnt, dim=1)
+    per = NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if kw["need_pot"] else 0)
+    ops = per * _n(torch.sum(per_group * nvalid.long()))
+    covered = min(pos_s.shape[0], _n(torch.sum(per_group)))
+    nbytes = (4 * (_n(torch.sum(n_seg)) + ng) + PART_BYTES * covered
+              + 16 * ng * 64 * 2)
+    return ops, nbytes
+
+
+def far_list_work(tbl, nf, nvalid, need_pot: bool):
+    """(ops, bytes) of one ``far_list`` call: every listed node on every
+    valid target of its group."""
+    ng = nf.shape[0]
+    per = FAR_PAIR_OPS + (FAR_PAIR_POT_OPS if need_pot else 0)
+    ops = (per * _n(torch.sum(nf.long() * nvalid.long()))
+           + FAR_ENTRY_OPS * _n(torch.sum(nf.long() * (nvalid > 0))))
+    entries = _n(torch.sum(nf.long()))
+    nbytes = (4 * (entries + ng) + ROW_BYTES * min(tbl.shape[0], entries)
+              + 12 * ng + 16 * ng * 64 * 2)
+    return ops, nbytes
+
+
+def gather_work(tbl, ids, rowsum: bool):
+    """(ops, bytes) of one ``gather_rows``/``gather_rowsum`` call."""
+    n = ids.numel()
+    out = 4 if rowsum else ROW_BYTES
+    return (15 * n if rowsum else 0,
+            4 * n + out * n + ROW_BYTES * min(tbl.shape[0], n))

@@ -15,98 +15,75 @@
 //      per item).
 // The two halves are added at the end and every group's output row is
 // written, so there are no atomics and no uninitialised output.
+//
+// Record mode (the cached-list walk, sidm_tpu/ops/list_force.py
+// _walk_level_keys :160-217) stops after step 1 and writes a fourth plane
+// instead of the far field: the flat id lvl_base + local id of every
+// accepted node, in frontier order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "softening.cuh"
+#include "far_pair.cuh"
 
 namespace {
 
 constexpr int kG = 64;      // targets per group
 constexpr int kWC = 128;    // frontier ids per chunk == threads per block
 constexpr int kRow = 16;    // packed node row width (pack_tree)
-constexpr int kStage = 11;  // staged far node: cc xyz, m, eps, quad(6)
 
-struct FarAcc {
-    float fsum, sfc[3], pot, w5u[3], mw[6], t7sum, st7c[3], pq;
+struct Level {
+    const float* tbl;
+    int cap, nl_real;
+    float theta2, leaf_cap;
+    int use_relative, last;
 };
 
-__device__ __forceinline__ void far_pair(FarAcc& a, const float* nd,
-                                         float x0, float x1, float x2,
-                                         float nx2, float tet, bool need_pot) {
-    const float c0 = nd[0], c1 = nd[1], c2 = nd[2];
-    const float m = nd[3], epsn = nd[4];
-    const float ny2 = c0 * c0 + c1 * c1 + c2 * c2;
-    const float cross = x0 * c0 + x1 * c1 + x2 * c2;
-    const float r2 = fmaxf(nx2 + ny2 - 2.0f * cross, 0.0f);
-    const float r = sqrtf(r2);
-    const float h = 2.8f * fmaxf(tet, epsn);
-    const float fac = m * softened_inv_r3(r, h);
-    a.fsum += fac;
-    a.sfc[0] += fac * c0;
-    a.sfc[1] += fac * c1;
-    a.sfc[2] += fac * c2;
-    if (need_pot) a.pot += m * softened_potential(r, h);
-    // quadrupole, Newtonian range only (forcetree.c:1002-1060)
-    if (!((r >= h) && (m > 0.0f))) return;
-    const float ir = 1.0f / fmaxf(r, 1e-30f);
-    const float ir2 = ir * ir;
-    const float w5 = ir2 * ir2 * ir;
-    const float w7 = w5 * ir2;
-    const float q0 = nd[5], q1 = nd[6], q2 = nd[7];
-    const float q3 = nd[8], q4 = nd[9], q5 = nd[10];
-    const float u0 = q0 * c0 + q3 * c1 + q4 * c2;
-    const float u1 = q3 * c0 + q1 * c1 + q5 * c2;
-    const float u2 = q4 * c0 + q5 * c1 + q2 * c2;
-    const float s = u0 * c0 + u1 * c1 + u2 * c2;
-    const float xu = x0 * u0 + x1 * u1 + x2 * u2;
-    const float xqx = x0 * x0 * q0 + x1 * x1 * q1 + x2 * x2 * q2
-                      + 2.0f * x0 * x1 * q3 + 2.0f * x0 * x2 * q4
-                      + 2.0f * x1 * x2 * q5;
-    const float dqd = s - 2.0f * xu + xqx;
-    a.w5u[0] += w5 * u0;
-    a.w5u[1] += w5 * u1;
-    a.w5u[2] += w5 * u2;
-    a.mw[0] += w5 * q0;
-    a.mw[1] += w5 * q1;
-    a.mw[2] += w5 * q2;
-    a.mw[3] += w5 * q3;
-    a.mw[4] += w5 * q4;
-    a.mw[5] += w5 * q5;
-    const float t7 = w7 * dqd;
-    a.t7sum += t7;
-    a.st7c[0] += t7 * c0;
-    a.st7c[1] += t7 * c1;
-    a.st7c[2] += t7 * c2;
-    if (need_pot) a.pq += dqd * w5;
-}
+struct Class {
+    bool far, seg, open, big;
+};
 
-// One chunk's sums -> [ax ay az pot], in the Pallas kernel's combination
-// order (pallas_far.py:134-176), added to the running totals.
-__device__ __forceinline__ void combine(float* out, const FarAcc& a,
-                                        float x0, float x1, float x2) {
-    const float xs[3] = {x0, x1, x2};
-    const float qxv[3] = {a.mw[0] * x0 + a.mw[3] * x1 + a.mw[4] * x2,
-                          a.mw[3] * x0 + a.mw[1] * x1 + a.mw[5] * x2,
-                          a.mw[4] * x0 + a.mw[5] * x1 + a.mw[2] * x2};
+// Gather node row `id` (zeros when dead) and classify it against the group
+// box: explicit round-to-nearest products and sums, in the order of
+// fused_force.classify (no FMA contraction, exact keys).
+__device__ __forceinline__ Class classify_row(const Level& L, float s2,
+                                              float s4, int id,
+                                              float* row, float lo0,
+                                              float lo1, float lo2, float hi0,
+                                              float hi1, float hi2,
+                                              float oac) {
+    const bool dead = (id < 0) || (id >= L.nl_real);
 #pragma unroll
-    for (int d = 0; d < 3; ++d)
-        out[d] += (a.sfc[d] - xs[d] * a.fsum) - a.w5u[d] + qxv[d]
-                  + 2.5f * (a.st7c[d] - xs[d] * a.t7sum);
-    out[3] += a.pot - 0.5f * a.pq;
+    for (int k = 0; k < kRow; ++k)
+        row[k] = dead ? 0.0f : L.tbl[(int64_t)min(id, L.cap - 1) * kRow + k];
+    const float dx0 = fmaxf(fmaxf(lo0 - row[0], row[0] - hi0), 0.0f);
+    const float dx1 = fmaxf(fmaxf(lo1 - row[1], row[1] - hi1), 0.0f);
+    const float dx2 = fmaxf(fmaxf(lo2 - row[2], row[2] - hi2), 0.0f);
+    const float r2b = __fadd_rn(__fadd_rn(__fmul_rn(dx0, dx0),
+                                          __fmul_rn(dx1, dx1)),
+                                __fmul_rn(dx2, dx2));
+    bool mac_open = s2 > __fmul_rn(L.theta2, r2b);
+    if (L.use_relative && oac > 0.0f)
+        mac_open = __fmul_rn(row[3], s4) >
+                   __fmul_rn(__fmul_rn(__fmul_rn(oac, r2b), r2b), r2b);
+    mac_open = mac_open || (r2b <= row[15]);
+    const float cnt = row[4];
+    const bool live = cnt > 0.0f;
+    const bool is_leaf = cnt <= L.leaf_cap;
+    const bool deep = live && mac_open && !is_leaf;
+    return Class{live && !mac_open, live && mac_open && is_leaf,
+                 deep && !L.last, deep && L.last};
 }
 
 __global__ void __launch_bounds__(kWC)
-far_level_kernel(const float* __restrict__ tbl, int cap, int nl_real,
+far_level_kernel(Level L, const float* __restrict__ s_l_ptr,
                  const int* __restrict__ fids,
                  const int* __restrict__ n_live, int W,
-                 const float* __restrict__ s_l_ptr,
                  const float* __restrict__ xc, const float* __restrict__ te,
                  const float* __restrict__ glo, const float* __restrict__ ghi,
-                 const float* __restrict__ oac_g, float theta2,
-                 int use_relative, float leaf_cap, int last, int need_pot,
-                 float* __restrict__ acc, int* __restrict__ segk,
-                 int* __restrict__ openk, int* __restrict__ bigk) {
+                 const float* __restrict__ oac_g, int need_pot, int record,
+                 int lvl_base, float* __restrict__ acc,
+                 int* __restrict__ segk, int* __restrict__ openk,
+                 int* __restrict__ bigk, int* __restrict__ fark) {
     __shared__ float stage[kWC][kStage];
     __shared__ int warp_cnt[kWC / 32];
     __shared__ float red[kG][4];
@@ -114,14 +91,32 @@ far_level_kernel(const float* __restrict__ tbl, int cap, int nl_real,
     const int g = blockIdx.x;
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
-    const float s_l = *s_l_ptr;
     const float lo0 = glo[g * 3 + 0], lo1 = glo[g * 3 + 1], lo2 = glo[g * 3 + 2];
     const float hi0 = ghi[g * 3 + 0], hi1 = ghi[g * 3 + 1], hi2 = ghi[g * 3 + 2];
-    const float gc0 = 0.5f * (lo0 + hi0), gc1 = 0.5f * (lo1 + hi1),
-                gc2 = 0.5f * (lo2 + hi2);
     const float oac = oac_g[g];
     const int nl = min(n_live[g], W);
+    const float s_l = *s_l_ptr;
+    const float s2 = __fmul_rn(s_l, s_l);
+    const float s4 = __fmul_rn(s2, s2);
 
+    if (record) {
+        for (int col = tid; col < W; col += kWC) {
+            const int id = (col < nl) ? fids[(int64_t)g * W + col] : -1;
+            float row[kRow];
+            const Class c = classify_row(L, s2, s4, id, row, lo0, lo1, lo2,
+                                         hi0, hi1, hi2, oac);
+            const int64_t o = (int64_t)g * W + col;
+            segk[o] = c.seg ? (int)row[5] * 32 + min((int)row[4], 31)
+                            : SIDM_IMAX;
+            openk[o] = c.open ? (int)row[6] * 16 + (int)row[7] : SIDM_IMAX;
+            bigk[o] = c.big ? id : SIDM_IMAX;
+            fark[o] = c.far ? lvl_base + id : SIDM_IMAX;
+        }
+        return;
+    }
+
+    const float gc0 = 0.5f * (lo0 + hi0), gc1 = 0.5f * (lo1 + hi1),
+                gc2 = 0.5f * (lo2 + hi2);
     const int t = tid & (kG - 1);
     const int half = tid / kG;
     const float x0 = xc[(g * kG + t) * 3 + 0];
@@ -131,47 +126,21 @@ far_level_kernel(const float* __restrict__ tbl, int cap, int nl_real,
     const float tet = te[g * kG + t];
     float out[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // [ax ay az pot] of this half
 
-    const float s2 = __fmul_rn(s_l, s_l);
-    const float s4 = __fmul_rn(s2, s2);
     for (int c0 = 0; c0 < W; c0 += kWC) {
         const int col = c0 + tid;
-        int id = -1;
-        if (col < nl) id = fids[(int64_t)g * W + col];
-        const bool dead = (id < 0) || (id >= nl_real);
+        const int id = (col < nl) ? fids[(int64_t)g * W + col] : -1;
         float row[kRow];
-#pragma unroll
-        for (int k = 0; k < kRow; ++k)
-            row[k] = dead ? 0.0f : tbl[(int64_t)min(id, cap - 1) * kRow + k];
-        // classification: explicit round-to-nearest products and sums, the
-        // order of fused_force.classify (no FMA contraction, exact keys)
-        const float dx0 = fmaxf(fmaxf(lo0 - row[0], row[0] - hi0), 0.0f);
-        const float dx1 = fmaxf(fmaxf(lo1 - row[1], row[1] - hi1), 0.0f);
-        const float dx2 = fmaxf(fmaxf(lo2 - row[2], row[2] - hi2), 0.0f);
-        const float r2b = __fadd_rn(__fadd_rn(__fmul_rn(dx0, dx0),
-                                              __fmul_rn(dx1, dx1)),
-                                    __fmul_rn(dx2, dx2));
-        const bool geo = s2 > __fmul_rn(theta2, r2b);
-        bool mac_open = geo;
-        if (use_relative && oac > 0.0f)
-            mac_open = __fmul_rn(row[3], s4) >
-                       __fmul_rn(__fmul_rn(__fmul_rn(oac, r2b), r2b), r2b);
-        mac_open = mac_open || (r2b <= row[15]);
-        const float cnt = row[4];
-        const bool live = cnt > 0.0f;
-        const bool is_leaf = cnt <= leaf_cap;
-        const bool far = live && !mac_open;
-        const bool seg = live && mac_open && is_leaf;
-        const bool deep = live && mac_open && !is_leaf;
+        const Class c = classify_row(L, s2, s4, id, row, lo0, lo1, lo2, hi0,
+                                     hi1, hi2, oac);
         if (col < W) {
             const int64_t o = (int64_t)g * W + col;
-            const int ncnt = (int)cnt;
-            segk[o] = seg ? (int)row[5] * 32 + min(ncnt, 31) : SIDM_IMAX;
-            openk[o] = (deep && !last) ? (int)row[6] * 16 + (int)row[7]
-                                       : SIDM_IMAX;
-            bigk[o] = (deep && last) ? id : SIDM_IMAX;
+            segk[o] = c.seg ? (int)row[5] * 32 + min((int)row[4], 31)
+                            : SIDM_IMAX;
+            openk[o] = c.open ? (int)row[6] * 16 + (int)row[7] : SIDM_IMAX;
+            bigk[o] = c.big ? id : SIDM_IMAX;
         }
         // compact the accepted nodes into shared memory, frontier order
-        const unsigned ball = __ballot_sync(0xffffffffu, far);
+        const unsigned ball = __ballot_sync(0xffffffffu, c.far);
         if (lane == 0) warp_cnt[warp] = __popc(ball);
         __syncthreads();
         int off = 0, total = 0;
@@ -180,22 +149,15 @@ far_level_kernel(const float* __restrict__ tbl, int cap, int nl_real,
             off += (w < warp) ? warp_cnt[w] : 0;
             total += warp_cnt[w];
         }
-        if (far) {
-            float* st = stage[off + __popc(ball & ((1u << lane) - 1u))];
-            st[0] = row[0] - gc0;
-            st[1] = row[1] - gc1;
-            st[2] = row[2] - gc2;
-            st[3] = row[3];
-            st[4] = row[14];
-#pragma unroll
-            for (int k = 0; k < 6; ++k) st[5 + k] = row[8 + k];
-        }
+        if (c.far)
+            far_stage(stage[off + __popc(ball & ((1u << lane) - 1u))], row,
+                      gc0, gc1, gc2);
         __syncthreads();
         if (total > 0) {
             FarAcc a = {};
             for (int k = half; k < total; k += 2)
                 far_pair(a, stage[k], x0, x1, x2, nx2, tet, need_pot);
-            combine(out, a, x0, x1, x2);
+            far_combine(out, a, x0, x1, x2);
         }
         __syncthreads();
     }
@@ -216,6 +178,8 @@ far_level_kernel(const float* __restrict__ tbl, int cap, int nl_real,
 
 }  // namespace
 
+// record != 0: classification and keys only (fark receives the far keys;
+// xc, te and acc are not read or written and may be null).
 extern "C" int far_level_launch(const float* tbl, int cap, int nl_real,
                                 const int* fids, const int* n_live, int ng,
                                 int W, const float* s_l, const float* xc,
@@ -223,13 +187,15 @@ extern "C" int far_level_launch(const float* tbl, int cap, int nl_real,
                                 const float* ghi, const float* oac,
                                 float theta2, int use_relative,
                                 float leaf_cap, int last, int need_pot,
-                                float* acc, int* segk, int* openk, int* bigk,
+                                int record, int lvl_base, float* acc,
+                                int* segk, int* openk, int* bigk, int* fark,
                                 void* stream) {
     if (ng > 0) {
+        const Level L{tbl, cap, nl_real, theta2, leaf_cap, use_relative,
+                      last};
         far_level_kernel<<<ng, kWC, 0, (cudaStream_t)stream>>>(
-            tbl, cap, nl_real, fids, n_live, W, s_l, xc, te, glo, ghi, oac,
-            theta2, use_relative, leaf_cap, last, need_pot, acc, segk, openk,
-            bigk);
+            L, s_l, fids, n_live, W, xc, te, glo, ghi, oac, need_pot, record,
+            lvl_base, acc, segk, openk, bigk, fark);
     }
     return (int)cudaGetLastError();
 }

@@ -1,9 +1,28 @@
-"""bench.py's flagship problem for the ported slice.
+"""bench.py's flagship problem for the ported slices.
 
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
-reflection boundary, synchronized steps, TreeRefreshSteps 16) with
-``SIDMOn 0``, ``TreeWalkEngine wq`` and ``ListMode 0``; the halo is the NFW
-profile of parameter.txt:3-11 in kpc / 1e10 Msun / km s^-1 units.
+``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
+``SIDMOn 0`` and ``TreeWalkEngine wq``, on the cached interaction lists
+(``ListMode 1``, bench.py's default). ``flagship_config(ListMode=0)`` is
+the first slice's configuration: the walk on every step, rebuilt every
+``TreeRefreshSteps 16``. The halo is the NFW profile of parameter.txt:3-11
+in kpc / 1e10 Msun / km s^-1 units.
+
+On the lists two settings differ from bench.py's; both are chosen cuts
+(PERF.md, Cells):
+* ``TreeRefreshSteps 4`` (bench.py: 16). The list skin is 2.5 x the largest
+  displacement rate x the last dt x the cadence. In this configuration it
+  reaches 5.5 kpc at 16 and at 8 (measured on an H100,
+  ``profile_step.py --cadence``), where the recording walk drops opened
+  cells (``ovf[0]``) and the port gives the lists up for the walk; at 4 it
+  stays overflow-free. Whether bench.py's DSMC run, whose timestep
+  criterion also bounds the scattering probability, learns a smaller skin
+  at 16 is not measured.
+* ``ListNearCap 8192`` (default 5120): at the cadence of 4 the near lists
+  need up to 6455 entries per group. The cap refit would find that too,
+  but only after an overflowed record: that step's record (~0.38 s at
+  N = 1e6) is thrown away, the walk recomputes it (~0.23 s) and the cadence
+  restarts, more than a whole 4-step cycle costs.
 """
 
 from __future__ import annotations
@@ -22,8 +41,14 @@ FLAGSHIP = dict(
     UnitVelocity_in_cm_per_s=1e5)
 
 
+# the second slice: the cached interaction lists
+LISTS = dict(ListMode=1, TreeRefreshSteps=4, ListNearCap=8192)
+
+
 def flagship_config(**changes) -> SimConfig:
-    return SimConfig(**{**FLAGSHIP, **changes})
+    """The lists' configuration; with ``ListMode=0`` the first slice's."""
+    base = {**FLAGSHIP, **LISTS} if changes.get("ListMode", 1) else FLAGSHIP
+    return SimConfig(**{**base, **changes})
 
 
 def flagship_ics(n: int, seed: int = 12345):

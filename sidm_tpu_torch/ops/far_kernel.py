@@ -8,6 +8,12 @@ plus three int32 key planes in frontier order: segment keys
 for opened inner cells, and (last level only) big keys = node id for
 overfull deepest cells.
 
+``record=True`` is the cached-list engine's recording walk
+(``sidm_tpu/ops/list_force.py:_walk_level_keys`` :160-217): the far-field
+math is skipped, and a fourth key plane holds the flat node id
+``lvl_base + local id`` of every accepted node, in frontier order. The
+classification is the same, so all key planes equal the plain version's.
+
 On a CUDA tensor it launches ``csrc/far_kernel.cu``; on a CPU tensor it runs
 ``far_level_plain``, the same function in plain PyTorch. There is no
 fallback between the two.
@@ -42,7 +48,8 @@ ITEM_BLOCK = 512   # plain version: (group, chunk) items per batch
 
 def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, xc, te, glo, ghi,
                     oac, *, theta2: float, use_relative: bool,
-                    leaf_cap: int, last: bool, need_pot: bool):
+                    leaf_cap: int, last: bool, need_pot: bool,
+                    record: bool = False, lvl_base: int = 0):
     """Plain PyTorch version of ``far_level``: live (group, chunk) items
     are evaluated in batches of ITEM_BLOCK (bounding the (B, G, WC)
     intermediates) and summed per group."""
@@ -50,8 +57,8 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, xc, te, glo, ghi,
     wc = min(WC, W)
     maxc = W // wc
     dev, dtype = tbl.device, tbl.dtype
-    acc = torch.zeros(ng, xc.shape[1], 4, dtype=dtype, device=dev)
-    keys = torch.full((3, ng, maxc, wc), IMAX, dtype=torch.int32, device=dev)
+    acc = None if record else torch.zeros(ng, G, 4, dtype=dtype, device=dev)
+    keys = torch.full((4, ng, maxc, wc), IMAX, dtype=torch.int32, device=dev)
     nc = -(-torch.clamp(n_live.long(), max=W) // wc)
     gi, ci = torch.nonzero(torch.arange(maxc, device=dev)[None, :]
                            < nc[:, None], as_tuple=True)
@@ -66,11 +73,15 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, xc, te, glo, ghi,
         rows = torch.where(dead[..., None], torch.zeros_like(rows), rows)
         far, seg, opn, big = classify(rows, glo[g], ghi[g], oac[g], s_l,
                                       theta2, use_relative, leaf_cap, last)
-        rows_far = rows.clone()
-        rows_far[..., R_MASS] = torch.where(far, rows[..., R_MASS],
-                                            torch.zeros_like(rows[..., 0]))
-        da, dp = far_tile(rows_far, xc[g], te[g], gc[g], need_pot)
-        acc.index_add_(0, g, torch.cat([da, dp[..., None]], dim=-1))
+        if record:
+            keys[3, g, c] = torch.where(far, ids.to(torch.int32) + lvl_base,
+                                        torch.full_like(keys[3, g, c], IMAX))
+        else:
+            rows_far = rows.clone()
+            rows_far[..., R_MASS] = torch.where(
+                far, rows[..., R_MASS], torch.zeros_like(rows[..., 0]))
+            da, dp = far_tile(rows_far, xc[g], te[g], gc[g], need_pot)
+            acc.index_add_(0, g, torch.cat([da, dp[..., None]], dim=-1))
         ri = rows.to(torch.int32)
         imax = torch.full_like(ri[..., 0], IMAX)
         keys[0, g, c] = torch.where(
@@ -79,13 +90,16 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, xc, te, glo, ghi,
         keys[1, g, c] = torch.where(
             opn, ri[..., R_CSTART] * 16 + ri[..., R_CCNT], imax)
         keys[2, g, c] = torch.where(big, ids.to(torch.int32), imax)
-    segk, openk, bigk = keys.reshape(3, ng, W).unbind(0)
+    segk, openk, bigk, fark = keys.reshape(4, ng, W).unbind(0)
+    if record:
+        return fark, segk, openk, bigk
     return acc, segk, openk, bigk
 
 
 def far_level(fids, n_live, tbl, nl_real: int, s_l, xc, te, glo, ghi, oac,
               *, theta2: float, use_relative: bool, leaf_cap: int,
-              last: bool, need_pot: bool):
+              last: bool, need_pot: bool, record: bool = False,
+              lvl_base: int = 0):
     """One level of the walk for every group.
 
     fids (ng, W) int32 level-local node ids (-1 = empty); n_live (ng,)
@@ -93,40 +107,51 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, xc, te, glo, ghi, oac,
     (``pack_tree``); nl_real: real node count of the level; s_l () float32
     cell size (+ 2 drift); xc (ng, 64, 3) group-centred targets; te (ng, 64)
     target softenings; glo/ghi (ng, 3) group bounding boxes; oac (ng,)
-    relative-criterion thresholds.
+    relative-criterion thresholds. With ``record`` xc, te and need_pot are
+    not read (xc and te may be None) and lvl_base is the level's flat node
+    offset.
 
     Returns (acc (ng, 64, 4) float32 [ax ay az pot], segk, openk, bigk
-    (ng, W) int32)."""
+    (ng, W) int32), or with ``record`` (fark, segk, openk, bigk)."""
     if not fids.is_cuda:
         return far_level_plain(fids, n_live, tbl, nl_real, s_l, xc, te, glo,
                                ghi, oac, theta2=theta2,
                                use_relative=use_relative, leaf_cap=leaf_cap,
-                               last=last, need_pot=need_pot)
+                               last=last, need_pot=need_pot, record=record,
+                               lvl_base=lvl_base)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, W = fids.shape
-    check_cuda("far_level", fids=(fids, torch.int32, (ng, W)),
-               n_live=(n_live, torch.int32, (ng,)),
-               tbl=(tbl, torch.float32, (tbl.shape[0], 16)),
-               s_l=(s_l, torch.float32, ()),
-               xc=(xc, torch.float32, (ng, G, 3)),
-               te=(te, torch.float32, (ng, G)),
-               glo=(glo, torch.float32, (ng, 3)),
-               ghi=(ghi, torch.float32, (ng, 3)),
-               oac=(oac, torch.float32, (ng,)))
-    acc = torch.empty(ng, G, 4, dtype=torch.float32, device=fids.device)
-    keys = torch.empty(3, ng, W, dtype=torch.int32, device=fids.device)
-    lib = kernels_lib()
-    err = lib.far_level_launch(*launch_args(
-        tbl, int(tbl.shape[0]), int(nl_real), fids, n_live, ng, W, s_l, xc,
-        te, glo, ghi, oac, float(theta2), int(use_relative),
-        float(leaf_cap), int(last), int(need_pot), acc, keys[0], keys[1],
-        keys[2]))
+    specs = dict(fids=(fids, torch.int32, (ng, W)),
+                 n_live=(n_live, torch.int32, (ng,)),
+                 tbl=(tbl, torch.float32, (tbl.shape[0], 16)),
+                 s_l=(s_l, torch.float32, ()),
+                 glo=(glo, torch.float32, (ng, 3)),
+                 ghi=(ghi, torch.float32, (ng, 3)),
+                 oac=(oac, torch.float32, (ng,)))
+    if not record:
+        specs.update(xc=(xc, torch.float32, (ng, G, 3)),
+                     te=(te, torch.float32, (ng, G)))
+    check_cuda("far_level", **specs)
+    acc = None if record else torch.empty(ng, G, 4, dtype=torch.float32,
+                                          device=fids.device)
+    keys = torch.empty(4 if record else 3, ng, W, dtype=torch.int32,
+                       device=fids.device)
+    err = kernels_lib().far_level_launch(*launch_args(
+        tbl, int(tbl.shape[0]), int(nl_real), fids, n_live, ng, W, s_l,
+        None if record else xc, None if record else te, glo, ghi, oac,
+        float(theta2), int(use_relative), float(leaf_cap), int(last),
+        int(need_pot), int(record), int(lvl_base), acc, keys[0], keys[1],
+        keys[2], keys[3] if record else None))
     if err:
         raise RuntimeError(f"far_level kernel launch failed: CUDA error "
                            f"{err}")
+    if record:
+        far_level.record_launches += 1
+        return keys[3], keys[0], keys[1], keys[2]
     far_level.launches += 1
     return acc, keys[0], keys[1], keys[2]
 
 
-far_level.launches = 0
+far_level.launches = 0          # launches of the walk (far field) mode
+far_level.record_launches = 0   # launches of the record mode

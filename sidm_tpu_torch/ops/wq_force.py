@@ -166,6 +166,26 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
     return acc, pot, info
 
 
+def group_boxes(tree, gtargets, gvalid, goac, skin=0.0):
+    """Per group: the bounding box of its valid targets grown by ``skin``
+    (dead groups: parked far outside the tree, so nothing opens) and the
+    smallest positive relative-criterion threshold (0 if none)."""
+    big = torch.full((), 1e30, dtype=gtargets.dtype, device=gtargets.device)
+    glo = torch.min(torch.where(gvalid[..., None], gtargets, big),
+                    dim=1).values - skin
+    ghi = torch.max(torch.where(gvalid[..., None], gtargets, -big),
+                    dim=1).values + skin
+    any_v = torch.any(gvalid, dim=1)
+    far_here = tree.origin + 4.0 * tree.extent
+    glo = torch.where(any_v[:, None], glo, far_here).contiguous()
+    ghi = torch.where(any_v[:, None], ghi, far_here).contiguous()
+    pos_oac = gvalid & (goac > 0)
+    oac = torch.min(torch.where(pos_oac, goac, big), dim=1).values
+    oac = torch.where(torch.any(pos_oac, dim=1), oac,
+                      torch.zeros_like(oac)).contiguous()
+    return glo, ghi, oac
+
+
 def wq_gravity_tree(tree, mass, eps, old_acc, *, theta=0.5, opening=1,
                     err_tol_force_acc=0.005,
                     config: Optional[FusedConfig] = None,
@@ -187,45 +207,41 @@ def wq_gravity_tree(tree, mass, eps, old_acc, *, theta=0.5, opening=1,
     geps = torch.where(gvalid, tree.eps_s[pidx],
                        torch.ones((), dtype=dtype, device=pidx.device))
     goac = torch.where(gvalid, toac[pidx], torch.zeros_like(toac[pidx]))
-
-    big = torch.full((), 1e30, dtype=dtype, device=pidx.device)
-    glo = torch.min(torch.where(gvalid[..., None], gtargets, big),
-                    dim=1).values
-    ghi = torch.max(torch.where(gvalid[..., None], gtargets, -big),
-                    dim=1).values
-    any_v = torch.any(gvalid, dim=1)
-    # dead groups: park the bbox far outside so nothing opens
-    far_here = tree.origin + 4.0 * tree.extent
-    glo = torch.where(any_v[:, None], glo, far_here).contiguous()
-    ghi = torch.where(any_v[:, None], ghi, far_here).contiguous()
-    pos_oac = gvalid & (goac > 0)
-    oac = torch.min(torch.where(pos_oac, goac, big), dim=1).values
-    oac = torch.where(torch.any(pos_oac, dim=1), oac,
-                      torch.zeros_like(oac)).contiguous()
+    glo, ghi, oac = group_boxes(tree, gtargets, gvalid, goac)
 
     acc_g, pot_g, info = _wq_eval(ftree, tree, gtargets, geps.contiguous(),
                                   glo, ghi, oac, gvalid, float(theta),
                                   bool(opening == 1), cfg, bool(need_pot),
                                   on_level)
 
-    # slots back to sorted order (dump row n for dead slots), then to the
-    # original order
+    acc, pot = ungroup(acc_g, pot_g, pidx, gvalid, tree.perm, mass, eps,
+                       need_pot)
+    if return_info:
+        return acc, pot, info
+    return acc, pot
+
+
+def ungroup(acc_g, pot_g, pidx, gvalid, perm, mass, eps, need_pot: bool):
+    """Per-group results -> (acc, pot) in the original particle order:
+    slots back to sorted order (a dump row for dead slots), then through
+    the tree's permutation; the spline self potential is removed
+    (potential.c:136) and invalid particles get zeros."""
+    n = perm.shape[0]
+    dtype, dev = acc_g.dtype, acc_g.device
+    valid = mass > 0
     didx = torch.where(gvalid, pidx, torch.full_like(pidx, n)).reshape(-1)
-    acc_s = torch.zeros(n + 1, 3, dtype=dtype, device=pidx.device)
+    acc_s = torch.zeros(n + 1, 3, dtype=dtype, device=dev)
     acc_s[didx] = acc_g.reshape(-1, 3)
-    pot_s = torch.zeros(n + 1, dtype=dtype, device=pidx.device)
+    pot_s = torch.zeros(n + 1, dtype=dtype, device=dev)
     pot_s[didx] = pot_g.reshape(-1)
-    acc = torch.empty(n, 3, dtype=dtype, device=pidx.device)
-    acc[tree.perm] = acc_s[:n]
-    pot = torch.empty(n, dtype=dtype, device=pidx.device)
-    pot[tree.perm] = pot_s[:n]
+    acc = torch.empty(n, 3, dtype=dtype, device=dev)
+    acc[perm] = acc_s[:n]
+    pot = torch.empty(n, dtype=dtype, device=dev)
+    pot[perm] = pot_s[:n]
     if need_pot:
-        # remove the spline self potential (potential.c:136)
         pot = pot + mass / torch.clamp(eps, min=1e-30)
         pot = torch.where(valid, pot, torch.zeros_like(pot))
     acc = torch.where(valid[:, None], acc, torch.zeros_like(acc))
-    if return_info:
-        return acc, pot, info
     return acc, pot
 
 

@@ -1,24 +1,39 @@
-"""The Simulation object, gravity-only slice (port of
-``sidm_tpu/simulation.py``:
-``softening_table`` :44, ``Simulation.__init__``/setup :59-196,
-``step_phased`` :839-1007 with ``phase_finish`` :726-741, ``prepare``
+"""The Simulation object, gravity-only (port of ``sidm_tpu/simulation.py``:
+``softening_table`` :44, ``Simulation.__init__``/setup :59-196, the phased
+step ``step_phased`` :839-1007 with ``_force_core`` :556-641,
+``_refit_list_caps`` :774-806 and ``phase_finish`` :726-741, ``prepare``
 :1285 and ``compute_potential`` :1550).
 
 One step is the JAX package's phased step for a non-periodic tree run on
-the work-queue walk (``TreeWalkEngine wq``, ``ListMode 0``, ``SIDMOn 0``):
-predict -> octree rebuild (every ``TreeRefreshSteps``-th force, or early
-once the refresh drift exceeds a quarter of the deepest cell) or
-moments-only refresh -> ``wq_gravity_tree`` -> kick factors -> DKD advance
--> reflection -> new synchronized timesteps. Tensors live on the device
-given at construction and are never moved.
+the work-queue walk (``TreeWalkEngine wq``, ``SIDMOn 0``), in one of two
+cadences:
 
-Configurations outside the slice raise ``NotImplementedError`` naming the
+* ``ListMode 1`` (cached interaction lists, the flagship's): on a rebuild
+  step the octree is built and the interaction lists recorded under a skin
+  sized from the observed displacement rate, the last dt and
+  ``TreeRefreshSteps``; on the other steps the rebuild-time tree is
+  advanced by the node drift velocities and the cached lists evaluated. A
+  step whose particles moved more than skin/2 since the record (the
+  validity monitor) ends the cycle. A record that drops any entry is
+  recomputed with the walk, the caps are refit from the recorded demand,
+  and after three refits the walk takes over for good.
+* ``ListMode 0``: every step walks the tree, rebuilt every
+  ``TreeRefreshSteps``-th force (or early once the refresh drift exceeds a
+  quarter of the deepest cell) and moments-only refreshed otherwise.
+
+Then: kick factors -> DKD advance -> reflection -> new synchronized
+timesteps. Tensors live on the device given at construction and are never
+moved; with no device given it is the CUDA card, and without one the
+constructor raises.
+
+Configurations outside the port raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time as _wallclock
 from typing import Optional
 
@@ -32,6 +47,8 @@ from .constants import MAX_REAL_NUMBER
 from .diagnostics import compute_system_state
 from .integrate import StepConsts
 from .ops.fused_force import default_depth
+from .ops.list_force import (ListConfig, advance_tree, eval_lists,
+                             max_displacement, record_lists)
 from .ops.tree import build_octree, refresh_octree
 from .ops.wq_force import wq_gravity, wq_gravity_tree
 from .state import Particles, make_particles
@@ -60,8 +77,6 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     """Raise NotImplementedError for anything outside the ported slice."""
     if cfg.SIDMOn:
         _refuse("SIDMOn 1 (DSMC scattering)", "A, next slice (a)")
-    if cfg.ListMode:
-        _refuse("ListMode 1 (cached interaction lists)", "A, next slice (b)")
     if cfg.ForceMethod != "tree":
         _refuse(f"ForceMethod {cfg.ForceMethod}", "A, item 9")
     if cfg.TreeWalkEngine != "wq":
@@ -108,13 +123,26 @@ class _PhaseClock:
         return out
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a Simulation runs on: the one asked for, else the CUDA
+    card. Without a card the caller has to ask for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda")
+
+
 class Simulation:
     PHASE_THRESHOLD = 262144
+    LIST_REFITS = 3     # cap refits before the walk takes over for good
 
     def __init__(self, cfg: SimConfig, restart_flag: int = 0,
                  mode: str = "synchronized", device=None):
-        self.device = torch.device(device if device is not None else "cpu")
-        check_supported(cfg, mode, self.device)
+        check_supported(cfg, mode, torch.device(device if device is not None
+                                                else "cuda"))
+        self.device = resolve_device(device)
         if restart_flag:
             _refuse("restarts", "A, item 13")
         self.cfg = cfg
@@ -139,10 +167,30 @@ class Simulation:
             reflection_radius=cfg.ReflectionBoundary,
             min_egy_spec=self.units.MinEgySpec,
             min_gas_hsml=cfg.MinGasHsmlFractional * cfg.SofteningGas)
-        self._tree_cache = None
-        self._refresh_left = 0
         self.last_step_rebuilt = False
+        self.last_list_info = None
         self._uniform_eps = None
+        # no level cap: a level drops entries only where its group's list
+        # overflows (ROADMAP C.8)
+        self._lfc = ListConfig(far_cap=int(cfg.ListFarCap),
+                               near_cap=int(cfg.ListNearCap))
+        self._list_refits = 0
+        self._diag_far = self._diag_near = 0
+        self._reset_cadence()
+
+    def _reset_cadence(self):
+        """The rebuild/list cadence state, as the JAX package sets it up
+        whenever it (re)builds its phase functions: at the first step and
+        after every cap refit."""
+        self._tree_cache = None
+        self._lists_cache = None
+        self._refresh_left = 0
+        self._disp_rate = 0.0
+        self._skin_now = 0.0
+        self._last_dt = 0.0
+        self._t_rebuild = float(self.time)
+        self._lists_disabled = False
+        self._cadence_stale = False
 
     # ------------------------------------------------------------------ setup
 
@@ -231,29 +279,82 @@ class Simulation:
         p = self.particles
         vmax = torch.tensor(self.vmax, dtype=self.dtype, device=self.device)
 
-        # force phase (simulation.py:556-641)
+        # force phase (simulation.py:556-641, cadence :885-1006)
+        if self._cadence_stale:
+            self._reset_cadence()
+        refresh_steps = max(int(cfg.TreeRefreshSteps), 1)
+        use_lists = bool(cfg.ListMode) and not self._lists_disabled
         t_next = torch.clamp(integrate.find_next_time(p), max=cfg.TimeMax)
         active = integrate.active_mask(p, t_next)
         pos_pred, vel_pred = integrate.predict_positions(p, t_next, consts)
         eps = params.softening_table[torch.clamp(p.ptype, 0, 5).long()]
         mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
         reuse = (not first and self._refresh_left > 0
-                 and self._tree_cache is not None)
-        if reuse:
+                 and self._tree_cache is not None
+                 and (not use_lists or self._lists_cache is not None))
+        info, kind, md = None, "walk", None
+        ovf = need = None
+        if reuse and use_lists:
+            # cached lists on the advanced rebuild-time tree
+            lists = self._lists_cache
+            tree = advance_tree(self._tree_cache, lists, pos_pred, t_next)
+            raw_acc, pot = eval_lists(tree, lists, mass, eps,
+                                      need_pot=False)
+            kind = "list"
+            self._refresh_left -= 1
+            md = float(max_displacement(lists, tree.pos_s))
+            # displacement rate per unit simulation time
+            t_elapsed = float(t_next) - self._t_rebuild
+            if t_elapsed > 0:
+                self._disp_rate = max(md / t_elapsed, 0.7 * self._disp_rate)
+            # validity monitor: acceptances hold while md <= skin/2
+            if md > 0.5 * self._skin_now:
+                self._refresh_left = 0
+        elif reuse:
             tree = refresh_octree(self._tree_cache, pos_pred, mass, eps,
                                   p.valid)
             self._refresh_left -= 1
+            raw_acc, pot, info = self._walk(tree, mass, eps, p.old_acc)
         else:
-            self._tree_cache = None
+            self._tree_cache = self._lists_cache = None
             tree = build_octree(pos_pred, mass, eps, p.valid,
                                 depth=default_depth(p.n_padded),
                                 uniform_eps=self._uniform_eps)
-            self._refresh_left = max(int(cfg.TreeRefreshSteps), 1) - 1
-        raw_acc, pot, info = wq_gravity_tree(
-            tree, mass, eps, p.old_acc, theta=cfg.ErrTolTheta,
-            opening=cfg.TypeOfOpeningCriterion,
-            err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=False,
-            return_info=True)
+            if use_lists:
+                # skin for the coming cycle: displacement rate x last dt x
+                # K, with a 2.5 safety. The JAX package's floor (half the
+                # deepest cell) reads the tree cache it has just cleared,
+                # so it never applies (ROADMAP C.2): reproduced, the first
+                # cycle's skin is 0.
+                self._skin_now = (2.5 * self._disp_rate * self._last_dt
+                                  * refresh_steps)
+                lists = record_lists(
+                    tree, p.old_acc[tree.perm], (mass > 0)[tree.perm],
+                    theta=cfg.ErrTolTheta,
+                    use_relative=cfg.TypeOfOpeningCriterion == 1,
+                    err_tol_force_acc=cfg.ErrTolForceAcc, lcfg=self._lfc,
+                    skin=self._skin_now, vel=p.vel, t_now=t_next)
+                ovf, need = lists.ovf.tolist(), lists.need.tolist()
+                # any dropped entry is a force with missing pairs, the
+                # walk caps' drops (ovf[0]) included (ROADMAP C.8): the
+                # walk recomputes the step
+                if sum(ovf):
+                    self._list_overflow(ovf, need)
+                    raw_acc, pot, info = self._walk(tree, mass, eps,
+                                                    p.old_acc)
+                else:
+                    raw_acc, pot = eval_lists(tree, lists, mass, eps,
+                                              need_pot=False)
+                    kind = "record"
+                    self._lists_cache = lists
+                    # DIAG interaction counters (gravtree.c:356-393)
+                    nlive = torch.sum(lists.gvalid, dim=1)
+                    self._diag_far = int(torch.sum(lists.nf * nlive))
+                    self._diag_near = int(torch.sum(lists.nn * nlive))
+            else:
+                raw_acc, pot, info = self._walk(tree, mass, eps, p.old_acc)
+            self._refresh_left = refresh_steps - 1
+            self._t_rebuild = float(t_next)
         accel, old_acc = integrate.apply_accel_postfactors(
             raw_acc, pos_pred, vel_pred, t_next, consts)
         p = dataclasses.replace(
@@ -262,13 +363,19 @@ class Simulation:
             pot=torch.where(active, pot, p.pot))
         self.last_step_rebuilt = not reuse
         self.last_walk_info = info
-        if self._refresh_left > 0:
-            # early rebuild once the guard inflation reaches a quarter of
-            # the deepest cell (simulation.py:991-999)
+        self.last_list_info = (dict(kind=kind, skin=self._skin_now, md=md,
+                                    ovf=ovf, need=need)
+                               if cfg.ListMode else None)
+        if not use_lists and self._refresh_left > 0:
+            # walk only: early rebuild once the guard inflation reaches a
+            # quarter of the deepest cell (simulation.py:991-999)
             s_deep = float(tree.extent) / (1 << tree.depth)
             if float(tree.drift) > 0.25 * s_deep:
                 self._refresh_left = 0
-        self._tree_cache = tree
+        if kind != "list":
+            # a list step's tree is the advanced copy: keep the rebuild-time
+            # base, from which advance_tree is absolute
+            self._tree_cache = tree
         clock.mark("force")
 
         # finish phase (simulation.py:726-741)
@@ -289,10 +396,60 @@ class Simulation:
         self.last_phase_wall = clock.seconds()
         prev_time = self.time
         self.time = float(t_next)
+        if self.time > prev_time:
+            self._last_dt = self.time - prev_time
         self.vmax = float(vmax_new)
         if not first:
             self.step_count += 1
         return self.time - prev_time, int(n_active), 0
+
+    def _walk(self, tree, mass, eps, old_acc):
+        """The work-queue walk on ``tree``: (raw acc, pot (0), info)."""
+        cfg = self.cfg
+        return wq_gravity_tree(
+            tree, mass, eps, old_acc, theta=cfg.ErrTolTheta,
+            opening=cfg.TypeOfOpeningCriterion,
+            err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=False,
+            return_info=True)
+
+    @staticmethod
+    def _round_cap(v, mult=128):
+        return int(-(-int(v) // mult) * mult)
+
+    def _refit_list_caps(self, need) -> bool:
+        """Grow the list caps from the recorded demand (need = [far/group,
+        near/group, used nodes]) and restart the cadence (the JAX package
+        re-jits its phases, which resets it). There is no level cap to grow
+        (ROADMAP C.8), and the walk caps behind ``ovf[0]`` are not refit.
+        False once LIST_REFITS refits are spent or nothing would grow."""
+        if self._list_refits >= self.LIST_REFITS:
+            return False
+        cur = self._lfc
+        new = cur._replace(
+            far_cap=max(cur.far_cap, self._round_cap(1.15 * int(need[0]))),
+            near_cap=max(cur.near_cap, self._round_cap(1.15 * int(need[1]))),
+            used_cap=max(cur.used_cap,
+                         self._round_cap(1.15 * int(need[2]), 4096)))
+        if new == cur:
+            return False
+        self._lfc = new
+        self._list_refits += 1
+        self._cadence_stale = True
+        return True
+
+    def _list_overflow(self, ovf, need):
+        """A record overflowed a list cap: the step is recomputed with the
+        walk; the caps are refit, or the lists are given up for good."""
+        refit = self._refit_list_caps(need)
+        if not refit:
+            self._lists_disabled = True
+        print(f"WARNING: interaction-list caps overflowed (walk={ovf[0]} "
+              f"far={ovf[1]} near={ovf[2]} used={ovf[3]}; demand "
+              f"far/grp={need[0]} near/grp={need[1]} used={need[2]}); "
+              + ("resized caps, re-recording next rebuild." if refit else
+                 "no cap refit left or none would help - falling back to "
+                 "the per-step walk."),
+              file=sys.stderr, flush=True)
 
     def prepare(self):
         """init() (nbody/init.c:20-199): first force evaluation at

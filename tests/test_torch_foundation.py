@@ -207,7 +207,7 @@ _BASE = dict(SIDMOn=0, TreeWalkEngine="wq", ListMode=0)
 
 
 @pytest.mark.parametrize("change", [
-    dict(ListMode=1), dict(TreeWalkEngine="fused"), dict(SIDMOn=1),
+    dict(ListMode=1, SIDMOn=1), dict(TreeWalkEngine="fused"), dict(SIDMOn=1),
     dict(PeriodicBoundariesOn=1, BoxSize=10.0), dict(PMVacuum=1),
     dict(ForceMethod="direct"), dict(ComovingIntegrationOn=1),
     dict(VelDispOn=1)])
@@ -224,12 +224,12 @@ def test_unported_modes_and_inputs_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(cfg.replace(Precision="f64"), mode="phased",
                    device=torch.device("cuda"))
-    sim = Simulation(cfg, mode="phased")
+    sim = Simulation(cfg, mode="phased", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.set_particles_from_arrays(np.zeros((4, 3)), np.zeros((4, 3)),
                                       np.ones(4), np.array([0, 1, 1, 1]))
     # the single-program small-N step of mode="synchronized"
-    sim = Simulation(cfg, mode="synchronized")
+    sim = Simulation(cfg, mode="synchronized", device="cpu")
     sim.set_particles_from_arrays(np.random.default_rng(0).normal(
         size=(64, 3)), np.zeros((64, 3)), np.ones(64), np.ones(64, int))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 def run():
     """The port's snapshots, keyed like the golden file."""
     pos, vel, mass = flagship_ics(N, SEED)
-    sim = Simulation(SimConfig(**CONFIG), mode="phased")
+    sim = Simulation(SimConfig(**CONFIG), mode="phased", device="cpu")
     sim.set_particles_from_arrays(pos, vel, mass, np.ones(N, np.int32))
     out, kinds = {}, []
 
