@@ -12,7 +12,10 @@ Phases (each asserts; any failure exits non-zero):
      last level of the N = 1e6 NFW tree, for a subset of groups, far_level
      in both modes (walk: p99.9 relative error < 2e-5 and identical keys;
      record: all four key planes identical) and near_level against their
-     plain PyTorch versions, with times of both;
+     plain PyTorch versions, with times of both; near_level timed on every
+     level of the walk for all groups (its time per walk, with its bound)
+     and held against its plain version on all groups of the level with
+     the most segments;
   4. oracles: the walk, and the cached lists recorded at skin 0 on the same
      fresh tree, at N = 1e6 (theta 0.5, geometric opening) against the
      direct sum on 4096 random targets (p99 <= 1e-3);
@@ -22,9 +25,14 @@ Phases (each asserts; any failure exits non-zero):
      walk overflow, finite positions, |dE/E| < 1e-3, and launches of
      far_level (record), far_list, near_level and gather_rows;
   6. list kernels vs plain: far_list and near_level on the main path's
-     recorded lists for 512 groups, with and without the potential (p99.9
-     relative error < 2e-5), gather_rows bit-equal at the compact table's
-     shape;
+     recorded lists, for 512 groups (timed against the plain versions) and
+     for all groups (timed, with the bound), with and without the
+     potential (p99.9 relative error < 2e-5, finite), their work items on
+     all groups equal to the plain split; stress inputs at
+     the same bars (far: two lists at far_cap, one with dead ids, beside
+     empty lists; near: a group at the near cap of K keys of cnt 31 beside
+     empty groups, self and coincident pairs); gather_rows bit-equal at the
+     compact table's shape;
   7. the TPU probes' shapes: far_list through the Pallas far prototype's
      interface (NU = 2048 units) against its XLA reference (max |diff| /
      max |ref| < 1e-5), gather_rows bit-equal at (65536, 16) x 256 x 2048
@@ -35,8 +43,10 @@ Phases (each asserts; any failure exits non-zero):
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: on this slice's main path, phase 5; ``launches_by_path``:
 phase 5's and phase 8's counts, each path's counters set to 0 just before
-it and read just after) and the card's name and power limit; the last line
-is {"ok": true, "device": {...}}.
+it and read just after; for far_list and near_level ``full_ms`` and
+``full_bound_ms`` on all groups of the lists, for near_level ``walk_ms``
+and ``walk_bound_ms`` per walk) and the card's name and power limit; the
+last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -130,15 +140,18 @@ def main():
     from sidm_tpu_torch.ops.direct import direct_gravity
     from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
     from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
-                                             far_units, k3_reference,
-                                             units_to_lists)
+                                             far_split, far_units,
+                                             k3_reference, units_to_lists)
+    from sidm_tpu_torch.ops.work_items import (far_split_plain,
+                                               near_split_plain)
     from sidm_tpu_torch.ops.fused_force import default_depth, pack_tree
     from sidm_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
                                            gather_rowsum,
                                            gather_rowsum_plain)
     from sidm_tpu_torch.ops.list_force import (eval_inputs, eval_lists,
                                                flat_tables, record_lists)
-    from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
+    from sidm_tpu_torch.ops.near_kernel import (near_level, near_level_plain,
+                                                near_split)
     from sidm_tpu_torch.ops.tree import build_octree
     from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
     from sidm_tpu_torch.simulation import Simulation
@@ -178,9 +191,23 @@ def main():
     levels = {3, (3 + depth) // 2 + 1, depth, depth + 1}
     captured = {}
     sub = None
+    walk_near = dict(calls=0, groups=0, ms=0.0, ops=0.0, bytes=0.0)
 
     def capture(name, level, kw):
         nonlocal sub
+        if name == "near_level":     # every level, all groups
+            nv = torch.sum(kw["te"] != 1.0, dim=1)
+            ops, nb = near_level_work(kw, nv)
+            walk_near["calls"] += 1
+            walk_near["groups"] = kw["xr"].shape[0]
+            walk_near["ms"] += cuda_ms(lambda: near_level(**kw), 3)
+            walk_near["ops"] += ops
+            walk_near["bytes"] += nb
+            seg = int(torch.sum(kw["n_seg"]))
+            if seg > walk_near.get("seg", -1):   # the level checked in full
+                walk_near.update(seg=seg, level=level, kw={
+                    k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                    for k, v in kw.items() if k != "need_pot"})
         if level not in levels:
             return
         ng = kw["xr" if name == "near_level" else "xc"].shape[0]
@@ -196,6 +223,13 @@ def main():
         tree, mass_t, eps_t, old0, theta=0.5, opening=1, need_pot=True,
         return_info=True, on_level=capture)
     torch.cuda.synchronize()
+    wbound, wby = bound_ms(walk_near["ops"], walk_near["bytes"])
+    walk_near["bound_ms"] = wbound
+    print(f"kernel near_level (one walk, all {walk_near['groups']} groups, "
+          f"{walk_near['calls']} calls): kernel {walk_near['ms']:.3f} ms per "
+          f"walk, bound {wbound:.3f} ms ({wby}), at "
+          f"{wbound / walk_near['ms']:.1%} of the bound's speed [{card}]",
+          flush=True)
     n_far = n_near = 0
     for (name, level), kw in sorted(captured.items()):
         valid = kw["te"] != 1.0   # dead target slots carry te = 1
@@ -250,6 +284,17 @@ def main():
         assert q999(e) < 2e-5 and q999(ep) < 2e-5, (name, level)
         res.add(name, max_abs, ms, plain_ms, ops, nb)
     assert n_far == 3 and n_near == 4, (n_far, n_near)
+    # all groups of the walk level with the most segments
+    wkw = walk_near.pop("kw")
+    wvalid = wkw["te"] != 1.0
+    werr, wmax, outs = compare(near_level, near_level_plain, wkw, wvalid)
+    print(f"kernel near_level level {walk_near['level']} (all "
+          f"{wvalid.shape[0]} groups, {walk_near['seg']} segments): p99.9 acc "
+          f"err {werr[0]:.3e} (with pot {werr[1]:.3e}, pot {werr[2]:.3e}), "
+          f"max abs {wmax:.3e} [{card}]", flush=True)
+    assert max(werr) < 2e-5, werr
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    del wkw, outs
 
     # ---- oracles: the walk and the lists at N = 1e6 vs the direct sum -------
     g = torch.Generator().manual_seed(SEED)
@@ -352,70 +397,58 @@ def main():
     ctbl, gt, xc, te, gc = eval_inputs(btree, lists)
     ng = lists.nf.shape[0]
     sub = torch.linspace(0, ng - 1, min(SUBSET_GROUPS, ng), device=dev).long()
-    fkw = dict(tbl=ctbl, ids=lists.far[sub].contiguous(), nf=lists.nf[sub],
-               xc=xc[sub].contiguous(), te=te[sub].contiguous(),
-               gc=gc[sub].contiguous(), need_pot=False)
-    valid = lists.gvalid[sub]
-    out_k = far_list(**fkw)
-    out_p = far_list_plain(**fkw)
-    e, _ = rel_err(out_k, out_p, valid)
-    fkw_pot = dict(fkw, need_pot=True)
-    e2, ep2 = rel_err(far_list(**fkw_pot), far_list_plain(**fkw_pot), valid)
-    max_abs = float(torch.max(torch.abs(out_k - out_p)[valid]))
-    ms = cuda_ms(lambda: far_list(**fkw), 10)
-    plain_ms = cuda_ms(lambda: far_list_plain(**fkw), 2)
-    ops, nb = far_list_work(ctbl, fkw["nf"], torch.sum(valid, dim=1), False)
-    full_ms = cuda_ms(lambda: far_list(ctbl, lists.far, lists.nf, xc, te, gc,
-                                       need_pot=False), 3)
-    full = far_list_work(ctbl, lists.nf, torch.sum(lists.gvalid, dim=1),
-                         False)
-    print(f"kernel far_list (main path lists): groups {len(sub)} of {ng}, "
-          f"entries {int(fkw['nf'].sum())}, p99.9 acc err {q999(e):.3e} "
-          f"(with pot {q999(e2):.3e}, pot {q999(ep2):.3e}), max abs "
-          f"{max_abs:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms(ops, nb)[0]:.3f} ms; all {ng} groups: kernel "
-          f"{full_ms:.3f} ms, bound {bound_ms(*full)[0]:.3f} ms "
-          f"({bound_ms(*full)[1]}) [{card}]", flush=True)
-    assert q999(e) < 2e-5 and q999(e2) < 2e-5 and q999(ep2) < 2e-5
-    res.add("far_list", max_abs, ms, plain_ms, ops, nb)
+    nvalid = torch.sum(lists.gvalid, dim=1)
+    fkw = dict(tbl=ctbl, ids=lists.far, nf=lists.nf, xc=xc, te=te, gc=gc)
+    nkw = dict(keys=lists.near, n_seg=lists.nn, pos_s=btree.pos_s,
+               mass_s=btree.mass_s, eps_s=btree.eps_s, xr=gt, te=te)
+    for name, kern, plain, kw, work, count in (
+            ("far_list", far_list, far_list_plain, fkw,
+             lambda k, nv: far_list_work(ctbl, k["nf"], nv, False),
+             f"entries {int(lists.nf.sum())}"),
+            ("near_level", near_level, near_level_plain, nkw,
+             lambda k, nv: near_level_work(dict(k, need_pot=False), nv),
+             f"segments {int(lists.nn.sum())}")):
+        skw = {k: (v[sub].contiguous() if k not in ("tbl", "pos_s", "mass_s",
+                                                    "eps_s") else v)
+               for k, v in kw.items()}
+        serr, smax, _ = compare(kern, plain, skw, lists.gvalid[sub])
+        ms = cuda_ms(lambda: kern(**skw, need_pot=False), 10)
+        plain_ms = cuda_ms(lambda: plain(**skw, need_pot=False), 2)
+        ops, nb = work(skw, nvalid[sub])
+        # all groups: the kernels' plan depends on the number of groups
+        ferr, fmax, outs = compare(kern, plain, kw, lists.gvalid)
+        full_ms = cuda_ms(lambda: kern(**kw, need_pot=False), 5)
+        fbound, fby = bound_ms(*work(kw, nvalid))
+        print(f"kernel {name} (main path lists): groups {len(sub)} of {ng}, "
+              f"p99.9 acc err {serr[0]:.3e} (with pot {serr[1]:.3e}, pot "
+              f"{serr[2]:.3e}), max abs {smax:.3e}, kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms(ops, nb)[0]:.3f} ms; all "
+              f"{ng} groups, {count}: p99.9 acc err {ferr[0]:.3e} (with pot "
+              f"{ferr[1]:.3e}, pot {ferr[2]:.3e}), max abs {fmax:.3e}, kernel "
+              f"{full_ms:.3f} ms, bound {fbound:.3f} ms ({fby}), at "
+              f"{fbound / full_ms:.1%} of the bound's speed [{card}]",
+              flush=True)
+        assert max(serr + ferr) < 2e-5, (name, serr, ferr)
+        assert all(bool(torch.isfinite(o).all()) for o in outs), name
+        res.add(name, max(smax, fmax), ms, plain_ms, ops, nb)
+        res.rows[name].update(full_ms=full_ms, full_bound_ms=fbound)
+    res.rows["near_level"].update(walk_ms=walk_near["ms"],
+                                  walk_bound_ms=walk_near["bound_ms"])
+    check_split("far_list", far_split(lists.nf, lists.far.shape[1]),
+                far_split_plain(lists.nf, lists.far.shape[1]), card)
+    check_split("near_level", near_split(lists.near, lists.nn),
+                near_split_plain(lists.near, lists.nn), card)
 
-    nkw = dict(keys=lists.near[sub].contiguous(), n_seg=lists.nn[sub],
-               pos_s=btree.pos_s, mass_s=btree.mass_s, eps_s=btree.eps_s,
-               xr=gt[sub].contiguous(), te=te[sub].contiguous(),
-               need_pot=False)
-    out_k = near_level(**nkw)
-    out_p = near_level_plain(**nkw)
-    e, _ = rel_err(out_k, out_p, valid)
-    nkw_pot = dict(nkw, need_pot=True)
-    e2, ep2 = rel_err(near_level(**nkw_pot), near_level_plain(**nkw_pot),
-                      valid)
-    max_abs = float(torch.max(torch.abs(out_k - out_p)[valid]))
-    ms = cuda_ms(lambda: near_level(**nkw), 10)
-    plain_ms = cuda_ms(lambda: near_level_plain(**nkw), 2)
-    ops, nb = near_level_work(nkw, torch.sum(valid, dim=1))
-    fnkw = dict(keys=lists.near, n_seg=lists.nn, pos_s=btree.pos_s,
-                mass_s=btree.mass_s, eps_s=btree.eps_s, xr=gt, te=te,
-                need_pot=False)
-    full_ms = cuda_ms(lambda: near_level(**fnkw), 3)
-    full = near_level_work(fnkw, torch.sum(lists.gvalid, dim=1))
-    print(f"kernel near_level (main path lists): groups {len(sub)} of {ng}, "
-          f"segments {int(nkw['n_seg'].sum())}, p99.9 acc err "
-          f"{q999(e):.3e} (with pot {q999(e2):.3e}, pot {q999(ep2):.3e}), "
-          f"max abs {max_abs:.3e}, kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms(ops, nb)[0]:.3f} ms; all "
-          f"{ng} groups: kernel {full_ms:.3f} ms, bound "
-          f"{bound_ms(*full)[0]:.3f} ms ({bound_ms(*full)[1]}) [{card}]",
-          flush=True)
-    assert q999(e) < 2e-5 and q999(e2) < 2e-5 and q999(ep2) < 2e-5
-    res.add("near_level", max_abs, ms, plain_ms, ops, nb)
+    # ---- stress: the caps beside empty groups, self and coincident pairs ---
+    far_stress(res, lists, ctbl, xc, te, gc, card)
+    near_stress(res, lists, btree, gt, te, card)
 
     tbl_all = flat_tables(pack_tree(btree))
     src = torch.cat([lists.src, torch.full((1,), tbl_all.shape[0],
                                            dtype=torch.int32, device=dev)])
     check_gather(res, "gather_rows", gather_rows, gather_rows_plain, tbl_all,
                  src, "compact table", card, gather_work, bound_ms)
-    del lists, btree, ctbl, gt, xc, te, gc, tbl_all, src, sim, fkw, fkw_pot
-    del nkw, nkw_pot, fnkw
+    del lists, btree, ctbl, gt, xc, te, gc, tbl_all, src, sim, fkw, nkw
 
     # ---- the TPU probes' own shapes -------------------------------------
     # make_chunk's data as the script's main() draws it (seed 0): random
@@ -520,7 +553,9 @@ def main():
                                  "walk": walk_launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("full_ms", "full_bound_ms", "walk_ms",
+                                 "walk_bound_ms") if k in r}})
     print(json.dumps({"kernels": kernels_json}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -554,6 +589,112 @@ def check_gather(res, name, kern, plain, tbl, ids, label, card, gather_work,
           + ("" if lib_ms is None else f", index_select {lib_ms:.4f} ms")
           + f", bound {bound_ms(ops, nb)[0]:.4f} ms [{card}]", flush=True)
     res.add(name, max_abs, ms, plain_ms, ops, nb, lib_ms)
+
+
+def check_split(name, kern, plain, card):
+    """The kernel's work items (its split launches) equal the plain
+    split's, field by field."""
+    for k, v in plain.items():
+        assert torch.equal(kern[k].cpu(), v.cpu()), (name, k)
+    n_it = plain["item_g"].shape[0]
+    unit = plain["unit"][plain["off"][1:] > plain["off"][:-1]]
+    print(f"split {name}: {n_it} items for {plain['off'].shape[0] - 1} "
+          f"groups (most in a group "
+          f"{int(torch.max(plain['off'][1:] - plain['off'][:-1]))}, item "
+          f"size {int(unit.min())} to {int(unit.max())}), equal to the plain "
+          f"split [{card}]", flush=True)
+
+
+def stress_groups(lists, k):
+    """k groups of the lists with every target valid and a far list."""
+    ok = torch.nonzero(lists.gvalid.all(dim=1) & (lists.nf > 0)).flatten()
+    return ok[torch.linspace(0, len(ok) - 1, k, device=ok.device).long()]
+
+
+def compare(kern, plain, kw, valid):
+    """kern vs plain on kw, without and with the potential: ([p99.9 acc
+    err, p99.9 acc err with pot, p99.9 pot err], max |diff| over the valid
+    targets, the kernel's two outputs)."""
+    errs, max_abs, outs = [], 0.0, []
+    for pot in (False, True):
+        out_k = kern(**kw, need_pot=pot)
+        out_p = plain(**kw, need_pot=pot)
+        e, ep = rel_err(out_k, out_p, valid)
+        errs += [q999(e)] + ([q999(ep)] if pot else [])
+        max_abs = max(max_abs,
+                      float(torch.max(torch.abs(out_k - out_p)[valid])))
+        outs.append(out_k)
+    return errs, max_abs, outs
+
+
+def check_stress(res, name, kern, plain, kw, valid, empty, label, card):
+    """kern vs plain on a stress input, with and without the potential:
+    p99.9 relative error < 2e-5, finite everywhere, the empty groups 0."""
+    errs, max_abs, outs = compare(kern, plain, kw, valid)
+    for out_k in outs:
+        assert bool(torch.isfinite(out_k).all()), (name, label)
+        assert bool(torch.all(out_k[empty] == 0)), (name, label)
+    print(f"stress {name} ({label}): p99.9 acc err {errs[0]:.3e} (with pot "
+          f"{errs[1]:.3e}, pot {errs[2]:.3e}), max abs {max_abs:.3e}, "
+          f"finite, empty groups 0 [{card}]", flush=True)
+    assert max(errs) < 2e-5, (name, errs)
+    res.add(name, max_abs, 0.0, 0.0, 0.0, 0.0)
+
+
+def far_stress(res, lists, ctbl, xc, te, gc, card):
+    """far_list on four groups: two lists at far_cap (a real group's list
+    repeated; the second with dead ids, -1 and the zero row, every few
+    entries) beside two empty lists."""
+    from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+
+    LF = lists.far.shape[1]
+    pick = stress_groups(lists, 4)
+    ids = torch.full((4, LF), -1, dtype=torch.int32, device=ctbl.device)
+    nf = torch.zeros(4, dtype=torch.int32, device=ctbl.device)
+    for i in (0, 2):
+        src = lists.far[pick[i], :int(lists.nf[pick[i]])]
+        ids[i] = src.repeat(-(-LF // src.shape[0]))[:LF]
+        nf[i] = LF
+    ids[2, ::7] = -1
+    ids[2, 3::11] = ctbl.shape[0] - 1
+    kw = dict(tbl=ctbl, ids=ids, nf=nf, xc=xc[pick].contiguous(),
+              te=te[pick].contiguous(), gc=gc[pick].contiguous())
+    check_stress(res, "far_list", far_list, far_list_plain, kw,
+                 lists.gvalid[pick], torch.tensor([1, 3]),
+                 f"two lists at the cap {LF} beside two empty lists", card)
+
+
+def near_stress(res, lists, btree, gt, te, card):
+    """near_level on four groups: one at the near cap (K keys of cnt 31
+    from random starts) beside two empty groups, and one whose keys cover
+    its own targets (self pairs) and 31 particles moved onto its first
+    target (coincident pairs)."""
+    from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
+
+    dev = gt.device
+    K = lists.near.shape[1]
+    n = btree.pos_s.shape[0]
+    pick = stress_groups(lists, 4)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    keys = torch.full((4, K), 2147483647, dtype=torch.int32, device=dev)
+    n_seg = torch.zeros(4, dtype=torch.int32, device=dev)
+    keys[0] = (torch.randint(0, n - 31, (K,), generator=g) * 32 + 31).to(
+        dev, torch.int32)
+    n_seg[0] = K
+    pidx = lists.pidx[pick[2]].to(torch.int32)
+    pc = (int(pidx[0]) + n // 2) % (n - 31)
+    pos = btree.pos_s.clone()
+    pos[pc:pc + 31] = gt[pick[2], 0]
+    keys[2, :64] = pidx * 32 + 1
+    keys[2, 64] = pc * 32 + 31
+    n_seg[2] = 65
+    kw = dict(keys=keys, n_seg=n_seg, pos_s=pos, mass_s=btree.mass_s,
+              eps_s=btree.eps_s, xr=gt[pick].contiguous(),
+              te=te[pick].contiguous())
+    check_stress(res, "near_level", near_level, near_level_plain, kw,
+                 lists.gvalid[pick], torch.tensor([1, 3]),
+                 f"one group at the cap {K} x 31 beside two empty groups, "
+                 "self and coincident pairs", card)
 
 
 def sim_energy(sim) -> float:

@@ -4,16 +4,20 @@ Each source in ``csrc/`` is compiled at first use by its own ``nvcc``
 process, all started together, into a shared library with a plain C
 interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 [-fmad=false]
          -Xptxas -v -shared -Xcompiler -fPIC -o _build/lib<name>_<h>.so
          csrc/<name>.cu
 
-``<h>`` hashes the flags, the source and every header, so an edited file
-builds anew and an unchanged one is reused. ``-fmad=false`` keeps every
-product and sum rounded as in the plain PyTorch versions (the
-classification, and hence the emitted keys, then match them exactly). Each
-C entry point launches on the stream it is given and returns
-``cudaGetLastError()``.
+``<h>`` hashes the source's own flags, the source and every header, so an
+edited file builds anew and an unchanged one is reused. ``-fmad=false`` is
+given to ``far_kernel.cu`` alone: it keeps every product and sum of the
+walk's far kernel rounded as in the plain PyTorch version, so that its
+classification, and hence the emitted keys, match the plain version's
+exactly. The other sources are built with FMA: the peak of 67 TFLOP/s that
+``bounds.py`` divides by counts an FMA as two operations, so a kernel
+without FMA can reach at most half of its bound. Each C entry point
+launches on the stream it is given and returns ``cudaGetLastError()`` of
+its launches.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+          "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+# source stem -> flags of its own, after _FLAGS
+_SOURCE_FLAGS = {"far_kernel": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -43,9 +49,11 @@ _SIGNATURES = {
         _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I,
         _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "near_level_launch": ("near_kernel", [
-        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P]),
+        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P]),
+    "near_split_launch": ("near_kernel", [_P, _P, _I, _I, _P, _I, _P]),
     "far_list_launch": ("far_list", [
-        _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P]),
+        _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P]),
+    "far_split_launch": ("far_list", [_P, _I, _I, _P, _I, _P]),
     "gather_launch": ("gather", [_P, _I, _P, _L, _P, _P, _P]),
 }
 
@@ -69,7 +77,7 @@ def build() -> dict:
     source, all in parallel. Returns {"paths": {stem: path}, "seconds":
     wall seconds of the parallel build (0.0 when all were reused), "log"}."""
     cus = sorted(_CSRC.glob("*.cu"))
-    base = hashlib.sha256(" ".join(_FLAGS).encode())
+    base = hashlib.sha256()
     for f in sorted(_CSRC.glob("*.cuh")):
         base.update(f.name.encode())
         base.update(f.read_bytes())
@@ -77,7 +85,9 @@ def build() -> dict:
     paths, jobs = {}, []
     t0 = time.perf_counter()
     for f in cus:
+        flags = _FLAGS + _SOURCE_FLAGS.get(f.stem, [])
         h = base.copy()
+        h.update(" ".join(flags).encode())
         h.update(f.read_bytes())
         out = _BUILD / f"lib{f.stem}_{h.hexdigest()[:16]}.so"
         paths[f.stem] = out
@@ -85,7 +95,7 @@ def build() -> dict:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
             os.close(fd)
             proc = subprocess.Popen(
-                [_nvcc(), *_FLAGS, "-o", tmp, str(f)], stdout=subprocess.PIPE,
+                [_nvcc(), *flags, "-o", tmp, str(f)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
             jobs.append((f, tmp, out, proc))
     logs, failed = [], []

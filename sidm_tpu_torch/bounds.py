@@ -4,7 +4,11 @@ written once) over the memory rate, and the operations it does on these
 inputs over the float32 rate outside the tensor cores.
 
 Peaks of the H100 SXM (NVIDIA's data sheet, at the 700 W power limit):
-67 TFLOP/s float32 without tensor cores, 3.35 TB/s HBM3. The operation
+67 TFLOP/s float32 without tensor cores, 3.35 TB/s HBM3. The 67 TFLOP/s
+is the FMA rate (132 SMs x 128 lanes x 2 operations x 1.98 GHz): an add
+and a multiply fused into one instruction count as two operations here, so
+a kernel built without FMA (``_build.py``: only the walk's far kernel, for
+its bit-equal keys) can reach at most half of its bound. The operation
 counts are those the function needs, counted from the CUDA sources (each
 add, multiply, min/max, compare, division and square root as one), not
 what the kernels happen to execute: the softened kernels on their
@@ -31,8 +35,8 @@ PEAK_BYTES = 3.35e12    # HBM bytes per second
 FAR_PAIR_OPS = 75
 FAR_ENTRY_OPS = 25      # ... per (group, node): |c|^2 5, u = Q c 15, c.u 5
 FAR_PAIR_POT_OPS = 5    # ... the potential: -1/r, m (-1/r), d.Q.d r^-5, sums
-# csrc/near_kernel.cu pair loop, no potential: d 3, r 6, h 2, r >= h,
-# 1/r^3 3, m/r^3, the sums of fac d 6
+# near pair (ops/near_kernel.py contract), no potential: d 3, r 6, h 2,
+# r >= h, 1/r^3 3, m/r^3, the sums of fac d 6
 NEAR_PAIR_OPS = 22
 NEAR_PAIR_POT_OPS = 3   # ... the potential: -1/r, m (-1/r), its sum
 CLASSIFY_OPS = 30       # csrc/far_kernel.cu classify_row, per node

@@ -1,10 +1,10 @@
 // Group-centred monopole + Newtonian-range quadrupole of one node on one
 // target, accumulated as per-chunk sums and folded into [ax ay az pot] in
 // the Pallas far kernel's combination order (pallas_far.py:116-176, the
-// math of fused_force.far_tile). Shared by far_kernel.cu (the walk's far
-// pass) and far_list.cu (the cached lists' far pass). The sources are
-// compiled with -fmad=false, so each product and sum rounds as in the
-// plain PyTorch version.
+// math of fused_force.far_tile), for far_kernel.cu (the walk's far pass;
+// the cached lists' far pass has its own routine in far_list.cu).
+// far_kernel.cu is compiled with -fmad=false, so each product and sum
+// rounds as in the plain PyTorch version.
 //
 // Operations the function needs, counted from far_pair below on the
 // Newtonian branch that far pairs take (each add, multiply, min/max,

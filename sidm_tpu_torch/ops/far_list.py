@@ -17,20 +17,23 @@ the same kernel; ``k3_reference`` is that script's ``xla_ref`` in PyTorch.
 On a CUDA tensor ``far_list`` launches ``csrc/far_list.cu``; on a CPU
 tensor it runs ``far_list_plain``. There is no fallback between the two.
 
-Kernel design (``csrc/far_list.cu``). The TPU prototype pads the pairs into
-32-pair units, broadcasts targets and reduces each unit with 0/1 MXU
-matmuls, and the list engine's XLA pass gathers (group block, 512-entry
-chunk) tiles and scatters partial sums back. Hopper blocks run in no order,
-so the port runs one thread block per group that walks the group's whole
-list in 128-entry chunks: rows are gathered by id inside the kernel (the
+Kernel design (``csrc/far_list.cu``, its source note has the detail).
+The TPU prototype pads the pairs into 32-pair units, broadcasts targets
+and reduces each unit with 0/1 MXU matmuls, and the list engine's XLA pass
+gathers (group block, 512-entry chunk) tiles and scatters partial sums
+back. Hopper blocks run in no order, so the port cuts each group's list
+into work items of about equal entry count (``work_items.py``;
+``far_split`` is the split, on the card one small kernel) and runs one
+256-thread block per item: it gathers rows by id inside the kernel (the
 compact table, 19 MB at the flagship's ``used_cap``, stays in the 50 MB
-L2), dead entries (the zero row) are dropped by a warp ballot, the live
-rows are staged in shared memory, and 2 threads per target accumulate the
-pair sums in registers and fold them into the output once per chunk. No
-atomics; every group is written. The pair math is ``csrc/far_pair.cuh``,
-shared with the walk's far kernel. What bounds it on the H100: the pair
-math (75 float32 operations per (target, node) pair and 25 per list entry
-without the potential, ``bounds.py``), at 128 threads per block.
+L2), drops dead entries by a warp ballot, stages the live rows
+group-centred with their reciprocal softening, and evaluates monopole +
+quadrupole on the difference d = c - x with ``rsqrt`` and FMA (its own
+pair routine, not the walk's ``csrc/far_pair.cuh``). A
+second pass adds each group's item partials in item order: no float
+atomics, every group written. What bounds it on the H100: the pair math
+(75 float32 operations per (target, node) pair and 25 per list entry
+without the potential, ``bounds.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from __future__ import annotations
 import torch
 
 from .fused_force import G, far_tile
+from .work_items import (far_items, far_split_plain, item_buffers,
+                         kernel_split)
 
 FC = 512            # plain version: list entries per (group, chunk) item
 PLAIN_PAIRS = 1 << 21   # plain version: (target, entry) pairs per batch
@@ -90,14 +95,29 @@ def far_list(tbl, ids, nf, xc, te, gc, *, need_pot: bool):
                xc=(xc, torch.float32, (ng, G, 3)),
                te=(te, torch.float32, (ng, G)),
                gc=(gc, torch.float32, (ng, 3)))
+    icap, ws, part = item_buffers(ng, tbl.device, near=False)
     acc = torch.empty(ng, G, 4, dtype=torch.float32, device=tbl.device)
     err = kernels_lib().far_list_launch(*launch_args(
         tbl, int(tbl.shape[0]), ids, nf, ng, LF, xc, te, gc, int(need_pot),
-        acc))
+        acc, ws, icap, part))
     if err:
         raise RuntimeError(f"far_list kernel launch failed: CUDA error {err}")
     far_list.launches += 1
     return acc
+
+
+def far_split(nf, LF: int) -> dict:
+    """The work items of ``far_list`` for live counts nf (ng,) under the
+    cap LF (``work_items.far_split_plain``'s fields). On a CUDA tensor the
+    kernel's own split (its first launch), for checks."""
+    if not nf.is_cuda:
+        return far_split_plain(nf, LF)
+    from .._build import check_cuda
+
+    ng = nf.shape[0]
+    check_cuda("far_split", nf=(nf, torch.int32, (ng,)))
+    f = kernel_split("far_split_launch", False, ng, nf, ng, LF)
+    return far_items(nf, LF, f["unit"], f["off"], f["item_g"])
 
 
 far_list.launches = 0

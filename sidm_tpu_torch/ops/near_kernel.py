@@ -12,17 +12,18 @@ self potential is removed by the caller (potential.c:136).
 On a CUDA tensor it launches ``csrc/near_kernel.cu``; on a CPU tensor it
 runs ``near_level_plain``. There is no fallback between the two.
 
-Kernel design (``csrc/near_kernel.cu``). The TPU kernel runs one grid step
-per (group, 16-key chunk) item over fields that ``pack_near_fields`` has
-gathered and masked beforehand. The port runs one thread block per group,
-one thread per target, accumulating in registers over all of the group's
-keys (no atomics, deterministic, every group written). Per chunk of 32 keys
-the first warp decodes the keys, prefix-sums their counts with warp
-shuffles and stages exactly the covered particles (up to 992) in shared
-memory, read straight from the sorted particle arrays; the block then runs
-the pair math over the staged particles. What bounds it on the H100: the
-pair math (~40 float32 operations per pair, with a square root and two
-divisions), at 64 threads per block.
+Kernel design (``csrc/near_kernel.cu``, its source note has the detail).
+The TPU kernel runs one grid step per (group, 16-key chunk) item over
+fields that ``pack_near_fields`` has gathered and masked beforehand. On
+the flagship's lists a few groups cover twenty times the mean group's
+particles, so the port cuts every group into work items of about equal
+covered-particle count (``work_items.py``; ``near_split`` is the split,
+on the card three small kernels) and runs one 256-thread block per item:
+it stages the covered particles with ``cp.async`` double buffering and
+evaluates the pair math without a division (``rsqrt``, FMA, reciprocal
+softenings). A second pass adds each group's item partials in item
+order: no float atomics, the same result from run to run, every group
+written. What bounds it on the H100: the pair math.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from .fused_force import G, SC, near_tile
+from .work_items import item_buffers, kernel_split, near_split_plain
 
 ITEM_BLOCK = 256   # plain version: (group, key chunk) items per batch
 
@@ -77,10 +79,11 @@ def near_level(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
                eps_s=(eps_s, torch.float32, (n,)),
                xr=(xr, torch.float32, (ng, G, 3)),
                te=(te, torch.float32, (ng, G)))
+    icap, ws, part = item_buffers(ng, keys.device, near=True)
     acc = torch.empty(ng, G, 4, dtype=torch.float32, device=keys.device)
     err = kernels_lib().near_level_launch(*launch_args(
         keys, n_seg, ng, K, pos_s, mass_s, eps_s, n, xr, te, int(need_pot),
-        acc))
+        acc, ws, icap, part))
     if err:
         raise RuntimeError(f"near_level kernel launch failed: CUDA error "
                            f"{err}")
@@ -89,3 +92,18 @@ def near_level(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
 
 
 near_level.launches = 0
+
+
+def near_split(keys, n_seg) -> dict:
+    """The work items of ``near_level`` for keys (ng, K) and live counts
+    n_seg (``work_items.near_split_plain``'s fields). On a CUDA tensor the
+    kernel's own split (its first three launches), for checks."""
+    if not keys.is_cuda:
+        return near_split_plain(keys, n_seg)
+    from .._build import check_cuda
+
+    ng, K = keys.shape
+    check_cuda("near_split", keys=(keys, torch.int32, (ng, K)),
+               n_seg=(n_seg, torch.int32, (ng,)))
+    return kernel_split("near_split_launch", True, ng, keys, n_seg, ng,
+                        K)

@@ -14,7 +14,8 @@ Prints, beside the card's name and power limit:
   * the list evaluation's kernels at the main path's shapes: far_list,
     near_level on the recorded keys, gather_rows building the compact
     table, against their plain versions (and, for the gather, one
-    ``index_select``), with their bounds;
+    ``index_select``), with their bounds; the share of the near pairs
+    inside the softening length (the near kernel's slower branch);
   * for a list step and a record step of the Simulation, the wall time
     (unprofiled), the device-busy time of a profiled step of the same kind
     (the device-side events summed by torch.profiler), the idle share
@@ -57,6 +58,30 @@ def _cuda_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+SOFT_GROUPS = 256
+
+
+def near_soft_share(lists, tree, gt, te):
+    """(pairs inside the softening length, pairs) of the near lists'
+    (valid target, covered particle) pairs, over SOFT_GROUPS groups."""
+    dev = gt.device
+    slot = torch.arange(32, device=dev)
+    soft = pairs = 0
+    ng = lists.nn.shape[0]
+    for g in torch.linspace(0, ng - 1, min(SOFT_GROUPS, ng)).long().tolist():
+        k = lists.near[g, :int(lists.nn[g])].long()
+        idx = (k[:, None] >> 5) + slot
+        p = torch.clamp(idx[slot[None, :] < (k[:, None] & 31)],
+                        max=tree.pos_s.shape[0] - 1)
+        v = lists.gvalid[g]
+        r = torch.linalg.norm(gt[g][v][:, None, :] - tree.pos_s[p][None],
+                              dim=-1)
+        h = 2.8 * torch.maximum(te[g][v][:, None], tree.eps_s[p][None])
+        soft += int(torch.sum(r < h))
+        pairs += r.numel()
+    return soft, pairs
 
 
 def main():
@@ -200,6 +225,10 @@ def main():
         print(f"list eval {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms"
               f"{extra}, bound {bms:.3f} ms ({by}; {work[0]:.4g} ops, "
               f"{work[1]:.4g} B) [{card}]")
+    soft, pairs = near_soft_share(lists, btree, gt, te)
+    print(f"near pairs inside the softening length (r < 2.8 max(eps), "
+          f"{SOFT_GROUPS} groups of the lists): {soft} of {pairs}, "
+          f"{soft / pairs:.4f}")
     print(f"lists: groups {lists.nf.shape[0]}, far entries "
           f"{int(lists.nf.sum())} (max {int(lists.nf.max())}), near entries "
           f"{int(lists.nn.sum())} (max {int(lists.nn.max())}), used nodes "

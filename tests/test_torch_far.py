@@ -7,7 +7,14 @@ potential to rtol 2e-5, atol 1e-7 (float32 sums in another order); the
 segment, open and big key planes are exactly equal. Covered: an inner
 level and the last level, both opening criteria, with and without the
 potential. On the card (``gpu`` marker) the CUDA kernel is held against
-the plain version the same way."""
+the plain version the same way.
+
+The list-far kernel's work-item split (``ops/work_items.py``) covers every
+live list entry once, in order, in items of about equal size; the plain
+``far_list_plain`` evaluated item by item and summed in the second pass's
+order matches it on the whole lists to 1e-6 relative; on the card the
+kernel (and its split) is held against the plain version on lists with
+an empty list beside one at the cap, dead ids and softened pairs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -182,3 +189,142 @@ def test_far_level_cpu_runs_plain(setup):
     assert far_level.launches == n0
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+
+
+# ---- far_list's work-item split (ops/work_items.py) ------------------------
+
+def far_lists(LF=700, nf=(0, 700, 300, 0, 17, 750), rows=300, seed=14):
+    """A compact table (rows + 1 zero row) and lists of row ids: an empty
+    list, one at the cap LF, one past it (clamped), dead ids (-1, out of
+    range, the zero row); a few nodes inside the softening length."""
+    rng = np.random.default_rng(seed)
+    ng = len(nf)
+    tbl = np.zeros((rows + 1, 16), np.float32)
+    tbl[:rows, 0:3] = rng.normal(0.0, 3.0, (rows, 3))
+    tbl[:5, 0:3] = rng.normal(0.0, 0.05, (5, 3))
+    tbl[:rows, 3] = rng.uniform(0.5, 1.5, rows) / rows
+    tbl[:rows, 8:14] = rng.normal(0.0, 1e-3, (rows, 6)) * tbl[:rows, 3:4]
+    tbl[:rows, 14] = 0.05
+    ids = rng.integers(0, rows + 1, (ng, LF)).astype(np.int32)
+    ids[:, ::37] = -1
+    ids[:, 5::41] = rows + 7
+    xc = rng.normal(0.0, 0.3, (ng, G, 3)).astype(np.float32)
+    te = np.full((ng, G), 0.05, np.float32)
+    te[:, 60:] = 1.0                      # dead target slots
+    xc[:, 60:] = 0.0
+    gc = rng.normal(0.0, 0.1, (ng, 3)).astype(np.float32)
+    return dict(tbl=tbl, ids=ids, nf=np.asarray(nf, np.int32), xc=xc, te=te,
+                gc=gc)
+
+
+FAR_SPLIT_CASES = {"cap": (700, (0, 700, 300, 0, 17, 750)),
+                   "single": (64, (40,)),
+                   "over_room": (300000, (300000, 299999))}
+
+
+@pytest.mark.parametrize("name", list(FAR_SPLIT_CASES))
+def test_far_split_covers_entries_in_order(name):
+    """Every live entry (below min(nf, LF)) of every list lies in exactly
+    one item, a group's items are consecutive ranges in order, and the
+    items are about equal in size."""
+    from sidm_tpu_torch.ops.far_list import far_split
+    from sidm_tpu_torch.ops.work_items import FAR_E_MIN, item_cap
+
+    LF, nf = FAR_SPLIT_CASES[name]
+    nf = np.asarray(nf, np.int32)
+    ng = len(nf)
+    s = {k: v.numpy() for k, v in far_split(torch.tensor(nf), LF).items()}
+    n_items = len(s["item_g"])
+    assert n_items <= item_cap(ng) and s["off"][-1] == n_items
+    np.testing.assert_array_equal(
+        s["item_g"], np.repeat(np.arange(ng), np.diff(s["off"])))
+    for g in range(ng):
+        w = min(int(nf[g]), LF)
+        its = np.arange(s["off"][g], s["off"][g + 1])
+        if w == 0:
+            assert len(its) == 0
+            continue
+        assert s["e0"][its[0]] == 0 and s["e1"][its[-1]] == w
+        np.testing.assert_array_equal(s["e1"][its[:-1]], s["e0"][its[1:]])
+        size = s["e1"][its] - s["e0"][its]
+        assert np.all(size > 0) and np.all(size <= s["unit"][g])
+    if name == "single":
+        assert n_items == 1
+    if name == "cap":
+        assert np.diff(s["off"])[1] > 1
+    if name == "over_room":
+        assert s["unit"][0] > FAR_E_MIN     # E grew to keep the item cap
+
+
+def far_items_plain(inp, need_pot):
+    """far_list_plain evaluated item by item (each item as a list of its
+    own entries) and summed in the second pass's order, in float64: the
+    random nodes pull the targets from all sides, and float32 sums in
+    another order differ by ~1e-6 of a target's small net force."""
+    from sidm_tpu_torch.ops.far_list import far_list_plain, far_split
+    from sidm_tpu_torch.ops.work_items import sum_items
+
+    t = {k: torch.tensor(v.astype(np.float64) if v.dtype == np.float32
+                         else v) for k, v in inp.items()}
+    LF = inp["ids"].shape[1]
+    s = far_split(t["nf"], LF)
+    g = s["item_g"]
+    size = s["e1"] - s["e0"]
+    width = int(size.max())
+    col = s["e0"][:, None] + torch.arange(width)
+    ids = t["ids"][g[:, None], torch.clamp(col, max=LF - 1)]
+    part = far_list_plain(t["tbl"], ids, size.int(), t["xc"][g], t["te"][g],
+                          t["gc"][g], need_pot=need_pot)
+    return sum_items(part, s["off"]).numpy(), len(g)
+
+
+@pytest.mark.parametrize("need_pot", [True, False])
+def test_far_list_items_sum_matches_plain(need_pot):
+    from sidm_tpu_torch.ops.far_list import far_list_plain
+
+    inp = far_lists()
+    acc_i, n_items = far_items_plain(inp, need_pot)
+    assert n_items > 4
+    t = {k: torch.tensor(v.astype(np.float64) if v.dtype == np.float32
+                         else v) for k, v in inp.items()}
+    acc_p = far_list_plain(**t, need_pot=need_pot).numpy()
+    valid = inp["te"] != 1.0
+    valid[inp["nf"] == 0] = False
+    a, b = acc_i[..., :3][valid], acc_p[..., :3][valid]
+    err = np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+    assert err.max() < 1e-6, err.max()
+    np.testing.assert_allclose(acc_i[..., 3][valid], acc_p[..., 3][valid],
+                               rtol=1e-6)
+    assert np.all(acc_i[[0, 3]] == 0) and np.all(acc_p[[0, 3]] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_pot", [True, False])
+def test_far_list_kernel_stress_on_card(cuda, need_pot):
+    """The lists above on the card: an empty list beside one at the cap,
+    dead ids, softened pairs."""
+    from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+
+    inp = far_lists()
+    t = {k: torch.tensor(v).to(cuda) for k, v in inp.items()}
+    n0 = far_list.launches
+    acc_k = far_list(**t, need_pot=need_pot).cpu().numpy()
+    assert far_list.launches == n0 + 1
+    acc_p = far_list_plain(**t, need_pot=need_pot).cpu().numpy()
+    valid = inp["te"] != 1.0
+    valid[inp["nf"] == 0] = False
+    assert np.all(np.isfinite(acc_k))
+    assert_acc_close(acc_k, acc_p, valid)
+    assert np.all(acc_k[[0, 3]] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FAR_SPLIT_CASES))
+def test_far_split_kernel_matches_plain_on_card(cuda, name):
+    from sidm_tpu_torch.ops.far_list import far_split
+
+    LF, nf = FAR_SPLIT_CASES[name]
+    nf = torch.tensor(np.asarray(nf, np.int32))
+    a, b = far_split(nf.to(cuda), LF), far_split(nf, LF)
+    for k in ("unit", "off", "item_g", "e0", "e1"):
+        np.testing.assert_array_equal(a[k].cpu().numpy(), b[k].numpy())
