@@ -8,14 +8,24 @@ Phases (each asserts; any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels from csrc/, one nvcc per source, all
      in parallel (timed);
-  3. walk kernels vs plain: on real frontiers of a shallow, a deep and the
-     last level of the N = 1e6 NFW tree, for a subset of groups, far_level
-     in both modes (walk: p99.9 relative error < 2e-5 and identical keys;
-     record: all four key planes identical) and near_level against their
-     plain PyTorch versions, with times of both; near_level timed on every
-     level of the walk for all groups (its time per walk, with its bound)
-     and held against its plain version on all groups of the level with
-     the most segments;
+  3. walk kernels vs plain on the N = 1e6 NFW tree: far_level against
+     its plain version on every level of one walk and of one recording
+     walk (skin 0), all groups: the compacted outputs (far ids, segment
+     keys, next frontier, big-cell chunk keys), the counts, the lists and
+     their telemetry bit-equal, the walk's info equal to what the plain
+     outputs give; its time per walk and per record walk beside its bound
+     and the former dense-plane contract's bound; the walk's far field
+     (far_list on each level's compacted far ids) to p99.9 relative error
+     < 2e-5 with and without the potential, timed per walk, and on the
+     level that sets that p99.9 the kernel and the plain version each
+     against the plain version in float64; the same checks with small caps
+     (w_max, open_cap, big_cap, big_chunks, lvl_cap, far_cap, near_cap; the
+     big-cell caps on a depth-10 tree of the same particles), each
+     overflowing; near_level on a shallow, a deep and the last level
+     and the big-cell chunks for a subset of groups against its plain
+     version, with times of both, timed on every level of the walk for all
+     groups (its time per walk, with its bound) and held against its plain
+     version on all groups of the level with the most segments;
   4. oracles: the walk, and the cached lists recorded at skin 0 on the same
      fresh tree, at N = 1e6 (theta 0.5, geometric opening) against the
      direct sum on 4096 random targets (p99 <= 1e-3);
@@ -23,7 +33,7 @@ Phases (each asserts; any failure exits non-zero):
      ListMode 1 through Simulation: prepare, 8 steps, compute_potential;
      >= 2 record steps (prepare's included), >= 4 list steps, no list or
      walk overflow, finite positions, |dE/E| < 1e-3, and launches of
-     far_level (record), far_list, near_level and gather_rows;
+     far_level (record), far_list, near_level and gather_nodes;
   6. list kernels vs plain: far_list and near_level on the main path's
      recorded lists, for 512 groups (timed against the plain versions) and
      for all groups (timed, with the bound), with and without the
@@ -31,21 +41,26 @@ Phases (each asserts; any failure exits non-zero):
      all groups equal to the plain split; stress inputs at
      the same bars (far: two lists at far_cap, one with dead ids, beside
      empty lists; near: a group at the near cap of K keys of cnt 31 beside
-     empty groups, self and coincident pairs); gather_rows bit-equal at the
+     empty groups, self and coincident pairs); gather_nodes (the compact
+     table from the tree's arrays) bit-equal to the packed table's rows in
+     the columns it writes, timed against its plain version and against
+     pack_tree + flat_tables + index_select; gather_rows bit-equal at the
      compact table's shape;
   7. the TPU probes' shapes: far_list through the Pallas far prototype's
      interface (NU = 2048 units) against its XLA reference (max |diff| /
      max |ref| < 1e-5), gather_rows bit-equal at (65536, 16) x 256 x 2048
      ids, gather_rowsum at 8M ids from (2^14, 16) and (2^10, 16);
   8. first slice's path: ListMode 0 (the walk every step) through
-     Simulation: prepare, 2 steps, compute_potential, with far_level and
-     near_level launched, no overflow, |dE/E| < 1e-3.
+     Simulation: prepare, 2 steps, compute_potential, with far_level,
+     far_list and near_level launched, no overflow, |dE/E| < 1e-3.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: on this slice's main path, phase 5; ``launches_by_path``:
 phase 5's and phase 8's counts, each path's counters set to 0 just before
 it and read just after; for far_list and near_level ``full_ms`` and
-``full_bound_ms`` on all groups of the lists, for near_level ``walk_ms``
-and ``walk_bound_ms`` per walk) and the card's name and power limit; the
+``full_bound_ms`` on all groups of the lists, for near_level and far_list
+``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
+``witness``, for far_level (walk and record modes) ``ms`` per walk on all
+groups with ``dense_bound_ms``) and the card's name and power limit; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -122,6 +137,260 @@ class Results:
             r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
 
 
+def prefix_equal(a, b, n, tail) -> bool:
+    """Rows of a and b equal in their first n[g] entries (the entries past
+    a count are not part of an output)."""
+    live = torch.arange(a.shape[1], device=a.device)[None, :] < n[:, None]
+    return a.shape == b.shape and torch.equal(torch.where(live, a, tail),
+                                              torch.where(live, b, tail))
+
+
+class FarLevelCheck:
+    """far_level against far_level_plain on every level of a walk and of a
+    recording walk (``walk_level`` and ``record_level``, ``on_level``
+    observers of wq_gravity_tree and record_lists), all groups: compacted
+    outputs, counts, lists and telemetry bit-equal; the walk's info
+    recomputed from the plain outputs (``check_info``). The walk's far
+    field, far_list on each level's compacted far ids, against
+    far_list_plain to p99.9 < 2e-5 with and without the potential, and on
+    the level that sets that p99.9 against the plain version in float64
+    (``witness``). Unless ``stress``, each level is also timed (kernel,
+    call, plain) and its bounds summed (for far_level also the
+    dense-plane contract's bound)."""
+
+    FIELDS = (("far", 0, 2147483647), ("seg", 1, 2147483647),
+              ("fids", 2, -1), ("bkey", 6, 2147483647))
+
+    def __init__(self, card, stress=False):
+        self.card, self.stress = card, stress
+        self.t = {m: dict(levels=0) for m in ("walk", "record", "far_list")}
+        self.err, self.max_abs = 0.0, 0.0   # the walk's far field vs plain
+        self.worst = None                   # (level, which, its far_list kw)
+        self.far_total = 0.0                # the plain far field, all levels
+        self.info = dict(n_segs=0, ovf_open=0, ovf_big=0, max_open=[])
+
+    def _same(self, k, p):
+        assert torch.equal(k.cnt, p.cnt), "far_level counts"
+        for f, row, tail in self.FIELDS:
+            if getattr(p, f) is not None:
+                assert prefix_equal(getattr(k, f), getattr(p, f), p.cnt[row],
+                                    tail), ("far_level", f)
+
+    def _time(self, mode, level, width, ms, call_ms, plain_ms, work,
+              dense=(0.0, 0.0)):
+        from sidm_tpu_torch.bounds import bound_ms
+        t = self.t[mode]
+        t["levels"] += 1
+        for key, v in (("ms", ms), ("call_ms", call_ms),
+                       ("plain_ms", plain_ms), ("ops", work[0]),
+                       ("bytes", work[1]), ("dense_ops", dense[0]),
+                       ("dense_bytes", dense[1])):
+            t[key] = t.get(key, 0.0) + v
+        name = {"walk": "far_level (walk)", "record": "far_level (record)",
+                "far_list": "far_list (walk far field)"}[mode]
+        print(f"  {name} level {level}: width {width}, device {ms:.3f} ms, "
+              f"call {call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms(*work)[0]:.4f} ms"
+              + (f", dense-plane bound {bound_ms(*dense)[0]:.4f} ms"
+                 if dense[1] else ""), flush=True)
+
+    def walk_level(self, name, level, kw):
+        if name == "far_level":
+            self._classify(level, kw)
+        elif name == "far_list":
+            self._far_field(level, kw)
+
+    def _classify(self, level, kw):
+        from sidm_tpu_torch.bounds import far_level_dense_work, far_level_work
+        from sidm_tpu_torch.ops.far_kernel import (C_BIG, C_BIG_DROP, C_BK,
+                                                   C_OPEN, C_OVF_OPEN, C_SEG,
+                                                   far_level, far_level_plain)
+        from sidm_tpu_torch.profile_step import FAR_LEVEL_KERNELS, device_ms
+        k, p = far_level(**kw), far_level_plain(**kw)
+        self._same(k, p)
+        c = p.cnt.long()
+        self.info["n_segs"] += int(c[C_SEG].sum() + c[C_BK].sum())
+        if kw["last"]:
+            self.info["ovf_big"] += int(
+                torch.clamp(c[C_BIG] - kw["big_cap"], min=0).sum()
+                + c[C_BIG_DROP].sum())
+        else:
+            self.info["ovf_open"] += int(c[C_OVF_OPEN].sum())
+            self.info["max_open"].append(int(c[C_OPEN].max()))
+        if self.stress:
+            return
+        self._time("walk", level, kw["fids"].shape[1],
+                   device_ms(lambda: far_level(**kw), 5, FAR_LEVEL_KERNELS),
+                   cuda_ms(lambda: far_level(**kw), 5),
+                   cuda_ms(lambda: far_level_plain(**kw), 1),
+                   far_level_work(kw, p.cnt), far_level_dense_work(kw))
+
+    def _far_field(self, level, kw):
+        from sidm_tpu_torch.bounds import far_list_work
+        from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+        from sidm_tpu_torch.profile_step import FAR_LIST_KERNELS, device_ms
+        valid = kw["te"] != 1.0
+        errs = {}
+        for pot in (False, True):
+            pkw = dict(kw, need_pot=pot)
+            a, b = far_list(**pkw), far_list_plain(**pkw)
+            assert bool(torch.isfinite(a).all())
+            e, ep = rel_err(a, b, valid)
+            errs["acc with pot" if pot else "acc"] = q999(e)
+            if pot:
+                errs["pot"] = q999(ep)
+                if not self.stress:
+                    self.far_total = self.far_total + b[..., :3]
+            self.max_abs = max(self.max_abs,
+                               float(torch.max(torch.abs(a - b)[valid])))
+        assert max(errs.values()) < 2e-5, ("walk far field", level, errs)
+        which = max(errs, key=errs.get)
+        if self.worst is None or errs[which] > self.err:
+            self.err = errs[which]
+            self.worst = (level, which, kw)
+        if self.stress:
+            return
+        self._time("far_list", level, kw["ids"].shape[1],
+                   device_ms(lambda: far_list(**kw), 5, FAR_LIST_KERNELS),
+                   cuda_ms(lambda: far_list(**kw), 5),
+                   cuda_ms(lambda: far_list_plain(**kw), 1),
+                   far_list_work(kw["tbl"], kw["nf"], torch.sum(valid, 1),
+                                 kw["need_pot"]))
+
+    def witness(self):
+        """The level that set the walk far field's p99.9: kernel and plain
+        version (float32) each against the plain version in float64 on the
+        same inputs, over all valid targets and over the targets at or
+        above that p99.9 (the ones that set it); for those, the level's far
+        field and the kernel's error against the float64 one relative to
+        the target's whole far field (all levels)."""
+        from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+        level, which, kw = self.worst
+        kw = dict(kw, need_pot=True)
+        valid = kw["te"] != 1.0
+        k, p = far_list(**kw), far_list_plain(**kw)
+        d = far_list_plain(**{n: (v.double() if torch.is_tensor(v)
+                                  and v.is_floating_point() else v)
+                              for n, v in kw.items()})
+        i = 1 if which == "pot" else 0
+        e_kp = rel_err(k, p, valid)[i]
+        e_kd = rel_err(k.double(), d, valid)[i]
+        e_pd = rel_err(p.double(), d, valid)[i]
+        top = e_kp >= torch.quantile(e_kp.float(), 0.999)
+        gi, si = torch.nonzero(valid, as_tuple=True)
+        w = int(torch.argmax(e_kp))
+        nf = kw["nf"][gi[top]].float()
+        tot = torch.linalg.norm(self.far_total[valid], dim=-1)
+        lvl = torch.linalg.norm(d[..., :3][valid], dim=-1)
+        k_err = torch.linalg.norm((k.double() - d)[..., :3][valid], dim=-1)
+        out = dict(level=level, error=which, targets=int(valid.sum()),
+                   top=int(top.sum()),
+                   top_groups=int(gi[top].unique().numel()),
+                   kernel_vs_plain=q999(e_kp), kernel_vs_f64=q999(e_kd),
+                   plain_vs_f64=q999(e_pd),
+                   top_kernel_vs_f64=float(e_kd[top].median()),
+                   top_plain_vs_f64=float(e_pd[top].median()),
+                   worst=(int(gi[w]), int(si[w]), float(e_kp[w]),
+                          float(e_kd[w]), float(e_pd[w])),
+                   top_far_entries=(float(nf.min()), float(nf.median()),
+                                    float(nf.max())),
+                   top_level_over_far=float((lvl / tot)[top].median()),
+                   top_kernel_err_over_far=float(
+                       (k_err / tot)[top].median()),
+                   kernel_err_over_far=q999(k_err / tot))
+        print(f"float64 witness of the walk far field (level {level}, "
+              f"{which} error, {out['targets']} valid targets): p99.9 kernel "
+              f"vs plain {out['kernel_vs_plain']:.3e}, kernel vs float64 "
+              f"{out['kernel_vs_f64']:.3e}, plain (float32) vs float64 "
+              f"{out['plain_vs_f64']:.3e}; the {out['top']} targets at or "
+              f"above the p99.9 (in {out['top_groups']} groups, far entries "
+              f"min/median/max {out['top_far_entries']}): median error "
+              f"kernel vs float64 {out['top_kernel_vs_f64']:.3e}, plain vs "
+              f"float64 {out['top_plain_vs_f64']:.3e}, |level far field| / "
+              f"|whole far field| {out['top_level_over_far']:.3e}, kernel's "
+              f"error / |whole far field| {out['top_kernel_err_over_far']:.3e}"
+              f" (p99.9 over all targets {out['kernel_err_over_far']:.3e}); "
+              f"worst (group, slot, kernel vs plain, kernel vs f64, plain vs "
+              f"f64) {out['worst']} [{self.card}]", flush=True)
+        return out
+
+    def check_info(self, info):
+        """The walk's info equals what the plain outputs give."""
+        got = dict(n_segs=int(info["n_segs"]),
+                   ovf_open=int(info["ovf_open"]),
+                   ovf_big=int(info["ovf_big"]),
+                   max_open=[int(x) for x in info["max_open"]])
+        assert got == self.info, (got, self.info)
+
+    def record_level(self, level, kw):
+        from sidm_tpu_torch.bounds import far_level_dense_work, far_level_work
+        from sidm_tpu_torch.ops.far_kernel import (ListBuf, far_level,
+                                                   far_level_plain)
+        from sidm_tpu_torch.profile_step import FAR_LEVEL_KERNELS, device_ms
+        bufs = [ListBuf(*(t.clone() for t in kw["lists"])) for _ in range(2)]
+        k = far_level(**dict(kw, lists=bufs[0]))
+        p = far_level_plain(**dict(kw, lists=bufs[1]))
+        assert all(torch.equal(a, b) for a, b in zip(*bufs)), \
+            ("far_level record", level)
+        self._same(k, p)
+        if self.stress:
+            return
+        # each timed launch appends the same entries again: the list counts
+        # and telemetry are put back first (that copy timed alone, taken off)
+        nf, nn, st = (t.clone() for t in kw["lists"][2:])
+
+        def restore(b):
+            b.nf.copy_(nf)
+            b.nn.copy_(nn)
+            b.stat.copy_(st)
+
+        def timed(fn, b, reps):
+            return (cuda_ms(lambda: (restore(b), fn(**dict(kw, lists=b))),
+                            reps) - cuda_ms(lambda: restore(b), reps))
+        self._time("record", level, kw["fids"].shape[1],
+                   device_ms(lambda: (restore(bufs[0]),
+                                      far_level(**dict(kw, lists=bufs[0]))),
+                             5, FAR_LEVEL_KERNELS),
+                   timed(far_level, bufs[0], 5),
+                   timed(far_level_plain, bufs[1], 1),
+                   far_level_work(kw, p.cnt), far_level_dense_work(kw))
+
+    def report(self, mode, res):
+        from sidm_tpu_torch.bounds import bound_ms
+        t = self.t[mode]
+        bms, by = bound_ms(t["ops"], t["bytes"])
+        walk = "record walk" if mode == "record" else "walk"
+        name = {"walk": "far_level", "record": "far_level_record",
+                "far_list": "far_list"}[mode]
+        what = {"walk": "outputs, counts and info equal to the plain "
+                        "version's",
+                "record": "outputs, counts, lists and telemetry equal to "
+                          "the plain version's",
+                "far_list": f"the walk's far field, p99.9 err "
+                            f"{self.err:.3e} (largest of acc, acc with pot, "
+                            f"pot), max abs {self.max_abs:.3e}"}[mode]
+        dense = (f"; dense-plane bound "
+                 f"{bound_ms(t['dense_ops'], t['dense_bytes'])[0]:.3f} ms"
+                 if t["dense_bytes"] else "")
+        print(f"kernel {name} (one {walk}, all groups, {t['levels']} "
+              f"levels): {what}; device {t['ms']:.3f} ms per {walk}, calls "
+              f"{t['call_ms']:.3f} ms by CUDA events (host launch time "
+              f"included), plain {t['plain_ms']:.3f} ms, bound {bms:.3f} ms "
+              f"({by}), at {bms / t['ms']:.1%} of the bound's speed{dense} "
+              f"[{self.card}]", flush=True)
+        if mode == "far_list":
+            res.add(name, self.max_abs, 0.0, 0.0, 0.0, 0.0)
+            res.rows[name].update(walk_ms=t["ms"], walk_bound_ms=bms,
+                                  walk_call_ms=t["call_ms"],
+                                  walk_plain_ms=t["plain_ms"],
+                                  walk_p999_err=self.err)
+            return
+        res.add(name, 0.0, t["ms"], t["plain_ms"], t["ops"], t["bytes"])
+        res.rows[name].update(
+            dense_bound_ms=bound_ms(t["dense_ops"], t["dense_bytes"])[0],
+            call_ms=t["call_ms"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -133,23 +402,26 @@ def main():
                          "port on the card only")
     # imported only now: the script alone, without the package, must fail
     from sidm_tpu_torch import _build
-    from sidm_tpu_torch.bounds import (bound_ms, far_level_work,
-                                       far_list_work, gather_work,
+    from sidm_tpu_torch.bounds import (bound_ms, far_list_work,
+                                       gather_nodes_work, gather_work,
                                        near_level_work)
     from sidm_tpu_torch.flagship import flagship_config, flagship_ics
     from sidm_tpu_torch.ops.direct import direct_gravity
-    from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
+    from sidm_tpu_torch.ops.far_kernel import far_level
     from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
                                              far_split, far_units,
                                              k3_reference, units_to_lists)
     from sidm_tpu_torch.ops.work_items import (far_split_plain,
                                                near_split_plain)
-    from sidm_tpu_torch.ops.fused_force import default_depth, pack_tree
-    from sidm_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
-                                           gather_rowsum,
+    from sidm_tpu_torch.ops.fused_force import (FusedConfig, default_depth,
+                                                flat_tables, pack_tree)
+    from sidm_tpu_torch.ops.gather import (NODE_COLS, UNSET_COLS,
+                                           gather_nodes,
+                                           gather_nodes_plain, gather_rows,
+                                           gather_rows_plain, gather_rowsum,
                                            gather_rowsum_plain)
-    from sidm_tpu_torch.ops.list_force import (eval_inputs, eval_lists,
-                                               flat_tables, record_lists)
+    from sidm_tpu_torch.ops.list_force import (ListConfig, eval_inputs,
+                                               eval_lists, record_lists)
     from sidm_tpu_torch.ops.near_kernel import (near_level, near_level_plain,
                                                 near_split)
     from sidm_tpu_torch.ops.tree import build_octree
@@ -187,34 +459,36 @@ def main():
     depth = default_depth(p.n_padded)
     tree = build_octree(p.pos, mass_t, eps_t, p.valid, depth=depth,
                         uniform_eps=sim._check_uniform_eps())
-    offs = tree.level_offsets
     levels = {3, (3 + depth) // 2 + 1, depth, depth + 1}
     captured = {}
     sub = None
     walk_near = dict(calls=0, groups=0, ms=0.0, ops=0.0, bytes=0.0)
+    fl = FarLevelCheck(card)
 
     def capture(name, level, kw):
         nonlocal sub
-        if name == "near_level":     # every level, all groups
-            nv = torch.sum(kw["te"] != 1.0, dim=1)
-            ops, nb = near_level_work(kw, nv)
-            walk_near["calls"] += 1
-            walk_near["groups"] = kw["xr"].shape[0]
-            walk_near["ms"] += cuda_ms(lambda: near_level(**kw), 3)
-            walk_near["ops"] += ops
-            walk_near["bytes"] += nb
-            seg = int(torch.sum(kw["n_seg"]))
-            if seg > walk_near.get("seg", -1):   # the level checked in full
-                walk_near.update(seg=seg, level=level, kw={
-                    k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                    for k, v in kw.items() if k != "need_pot"})
+        if name != "near_level":     # far_level, far_list: all groups
+            fl.walk_level(name, level, kw)
+            return
+        nv = torch.sum(kw["te"] != 1.0, dim=1)
+        ops, nb = near_level_work(kw, nv)
+        walk_near["calls"] += 1
+        walk_near["groups"] = kw["xr"].shape[0]
+        walk_near["ms"] += cuda_ms(lambda: near_level(**kw), 3)
+        walk_near["ops"] += ops
+        walk_near["bytes"] += nb
+        seg = int(torch.sum(kw["n_seg"]))
+        if seg > walk_near.get("seg", -1):   # the level checked in full
+            walk_near.update(seg=seg, level=level, kw={
+                k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                for k, v in kw.items() if k != "need_pot"})
         if level not in levels:
             return
-        ng = kw["xr" if name == "near_level" else "xc"].shape[0]
+        ng = kw["xr"].shape[0]
         if sub is None:
             sub = torch.linspace(0, ng - 1, min(SUBSET_GROUPS, ng),
                                  device=dev).long()
-        captured[(name, level)] = {
+        captured[level] = {
             k: (v[sub].contiguous() if isinstance(v, torch.Tensor)
                 and v.dim() > 0 and v.shape[0] == ng else v)
             for k, v in kw.items()}
@@ -223,6 +497,56 @@ def main():
         tree, mass_t, eps_t, old0, theta=0.5, opening=1, need_pot=True,
         return_info=True, on_level=capture)
     torch.cuda.synchronize()
+    fl.check_info(winfo)
+    fl.report("walk", res)
+    fl.report("far_list", res)
+    res.rows["far_list"].update(witness=fl.witness())
+    # the recording walk of the same tree (geometric opening, skin 0)
+    record_lists(tree, old0[tree.perm], p.valid[tree.perm], theta=0.5,
+                 use_relative=False, lcfg=sim._lfc, skin=0.0,
+                 on_level=fl.record_level)
+    torch.cuda.synchronize()
+    fl.report("record", res)
+    # the caps overflowing: the same checks with small caps, on this tree
+    # (the opened-cell and frontier caps) and on a depth-10 tree of the
+    # same particles, whose deepest cells hold more than 16 particles (the
+    # big-cell caps, the level and list caps)
+    tree10 = build_octree(p.pos, mass_t, eps_t, p.valid, depth=10,
+                          uniform_eps=sim._check_uniform_eps())
+    fs = FarLevelCheck(card, stress=True)
+    sovf = {}
+    for label, t, cfg in (
+            ("w_max 256, open_cap 40", tree,
+             FusedConfig(w_max=256, open_cap=40)),
+            ("depth 10, big_cap 1 x 1 chunk", tree10,
+             FusedConfig(big_cap=1, big_chunks=1))):
+        fs.info = dict(n_segs=0, ovf_open=0, ovf_big=0, max_open=[])
+        _, _, sinfo = wq_gravity_tree(
+            t, mass_t, eps_t, old0, theta=0.5, opening=1, need_pot=False,
+            config=cfg, return_info=True,
+            on_level=lambda name, level, kw: (
+                fs.walk_level(name, level, kw) if name != "near_level"
+                else None))
+        fs.check_info(sinfo)
+        sovf[label] = (int(sinfo["ovf_open"]), int(sinfo["ovf_big"]))
+    slists = record_lists(tree10, old0[tree10.perm], p.valid[tree10.perm],
+                          theta=0.5, use_relative=False,
+                          cfg=FusedConfig(big_cap=1, big_chunks=1),
+                          lcfg=ListConfig(far_cap=256, near_cap=128,
+                                          lvl_cap=48),
+                          skin=0.0, on_level=fs.record_level)
+    torch.cuda.synchronize()
+    rovf = slists.ovf.tolist()
+    print(f"stress far_level (all groups, every level; outputs, counts and "
+          f"telemetry equal to the plain version's): walk (ovf_open, "
+          f"ovf_big) {sovf}; record on the depth-10 tree with big_cap 1 x 1 "
+          f"chunk, far_cap 256, near_cap 128, lvl_cap 48: ovf {rovf}; p99.9 "
+          f"acc err {fs.err:.3e} [{card}]", flush=True)
+    (o_open, _), (_, o_big) = sovf.values()
+    assert o_open > 0 and o_big > 0 and min(rovf[:3]) > 0, (sovf, rovf)
+    res.add("far_list", fs.max_abs, 0.0, 0.0, 0.0, 0.0)
+    del slists, fs, tree10
+
     wbound, wby = bound_ms(walk_near["ops"], walk_near["bytes"])
     walk_near["bound_ms"] = wbound
     print(f"kernel near_level (one walk, all {walk_near['groups']} groups, "
@@ -230,60 +554,26 @@ def main():
           f"walk, bound {wbound:.3f} ms ({wby}), at "
           f"{wbound / walk_near['ms']:.1%} of the bound's speed [{card}]",
           flush=True)
-    n_far = n_near = 0
-    for (name, level), kw in sorted(captured.items()):
+    for level, kw in sorted(captured.items()):
         valid = kw["te"] != 1.0   # dead target slots carry te = 1
         nvalid = torch.sum(valid, dim=1)
-        if name == "far_level":
-            rkw = dict(kw, xc=None, te=None, record=True,
-                       lvl_base=offs[level])
-            rec_k = far_level(**rkw)
-            rec_p = far_level_plain(**rkw)
-            torch.cuda.synchronize()
-            assert all(torch.equal(a, b) for a, b in zip(rec_k, rec_p)), \
-                ("far_level record", level)
-            r_ms = cuda_ms(lambda: far_level(**rkw), 10)
-            r_plain = cuda_ms(lambda: far_level_plain(**rkw), 2)
-            ops, nb = far_level_work(rkw, rec_k[0], nvalid)
-            res.add("far_level_record", 0, r_ms, r_plain, ops, nb)
-            print(f"kernel far_level (record) level {level}: groups "
-                  f"{nvalid.shape[0]}, four key planes equal, far keys "
-                  f"{int(torch.sum(rec_k[0] != 2147483647))}, kernel "
-                  f"{r_ms:.3f} ms, plain {r_plain:.3f} ms [{card}]",
-                  flush=True)
-        kern, plain = ((far_level, far_level_plain) if name == "far_level"
-                       else (near_level, near_level_plain))
-        out_k = kern(**kw)
+        out_k = near_level(**kw)
         torch.cuda.synchronize()
-        out_p = plain(**kw)
+        out_p = near_level_plain(**kw)
         torch.cuda.synchronize()
-        acc_k = out_k[0] if name == "far_level" else out_k
-        acc_p = out_p[0] if name == "far_level" else out_p
-        e, ep = rel_err(acc_k, acc_p, valid)
-        keys = ""
-        if name == "far_level":
-            assert all(torch.equal(a, b) for a, b in zip(out_k[1:],
-                                                         out_p[1:]))
-            # the record mode's segment/open/big planes are the walk's
-            assert all(torch.equal(a, b) for a, b in zip(out_k[1:],
-                                                         rec_k[1:]))
-            keys = "keys equal (and equal to record mode's), "
-            ops, nb = far_level_work(kw, rec_k[0], nvalid)
-            n_far += 1
-        else:
-            ops, nb = near_level_work(kw, nvalid)
-            n_near += 1
-        max_abs = float(torch.max(torch.abs(acc_k - acc_p)[valid]))
-        ms = cuda_ms(lambda: kern(**kw), 10)
-        plain_ms = cuda_ms(lambda: plain(**kw), 2)
-        print(f"kernel {name} level {level}: groups {acc_k.shape[0]}, "
+        e, ep = rel_err(out_k, out_p, valid)
+        ops, nb = near_level_work(kw, nvalid)
+        max_abs = float(torch.max(torch.abs(out_k - out_p)[valid]))
+        ms = cuda_ms(lambda: near_level(**kw), 10)
+        plain_ms = cuda_ms(lambda: near_level_plain(**kw), 2)
+        print(f"kernel near_level level {level}: groups {out_k.shape[0]}, "
               f"p99.9 acc err {q999(e):.3e}, p99.9 pot err {q999(ep):.3e}, "
-              f"max abs {max_abs:.3e}, {keys}"
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms(ops, nb)[0]:.3f} ms [{card}]", flush=True)
-        assert q999(e) < 2e-5 and q999(ep) < 2e-5, (name, level)
-        res.add(name, max_abs, ms, plain_ms, ops, nb)
-    assert n_far == 3 and n_near == 4, (n_far, n_near)
+              f"max abs {max_abs:.3e}, kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms(ops, nb)[0]:.3f} ms "
+              f"[{card}]", flush=True)
+        assert q999(e) < 2e-5 and q999(ep) < 2e-5, ("near_level", level)
+        res.add("near_level", max_abs, ms, plain_ms, ops, nb)
+    assert len(captured) == 4, sorted(captured)
     # all groups of the walk level with the most segments
     wkw = walk_near.pop("kw")
     wvalid = wkw["te"] != 1.0
@@ -335,7 +625,8 @@ def main():
                 "near_level": (near_level, "launches"),
                 "far_list": (far_list, "launches"),
                 "gather_rows": (gather_rows, "launches"),
-                "gather_rowsum": (gather_rowsum, "launches")}
+                "gather_rowsum": (gather_rowsum, "launches"),
+                "gather_nodes": (gather_nodes, "launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -389,7 +680,7 @@ def main():
     assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
     assert kinds.count("record") >= 2 and kinds.count("list") >= 4, kinds
     for key in ("far_level_record", "far_list", "near_level",
-                "gather_rows"):
+                "gather_nodes"):
         assert launches[key] > 0, (key, launches)
 
     # ---- list kernels vs plain on the main path's recorded lists ------------
@@ -443,12 +734,44 @@ def main():
     far_stress(res, lists, ctbl, xc, te, gc, card)
     near_stress(res, lists, btree, gt, te, card)
 
-    tbl_all = flat_tables(pack_tree(btree))
-    src = torch.cat([lists.src, torch.full((1,), tbl_all.shape[0],
+    # the compact table: gather_nodes from the tree's arrays against its
+    # plain version (every column bit-equal, UNSET_COLS NaN) and against the
+    # packed table's rows (NODE_COLS, bit-equal); gather_rows, the probe's
+    # kernel, on the packed table itself
+    src = torch.cat([lists.src, torch.full((1,), btree.mac_rows.shape[0],
                                            dtype=torch.int32, device=dev)])
+    out_k = gather_nodes(btree, src)
+    out_p = gather_nodes_plain(btree, src)
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+    assert torch.equal(out_k.view(torch.int32), ctbl.view(torch.int32))
+    assert bool(torch.isnan(out_k[:, UNSET_COLS]).all())
+    packed = torch.cat([flat_tables(pack_tree(btree)),
+                        torch.zeros(1, 16, device=dev)])[src.long()]
+    assert torch.equal(out_k[:, NODE_COLS], packed[:, NODE_COLS])
+    del packed
+    ms = cuda_ms(lambda: gather_nodes(btree, src), 10)
+    plain_ms = cuda_ms(lambda: gather_nodes_plain(btree, src), 3)
+    flat = src.long()
+
+    def library():
+        tbl = flat_tables(pack_tree(btree))
+        return torch.index_select(torch.cat(
+            [tbl, torch.zeros(1, 16, device=dev)]), 0, flat)
+    lib_ms = cuda_ms(library, 5)
+    ops, nb = gather_nodes_work(btree.mac_rows.shape[0], src)
+    print(f"kernel gather_nodes (compact table from the tree, main path): "
+          f"rows {src.numel()} of {btree.mac_rows.shape[0]} nodes, columns "
+          f"{NODE_COLS} bit-equal to flat_tables(pack_tree(tree))[src] "
+          f"(the rest NaN, every column bit-equal to the plain version), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, pack_tree + "
+          f"flat_tables + index_select {lib_ms:.4f} ms, bound "
+          f"{bound_ms(ops, nb)[0]:.4f} ms [{card}]", flush=True)
+    res.add("gather_nodes", 0.0, ms, plain_ms, ops, nb, lib_ms)
+    tbl_all = flat_tables(pack_tree(btree))
     check_gather(res, "gather_rows", gather_rows, gather_rows_plain, tbl_all,
                  src, "compact table", card, gather_work, bound_ms)
     del lists, btree, ctbl, gt, xc, te, gc, tbl_all, src, sim, fkw, nkw
+    del out_k, out_p, flat
 
     # ---- the TPU probes' own shapes -------------------------------------
     # make_chunk's data as the script's main() draws it (seed 0): random
@@ -519,7 +842,8 @@ def main():
     wsim.compute_potential()
     torch.cuda.synchronize()
     walk_launches = read_counts()
-    wl = {k: walk_launches[k] for k in ("far_level", "near_level")}
+    wl = {k: walk_launches[k] for k in ("far_level", "far_list",
+                                         "near_level")}
     de = abs(sim_energy(wsim) - e_start) / abs(e_start)
     print(f"walk path (ListMode 0): N {n}, {WALK_STEPS} steps "
           f"{t_walk:.3f} s, {n * WALK_STEPS / t_walk:.1f} particle-steps/s, "
@@ -541,6 +865,8 @@ def main():
                         "scripts/pallas_gather_probe.py:40"),
         "gather_rowsum": ("sidm_tpu_torch/csrc/gather.cu",
                           "scripts/gatherbench.py:65,99"),
+        "gather_nodes": ("sidm_tpu_torch/csrc/gather.cu",
+                         "scripts/pallas_gather_probe.py:40"),
     }
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
@@ -554,8 +880,9 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("full_ms", "full_bound_ms", "walk_ms",
-                                 "walk_bound_ms") if k in r}})
+            **{k: v for k, v in r.items() if k not in (
+                "max_abs_err", "ms", "plain_ms", "ops", "bytes",
+                "library_ms")}})
     print(json.dumps({"kernels": kernels_json}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,12 @@ interface, loaded with ``ctypes``:
 ``<h>`` hashes the source's own flags, the source and every header, so an
 edited file builds anew and an unchanged one is reused. ``-fmad=false`` is
 given to ``far_kernel.cu`` alone: it keeps every product and sum of the
-walk's far kernel rounded as in the plain PyTorch version, so that its
-classification, and hence the emitted keys, match the plain version's
-exactly. The other sources are built with FMA: the peak of 67 TFLOP/s that
-``bounds.py`` divides by counts an FMA as two operations, so a kernel
-without FMA can reach at most half of its bound. Each C entry point
+walk's classification rounded as in the plain PyTorch version (beside its
+explicit ``__fmul_rn``/``__fadd_rn``), so that its decisions, and hence
+every emitted id and key, match the plain version's exactly. The other
+sources are built with FMA: the peak of 67 TFLOP/s that ``bounds.py``
+divides by counts an FMA as two operations, so a kernel without FMA can
+reach at most half of its bound. Each C entry point
 launches on the stream it is given and returns ``cudaGetLastError()`` of
 its launches.
 """
@@ -46,8 +47,8 @@ _L = ctypes.c_longlong
 # entry point -> (source stem, argument types)
 _SIGNATURES = {
     "far_level_launch": ("far_kernel", [
-        _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I,
-        _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+        _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I,
+        _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]),
     "near_level_launch": ("near_kernel", [
         _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P]),
     "near_split_launch": ("near_kernel", [_P, _P, _I, _I, _P, _I, _P]),
@@ -55,6 +56,7 @@ _SIGNATURES = {
         _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P]),
     "far_split_launch": ("far_list", [_P, _I, _I, _P, _I, _P]),
     "gather_launch": ("gather", [_P, _I, _P, _L, _P, _P, _P]),
+    "node_rows_launch": ("gather", [_P, _P, _I, _P, _L, _P, _P]),
 }
 
 _lib = None

@@ -7,11 +7,11 @@ Peaks of the H100 SXM (NVIDIA's data sheet, at the 700 W power limit):
 67 TFLOP/s float32 without tensor cores, 3.35 TB/s HBM3. The 67 TFLOP/s
 is the FMA rate (132 SMs x 128 lanes x 2 operations x 1.98 GHz): an add
 and a multiply fused into one instruction count as two operations here, so
-a kernel built without FMA (``_build.py``: only the walk's far kernel, for
-its bit-equal keys) can reach at most half of its bound. The operation
-counts are those the function needs, counted from the CUDA sources (each
-add, multiply, min/max, compare, division and square root as one), not
-what the kernels happen to execute: the softened kernels on their
+a kernel built without FMA (``_build.py``: only the walk's classification
+kernel, for its bit-equal decisions) can reach at most half of its bound.
+The operation counts are those the function needs, counted from the CUDA
+sources (each add, multiply, min/max, compare, division and square root as
+one), not what the kernels happen to execute: the softened kernels on their
 Newtonian branch (1/r^3 and -1/r, not the softened polynomial), and a
 quantity that depends only on the node, or on the node and the group, once
 per list entry rather than once per pair. Near pairs inside the softening
@@ -28,10 +28,11 @@ import torch
 PEAK_F32 = 67e12        # float32 operations per second, no tensor cores
 PEAK_BYTES = 3.35e12    # HBM bytes per second
 
-# csrc/far_pair.cuh far_pair, no potential: monopole 24 (c.x 5, r^2 4,
-# sqrt, h 2, r >= h, 1/r^3 3, m/r^3, the sums of fac and fac c 7),
-# quadrupole 51 (m > 0, 1/r, r^-5 and r^-7 4, x.u 5, x.Q.x 11, d.Q.d 3,
-# the sums of w5 u 6, w5 Q 12, t7 2, t7 c 6)
+# far pair (csrc/far_list.cu, ops/far_list.py contract), no potential:
+# monopole 24 (c.x 5, r^2 4, sqrt, h 2, r >= h, 1/r^3 3, m/r^3, the sums
+# of fac and fac c 7), quadrupole 51 (m > 0, 1/r, r^-5 and r^-7 4, x.u 5,
+# x.Q.x 11, d.Q.d 3, the sums of w5 u 6, w5 Q 12, t7 2, t7 c 6), counted
+# on the expansion |x|^2 + |c|^2 - 2 x.c of fused_force.far_tile
 FAR_PAIR_OPS = 75
 FAR_ENTRY_OPS = 25      # ... per (group, node): |c|^2 5, u = Q c 15, c.u 5
 FAR_PAIR_POT_OPS = 5    # ... the potential: -1/r, m (-1/r), d.Q.d r^-5, sums
@@ -39,8 +40,11 @@ FAR_PAIR_POT_OPS = 5    # ... the potential: -1/r, m (-1/r), d.Q.d r^-5, sums
 # r >= h, 1/r^3 3, m/r^3, the sums of fac d 6
 NEAR_PAIR_OPS = 22
 NEAR_PAIR_POT_OPS = 3   # ... the potential: -1/r, m (-1/r), its sum
-CLASSIFY_OPS = 30       # csrc/far_kernel.cu classify_row, per node
+CLASSIFY_OPS = 30       # csrc/far_kernel.cu classify, per node
 ROW_BYTES = 64          # one packed node row / table row
+CLASS_ROW_BYTES = 36    # ... the fields classification reads: com, mass,
+                        # count, node_start, child_start, child_count, bmax^2
+NODE_IN_BYTES = 44      # gather_nodes: com, mass, quadrupole, eps_max
 PART_BYTES = 20         # one particle's pos, mass, eps
 
 
@@ -55,25 +59,45 @@ def _n(x) -> int:
     return int(x) if not isinstance(x, torch.Tensor) else int(x.item())
 
 
-def far_level_work(kw: dict, fark, nvalid):
+def far_level_work(kw: dict, cnt):
     """(ops, bytes) of one ``far_level`` call with keyword arguments
-    ``kw``; fark: the record mode's far-key plane for the same inputs
-    (marks the accepted nodes); nvalid (ng,): valid targets per group."""
+    ``kw`` under its compacted contract; cnt: the call's counts
+    (``far_kernel.C_*`` rows) on the same inputs.
+
+    Bytes: the live frontier ids and the fields of its node rows that
+    classification reads (each distinct row once: at most the level's
+    rows), the group boxes and thresholds, the compacted outputs written
+    (far ids, segment keys, next frontier, chunk keys) and the counts; in
+    record mode the list counts and telemetry read and written.
+    Operations: CLASSIFY_OPS per classified node. The walk's far field is
+    ``far_list``'s call (``far_list_work``)."""
+    from .ops.far_kernel import C_BK, C_FAR, C_NEXT, C_SEG, N_CNT
+
+    fids, n_live, tbl = kw["fids"], kw["n_live"], kw["tbl"]
+    ng, W = fids.shape
+    live = _n(torch.sum(torch.clamp(n_live.long(), max=W)))
+    c = cnt.long()
+    written = _n(torch.sum(c[C_FAR]) + torch.sum(c[C_SEG])
+                 + torch.sum(c[C_NEXT]) + torch.sum(c[C_BK]))
+    ops = CLASSIFY_OPS * live
+    nbytes = (4 * (live + ng) + 28 * ng + CLASS_ROW_BYTES
+              * min(tbl.shape[0], live) + 4 * written + 4 * N_CNT * ng)
+    if kw.get("lists") is not None:
+        nbytes += 2 * 4 * (2 + 5) * ng
+    return ops, nbytes
+
+
+def far_level_dense_work(kw: dict):
+    """(ops, bytes) of the same classification under the former
+    dense-plane contract (three (ng, W) int32 key planes written per walk
+    level, four per record level), for comparison; without the far field,
+    which that contract fused into the same kernel."""
     fids, n_live, tbl = kw["fids"], kw["n_live"], kw["tbl"]
     ng, W = fids.shape
     live = _n(torch.sum(torch.clamp(n_live.long(), max=W)))
     ops = CLASSIFY_OPS * live
-    planes = 3
-    nbytes = 4 * (live + ng) + 28 * ng \
-        + ROW_BYTES * min(tbl.shape[0], live)
-    if kw.get("record"):
-        planes = 4
-    else:
-        per = FAR_PAIR_OPS + (FAR_PAIR_POT_OPS if kw["need_pot"] else 0)
-        accepted = torch.sum(fark != 2147483647, dim=1).long()
-        ops += per * _n(torch.sum(accepted * nvalid.long()))
-        ops += FAR_ENTRY_OPS * _n(torch.sum(accepted * (nvalid > 0)))
-        nbytes += 16 * ng * 64 * 2       # targets + softenings in, acc out
+    nbytes = 4 * (live + ng) + 28 * ng + ROW_BYTES * min(tbl.shape[0], live)
+    planes = 3 if kw.get("lists") is None else 4
     return ops, nbytes + 4 * planes * ng * W
 
 
@@ -104,6 +128,14 @@ def far_list_work(tbl, nf, nvalid, need_pot: bool):
     nbytes = (4 * (entries + ng) + ROW_BYTES * min(tbl.shape[0], entries)
               + 12 * ng + 16 * ng * 64 * 2)
     return ops, nbytes
+
+
+def gather_nodes_work(M: int, ids):
+    """(ops, bytes) of one ``gather_nodes`` call on a tree of M nodes: the
+    ids, each distinct node's com, mass, quadrupole and eps read once, the
+    rows written."""
+    n = ids.numel()
+    return 0, 4 * n + NODE_IN_BYTES * min(M, n) + ROW_BYTES * n
 
 
 def gather_work(tbl, ids, rowsum: bool):

@@ -1,201 +1,302 @@
-// One walk level: classify + far multipole + key emission, for every
-// target group. Port of sidm_tpu/ops/pallas_far.py:_far_kernel (see
-// sidm_tpu_torch/ops/far_kernel.py for the contract and the design note).
+// One walk level: classify every group's frontier and write the results in
+// their compacted form. Port of sidm_tpu/ops/pallas_far.py:_far_kernel
+// (classification and key emission; see sidm_tpu_torch/ops/far_kernel.py
+// for the contract and the design note).
 //
-// One thread block (128 threads) per target group loops over the group's
-// frontier in chunks of 128 node ids:
-//   1. thread k gathers node row fids[g, c0+k] from the level table and
-//      classifies it (geometric or relative MAC, BMAX guard, leaf_cap, last
-//      level big path), writing the segment/open/big keys in frontier order;
-//   2. accepted (far) nodes are compacted into shared memory in frontier
-//      order (warp ballots + a 4-warp prefix);
-//   3. thread (t, half) accumulates the group-centred monopole + quadrupole
-//      sums of every other staged node on target t in registers and folds
-//      them into [ax ay az pot] once per chunk (as the TPU kernel does once
-//      per item).
-// The two halves are added at the end and every group's output row is
-// written, so there are no atomics and no uninitialised output.
-//
-// Record mode (the cached-list walk, sidm_tpu/ops/list_force.py
-// _walk_level_keys :160-217) stops after step 1 and writes a fourth plane
-// instead of the far field: the flat id lvl_base + local id of every
-// accepted node, in frontier order.
+// The TPU kernel emits dense (group, frontier slot) key planes that XLA
+// then compacts. Here one thread block owns one target group and walks its
+// frontier in order, kT = 128 ids per chunk, so it writes each stream
+// already compacted, in frontier order:
+//   * accepted (far) nodes: level-local ids (walk), or flat ids appended
+//     to the group's far list under the level cap and the list cap
+//     (record);
+//   * opened leaves: segment keys nstart*32+min(cnt,31), likewise into a
+//     (ng, W) buffer or appended to the group's near list;
+//   * opened inner cells: the first O = min(W, open_cap) expand into their
+//     ccnt contiguous children, the next frontier, truncated at Wn;
+//   * overfull deepest cells (last level): the first big_cap, cut into
+//     16-particle chunk keys, into a buffer (walk) or the near list.
+// Per chunk: each thread loads one node row (two 16-byte loads, com and
+// mass and the integer fields, and bmax^2; the next chunk's rows are
+// loaded while this one is classified) and classifies it with explicit
+// round-to-nearest products and sums, in the order of fused_force.classify,
+// so the decisions equal the plain version's; four warp ballots and a warp
+// scan of the child counts give every output its place, with one
+// __syncthreads per chunk (the per-warp totals are double-buffered). The
+// running offsets are the same in every thread. At the end thread 0 writes
+// the group's counts; in record mode it also updates the group's list
+// counts and its telemetry (demand, drops), all integer, one block per
+// group: no atomics. What bounds it on the H100: the bytes of the live
+// frontier (ids and node rows) and of the compacted outputs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "far_pair.cuh"
-
 namespace {
 
-constexpr int kG = 64;      // targets per group
-constexpr int kWC = 128;    // frontier ids per chunk == threads per block
-constexpr int kRow = 16;    // packed node row width (pack_tree)
+constexpr int kBigMax = 64;     // big_cap limit (ops/far_kernel.py BIG_MAX)
+constexpr int kT = 128;         // threads per block (measured against 256)
 
-struct Level {
-    const float* tbl;
-    int cap, nl_real;
+// Row layout of the counts (ops/far_kernel.py C_*).
+enum { kFar, kSeg, kNext, kOpen, kOvfOpen, kBig, kBk, kBigDrop, kNCnt };
+// Row layout of the record mode's telemetry (ops/far_kernel.py S_*).
+enum { kNeedF, kNeedN, kOvfL, kOvfF, kOvfN };
+
+struct Args {
+    const float4* tbl;          // (cap, 4) float4: the (cap, 16) level rows
+    int nl_real;
+    const int* fids;            // (ng, W) frontier, live prefix n_live
+    const int* n_live;
+    int W;
+    const float* s_l;           // () cell size (+ 2 drift)
+    const float* glo;           // (ng, 3)
+    const float* ghi;
+    const float* oac;           // (ng,)
     float theta2, leaf_cap;
     int use_relative, last;
+    int O, Wn, big_cap, big_chunks;
+    int lvl_base, LC;           // record: flat offset of the level, level cap
+    int* far;                   // (ng, far_w)
+    int far_w;
+    int* seg;                   // (ng, seg_w)
+    int seg_w;
+    int* fids_next;             // (ng, Wn), null on the last level
+    int* bkey;                  // walk, last level: (ng, big_cap*big_chunks)
+    int* cnt;                   // (kNCnt, ng)
+    int* nf;                    // record: (ng,) list counts, in and out
+    int* nn;
+    int* stat;                  // record: (5, ng) telemetry, added to
+    int ng;
 };
 
-struct Class {
+struct Node {
     bool far, seg, open, big;
+    int nstart, cnt, cstart, ccnt;
 };
 
-// Gather node row `id` (zeros when dead) and classify it against the group
-// box: explicit round-to-nearest products and sums, in the order of
-// fused_force.classify (no FMA contraction, exact keys).
-__device__ __forceinline__ Class classify_row(const Level& L, float s2,
-                                              float s4, int id,
-                                              float* row, float lo0,
-                                              float lo1, float lo2, float hi0,
-                                              float hi1, float hi2,
-                                              float oac) {
-    const bool dead = (id < 0) || (id >= L.nl_real);
-#pragma unroll
-    for (int k = 0; k < kRow; ++k)
-        row[k] = dead ? 0.0f : L.tbl[(int64_t)min(id, L.cap - 1) * kRow + k];
-    const float dx0 = fmaxf(fmaxf(lo0 - row[0], row[0] - hi0), 0.0f);
-    const float dx1 = fmaxf(fmaxf(lo1 - row[1], row[1] - hi1), 0.0f);
-    const float dx2 = fmaxf(fmaxf(lo2 - row[2], row[2] - hi2), 0.0f);
+// The fields of node row `id` that classification reads (zeros when
+// dead): com and mass, the integer fields, bmax^2.
+struct Row {
+    float4 r0, r1;
+    float bmax2;
+};
+
+__device__ __forceinline__ Row load_row(const Args& a, int id) {
+    Row r{make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0.0f};
+    if (id >= 0 && id < a.nl_real) {
+        const float4* p = a.tbl + (int64_t)id * 4;
+        r.r0 = __ldg(p);
+        r.r1 = __ldg(p + 1);
+        r.bmax2 = __ldg(reinterpret_cast<const float*>(p) + 15);
+    }
+    return r;
+}
+
+// A row classified against the group box: explicit round-to-nearest
+// products and sums, in the order of fused_force.classify (no FMA
+// contraction, exact decisions).
+__device__ __forceinline__ Node classify(const Args& a, const Row& row,
+                                         float s2, float s4, float lo0,
+                                         float lo1, float lo2, float hi0,
+                                         float hi1, float hi2, float oac) {
+    const float4 r0 = row.r0, r1 = row.r1;
+    const float dx0 = fmaxf(fmaxf(lo0 - r0.x, r0.x - hi0), 0.0f);
+    const float dx1 = fmaxf(fmaxf(lo1 - r0.y, r0.y - hi1), 0.0f);
+    const float dx2 = fmaxf(fmaxf(lo2 - r0.z, r0.z - hi2), 0.0f);
     const float r2b = __fadd_rn(__fadd_rn(__fmul_rn(dx0, dx0),
                                           __fmul_rn(dx1, dx1)),
                                 __fmul_rn(dx2, dx2));
-    bool mac_open = s2 > __fmul_rn(L.theta2, r2b);
-    if (L.use_relative && oac > 0.0f)
-        mac_open = __fmul_rn(row[3], s4) >
+    bool mac_open = s2 > __fmul_rn(a.theta2, r2b);
+    if (a.use_relative && oac > 0.0f)
+        mac_open = __fmul_rn(r0.w, s4) >
                    __fmul_rn(__fmul_rn(__fmul_rn(oac, r2b), r2b), r2b);
-    mac_open = mac_open || (r2b <= row[15]);
-    const float cnt = row[4];
-    const bool live = cnt > 0.0f;
-    const bool is_leaf = cnt <= L.leaf_cap;
+    mac_open = mac_open || (r2b <= row.bmax2);
+    const bool live = r1.x > 0.0f;
+    const bool is_leaf = r1.x <= a.leaf_cap;
     const bool deep = live && mac_open && !is_leaf;
-    return Class{live && !mac_open, live && mac_open && is_leaf,
-                 deep && !L.last, deep && L.last};
+    return Node{live && !mac_open, live && mac_open && is_leaf,
+                deep && !a.last, deep && a.last, (int)r1.y, (int)r1.x,
+                (int)r1.z, (int)r1.w};
 }
 
-__global__ void __launch_bounds__(kWC)
-far_level_kernel(Level L, const float* __restrict__ s_l_ptr,
-                 const int* __restrict__ fids,
-                 const int* __restrict__ n_live, int W,
-                 const float* __restrict__ xc, const float* __restrict__ te,
-                 const float* __restrict__ glo, const float* __restrict__ ghi,
-                 const float* __restrict__ oac_g, int need_pot, int record,
-                 int lvl_base, float* __restrict__ acc,
-                 int* __restrict__ segk, int* __restrict__ openk,
-                 int* __restrict__ bigk, int* __restrict__ fark) {
-    __shared__ float stage[kWC][kStage];
-    __shared__ int warp_cnt[kWC / 32];
-    __shared__ float red[kG][4];
+__global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
+    constexpr int kWarps = kT / 32;
+    // per chunk and warp: far, seg, open, big counts and the child sum
+    __shared__ int wt[2][kWarps][5];
+    __shared__ int big_start[kBigMax], big_cnt[kBigMax];
+    __shared__ int kept;        // children of the first O opened cells
 
     const int g = blockIdx.x;
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
-    const float lo0 = glo[g * 3 + 0], lo1 = glo[g * 3 + 1], lo2 = glo[g * 3 + 2];
-    const float hi0 = ghi[g * 3 + 0], hi1 = ghi[g * 3 + 1], hi2 = ghi[g * 3 + 2];
-    const float oac = oac_g[g];
-    const int nl = min(n_live[g], W);
-    const float s_l = *s_l_ptr;
+    const unsigned below = (1u << lane) - 1u;
+    const float lo0 = a.glo[g * 3 + 0], lo1 = a.glo[g * 3 + 1],
+                lo2 = a.glo[g * 3 + 2];
+    const float hi0 = a.ghi[g * 3 + 0], hi1 = a.ghi[g * 3 + 1],
+                hi2 = a.ghi[g * 3 + 2];
+    const float oac = a.oac[g];
+    const float s_l = *a.s_l;
     const float s2 = __fmul_rn(s_l, s_l);
     const float s4 = __fmul_rn(s2, s2);
+    const bool record = a.nf != nullptr;
+    const int nl = min(max(a.n_live[g], 0), a.W);
+    const int f0 = record ? a.nf[g] : 0;      // list fill before the level
+    const int n0 = record ? a.nn[g] : 0;
+    const int* fg = a.fids + (int64_t)g * a.W;
+    int* farg = a.far + (int64_t)g * a.far_w;
+    int* segg = a.seg + (int64_t)g * a.seg_w;
+    int* nxt = a.last ? nullptr : a.fids_next + (int64_t)g * a.Wn;
+    if (tid == 0) kept = -1;
 
-    if (record) {
-        for (int col = tid; col < W; col += kWC) {
-            const int id = (col < nl) ? fids[(int64_t)g * W + col] : -1;
-            float row[kRow];
-            const Class c = classify_row(L, s2, s4, id, row, lo0, lo1, lo2,
-                                         hi0, hi1, hi2, oac);
-            const int64_t o = (int64_t)g * W + col;
-            segk[o] = c.seg ? (int)row[5] * 32 + min((int)row[4], 31)
-                            : SIDM_IMAX;
-            openk[o] = c.open ? (int)row[6] * 16 + (int)row[7] : SIDM_IMAX;
-            bigk[o] = c.big ? id : SIDM_IMAX;
-            fark[o] = c.far ? lvl_base + id : SIDM_IMAX;
-        }
-        return;
-    }
-
-    const float gc0 = 0.5f * (lo0 + hi0), gc1 = 0.5f * (lo1 + hi1),
-                gc2 = 0.5f * (lo2 + hi2);
-    const int t = tid & (kG - 1);
-    const int half = tid / kG;
-    const float x0 = xc[(g * kG + t) * 3 + 0];
-    const float x1 = xc[(g * kG + t) * 3 + 1];
-    const float x2 = xc[(g * kG + t) * 3 + 2];
-    const float nx2 = x0 * x0 + x1 * x1 + x2 * x2;
-    const float tet = te[g * kG + t];
-    float out[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // [ax ay az pot] of this half
-
-    for (int c0 = 0; c0 < W; c0 += kWC) {
-        const int col = c0 + tid;
-        const int id = (col < nl) ? fids[(int64_t)g * W + col] : -1;
-        float row[kRow];
-        const Class c = classify_row(L, s2, s4, id, row, lo0, lo1, lo2, hi0,
-                                     hi1, hi2, oac);
-        if (col < W) {
-            const int64_t o = (int64_t)g * W + col;
-            segk[o] = c.seg ? (int)row[5] * 32 + min((int)row[4], 31)
-                            : SIDM_IMAX;
-            openk[o] = c.open ? (int)row[6] * 16 + (int)row[7] : SIDM_IMAX;
-            bigk[o] = c.big ? id : SIDM_IMAX;
-        }
-        // compact the accepted nodes into shared memory, frontier order
-        const unsigned ball = __ballot_sync(0xffffffffu, c.far);
-        if (lane == 0) warp_cnt[warp] = __popc(ball);
-        __syncthreads();
-        int off = 0, total = 0;
+    // running totals before the current chunk (the same in every thread)
+    int n_far = 0, n_seg = 0, n_open = 0, n_child = 0, n_big = 0;
+    // two-deep prefetch: this chunk's rows and the next chunk's ids are
+    // in flight while a chunk is classified and written
+    int id = tid < nl ? __ldg(fg + tid) : -1;
+    int id_next = kT + tid < nl ? __ldg(fg + kT + tid) : -1;
+    Row row = load_row(a, id);
+    for (int c0 = 0, buf = 0; c0 < nl; c0 += kT, buf ^= 1) {
+        const Row row_next = load_row(a, id_next);
+        const int id_after = c0 + 2 * kT + tid < nl
+                                 ? __ldg(fg + c0 + 2 * kT + tid) : -1;
+        const Node nd = classify(a, row, s2, s4, lo0, lo1, lo2, hi0, hi1,
+                                 hi2, oac);
+        const unsigned bf = __ballot_sync(0xffffffffu, nd.far);
+        const unsigned bs = __ballot_sync(0xffffffffu, nd.seg);
+        const unsigned bo = __ballot_sync(0xffffffffu, nd.open);
+        const unsigned bb = __ballot_sync(0xffffffffu, nd.big);
+        const int cc = nd.open ? nd.ccnt : 0;
+        int cinc = cc;              // inclusive warp scan of child counts
 #pragma unroll
-        for (int w = 0; w < kWC / 32; ++w) {
-            off += (w < warp) ? warp_cnt[w] : 0;
-            total += warp_cnt[w];
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, cinc, o);
+            if (lane >= o) cinc += y;
         }
-        if (c.far)
-            far_stage(stage[off + __popc(ball & ((1u << lane) - 1u))], row,
-                      gc0, gc1, gc2);
-        __syncthreads();
-        if (total > 0) {
-            FarAcc a = {};
-            for (int k = half; k < total; k += 2)
-                far_pair(a, stage[k], x0, x1, x2, nx2, tet, need_pot);
-            far_combine(out, a, x0, x1, x2);
+        if (lane == 31) {
+            wt[buf][warp][0] = __popc(bf);
+            wt[buf][warp][1] = __popc(bs);
+            wt[buf][warp][2] = __popc(bo);
+            wt[buf][warp][3] = __popc(bb);
+            wt[buf][warp][4] = cinc;
         }
         __syncthreads();
-    }
-
-    // the two halves of each target: half 1 hands its sums to half 0
-    if (half == 1) {
+        int pre[5] = {0, 0, 0, 0, 0}, tot[5] = {0, 0, 0, 0, 0};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) red[t][k] = out[k];
+        for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+            for (int k = 0; k < 5; ++k) {
+                const int v = wt[buf][w][k];
+                pre[k] += (w < warp) ? v : 0;
+                tot[k] += v;
+            }
+        }
+        if (nd.far) {
+            const int p = n_far + pre[0] + __popc(bf & below);
+            if (p < a.LC && f0 + p < a.far_w) farg[f0 + p] = a.lvl_base + id;
+        }
+        if (nd.seg) {
+            const int p = n_seg + pre[1] + __popc(bs & below);
+            if (p < a.LC && n0 + p < a.seg_w)
+                segg[n0 + p] = nd.nstart * 32 + min(nd.cnt, 31);
+        }
+        if (nd.open) {
+            const int r = n_open + pre[2] + __popc(bo & below);
+            const int p = n_child + pre[4] + cinc - cc;
+            if (r == a.O) kept = p;           // the first cell past the cap
+            if (r < a.O) {
+                for (int k = 0; k < cc && p + k < a.Wn; ++k)
+                    nxt[p + k] = nd.cstart + k;
+            }
+        }
+        if (nd.big) {
+            const int r = n_big + pre[3] + __popc(bb & below);
+            if (r < a.big_cap) {
+                big_start[r] = nd.nstart;
+                big_cnt[r] = nd.cnt;
+            }
+        }
+        n_far += tot[0];
+        n_seg += tot[1];
+        n_open += tot[2];
+        n_big += tot[3];
+        n_child += tot[4];
+        id = id_next;
+        id_next = id_after;
+        row = row_next;
     }
     __syncthreads();
-    if (half == 0) {
-        float* dst = acc + ((int64_t)g * kG + t) * 4;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) dst[k] = out[k] + red[t][k];
-        dst[3] = need_pot ? out[3] + red[t][3] : 0.0f;
+    if (tid != 0) return;
+
+    const int n_kids = kept >= 0 ? kept : n_child;
+    const int ovf_open = a.last ? 0 : max(n_open - a.O, 0)
+                                          + max(n_kids - a.Wn, 0);
+    int nf1 = 0, nn1 = 0, ovf_f = 0, ovf_n = 0;
+    if (record) {
+        const int tf = min(n_far, a.LC), ts = min(n_seg, a.LC);
+        nf1 = min(f0 + tf, a.far_w);
+        nn1 = min(n0 + ts, a.seg_w);
+        ovf_f = f0 + tf - nf1;
+        ovf_n = n0 + ts - nn1;
     }
+    // overfull deepest cells -> 16-particle chunks, in order
+    int n_bk = 0, big_drop = 0;
+    if (a.last) {
+        int* dst = record ? segg + nn1 : a.bkey + (int64_t)g * a.big_cap
+                                                    * a.big_chunks;
+        const int room = record ? a.seg_w - nn1 : a.big_cap * a.big_chunks;
+        for (int b = 0; b < min(n_big, a.big_cap); ++b) {
+            const int c = big_cnt[b], s = big_start[b];
+            for (int k = 0; k < a.big_chunks && 16 * k < c; ++k, ++n_bk)
+                if (n_bk < room)
+                    dst[n_bk] = (s + 16 * k) * 32 + min(c - 16 * k, 16);
+            big_drop += max(c - 16 * a.big_chunks, 0);
+        }
+    }
+    const int ng = a.ng;
+    a.cnt[kFar * ng + g] = n_far;
+    a.cnt[kSeg * ng + g] = n_seg;
+    a.cnt[kNext * ng + g] = a.last ? 0 : min(n_kids, a.Wn);
+    a.cnt[kOpen * ng + g] = n_open;
+    a.cnt[kOvfOpen * ng + g] = ovf_open;
+    a.cnt[kBig * ng + g] = n_big;
+    a.cnt[kBk * ng + g] = n_bk;
+    a.cnt[kBigDrop * ng + g] = big_drop;
+    if (!record) return;
+    const int nn2 = min(nn1 + n_bk, a.seg_w);
+    const int over = max(n_big - a.big_cap, 0);
+    a.stat[kNeedF * ng + g] += n_far;
+    a.stat[kNeedN * ng + g] += n_seg + n_bk + over * a.big_chunks;
+    a.stat[kOvfL * ng + g] += max(n_far - a.LC, 0) + max(n_seg - a.LC, 0)
+                              + ovf_open + over + big_drop;
+    a.stat[kOvfF * ng + g] += ovf_f;
+    a.stat[kOvfN * ng + g] += ovf_n + nn1 + n_bk - nn2;
+    a.nf[g] = nf1;
+    a.nn[g] = nn2;
 }
 
 }  // namespace
 
-// record != 0: classification and keys only (fark receives the far keys;
-// xc, te and acc are not read or written and may be null).
-extern "C" int far_level_launch(const float* tbl, int cap, int nl_real,
+// Walk mode: nf, nn and stat are null; far and seg are (ng, W) buffers
+// (far_w = seg_w = W, LC = W, lvl_base = 0) and bkey the last level's
+// chunk keys. Record mode: far and seg are the group lists (ng, LF) and
+// (ng, LN), appended at nf and nn; bkey is null.
+extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 const int* fids, const int* n_live, int ng,
-                                int W, const float* s_l, const float* xc,
-                                const float* te, const float* glo,
+                                int W, const float* s_l, const float* glo,
                                 const float* ghi, const float* oac,
                                 float theta2, int use_relative,
-                                float leaf_cap, int last, int need_pot,
-                                int record, int lvl_base, float* acc,
-                                int* segk, int* openk, int* bigk, int* fark,
+                                float leaf_cap, int last, int O, int Wn,
+                                int big_cap, int big_chunks, int lvl_base,
+                                int LC, int* far, int far_w, int* seg,
+                                int seg_w, int* fids_next, int* bkey,
+                                int* cnt, int* nf, int* nn, int* stat,
                                 void* stream) {
-    if (ng > 0) {
-        const Level L{tbl, cap, nl_real, theta2, leaf_cap, use_relative,
-                      last};
-        far_level_kernel<<<ng, kWC, 0, (cudaStream_t)stream>>>(
-            L, s_l, fids, n_live, W, xc, te, glo, ghi, oac, need_pot, record,
-            lvl_base, acc, segk, openk, bigk, fark);
-    }
+    if (ng <= 0) return 0;
+    if (big_cap > kBigMax) return (int)cudaErrorInvalidValue;
+    const Args a{reinterpret_cast<const float4*>(tbl), nl_real, fids, n_live,
+                 W, s_l, glo, ghi, oac, theta2, leaf_cap, use_relative, last,
+                 O, Wn, big_cap, big_chunks, lvl_base, LC, far, far_w, seg,
+                 seg_w, fids_next, bkey, cnt, nf, nn, stat, ng};
+    far_level_kernel<<<ng, kT, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -28,12 +28,12 @@ into work items of about equal entry count (``work_items.py``;
 compact table, 19 MB at the flagship's ``used_cap``, stays in the 50 MB
 L2), drops dead entries by a warp ballot, stages the live rows
 group-centred with their reciprocal softening, and evaluates monopole +
-quadrupole on the difference d = c - x with ``rsqrt`` and FMA (its own
-pair routine, not the walk's ``csrc/far_pair.cuh``). A
-second pass adds each group's item partials in item order: no float
-atomics, every group written. What bounds it on the H100: the pair math
-(75 float32 operations per (target, node) pair and 25 per list entry
-without the potential, ``bounds.py``).
+quadrupole on the difference d = c - x with ``rsqrt`` and FMA (the walk
+calls it too, for each level's far field on the ids ``far_level``
+accepted). A second pass adds each group's item partials in item order:
+no float atomics, every group written. What bounds it on the H100: the
+pair math (75 float32 operations per (target, node) pair and 25 per list
+entry without the potential, ``bounds.py``).
 """
 
 from __future__ import annotations

@@ -112,6 +112,12 @@ def pack_tree(tree: Octree) -> FusedTree:
     return FusedTree(levels=tuple(levels), n_levels=list(tree.n_nodes))
 
 
+def flat_tables(ftree: FusedTree):
+    """All-level node table (M, 16) for flat-id gathers (JAX
+    ``list_force.flat_tables``)."""
+    return torch.cat(list(ftree.levels), dim=0)
+
+
 def w_schedule(cfg: FusedConfig, depth: int, n: int, theta: float,
                use_relative: bool):
     """Frontier width cap per level (``_w_schedule``; the cap widens for a

@@ -1,9 +1,9 @@
 """Cached interaction lists: walk once, evaluate every step (port of
 ``sidm_tpu/ops/list_force.py``: ``ListConfig`` :55, ``InteractionLists``
-:92, ``flat_tables`` :120, ``_append_plane`` :127, ``_record`` :220,
-``record_lists`` :370, ``max_displacement`` :491, ``node_velocities``
-:497, ``advance_tree`` :509, ``eval_lists`` :687 with ``_eval``'s gather
-form :604-684).
+:92, ``flat_tables`` :120 (in ``fused_force``), ``_append_plane`` :127,
+``_record`` :220, ``record_lists`` :370, ``max_displacement`` :491,
+``node_velocities`` :497, ``advance_tree`` :509, ``eval_lists`` :687 with
+``_eval``'s gather form :604-684).
 
 ``record_lists`` walks a freshly built tree once per rebuild, level by
 level as the work-queue walk does, but records the classification instead
@@ -12,15 +12,16 @@ multipoles ("far") and the segment keys ``start*32+cnt`` of the opened
 leaves and of the overfull deepest cells' 16-particle chunks ("near"). The
 group boxes are grown by a ``skin``, so the acceptances stay MAC-valid
 while no particle has moved more than skin/2. Each level runs the far
-kernel in its record mode (``far_level(record=True)``); the level's far and
-segment planes are compacted and appended under ``far_cap`` and
-``near_cap`` (and ``lvl_cap`` where one is given) with the JAX package's
-drops (each row's live prefix, in frontier order) and its ``ovf``/``need``
-telemetry. The far ids are then
+kernel in its record mode (``far_level(..., lists=...)``), which appends
+the level's accepted nodes and segment keys to each group's lists under
+``far_cap`` and ``near_cap`` (and ``lvl_cap`` where one is given) with the
+JAX package's drops (each row's live prefix, in frontier order) and its
+``ovf``/``need`` telemetry (``_append_plane`` :127 is the plain version's
+``_append``). The far ids are then
 renumbered into a compact table of the used nodes (``src``, ``used_cap``).
 
 ``eval_lists`` is the per-step force: the compact node table is gathered
-from the current tree's node rows (``gather_rows``), the far pass is
+from the current tree's node arrays (``gather_nodes``), the far pass is
 ``far_list`` and the near pass the walk's ``near_level`` on the recorded
 keys. Between rebuilds ``advance_tree`` drifts the node centres of mass by
 the node velocities recorded at the rebuild (``vcom``), as the reference
@@ -41,15 +42,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .far_kernel import far_level
+from .far_kernel import (C_NEXT, S_NEED_F, S_NEED_N, S_OVF_L, S_OVF_N,
+                         far_level, list_buf)
 from .far_list import far_list
-from .fused_force import (IMAX, LEAF_CAP, R_CNT, R_NSTART, START_LEVEL,
-                          FusedConfig, FusedTree, compact_plane, make_windows,
-                          pack_tree, w_schedule)
-from .gather import gather_rows
+from .fused_force import (LEAF_CAP, START_LEVEL, FusedConfig, FusedTree,
+                          make_windows, pack_tree, w_schedule)
+from .gather import gather_nodes
 from .near_kernel import near_level
 from .tree import Octree, level_offsets
-from .wq_force import _expand_open, group_boxes, ungroup
+from .wq_force import group_boxes, ungroup
 
 
 class ListConfig(NamedTuple):
@@ -86,115 +87,58 @@ class InteractionLists(NamedTuple):
                            #  max near/group, distinct used nodes]
 
 
-def flat_tables(ftree: FusedTree):
-    """All-level node table (M, 16) for flat-id gathers."""
-    return torch.cat(list(ftree.levels), dim=0)
-
-
-def _append(dst, n_dst, plane, take):
-    """Append each row's first ``take`` entries of ``plane`` to ``dst`` at
-    column ``n_dst`` (one scatter; entries past the width are dropped).
-    Returns (dst, new counts, dropped count)."""
-    ng, W = plane.shape
-    LD = dst.shape[1]
-    col = torch.arange(W, device=plane.device)
-    pos = n_dst[:, None].long() + col
-    ok = (col < take[:, None]) & (pos < LD)
-    out = torch.cat([dst, torch.full((ng, 1), IMAX, dtype=dst.dtype,
-                                     device=dst.device)], dim=1)
-    out.scatter_(1, torch.where(ok, pos, torch.full_like(pos, LD)),
-                 torch.where(ok, plane, torch.full_like(plane, IMAX)))
-    n_new = torch.clamp(n_dst + take, max=LD)
-    return out[:, :LD], n_new.to(torch.int32), torch.sum(n_dst + take - n_new)
-
-
 def _record(ftree: FusedTree, glo, ghi, oac, extent, drift, *, theta: float,
             use_relative: bool, cfg: FusedConfig, lcfg: ListConfig,
-            depth: int, n: int):
-    """The recording walk (``_record``): every level's far and segment key
-    planes are compacted and appended to the per-group lists. Returns
-    (far flat ids, near keys, nf, nn, ovf (3,), need (2,))."""
+            depth: int, n: int, on_level=None):
+    """The recording walk (``_record``): every level's accepted nodes and
+    segment keys (and the last level's big-cell chunks) are appended to the
+    per-group lists by ``far_level`` in record mode. Returns (far flat ids,
+    near keys, nf, nn, ovf (3,), need (2,)). on_level: optional observer
+    called as ``on_level(level, kw)`` before every ``far_level`` call."""
     ng = glo.shape[0]
     dev = glo.device
-    theta2 = theta * theta
     ws = w_schedule(cfg, depth, n, theta, use_relative)
     offs = level_offsets(n, depth)
-    LF, LN = lcfg.far_cap, lcfg.near_cap
-    far = torch.full((ng, LF), IMAX, dtype=torch.int32, device=dev)
-    near = torch.full((ng, LN), IMAX, dtype=torch.int32, device=dev)
-    nf = torch.zeros(ng, dtype=torch.int32, device=dev)
-    nn = torch.zeros(ng, dtype=torch.int32, device=dev)
-    needf = torch.zeros(ng, dtype=torch.int64, device=dev)
-    needn = torch.zeros(ng, dtype=torch.int64, device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    ovf_l, ovf_f, ovf_n, ovf_open = zero, zero, zero, zero
+    buf = list_buf(ng, lcfg.far_cap, lcfg.near_cap, dev)
     W0 = ws[START_LEVEL]
     fids = torch.arange(W0, dtype=torch.int32,
                         device=dev).repeat(ng, 1).contiguous()
     n_live = torch.full((ng,), W0, dtype=torch.int32, device=dev)
 
     for l in range(START_LEVEL, depth + 1):
-        W = ws[l]
         last = l == depth
-        fark, segk, openk, bigk = far_level(
-            fids, n_live, ftree.levels[l], ftree.n_levels[l],
-            extent / (1 << l) + 2.0 * drift, None, None, glo, ghi, oac,
-            theta2=theta2, use_relative=use_relative, leaf_cap=LEAF_CAP,
-            last=last, need_pot=False, record=True, lvl_base=offs[l])
-        LC = W if lcfg.lvl_cap is None else min(lcfg.lvl_cap, W)
-        farp, live_f = compact_plane(fark)
-        segp, live_n = compact_plane(segk)
-        needf = needf + live_f
-        needn = needn + live_n
-        ovf_l = (ovf_l + torch.sum(torch.clamp(live_f - LC, min=0))
-                 + torch.sum(torch.clamp(live_n - LC, min=0)))
-        far, nf, d = _append(far, nf, farp[:, :LC], torch.clamp(live_f,
-                                                               max=LC))
-        ovf_f = ovf_f + d
-        near, nn, d = _append(near, nn, segp[:, :LC], torch.clamp(live_n,
-                                                                 max=LC))
-        ovf_n = ovf_n + d
-        if not last:
-            fids, n_live, d, _ = _expand_open(openk, Wn=ws[l + 1], cfg=cfg)
-            ovf_open = ovf_open + d
+        kw = dict(fids=fids, n_live=n_live, tbl=ftree.levels[l],
+                  nl_real=ftree.n_levels[l],
+                  s_l=extent / (1 << l) + 2.0 * drift, glo=glo, ghi=ghi,
+                  oac=oac, theta2=theta * theta,
+                  use_relative=use_relative, leaf_cap=LEAF_CAP, last=last,
+                  Wn=0 if last else ws[l + 1],
+                  open_cap=cfg.open_cap, big_cap=cfg.big_cap,
+                  big_chunks=cfg.big_chunks, lists=buf, lvl_base=offs[l],
+                  lvl_cap=lcfg.lvl_cap)
+        if on_level is not None:
+            on_level(l, kw)
+        out = far_level(**kw)
+        fids, n_live = out.fids, out.cnt[C_NEXT]
 
-    # overfull deepest cells -> 16-particle chunks (list_force.py:339-366)
-    tbl = ftree.levels[depth]
-    bid, n_big = compact_plane(bigk)
-    bid = bid[:, :cfg.big_cap]
-    bval = bid != IMAX
-    brow = tbl[torch.clamp(bid.long(), 0, tbl.shape[0] - 1)]
-    bstart = brow[..., R_NSTART].to(torch.int32)
-    bcnt = torch.where(bval, brow[..., R_CNT].to(torch.int32),
-                       torch.zeros_like(bstart))
-    k16 = torch.arange(cfg.big_chunks, dtype=torch.int32, device=dev) * 16
-    cst = bstart[:, :, None] + k16
-    ccn = torch.clamp(bcnt[:, :, None] - k16, 0, 16)
-    bkey = torch.where(ccn > 0, cst * 32 + ccn, torch.full_like(cst, IMAX))
-    bkey, n_bk = compact_plane(bkey.reshape(ng, cfg.big_cap * cfg.big_chunks))
-    over = torch.clamp(n_big - cfg.big_cap, min=0)
-    needn = needn + n_bk + over * cfg.big_chunks
-    near, nn, d = _append(near, nn, bkey, n_bk)
-    ovf_n = ovf_n + d
-    ovf_l = (ovf_l + torch.sum(over)
-             + torch.sum(torch.clamp(bcnt - 16 * cfg.big_chunks, min=0))
-             + ovf_open)
-    return (far, near, nf, nn, torch.stack([ovf_l, ovf_f, ovf_n]),
-            torch.stack([torch.max(needf), torch.max(needn)]))
+    stat = buf.stat.long()
+    return (buf.far, buf.near, buf.nf, buf.nn,
+            torch.sum(stat[S_OVF_L:S_OVF_N + 1], dim=1),
+            torch.amax(stat[S_NEED_F:S_NEED_N + 1], dim=1))
 
 
 def record_lists(tree: Octree, old_acc_sorted, valid_sorted, *, theta=0.5,
                  use_relative=True, err_tol_force_acc=0.005,
                  cfg: Optional[FusedConfig] = None,
                  lcfg: Optional[ListConfig] = None, skin=0.0, vel=None,
-                 t_now=0.0) -> InteractionLists:
+                 t_now=0.0, on_level=None) -> InteractionLists:
     """Interaction lists for every target group of a fresh ``tree``.
 
     old_acc_sorted: |a_old| in sorted order (relative criterion input);
     valid_sorted: particle validity in sorted order; vel: velocities in
     original order (for ``vcom``; zeros if None). The groups are the
     walk's Morton windows, so at skin 0 on a fresh tree the lists hold the
-    walk's pair partition exactly."""
+    walk's pair partition exactly. on_level: see ``_record``."""
     cfg = cfg or FusedConfig()
     lcfg = lcfg or ListConfig()
     n = tree.pos_s.shape[0]
@@ -211,13 +155,13 @@ def record_lists(tree: Octree, old_acc_sorted, valid_sorted, *, theta=0.5,
     far, near, nf, nn, ovf, need = _record(
         ftree, glo, ghi, oac, tree.extent, tree.drift, theta=float(theta),
         use_relative=bool(use_relative), cfg=cfg, lcfg=lcfg, depth=depth,
-        n=n)
+        n=n, on_level=on_level)
 
     # used-row compaction (list_force.py:421-437): far ids become ranks in
     # a table of the used nodes; dead entries point at row U (zeros)
     M = level_offsets(n, depth)[-1]
     U = lcfg.used_cap
-    live = far != IMAX
+    live = torch.arange(far.shape[1], device=dev) < nf[:, None].long()
     used = torch.zeros(M + 1, dtype=torch.bool, device=dev)
     used[torch.where(live, far, M).reshape(-1).long()] = True
     used = used[:M]
@@ -283,13 +227,13 @@ def advance_tree(tree: Octree, lists: InteractionLists, pos_pred, t_now):
 def eval_inputs(tree: Octree, lists: InteractionLists):
     """The far and near passes' inputs for the current ``tree``: the
     compact node table (used rows of the current node rows plus one zero
-    row, by ``gather_rows``), the raw targets (ng, G, 3), the
+    row, by ``gather_nodes``), the raw targets (ng, G, 3), the
     group-centred targets, their softenings (1 on dead slots) and the group
     centres (0 for dead groups)."""
     M = tree.mac_rows.shape[0]
     src = torch.cat([lists.src, torch.full((1,), M, dtype=torch.int32,
                                            device=lists.src.device)])
-    ctbl = gather_rows(flat_tables(pack_tree(tree)), src)
+    ctbl = gather_nodes(tree, src)
     pidx, gvalid = lists.pidx, lists.gvalid
     gtargets = tree.pos_s[pidx]
     big = torch.full((), 1e30, dtype=gtargets.dtype, device=gtargets.device)

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .fused_force import G, SC, near_tile
+from .fused_force import G, IMAX, SC, near_tile
 from .work_items import item_buffers, kernel_split, near_split_plain
 
 ITEM_BLOCK = 256   # plain version: (group, key chunk) items per batch
@@ -49,9 +49,14 @@ def near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
     gi, ci = torch.nonzero(torch.arange(maxc, device=dev)[None, :]
                            < nc[:, None], as_tuple=True)
     keys_c = keys.reshape(ng, maxc, sc)
+    col = torch.arange(sc, device=dev)
     for b0 in range(0, gi.shape[0], ITEM_BLOCK):
         g = gi[b0:b0 + ITEM_BLOCK]
-        ent = keys_c[g, ci[b0:b0 + ITEM_BLOCK]]
+        c = ci[b0:b0 + ITEM_BLOCK]
+        # keys past a group's live count are not read (they need not be
+        # IMAX)
+        ent = torch.where(c[:, None] * sc + col < n_seg[g, None].long(),
+                          keys_c[g, c], IMAX)
         da, dp = near_tile(ent, pos_s, mass_s, eps_s, xr[g], te[g], need_pot)
         acc.index_add_(0, g, torch.cat([da, dp[..., None]], dim=-1))
     return acc
@@ -61,10 +66,11 @@ def near_level(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
                need_pot: bool):
     """Near field of compacted segment keys for every group.
 
-    keys (ng, K) int32 compacted keys (IMAX tail); n_seg (ng,) int32 live
-    keys per group; pos_s (N, 3), mass_s (N,), eps_s (N,) float32 sorted
-    particles; xr (ng, 64, 3) raw target positions; te (ng, 64) target
-    softenings. Returns acc (ng, 64, 4) float32 [ax ay az pot]."""
+    keys (ng, K) int32 compacted keys, live prefix n_seg (ng,) int32 (the
+    entries past it are not read); pos_s (N, 3), mass_s (N,), eps_s (N,)
+    float32 sorted particles; xr (ng, 64, 3) raw target positions; te
+    (ng, 64) target softenings. Returns acc (ng, 64, 4) float32
+    [ax ay az pot]."""
     if not keys.is_cuda:
         return near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te,
                                 need_pot=need_pot)

@@ -1,6 +1,6 @@
 """Work-queue Barnes-Hut gravity (port of ``sidm_tpu/ops/wq_force.py``:
 ``wq_gravity_tree`` :547, ``wq_gravity`` :610, the level loop of
-``_wq_eval`` :401-544 and ``_expand_open_wq`` :357).
+``_wq_eval`` :401-544; ``_expand_open_wq`` :357 is in ``far_kernel``).
 
 Same walk and the same accepted pair sets as the JAX engine: for every
 64-target group a per-level frontier of node ids is classified against the
@@ -8,9 +8,12 @@ group bounding box, accepted multipoles are evaluated at discovery, opened
 leaves become segment keys evaluated by the near pass of the same level,
 opened inner cells expand x8 into the next frontier, and overfull deepest
 cells go through the 16-particle-chunk "big" path. Each level is one
-``far_level`` call (the port of the Pallas far kernel) and one
+``far_level`` call (the port of the Pallas far kernel's classification: it
+hands back the compacted far ids and segment keys, the next frontier and
+the counts), one ``far_list`` call on the compacted far ids (the far
+field, which the Pallas kernel fuses into its classification) and one
 ``near_level`` call (the port of the Pallas near kernel); on CUDA tensors
-both launch the package's CUDA kernels.
+all three launch the package's CUDA kernels.
 
 The caps that define the accepted pair sets are kept and their overflow is
 counted exactly as in JAX (``w_max``: frontier truncation and ``open_cap``
@@ -27,41 +30,14 @@ from typing import Optional
 
 import torch
 
-from .far_kernel import far_level
-from .fused_force import (IMAX, LEAF_CAP, R_CNT, R_NSTART, SC, START_LEVEL,
-                          WC, FusedConfig, FusedTree, compact_plane,
-                          default_depth, make_windows, pack_tree, w_schedule)
+from .far_kernel import (C_BIG, C_BIG_DROP, C_BK, C_FAR, C_NEXT, C_OPEN,
+                         C_OVF_OPEN, C_SEG, far_level)
+from .far_list import far_list
+from .fused_force import (LEAF_CAP, SC, START_LEVEL, WC, FusedConfig,
+                          FusedTree, default_depth, make_windows, pack_tree,
+                          w_schedule)
 from .near_kernel import near_level
 from .tree import build_octree
-
-
-def _expand_open(openk, *, Wn: int, cfg: FusedConfig):
-    """Open keys -> next frontier (fids (ng, Wn), n_live), plus the
-    dropped-node count and the level's max open count."""
-    ng, W = openk.shape
-    O = min(W, cfg.open_cap)
-    open_sorted, n_open = compact_plane(openk)
-    open_sorted = open_sorted[:, :O]
-    ovf = torch.sum(torch.clamp(n_open - O, min=0))
-    oval = open_sorted != IMAX
-    zero = torch.zeros_like(open_sorted)
-    cs = torch.where(oval, open_sorted >> 4, zero)
-    cc = torch.where(oval, open_sorted & 15, zero)
-    k = torch.arange(8, dtype=torch.int32, device=openk.device)
-    kids = torch.where(k < cc[:, :, None], cs[:, :, None] + k,
-                       torch.full_like(cs[:, :, None], IMAX))
-    kids = kids.reshape(ng, 8 * O)
-    kids, n_child = compact_plane(kids)
-    if 8 * O > Wn:
-        kids = kids[:, :Wn]
-        ovf = ovf + torch.sum(torch.clamp(n_child - Wn, min=0))
-    else:
-        kids = torch.cat([kids, torch.full((ng, Wn - 8 * O), IMAX,
-                                           dtype=kids.dtype,
-                                           device=kids.device)], dim=1)
-    fids = torch.where(kids == IMAX, torch.full_like(kids, -1), kids)
-    return (fids.contiguous(), torch.clamp(n_child, max=Wn).to(torch.int32),
-            ovf, torch.max(n_open))
 
 
 def _near_items(n_seg, width: int):
@@ -75,8 +51,9 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
     acc (ng, G, 3), pot (ng, G) and the info dict (0-dim tensors).
 
     on_level: optional observer called as ``on_level(name, level, kw)``
-    before every ``far_level``/``near_level`` call with the call's keyword
-    arguments (the big path's near call has level depth + 1)."""
+    before every ``far_level``/``far_list``/``near_level`` call with the
+    call's keyword arguments (the big path's near call has level
+    depth + 1)."""
     ng, G, _ = gtargets.shape
     dev, dtype = gtargets.device, gtargets.dtype
     depth = tree.depth
@@ -117,45 +94,36 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
     for l in range(l0, depth + 1):
         W = ws[l]
         last = l == depth
-        tbl = ftree.levels[l]
         s_l = tree.extent / (1 << l) + 2.0 * tree.drift
-        a, segk, openk, bigk = call(
-            far_level, l, fids=fids, n_live=n_live, tbl=tbl,
-            nl_real=ftree.n_levels[l], s_l=s_l, xc=xc, te=geps, glo=glo,
-            ghi=ghi, oac=oac, theta2=theta2, use_relative=use_relative,
-            leaf_cap=LEAF_CAP, last=last, need_pot=need_pot)
+        out = call(
+            far_level, l, fids=fids, n_live=n_live, tbl=ftree.levels[l],
+            nl_real=ftree.n_levels[l], s_l=s_l, glo=glo, ghi=ghi, oac=oac,
+            theta2=theta2, use_relative=use_relative, leaf_cap=LEAF_CAP,
+            last=last, Wn=0 if last else ws[l + 1], open_cap=cfg.open_cap,
+            big_cap=cfg.big_cap, big_chunks=cfg.big_chunks)
+        a = call(far_list, l, tbl=ftree.levels[l], ids=out.far,
+                 nf=out.cnt[C_FAR], xc=xc, te=geps, gc=gc,
+                 need_pot=need_pot)
         acc = acc + a[..., :3]
         if need_pot:
             pot = pot + a[..., 3]
         wc = min(WC, W)
         max_walk = torch.maximum(max_walk, torch.sum(
             -(-torch.clamp(n_live.long(), max=W) // wc)))
-        seg_sorted, n_seg = compact_plane(segk)
+        n_seg = out.cnt[C_SEG]
         n_segs = n_segs + torch.sum(n_seg)
-        near(seg_sorted, n_seg, W, l)
+        near(out.seg, n_seg, W, l)
         if not last:
-            fids, n_live, ovf, mo = _expand_open(openk, Wn=ws[l + 1],
-                                                 cfg=cfg)
-            ovf_open = ovf_open + ovf
-            max_open.append(mo)
+            fids, n_live = out.fids, out.cnt[C_NEXT]
+            ovf_open = ovf_open + torch.sum(out.cnt[C_OVF_OPEN])
+            max_open.append(torch.max(out.cnt[C_OPEN]))
 
     # overfull deepest cells -> 16-particle chunks, same near pass
-    bid, n_big = compact_plane(bigk)
-    bid = bid[:, :cfg.big_cap]
-    bval = bid != IMAX
-    brow = tbl[torch.clamp(bid.long(), 0, tbl.shape[0] - 1)]
-    bstart = brow[..., R_NSTART].to(torch.int32)
-    bcnt = torch.where(bval, brow[..., R_CNT].to(torch.int32),
-                       torch.zeros_like(bstart))
-    k16 = torch.arange(cfg.big_chunks, dtype=torch.int32, device=dev) * 16
-    cst = bstart[:, :, None] + k16
-    ccn = torch.clamp(bcnt[:, :, None] - k16, 0, 16)
-    bkey = torch.where(ccn > 0, cst * 32 + ccn, torch.full_like(cst, IMAX))
-    bkey, n_bk = compact_plane(bkey.reshape(ng, cfg.big_cap * cfg.big_chunks))
+    n_bk = out.cnt[C_BK]
     n_segs = n_segs + torch.sum(n_bk)
-    near(bkey, n_bk, bkey.shape[1], depth + 1)
-    ovf_big = (torch.sum(torch.clamp(n_big - cfg.big_cap, min=0))
-               + torch.sum(torch.clamp(bcnt - 16 * cfg.big_chunks, min=0)))
+    near(out.bkey, n_bk, out.bkey.shape[1], depth + 1)
+    ovf_big = (torch.sum(torch.clamp(out.cnt[C_BIG] - cfg.big_cap, min=0))
+               + torch.sum(out.cnt[C_BIG_DROP]))
 
     info = dict(ovf_open=ovf_open, ovf_big=ovf_big, ovf_items=zero,
                 max_walk_items=max_walk, max_near_items=max_near,

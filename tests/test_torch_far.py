@@ -2,12 +2,24 @@
 vs JAX ``pallas_far.far_items`` in interpret mode, on one level of a
 JAX-built tree carried across as numpy, for a subset of target groups.
 
-Per-group [ax ay az] agree to p99.9 relative error < 2e-5 and the
+Walk mode: the walk's far field of the level (``far_list`` on the
+compacted far ids, as ``wq_force._wq_eval`` evaluates it) agrees with
+``far_items``' per-group [ax ay az] to p99.9 relative error < 2e-5 and the
 potential to rtol 2e-5, atol 1e-7 (float32 sums in another order); the
-segment, open and big key planes are exactly equal. Covered: an inner
-level and the last level, both opening criteria, with and without the
-potential. On the card (``gpu`` marker) the CUDA kernel is held against
-the plain version the same way.
+compacted outputs (far ids, segment keys, next frontier, big-cell
+chunk keys) and every count are exactly JAX's key planes put through
+JAX's own ``compact_plane``, ``_expand_open_wq`` and the walk's big path.
+Record mode: the lists after appending one level to part-full lists, the
+next frontier, the demand and the drops are exactly JAX's
+``_walk_level_keys`` planes through ``compact_plane``, ``_append_plane``
+and ``_expand_open_wq``. Covered: an inner level and the last level, both
+opening criteria, with and without the potential, frontiers of unequal
+widths, and a case for each cap (``open_cap``, the next frontier's
+width, ``lvl_cap``, ``far_cap``, ``near_cap``, ``big_cap`` and
+``big_chunks``) overflowing. On the card (``gpu`` marker) the CUDA kernel
+is held against the plain version (walk, with the far field by the
+``far_list`` kernel against ``far_list_plain``) and against JAX (record)
+the same way.
 
 The list-far kernel's work-item split (``ops/work_items.py``) covers every
 live list entry once, in order, in items of about equal size; the plain
@@ -23,11 +35,20 @@ import torch
 
 from sidm_tpu.io import ics
 from sidm_tpu.ops import fused_force as jff
+from sidm_tpu.ops.fused_force import FusedConfig as JaxConfig
+from sidm_tpu.ops.fused_force import compact_plane as jax_compact_plane
+from sidm_tpu.ops.list_force import _append_plane, _walk_level_keys
 from sidm_tpu.ops.pallas_far import far_items, pack_rows_t, pack_tgt_scal
 from sidm_tpu.ops.tree import build_octree as jbuild
+from sidm_tpu.ops.wq_force import _expand_open_wq
 
 from sidm_tpu_torch.ops.direct import direct_gravity
-from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
+from sidm_tpu_torch.ops.far_kernel import (C_BIG, C_BIG_DROP, C_BK, C_FAR,
+                                           C_NEXT, C_OPEN, C_OVF_OPEN, C_SEG,
+                                           S_NEED_F, S_NEED_N, S_OVF_F,
+                                           S_OVF_L, S_OVF_N, ListBuf,
+                                           far_level, far_level_plain)
+from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
 
 torch.set_num_threads(2)
 
@@ -77,20 +98,25 @@ def setup():
     return groups_of_tree()
 
 
-def level_inputs(s, level):
-    """All nodes of ``level`` as every group's frontier."""
+def level_inputs(s, level, short=0):
+    """All nodes of ``level`` as every group's frontier; with ``short``,
+    group g's frontier ends ``short * g`` ids early (-1 past its live
+    count)."""
     tbl = np.asarray(s["ft"].levels[level])
     W = tbl.shape[0]
     ng = s["xc"].shape[0]
+    n_live = np.maximum(W - short * np.arange(ng), 0).astype(np.int32)
+    fids = np.tile(np.arange(W, dtype=np.int32), (ng, 1))
+    fids[np.arange(W)[None, :] >= n_live[:, None]] = -1
     s_l = np.float32(float(s["jt"].extent) / (1 << level))
-    return dict(fids=np.tile(np.arange(W, dtype=np.int32), (ng, 1)),
-                n_live=np.full(ng, W, np.int32), tbl=tbl,
+    return dict(fids=fids, n_live=n_live, tbl=tbl,
                 nl_real=int(s["ft"].n_levels[level]), s_l=s_l, xc=s["xc"],
                 te=s["te"], glo=s["glo"], ghi=s["ghi"], oac=s["oac"])
 
 
 def jax_far(inp, *, theta2, use_relative, leaf_cap, last, need_pot):
-    """far_items (interpret mode) over the (group, 128-chunk) items."""
+    """far_items (interpret mode) over the (group, 128-chunk) items: the
+    far field and the segment, open and big key planes."""
     fids, tbl = inp["fids"], inp["tbl"]
     ng, W = fids.shape
     nc = W // WC
@@ -114,12 +140,81 @@ def jax_far(inp, *, theta2, use_relative, leaf_cap, last, need_pot):
     return np.asarray(acc)[:ng, :, :4], keys[:3].reshape(3, ng, W)
 
 
-def port_far(fn, inp, device, **kw):
+def jax_level_keys(inp, *, theta2, use_relative, leaf_cap, last,
+                   lvl_base=0):
+    """The recording walk's key planes (fark = lvl_base + id of accepted
+    nodes, segk, openk, bigk) from JAX ``_walk_level_keys``."""
+    ng, W = inp["fids"].shape
+    planes = _walk_level_keys(
+        jnp.asarray(inp["fids"]), jnp.asarray([int(inp["n_live"].max())]),
+        jnp.asarray(inp["tbl"]), jnp.asarray(inp["s_l"]), inp["nl_real"],
+        jnp.asarray(inp["glo"])[None], jnp.asarray(inp["ghi"])[None],
+        jnp.asarray(inp["oac"])[None], jnp.int32(lvl_base), W=W,
+        WC=min(WC, W), last=last, theta2=theta2, use_relative=use_relative,
+        cfg=JaxConfig(leaf_cap=leaf_cap), NB=1, GB=ng, ng=ng)
+    return [np.asarray(p) for p in planes]
+
+
+def jax_compact(plane):
+    return np.asarray(jax_compact_plane(jnp.asarray(plane)))
+
+
+def jax_expand(openk, Wn, open_cap):
+    """``_expand_open_wq``: next frontier, its widths, dropped count and
+    the opened cells per group."""
+    fids, n_live, ovf, _ = _expand_open_wq(
+        jnp.asarray(openk), jnp.zeros(2, jnp.int32), Wn=Wn,
+        cfg=JaxConfig(open_cap=open_cap))
+    return (np.asarray(fids), np.asarray(n_live), int(ovf[0]),
+            np.sum(openk != IMAX, axis=1))
+
+
+def jax_big(bigk, tbl, big_cap, big_chunks):
+    """The JAX walk's overfull-cell path (sidm_tpu/ops/wq_force.py:508-537,
+    the same in list_force.py:339-366): chunk keys, their counts, the
+    overfull cells and the first big_cap cells' particle counts."""
+    bid = jax_compact(bigk)[:, :big_cap]
+    bval = bid != IMAX
+    brow = tbl[np.clip(bid, 0, tbl.shape[0] - 1)]
+    bstart = brow[..., 5].astype(np.int32)
+    bcnt = np.where(bval, brow[..., 4].astype(np.int32), 0)
+    k16 = np.arange(big_chunks, dtype=np.int32) * 16
+    cst = bstart[:, :, None] + k16[None, None, :]
+    ccn = np.clip(bcnt[:, :, None] - k16[None, None, :], 0, 16)
+    bkey = np.where(ccn > 0, cst * 32 + ccn, IMAX).reshape(
+        bigk.shape[0], big_cap * big_chunks).astype(np.int32)
+    bkey = jax_compact(bkey)
+    return (bkey, np.sum(bkey != IMAX, axis=1), np.sum(bigk != IMAX, axis=1),
+            bcnt)
+
+
+def port_level(fn, inp, device, lists=None, **kw):
+    """``fn`` (far_level or far_level_plain) on numpy inputs (the
+    targets xc and te are the far field's, not read here)."""
     t = {k: (torch.tensor(v).to(device) if isinstance(v, np.ndarray)
-             else v) for k, v in inp.items()}
+             else v) for k, v in inp.items() if k not in ("xc", "te")}
     t["s_l"] = torch.tensor(inp["s_l"]).to(device)
-    acc, *keys = fn(**t, **kw)
-    return acc.cpu().numpy(), np.stack([k.cpu().numpy() for k in keys])
+    return fn(**t, **kw, lists=lists)
+
+
+def walk_far_field(fn, out, inp, device, need_pot):
+    """The level's far field as ``wq_force._wq_eval`` evaluates it:
+    ``fn`` (far_list or far_list_plain) on the compacted far ids of
+    ``out`` against the group-centred targets."""
+    t = {k: torch.tensor(inp[k]).to(device)
+         for k in ("tbl", "xc", "te", "glo", "ghi")}
+    return fn(t["tbl"], out.far, out.cnt[C_FAR], t["xc"], t["te"],
+              0.5 * (t["glo"] + t["ghi"]), need_pot=need_pot)
+
+
+def assert_prefix(x, n, ref, tail=IMAX):
+    """Row g of x holds ref's first n[g] entries, and ref holds only
+    ``tail`` after them: a compacted output against JAX's compacted plane
+    (the entries of x past n[g] are not looked at)."""
+    x, n = x.cpu().numpy(), np.asarray(n.cpu() if torch.is_tensor(n) else n)
+    live = np.arange(ref.shape[1])[None, :] < n[:, None]
+    assert x.shape == ref.shape
+    np.testing.assert_array_equal(np.where(live, x, tail), ref)
 
 
 def assert_acc_close(a, b, valid):
@@ -133,28 +228,182 @@ def assert_acc_close(a, b, valid):
                                rtol=2e-5, atol=1e-7)
 
 
-# (level, last, use_relative, need_pot, leaf_cap); level 5 run as the last
-# level has overfull cells, so big keys are emitted
-CASES = [(3, False, False, True, 16), (3, False, True, False, 16),
-         (5, True, True, True, 16), (DEPTH, True, False, False, 16)]
+# (level, last, use_relative, need_pot, leaf_cap, caps); level 5 run as
+# the last level has overfull cells, so big keys are emitted. The second
+# case caps the opened cells and the next frontier, the third the big
+# cells and their chunks, so that every walk counter overflows somewhere.
+DEFAULT_CAPS = dict(Wn=4096, open_cap=1024, big_cap=8, big_chunks=8)
+CASES = [(3, False, False, True, 16, DEFAULT_CAPS),
+         (3, False, True, False, 16,
+          dict(DEFAULT_CAPS, Wn=64, open_cap=6)),
+         (5, True, True, True, 16, dict(DEFAULT_CAPS, big_cap=1,
+                                         big_chunks=1)),
+         (DEPTH, True, False, False, 16, DEFAULT_CAPS)]
 
 
-@pytest.mark.parametrize("level,last,use_relative,need_pot,leaf_cap", CASES)
+def walk_kw(last, use_relative, leaf_cap, caps):
+    return dict(theta2=0.25, use_relative=use_relative, leaf_cap=leaf_cap,
+                last=last, **caps)
+
+
+@pytest.mark.parametrize("level,last,use_relative,need_pot,leaf_cap,caps",
+                         CASES)
 def test_far_level_matches_pallas(setup, level, last, use_relative,
-                                  need_pot, leaf_cap):
-    inp = level_inputs(setup, level)
-    kw = dict(theta2=0.25, use_relative=use_relative, leaf_cap=leaf_cap,
-              last=last, need_pot=need_pot)
-    acc_j, keys_j = jax_far(inp, **kw)
-    acc_t, keys_t = port_far(far_level, inp, "cpu", **kw)
-    np.testing.assert_array_equal(keys_t, keys_j)
-    assert (keys_j[0] != IMAX).any()
-    assert (keys_j[1] != IMAX).any() != last
-    if level == 5:
-        assert (keys_j[2] != IMAX).any()
-    assert_acc_close(acc_t, acc_j, setup["gvalid"])
+                                  need_pot, leaf_cap, caps):
+    """The walk mode against JAX: the compacted far ids, segment keys,
+    next frontier and big-cell chunks and every count as JAX's key planes
+    through ``compact_plane``, ``_expand_open_wq`` and the walk's big path
+    give them; the far field of the far ids as ``far_items`` gives it."""
+    inp = level_inputs(setup, level, short=9)
+    kw = walk_kw(last, use_relative, leaf_cap, caps)
+    jkw = dict(theta2=0.25, use_relative=use_relative, leaf_cap=leaf_cap,
+               last=last)
+    acc_j, (segk, openk, bigk) = jax_far(inp, need_pot=need_pot, **jkw)
+    fark = jax_level_keys(inp, **jkw)[0]
+    out = port_level(far_level, inp, "cpu", **kw)
+    cnt = out.cnt.numpy()
+    assert_prefix(out.far, cnt[C_FAR], jax_compact(fark))
+    assert_prefix(out.seg, cnt[C_SEG], jax_compact(segk))
+    np.testing.assert_array_equal(cnt[C_FAR], np.sum(fark != IMAX, 1))
+    np.testing.assert_array_equal(cnt[C_SEG], np.sum(segk != IMAX, 1))
+    assert cnt[C_SEG].sum() > 0
+    if not last:
+        fids, n_live, ovf, n_open = jax_expand(openk, caps["Wn"],
+                                               caps["open_cap"])
+        assert_prefix(out.fids, cnt[C_NEXT], fids, tail=-1)
+        np.testing.assert_array_equal(cnt[C_NEXT], n_live)
+        np.testing.assert_array_equal(cnt[C_OPEN], n_open)
+        assert cnt[C_OVF_OPEN].sum() == ovf
+        assert n_open.sum() > 0
+        assert (ovf > 0) == (caps["open_cap"] < 1024)
+    else:
+        bkey, n_bk, n_big, bcnt = jax_big(bigk, inp["tbl"], caps["big_cap"],
+                                          caps["big_chunks"])
+        assert_prefix(out.bkey, cnt[C_BK], bkey)
+        np.testing.assert_array_equal(cnt[C_BK], n_bk)
+        np.testing.assert_array_equal(cnt[C_BIG], n_big)
+        np.testing.assert_array_equal(
+            cnt[C_BIG_DROP],
+            np.sum(np.maximum(bcnt - 16 * caps["big_chunks"], 0), 1))
+        if level == 5:
+            assert n_big.max() > caps["big_cap"]
+            assert cnt[C_BIG_DROP].sum() > 0
+        assert np.all(cnt[C_OPEN] == 0)
+    acc = walk_far_field(far_list, out, inp, "cpu", need_pot).numpy()
+    assert_acc_close(acc, acc_j, setup["gvalid"])
     if not need_pot:
-        assert np.all(acc_t[..., 3] == 0)
+        assert np.all(acc[..., 3] == 0)
+
+
+def prefilled_lists(ng, LF, LN, seed):
+    """Lists already part full (random fill counts and ids, IMAX tails),
+    as numpy (far, near, nf, nn)."""
+    rng = np.random.default_rng(seed)
+    nf = rng.integers(0, LF + 1, ng).astype(np.int32)
+    nn = rng.integers(0, LN + 1, ng).astype(np.int32)
+    far = rng.integers(0, 1 << 20, (ng, LF)).astype(np.int32)
+    near = rng.integers(0, 1 << 20, (ng, LN)).astype(np.int32)
+    far[np.arange(LF)[None, :] >= nf[:, None]] = IMAX
+    near[np.arange(LN)[None, :] >= nn[:, None]] = IMAX
+    return far, near, nf, nn
+
+
+# name -> (level, last, walk caps, list caps (LF, LN, lvl_cap)); each case
+# overflows the cap it is named after
+LVL_BASE = 4681
+RECORD_CASES = {
+    "open_cap": (3, False, dict(DEFAULT_CAPS, open_cap=5), (4096, 4096, None)),
+    "wn": (3, False, dict(DEFAULT_CAPS, Wn=16), (4096, 4096, None)),
+    "lvl_cap": (3, False, DEFAULT_CAPS, (4096, 4096, 16)),
+    "far_cap": (3, False, DEFAULT_CAPS, (96, 4096, None)),
+    "near_cap": (3, False, DEFAULT_CAPS, (4096, 12, None)),
+    "big_cap": (5, True, dict(DEFAULT_CAPS, big_cap=1, big_chunks=1),
+                (4096, 4096, None)),
+}
+
+
+def record_case(setup, name, device, fn):
+    """One record-mode level on prefilled lists: the port's (Level,
+    ListBuf) and JAX's composition of the same level (a dict)."""
+    level, last, caps, (LF, LN, lvl_cap) = RECORD_CASES[name]
+    inp = level_inputs(setup, level, short=9)
+    ng, W = inp["fids"].shape
+    far0, near0, nf0, nn0 = prefilled_lists(ng, LF, LN, seed=level)
+    jkw = dict(theta2=0.25, use_relative=True, leaf_cap=16, last=last)
+    fark, segk, openk, bigk = jax_level_keys(inp, lvl_base=LVL_BASE, **jkw)
+    # JAX _record's do_level, then _expand_open or the big path
+    LC = W if lvl_cap is None else min(lvl_cap, W)
+    live_f, live_n = np.sum(fark != IMAX, 1), np.sum(segk != IMAX, 1)
+    zero = jnp.zeros((), jnp.int32)
+    far, nf, ovf_f = _append_plane(jnp.asarray(far0), jnp.asarray(nf0), zero,
+                                   jnp.asarray(jax_compact(fark)[:, :LC]), LC)
+    near, nn, ovf_n = _append_plane(jnp.asarray(near0), jnp.asarray(nn0),
+                                    zero,
+                                    jnp.asarray(jax_compact(segk)[:, :LC]),
+                                    LC)
+    jax = dict(need_f=live_f, need_n=live_n,
+               ovf_l=int(np.sum(np.maximum(live_f - LC, 0))
+                         + np.sum(np.maximum(live_n - LC, 0))))
+    if not last:
+        fids, n_live, ovf_open, _ = jax_expand(openk, caps["Wn"],
+                                               caps["open_cap"])
+        jax.update(fids=fids, n_live=n_live, ovf_open=ovf_open)
+        jax["ovf_l"] += ovf_open
+    else:
+        bkey, n_bk, n_big, bcnt = jax_big(bigk, inp["tbl"], caps["big_cap"],
+                                          caps["big_chunks"])
+        over = np.maximum(n_big - caps["big_cap"], 0)
+        jax["need_n"] = live_n + n_bk + over * caps["big_chunks"]
+        near, nn, ovf_n = _append_plane(near, nn, ovf_n, jnp.asarray(bkey),
+                                        bkey.shape[1])
+        jax["ovf_l"] += int(over.sum() + np.sum(
+            np.maximum(bcnt - 16 * caps["big_chunks"], 0)))
+        jax["over"] = int(over.sum())
+    jax.update(far=np.asarray(far), near=np.asarray(near), nf=np.asarray(nf),
+               nn=np.asarray(nn), ovf_f=int(ovf_f), ovf_n=int(ovf_n))
+    buf = ListBuf(*(torch.tensor(a).to(device) for a in
+                    (far0, near0, nf0, nn0)),
+                  stat=torch.zeros(5, ng, dtype=torch.int32, device=device))
+    n0 = far_level.record_launches
+    out = port_level(fn, inp, device, lists=buf, lvl_base=LVL_BASE,
+                     lvl_cap=lvl_cap, **jkw, **caps)
+    launched = far_level.record_launches - n0
+    return out, buf, jax, launched
+
+
+def assert_record_equal(out, buf, jax, last):
+    for f in ("far", "near", "nf", "nn"):
+        np.testing.assert_array_equal(getattr(buf, f).cpu().numpy(), jax[f],
+                                      err_msg=f)
+    st = buf.stat.cpu().numpy()
+    np.testing.assert_array_equal(st[S_NEED_F], jax["need_f"])
+    np.testing.assert_array_equal(st[S_NEED_N], jax["need_n"])
+    assert [int(st[S_OVF_L].sum()), int(st[S_OVF_F].sum()),
+            int(st[S_OVF_N].sum())] == [jax["ovf_l"], jax["ovf_f"],
+                                        jax["ovf_n"]]
+    if not last:
+        cnt = out.cnt.cpu().numpy()
+        assert_prefix(out.fids, cnt[C_NEXT], jax["fids"], tail=-1)
+        np.testing.assert_array_equal(cnt[C_NEXT], jax["n_live"])
+
+
+@pytest.mark.parametrize("name", list(RECORD_CASES))
+def test_far_level_record_matches_jax(setup, name):
+    """The record mode against JAX: the level's accepted flat ids and
+    segment keys (and big-cell chunks) appended to part-full lists as JAX's
+    ``_walk_level_keys`` planes through ``compact_plane`` and
+    ``_append_plane`` append them, the next frontier as
+    ``_expand_open_wq`` gives it, and the same demand and drops, with the
+    cap the case is named after overflowing."""
+    out, buf, jax, _ = record_case(setup, name, "cpu", far_level)
+    last = RECORD_CASES[name][1]
+    assert_record_equal(out, buf, jax, last)
+    fired = {"open_cap": jax.get("ovf_open", 0), "wn": jax.get("ovf_open", 0),
+             "lvl_cap": jax["ovf_l"], "far_cap": jax["ovf_f"],
+             "near_cap": jax["ovf_n"], "big_cap": jax.get("over", 0)}
+    assert fired[name] > 0, (name, jax["ovf_l"], jax["ovf_f"], jax["ovf_n"])
+    if name not in ("open_cap", "wn", "lvl_cap", "big_cap"):
+        assert jax["ovf_l"] == 0
 
 
 @pytest.fixture
@@ -165,30 +414,48 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("level,last,use_relative,need_pot,leaf_cap", CASES)
+@pytest.mark.parametrize("level,last,use_relative,need_pot,leaf_cap,caps",
+                         CASES)
 def test_far_kernel_matches_plain_on_card(setup, cuda, level, last,
-                                          use_relative, need_pot, leaf_cap):
-    inp = level_inputs(setup, level)
-    kw = dict(theta2=0.25, use_relative=use_relative, leaf_cap=leaf_cap,
-              last=last, need_pot=need_pot)
+                                          use_relative, need_pot, leaf_cap,
+                                          caps):
+    inp = level_inputs(setup, level, short=9)
+    kw = walk_kw(last, use_relative, leaf_cap, caps)
     n0 = far_level.launches
-    acc_k, keys_k = port_far(far_level, inp, cuda, **kw)
+    k = port_level(far_level, inp, cuda, **kw)
     assert far_level.launches == n0 + 1
-    acc_p, keys_p = port_far(far_level_plain, inp, cuda, **kw)
-    np.testing.assert_array_equal(keys_k, keys_p)
-    assert_acc_close(acc_k, acc_p, setup["gvalid"])
+    p = port_level(far_level_plain, inp, cuda, **kw)
+    np.testing.assert_array_equal(k.cnt.cpu().numpy(), p.cnt.cpu().numpy())
+    for f, row, tail in (("far", C_FAR, IMAX), ("seg", C_SEG, IMAX),
+                         ("fids", C_NEXT, -1), ("bkey", C_BK, IMAX)):
+        if getattr(p, f) is not None:
+            assert_prefix(getattr(k, f), p.cnt[row],
+                          getattr(p, f).cpu().numpy(), tail=tail)
+    n0 = far_list.launches
+    acc_k = walk_far_field(far_list, k, inp, cuda, need_pot)
+    assert far_list.launches == n0 + 1
+    acc_p = walk_far_field(far_list_plain, p, inp, cuda, need_pot)
+    assert_acc_close(acc_k.cpu().numpy(), acc_p.cpu().numpy(),
+                     setup["gvalid"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(RECORD_CASES))
+def test_far_level_record_kernel_matches_jax_on_card(setup, cuda, name):
+    out, buf, jax, launched = record_case(setup, name, cuda, far_level)
+    assert launched == 1
+    assert_record_equal(out, buf, jax, RECORD_CASES[name][1])
 
 
 def test_far_level_cpu_runs_plain(setup):
     inp = level_inputs(setup, 3)
-    kw = dict(theta2=0.25, use_relative=False, leaf_cap=16, last=False,
-              need_pot=True)
+    kw = walk_kw(False, False, 16, DEFAULT_CAPS)
     n0 = far_level.launches
-    a = port_far(far_level, inp, "cpu", **kw)
-    b = port_far(far_level_plain, inp, "cpu", **kw)
+    a = port_level(far_level, inp, "cpu", **kw)
+    b = port_level(far_level_plain, inp, "cpu", **kw)
     assert far_level.launches == n0
-    np.testing.assert_array_equal(a[0], b[0])
-    np.testing.assert_array_equal(a[1], b[1])
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 # ---- far_list's work-item split (ops/work_items.py) ------------------------
@@ -261,7 +528,7 @@ def far_items_plain(inp, need_pot):
     own entries) and summed in the second pass's order, in float64: the
     random nodes pull the targets from all sides, and float32 sums in
     another order differ by ~1e-6 of a target's small net force."""
-    from sidm_tpu_torch.ops.far_list import far_list_plain, far_split
+    from sidm_tpu_torch.ops.far_list import far_split
     from sidm_tpu_torch.ops.work_items import sum_items
 
     t = {k: torch.tensor(v.astype(np.float64) if v.dtype == np.float32
@@ -280,7 +547,6 @@ def far_items_plain(inp, need_pot):
 
 @pytest.mark.parametrize("need_pot", [True, False])
 def test_far_list_items_sum_matches_plain(need_pot):
-    from sidm_tpu_torch.ops.far_list import far_list_plain
 
     inp = far_lists()
     acc_i, n_items = far_items_plain(inp, need_pot)
@@ -303,7 +569,6 @@ def test_far_list_items_sum_matches_plain(need_pot):
 def test_far_list_kernel_stress_on_card(cuda, need_pot):
     """The lists above on the card: an empty list beside one at the cap,
     dead ids, softened pairs."""
-    from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
 
     inp = far_lists()
     t = {k: torch.tensor(v).to(cuda) for k, v in inp.items()}

@@ -37,7 +37,8 @@ import torch
 
 from sidm_tpu_torch.ops import fused_force as tff
 from sidm_tpu_torch.ops import list_force as tlf
-from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
+from sidm_tpu_torch.ops.far_kernel import (C_NEXT, ListBuf, far_level,
+                                           far_level_plain)
 from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
                                          far_units, k3_reference)
 from sidm_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
@@ -276,7 +277,7 @@ def test_far_list_cpu_runs_plain(setup):
     lists = _record(setup, 0.0)
     n0 = far_list.launches
     tree = setup["tree"]
-    ctbl = gather_rows(tlf.flat_tables(tff.pack_tree(tree)), torch.cat(
+    ctbl = gather_rows(tff.flat_tables(tff.pack_tree(tree)), torch.cat(
         [lists.src, torch.tensor([tree.mac_rows.shape[0]],
                                  dtype=torch.int32)]))
     ng = lists.nf.shape[0]
@@ -335,12 +336,15 @@ def _to(x, dev):
 
 @pytest.mark.gpu
 def test_far_level_record_kernel_matches_plain_on_card(setup, cuda):
-    """Every level of the recording walk: all four key planes equal."""
+    """Every level of the recording walk, from the same list state: the
+    lists, their counts and telemetry, the next frontier and the counts
+    equal."""
     captured = []
 
-    def spy(*args, **kw):
-        captured.append((args, kw))
-        return far_level_plain(*args, **kw)
+    def spy(**kw):
+        captured.append(dict(kw, lists=ListBuf(*(t.clone()
+                                                  for t in kw["lists"]))))
+        return far_level_plain(**kw)
 
     import sidm_tpu_torch.ops.list_force as mod
     orig = mod.far_level
@@ -350,14 +354,21 @@ def test_far_level_record_kernel_matches_plain_on_card(setup, cuda):
     finally:
         mod.far_level = orig
     assert len(captured) > 3
-    for args, kw in captured:
-        args = [_to(a, cuda) for a in args]
+    for kw in captured:
+        kw = {k: _to(v, cuda) for k, v in kw.items()}
+        bufs = [ListBuf(*(_to(t, cuda) for t in kw["lists"]))
+                for _ in range(2)]
         n0 = far_level.record_launches
-        k = far_level(*args, **kw)
+        k = far_level(**dict(kw, lists=bufs[0]))
         assert far_level.record_launches == n0 + 1
-        p = far_level_plain(*args, **kw)
-        for a, b in zip(k, p):
+        p = far_level_plain(**dict(kw, lists=bufs[1]))
+        for a, b in zip(*bufs):
             assert torch.equal(a, b)
+        assert torch.equal(k.cnt, p.cnt)
+        if p.fids is not None:
+            live = (torch.arange(p.fids.shape[1], device=cuda)
+                    < p.cnt[C_NEXT][:, None])
+            assert torch.equal(torch.where(live, k.fids, -1), p.fids)
 
 
 @pytest.mark.gpu
@@ -367,7 +378,7 @@ def test_far_list_kernel_matches_plain_on_card(setup, cuda, need_pot):
         _record(setup, LIST_SKINS[1])), cuda)
     tree = setup["tree"]
     M = tree.mac_rows.shape[0]
-    tbl = tlf.flat_tables(tff.pack_tree(tree)).to(cuda)
+    tbl = tff.flat_tables(tff.pack_tree(tree)).to(cuda)
     src = torch.cat([lists.src, torch.tensor([M], dtype=torch.int32,
                                              device=cuda)])
     ctbl = gather_rows_plain(tbl, src)
