@@ -52,11 +52,30 @@ Phases (each asserts; any failure exits non-zero):
      ids, gather_rowsum at 8M ids from (2^14, 16) and (2^10, 16);
   8. first slice's path: ListMode 0 (the walk every step) through
      Simulation: prepare, 2 steps, compute_potential, with far_level,
-     far_list and near_level launched, no overflow, |dE/E| < 1e-3.
+     far_list and near_level launched, no overflow, |dE/E| < 1e-3;
+  9. flagship-dsmc (bench.py's SIDM settings on the lists,
+     flagship_config(**DSMC)) through Simulation: prepare (the hsml init's
+     11 counting passes and the first candidate record), compute_potential,
+     8 steps, compute_potential: >= 2 candidate records (prepare's
+     included), scatters > 0, no candidate segment drops, K drops only at
+     the K ceiling (sidm_trunc_frac printed), no gated or tail drops, no
+     force-list or walk overflow, finite state, |dE/E| < 1e-3, every
+     step's kicks conserving momentum (|sum m dv| <= 1e-5 sum m |dv|), and
+     launches of the range walk (far_level range mode), the candidate
+     emission and its count mode (sidm_emit), the gated tile (sidm_gated),
+     far_level (record), far_list, near_level and gather_nodes; then, on
+     the run's end state, the range walk of a record and of a prepare pass
+     against its plain version on every level, all groups, bit-equal
+     (timed per walk); the emission and its count mode bit-equal to the
+     plain version on a subset of groups, at the run's K and at K = 16
+     (truncating), timed on all groups; the gated tile on the next step's
+     targets: counts equal, P_tot p99.9 relative error < 1e-5, partners
+     equal except at near-ties (counted).
 Before the last line it prints one JSON object with the per-kernel results
-(``launches``: on this slice's main path, phase 5; ``launches_by_path``:
-phase 5's and phase 8's counts, each path's counters set to 0 just before
-it and read just after; for far_list and near_level ``full_ms`` and
+(``launches``: on this slice's main path, phase 9; ``launches_by_path``:
+phase 5's, phase 8's and phase 9's counts, each path's counters set to 0
+just before it and read just after; for far_list and near_level
+``full_ms`` and
 ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
 ``witness``, for far_level (walk and record modes) ``ms`` per walk on all
@@ -74,13 +93,15 @@ import numpy as np
 import torch
 
 SEED = 12345
-STEPS = 8              # list path, after prepare
+STEPS = 8              # list path and DSMC path, after prepare
 WALK_STEPS = 2         # first slice's path, after prepare
 ORACLE_TARGETS = 4096  # random targets held against the direct sum
 SUBSET_GROUPS = 512    # groups per call in the kernel-vs-plain checks
 K3_UNITS = 2048        # scripts/pallasfar.py NU
 K6_CAP, K6_BLOCKS, K6_IDS = 65536, 256, 2048   # pallas_gather_probe.py
 K45_IDS = 1 << 23      # scripts/gatherbench.py F
+EMIT_GROUPS = 64       # groups of the emission's kernel-vs-plain check
+EMIT_TINY_K = 16       # the truncating K of that check
 
 
 def card_line() -> str:
@@ -163,7 +184,8 @@ class FarLevelCheck:
 
     def __init__(self, card, stress=False):
         self.card, self.stress = card, stress
-        self.t = {m: dict(levels=0) for m in ("walk", "record", "far_list")}
+        self.t = {m: dict(levels=0) for m in ("walk", "record", "far_list",
+                                              "range", "range_prep")}
         self.err, self.max_abs = 0.0, 0.0   # the walk's far field vs plain
         self.worst = None                   # (level, which, its far_list kw)
         self.far_total = 0.0                # the plain far field, all levels
@@ -187,7 +209,9 @@ class FarLevelCheck:
                        ("dense_bytes", dense[1])):
             t[key] = t.get(key, 0.0) + v
         name = {"walk": "far_level (walk)", "record": "far_level (record)",
-                "far_list": "far_list (walk far field)"}[mode]
+                "far_list": "far_list (walk far field)",
+                "range": "far_level (range, record)",
+                "range_prep": "far_level (range, prepare pass)"}[mode]
         print(f"  {name} level {level}: width {width}, device {ms:.3f} ms, "
               f"call {call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{bound_ms(*work)[0]:.4f} ms"
@@ -322,7 +346,7 @@ class FarLevelCheck:
                    max_open=[int(x) for x in info["max_open"]])
         assert got == self.info, (got, self.info)
 
-    def record_level(self, level, kw):
+    def record_level(self, level, kw, mode="record"):
         from sidm_tpu_torch.bounds import far_level_dense_work, far_level_work
         from sidm_tpu_torch.ops.far_kernel import (ListBuf, far_level,
                                                    far_level_plain)
@@ -331,7 +355,7 @@ class FarLevelCheck:
         k = far_level(**dict(kw, lists=bufs[0]))
         p = far_level_plain(**dict(kw, lists=bufs[1]))
         assert all(torch.equal(a, b) for a, b in zip(*bufs)), \
-            ("far_level record", level)
+            ("far_level", mode, level)
         self._same(k, p)
         if self.stress:
             return
@@ -347,25 +371,40 @@ class FarLevelCheck:
         def timed(fn, b, reps):
             return (cuda_ms(lambda: (restore(b), fn(**dict(kw, lists=b))),
                             reps) - cuda_ms(lambda: restore(b), reps))
-        self._time("record", level, kw["fids"].shape[1],
+        self._time(mode, level, kw["fids"].shape[1],
                    device_ms(lambda: (restore(bufs[0]),
                                       far_level(**dict(kw, lists=bufs[0]))),
                              5, FAR_LEVEL_KERNELS),
                    timed(far_level, bufs[0], 5),
                    timed(far_level_plain, bufs[1], 1),
-                   far_level_work(kw, p.cnt), far_level_dense_work(kw))
+                   far_level_work(kw, p.cnt),
+                   (0.0, 0.0) if kw.get("range_walk")
+                   else far_level_dense_work(kw))
+
+    def range_level(self, level, kw):
+        self.record_level(level, kw, "range")
+
+    def range_prep_level(self, level, kw):
+        self.record_level(level, kw, "range_prep")
 
     def report(self, mode, res):
         from sidm_tpu_torch.bounds import bound_ms
         t = self.t[mode]
         bms, by = bound_ms(t["ops"], t["bytes"])
-        walk = "record walk" if mode == "record" else "walk"
+        walk = {"record": "record walk", "range": "range walk of a record",
+                "range_prep": "range walk of a prepare pass"}.get(mode,
+                                                                  "walk")
         name = {"walk": "far_level", "record": "far_level_record",
-                "far_list": "far_list"}[mode]
+                "far_list": "far_list", "range": "far_level_range",
+                "range_prep": "far_level_range"}[mode]
         what = {"walk": "outputs, counts and info equal to the plain "
                         "version's",
                 "record": "outputs, counts, lists and telemetry equal to "
                           "the plain version's",
+                "range": "lists, counts and telemetry equal to the plain "
+                         "version's",
+                "range_prep": "lists, counts and telemetry equal to the "
+                              "plain version's",
                 "far_list": f"the walk's far field, p99.9 err "
                             f"{self.err:.3e} (largest of acc, acc with pot, "
                             f"pot), max abs {self.max_abs:.3e}"}[mode]
@@ -378,6 +417,12 @@ class FarLevelCheck:
               f"included), plain {t['plain_ms']:.3f} ms, bound {bms:.3f} ms "
               f"({by}), at {bms / t['ms']:.1%} of the bound's speed{dense} "
               f"[{self.card}]", flush=True)
+        if mode == "range_prep":
+            res.add(name, 0.0, 0.0, 0.0, 0.0, 0.0)
+            res.rows[name].update(prepare_pass_ms=t["ms"],
+                                  prepare_pass_bound_ms=bms,
+                                  prepare_pass_plain_ms=t["plain_ms"])
+            return
         if mode == "far_list":
             res.add(name, self.max_abs, 0.0, 0.0, 0.0, 0.0)
             res.rows[name].update(walk_ms=t["ms"], walk_bound_ms=bms,
@@ -386,9 +431,10 @@ class FarLevelCheck:
                                   walk_p999_err=self.err)
             return
         res.add(name, 0.0, t["ms"], t["plain_ms"], t["ops"], t["bytes"])
-        res.rows[name].update(
-            dense_bound_ms=bound_ms(t["dense_ops"], t["dense_bytes"])[0],
-            call_ms=t["call_ms"])
+        res.rows[name].update(call_ms=t["call_ms"])
+        if t["dense_bytes"]:
+            res.rows[name].update(dense_bound_ms=bound_ms(
+                t["dense_ops"], t["dense_bytes"])[0])
 
 
 def main():
@@ -422,6 +468,7 @@ def main():
                                            gather_rowsum_plain)
     from sidm_tpu_torch.ops.list_force import (ListConfig, eval_inputs,
                                                eval_lists, record_lists)
+    from sidm_tpu_torch.ops.list_range import sidm_emit, sidm_gated
     from sidm_tpu_torch.ops.near_kernel import (near_level, near_level_plain,
                                                 near_split)
     from sidm_tpu_torch.ops.tree import build_octree
@@ -622,6 +669,10 @@ def main():
     # ---- main path: the list-mode Simulation on the card --------------------
     counters = {"far_level": (far_level, "launches"),
                 "far_level_record": (far_level, "record_launches"),
+                "far_level_range": (far_level, "range_launches"),
+                "sidm_emit": (sidm_emit, "launches"),
+                "sidm_emit_count": (sidm_emit, "count_launches"),
+                "sidm_gated": (sidm_gated, "launches"),
                 "near_level": (near_level, "launches"),
                 "far_list": (far_list, "launches"),
                 "gather_rows": (gather_rows, "launches"),
@@ -659,7 +710,7 @@ def main():
     t_steps = time.perf_counter() - t0
     sim.compute_potential()
     torch.cuda.synchronize()
-    launches = read_counts()
+    list_launches = read_counts()
     e_end = sim_energy(sim)
     de = abs(e_end - e_start) / abs(e_start)
     finite = bool(torch.isfinite(sim.particles.pos).all())
@@ -675,13 +726,13 @@ def main():
     print(f"main path (ListMode 1): N {n}, prepare+potential {t_prep:.2f} s, "
           f"{STEPS} steps {t_steps:.3f} s, {rate:.1f} particle-steps/s, "
           f"kinds {kinds}, t = {sim.time:.6g}, |dE/E| {de:.3e}, launches "
-          f"{launches}, overflow {ovf}, finite {finite}, diag far "
+          f"{list_launches}, overflow {ovf}, finite {finite}, diag far "
           f"{sim._diag_far} near {sim._diag_near} [{card}]", flush=True)
     assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
     assert kinds.count("record") >= 2 and kinds.count("list") >= 4, kinds
     for key in ("far_level_record", "far_list", "near_level",
                 "gather_nodes"):
-        assert launches[key] > 0, (key, launches)
+        assert list_launches[key] > 0, (key, list_launches)
 
     # ---- list kernels vs plain on the main path's recorded lists ------------
     lists, btree = sim._lists_cache, sim._tree_cache
@@ -851,6 +902,18 @@ def main():
           flush=True)
     assert wovf == 0 and de < 1e-3 and min(wl.values()) > 0, (wovf, de, wl)
     assert bool(torch.isfinite(wsim.particles.pos).all())
+    del wsim
+
+    # ---- this slice's path: flagship-dsmc ----------------------------------
+    zero_counts()
+    dsim = dsmc_path(pos, vel, mass, n, dev, card)
+    launches = read_counts()
+    for key in ("far_level_range", "sidm_emit", "sidm_emit_count",
+                "sidm_gated", "far_level_record", "far_list", "near_level",
+                "gather_nodes"):
+        assert launches[key] > 0, (key, launches)
+    dsmc_kernels(res, dsim, dev, card)
+    del dsim
 
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
@@ -867,6 +930,16 @@ def main():
                           "scripts/gatherbench.py:65,99"),
         "gather_nodes": ("sidm_tpu_torch/csrc/gather.cu",
                          "scripts/pallas_gather_probe.py:40"),
+        # the DSMC kernels have no TPU original: the JAX package's plain
+        # XLA functions they port
+        "far_level_range": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                            "sidm_tpu/ops/list_range.py:94"),
+        "sidm_emit": ("sidm_tpu_torch/csrc/sidm_emit.cu",
+                      "sidm_tpu/ops/list_range.py:205"),
+        "sidm_emit_count": ("sidm_tpu_torch/csrc/sidm_emit.cu",
+                            "sidm_tpu/ops/fused_range.py:179"),
+        "sidm_gated": ("sidm_tpu_torch/csrc/sidm_gated.cu",
+                       "sidm_tpu/ops/list_range.py:434"),
     }
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
@@ -875,8 +948,9 @@ def main():
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": launches[name],
-            "launches_by_path": {"lists": launches[name],
-                                 "walk": walk_launches[name]},
+            "launches_by_path": {"lists": list_launches[name],
+                                 "walk": walk_launches[name],
+                                 "dsmc": launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": r["library_ms"],
@@ -893,13 +967,13 @@ def main():
 def check_gather(res, name, kern, plain, tbl, ids, label, card, gather_work,
                  bound_ms):
     """A gather kernel against its plain version (rows: bit-equal; row
-    sums: 1e-5 of the largest), with times; for rows, one PyTorch call
+    sums: 1e-6 of the largest), with times; for rows, one PyTorch call
     that computes the same function (index_select) as the yardstick."""
     rowsum = name == "gather_rowsum"
     out_k, out_p = kern(tbl, ids), plain(tbl, ids)
     max_abs = float(torch.max(torch.abs(out_k - out_p)))
     if rowsum:
-        assert max_abs <= 1e-5 * float(torch.max(torch.abs(out_p))), max_abs
+        assert max_abs <= 1e-6 * float(torch.max(torch.abs(out_p))), max_abs
     else:
         assert torch.equal(out_k, out_p), name
     ms = cuda_ms(lambda: kern(tbl, ids), 10)
@@ -1022,6 +1096,245 @@ def near_stress(res, lists, btree, gt, te, card):
                  lists.gvalid[pick], torch.tensor([1, 3]),
                  f"one group at the cap {K} x 31 beside two empty groups, "
                  "self and coincident pairs", card)
+
+
+def dsmc_path(pos, vel, mass, n, dev, card):
+    """flagship-dsmc through Simulation: prepare, compute_potential, STEPS
+    steps, compute_potential, with the asserts of phase 9. Returns the
+    Simulation."""
+    from sidm_tpu_torch.flagship import DSMC, flagship_config
+    from sidm_tpu_torch.simulation import Simulation
+
+    sim = Simulation(flagship_config(**DSMC), mode="phased", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32),
+                                  pad_to_multiple=4096)
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    infos = [dict(sim.last_sidm_info, kind=sim.last_list_info["kind"])]
+    prep_walls = dict(sim.last_phase_wall)
+    sim.compute_potential()
+    e_start = sim_energy(sim)
+    ovf, walls, scat = 0, [], []
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        _, _, n_scat = sim.step()
+        li, si = dict(sim.last_list_info), dict(sim.last_sidm_info)
+        infos.append(dict(si, kind=li["kind"]))
+        if li["ovf"] is not None:
+            ovf += sum(li["ovf"])
+        if sim.last_walk_info is not None:
+            ovf += sum(int(sim.last_walk_info[k]) for k in
+                       ("ovf_open", "ovf_big", "ovf_items"))
+        m = sim.particles.mass[:, None].double()
+        kick = si["kick"].double()
+        mom = float(torch.linalg.norm(torch.sum(m * kick, 0)))
+        scale = float(torch.sum(m * torch.linalg.norm(kick, dim=1,
+                                                      keepdim=True)))
+        assert mom <= 1e-5 * scale, ("momentum", mom, scale)
+        scat.append(n_scat)
+        walls.append((li, si, dict(sim.last_phase_wall), mom, scale))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    sim.compute_potential()
+    torch.cuda.synchronize()
+    de = abs(sim_energy(sim) - e_start) / abs(e_start)
+    finite = all(bool(torch.isfinite(getattr(sim.particles, f)).all())
+                 for f in ("pos", "vel", "hsml_vd", "dvel"))
+    print(f"flagship-dsmc prepare: {t_prep:.3f} s ("
+          + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in
+                      prep_walls.items())
+          + f"), candidate ovf {infos[0]['cand_ovf']}, need "
+          f"{infos[0]['cand_need']} [{card}]", flush=True)
+    for k, (li, si, w, mom, scale) in enumerate(walls):
+        md = "-" if li["md"] is None else f"{li['md']:.4g}"
+        print(f"dsmc step {k + 1} ({li['kind']}"
+              + (", candidate record" if si["record"] else "") + "): "
+              + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in w.items())
+              + f", skin {li['skin']:.4g}, md {md}, scatters {si['n_scat']}"
+              f" of {si['proposals']} proposals ({si['rounds']} resolver "
+              f"rounds), gated {si['n_gated']}, candidate ovf "
+              f"{si['cand_ovf']} need {si['cand_need']}, gated/tail drops "
+              f"{si['ovf_g']}, |sum m dv| {mom:.3e} of sum m|dv| "
+              f"{scale:.3e} [{card}]", flush=True)
+    records = [i for i in infos if i["record"]]
+    kinds = [i["kind"] for i in infos]
+    rcfg = sim._sidm_rcfg
+    rate = n * STEPS / t_steps
+    print(f"DSMC path (flagship-dsmc, ListMode 1, SIDMOn 1): N {n}, "
+          f"{STEPS} steps {t_steps:.3f} s, {rate:.1f} particle-steps/s over "
+          f"step kinds {kinds[1:]} (prepare's {kinds[0]}), candidate "
+          f"records {len(records)}, scatters {scat} (total {sum(scat)}), "
+          f"K {rcfg.k_cap}, seg_cap {rcfg.seg_cap}, tail_cap "
+          f"{rcfg.tail_cap}, gated_frac {rcfg.gated_frac}, "
+          f"sidm_trunc_frac {sim.sidm_trunc_frac:.3e} "
+          f"({sim.sidm_trunc_targets} targets), t = {sim.time:.6g}, "
+          f"|dE/E| {de:.3e}, force overflow {ovf}, finite {finite} "
+          f"[{card}]", flush=True)
+    assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
+    assert len(records) >= 2 and sum(scat) > 0, (len(records), scat)
+    for i in records:
+        assert i["cand_ovf"][0] == 0, i["cand_ovf"]
+        assert i["cand_ovf"][1] == 0 or rcfg.k_cap >= sim.SIDM_K_CEILING
+    assert all(i["ovf_g"] == [0, 0] for i in infos), "gated/tail drops"
+    return sim
+
+
+def dsmc_kernels(res, sim, dev, card):
+    """K1-K3 against their plain versions on the DSMC run's end state: the
+    range walk of a record and of a prepare pass (every level, all groups,
+    bit-equal, timed), the emission and its count mode on EMIT_GROUPS
+    groups at the run's K and at EMIT_TINY_K (bit-equal; the kernel timed
+    on all groups), the gated tile on the next step's targets."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.bounds import bound_ms, emit_work, gated_work
+    from sidm_tpu_torch.ops.fused_force import default_depth, make_windows
+    from sidm_tpu_torch.ops.fused_range import (group_targets,
+                                                range_levels,
+                                                range_segments)
+    from sidm_tpu_torch.ops.list_range import (
+        count_neighbours, gated_targets, record_candidates_from_particles,
+        sidm_emit, sidm_emit_plain, sidm_gated, sidm_gated_plain,
+        sidm_scatter_lists)
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.rng import step_key
+
+    p = sim.particles
+    n = p.n_padded
+    params = sim._sidm_params()
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    tree = build_octree(p.pos, mass, eps, p.valid,
+                        depth=default_depth(n))
+    fl = FarLevelCheck(card)
+    captured = {}
+    cands = record_candidates_from_particles(
+        p, p.pos, tree, skin=sim._skin_now, params=params,
+        rcfg=sim._sidm_rcfg, on_level=fl.range_level,
+        on_emit=lambda kw: captured.update(kw))
+    torch.cuda.synchronize()
+    fl.report("range", res)
+    # a prepare pass: pad = the largest h of the group, no skin
+    col = p.is_collisionless & p.valid
+    h_s = torch.where(col, p.hsml_vd, torch.zeros_like(p.hsml_vd))[tree.perm]
+    typ = torch.where(col, p.ptype, torch.full_like(p.ptype, -9))[tree.perm]
+    pidx, gvalid = make_windows(tree.keys_s, p.valid[tree.perm], n,
+                                tree.depth)
+    gt, gh, gty, gidx, glo, ghi, pad = group_targets(tree, pidx, gvalid, h_s,
+                                                     typ)
+    rlev = range_levels(tree)
+    need = int(range_segments(tree, rlev, glo, ghi, pad, seg_cap=1024)[3])
+    keys, nn, _, _, stat = range_segments(
+        tree, rlev, glo, ghi, pad, seg_cap=-(-need // 1024) * 1024,
+        on_level=fl.range_prep_level)
+    assert int(stat[4].sum()) == 0, "prepare pass segment drops"
+    torch.cuda.synchronize()
+    fl.report("range_prep", res)
+
+    # K2: emission and count mode, kernel vs plain on a subset of groups
+    kw = captured
+    ng = kw["keys"].shape[0]
+    sub = torch.linspace(0, ng - 1, min(EMIT_GROUPS, ng), device=dev).long()
+    skw = {k: (v[sub].contiguous() if k in ("keys", "nn", "gt", "gr", "gty",
+                                            "gidx") else v)
+           for k, v in kw.items()}
+    base = [skw[k] for k in ("keys", "nn", "src", "gt", "gr", "gty",
+                             "gidx")]
+    for K in (kw["K"], EMIT_TINY_K):
+        a = sidm_emit(*base, n, K)
+        b = sidm_emit_plain(*base, n, K)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), ("emit", K)
+        ovf_k = int(torch.sum(torch.clamp(b[2].long() - K, min=0)))
+        print(f"kernel sidm_emit ({len(sub)} of {ng} groups, K {K}): "
+              f"candidate lists, ncand and demand bit-equal to the plain "
+              f"version's, {int(torch.sum(b[1]))} candidates, K drops "
+              f"{ovf_k} [{card}]", flush=True)
+        if K == EMIT_TINY_K:
+            assert ovf_k > 0
+    cargs = dict(keys=keys[sub].contiguous(), nn=nn[sub].contiguous(),
+                 src=kw["src"], gt=gt[sub].contiguous(),
+                 gh=gh[sub].contiguous(), gty=gty[sub].contiguous(),
+                 gidx=gidx[sub].contiguous(), n=n)
+    ck = count_neighbours(**cargs)
+    cp = sidm_emit_plain(*[cargs[k] for k in ("keys", "nn", "src", "gt",
+                                              "gh", "gty", "gidx")], n, 0,
+                         count_mode=True)
+    assert torch.equal(ck, cp), "count mode"
+    K = kw["K"]
+    full = [kw[k] for k in ("keys", "nn", "src", "gt", "gr", "gty", "gidx")]
+    ms = cuda_ms(lambda: sidm_emit(*full, n, K), 3)
+    sub_ms = cuda_ms(lambda: sidm_emit(*base, n, K), 3)
+    plain_ms = cuda_ms(lambda: sidm_emit_plain(*base, n, K), 1)
+    ops, nb = emit_work(kw["keys"], kw["nn"], kw["gidx"], n,
+                        written=torch.sum(cands.ncand))
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel sidm_emit (a record's emission, all {ng} groups, K {K}): "
+          f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), at {bms / ms:.1%} of "
+          f"the bound's speed; {len(sub)} groups: kernel {sub_ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms [{card}]", flush=True)
+    res.add("sidm_emit", 0.0, ms, plain_ms, ops, nb)
+    res.rows["sidm_emit"].update(subset_groups=len(sub), subset_ms=sub_ms)
+    call = [keys, nn, kw["src"], gt, gh, gty, gidx]
+    ms = cuda_ms(lambda: count_neighbours(*call, n), 3)
+    csub = [cargs[k] for k in ("keys", "nn", "src", "gt", "gh", "gty",
+                               "gidx")]
+    sub_ms = cuda_ms(lambda: count_neighbours(*csub, n), 3)
+    plain_ms = cuda_ms(lambda: sidm_emit_plain(*csub, n, 0,
+                                               count_mode=True), 1)
+    ops, nb = emit_work(keys, nn, gidx, n, count_mode=True)
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel sidm_emit count mode (a prepare pass, all {ng} groups): "
+          f"counts on {len(sub)} groups equal to the plain version's; "
+          f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), at {bms / ms:.1%} of "
+          f"the bound's speed; {len(sub)} groups: kernel {sub_ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms [{card}]", flush=True)
+    res.add("sidm_emit_count", 0.0, ms, plain_ms, ops, nb)
+    res.rows["sidm_emit_count"].update(subset_groups=len(sub),
+                                       subset_ms=sub_ms)
+    del keys, nn, stat, captured, kw, skw, base, full, call
+
+    # K3: the next step's gated tile, kernel vs plain
+    t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, _ = integrate.predict_positions(p, t_next, sim.consts)
+    vmax = torch.tensor(sim.vmax, dtype=pos_pred.dtype, device=dev)
+    key = step_key(sim.root_key, sim.step_count)
+    _, _, _, _, info = sidm_scatter_lists(
+        p, pos_pred, tree, cands, t_next, active, vmax, key, params,
+        rcfg=sim._sidm_rcfg, salt=sim.step_count)
+    tid, drops = gated_targets(info["hs"], cands.ncand, cands.cand.shape[1],
+                               info["ngc"], info["ntail"], info["kd"])
+    drops = drops.tolist()
+    gargs = (info["rows"], cands.cand, cands.ncand, info["hs"], info["dts"],
+             tid, sim.step_count, t_next, info["sigma_co"], params)
+    k = sidm_gated(*gargs)
+    pl = sidm_gated_plain(*gargs)
+    sel = tid[tid >= 0].long()
+    assert torch.equal(k[1], pl[1]), "sidm_gated counts"
+    rel = (torch.abs(k[0] - pl[0]) / torch.clamp(torch.abs(pl[0]),
+                                                 min=1e-30))[sel]
+    p999 = q999(rel)
+    diff = (k[3] != pl[3])[sel]
+    kk, pk = k[2][sel], pl[2][sel]
+    near = diff & (torch.abs(kk - pk) <= 4 * torch.finfo(torch.float32).eps
+                   * torch.clamp(torch.abs(pk), min=1.0))
+    n_diff, n_tie = int(diff.sum()), int(near.sum())
+    max_abs = float(torch.max(torch.abs(k[0] - pl[0])[sel]))
+    ms = cuda_ms(lambda: sidm_gated(*gargs), 10)
+    plain_ms = cuda_ms(lambda: sidm_gated_plain(*gargs), 2)
+    ops, nb = gated_work(tid, cands.ncand, k[1], cands.cand)
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel sidm_gated (the next step's {sel.numel()} gated targets, "
+          f"drops {drops}): counts equal, P_tot p99.9 rel err {p999:.3e}, "
+          f"max abs {max_abs:.3e}, partners differing {n_diff} (near-ties "
+          f"{n_tie}) of {int(torch.sum(pl[3][sel] >= 0))}; kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), at "
+          f"{bms / ms:.1%} of the bound's speed [{card}]", flush=True)
+    assert p999 < 1e-5 and n_diff == n_tie, (p999, n_diff, n_tie)
+    res.add("sidm_gated", max_abs, ms, plain_ms, ops, nb)
+    res.rows["sidm_gated"].update(partner_near_ties=n_tie,
+                                  p999_rel_err=p999)
 
 
 def sim_energy(sim) -> float:

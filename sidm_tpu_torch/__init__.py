@@ -2,10 +2,11 @@
 
 The JAX package ``sidm_tpu`` is the reference; this package mirrors its
 module names and layout (``sidm_tpu/X.py`` -> ``sidm_tpu_torch/X.py``) and
-never imports jax. The slice implemented so far is the gravity-only phased
-step on the work-queue tree walk (``TreeWalkEngine wq``, ``ListMode 0``,
-``SIDMOn 0``); everything else raises ``NotImplementedError`` naming its
-ROADMAP item.
+never imports jax. Implemented so far: the phased step of the flagship on
+the work-queue tree walk (``TreeWalkEngine wq``, ``ListMode 0``) and on
+the cached interaction lists (``ListMode 1``), the latter also with DSMC
+scattering (``SIDMOn 1``); everything else raises ``NotImplementedError``
+naming its ROADMAP item.
 
 All work is float32 except the octree's moment sums, which are taken in
 float64 and rounded once to float32 (see ``ops/tree.py``). TF32 is switched

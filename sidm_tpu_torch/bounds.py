@@ -46,6 +46,25 @@ CLASS_ROW_BYTES = 36    # ... the fields classification reads: com, mass,
                         # count, node_start, child_start, child_count, bmax^2
 NODE_IN_BYTES = 44      # gather_nodes: com, mass, quadrupole, eps_max
 PART_BYTES = 20         # one particle's pos, mass, eps
+# the range mode of far_level: per node the range test (3 x (2 differences,
+# 2 max, 1 difference), d^2 5, compare, count > 0, leaf) on the range row's
+# centre, count, node_start, child_start, child_count
+RANGE_OPS = 23
+RANGE_ROW_BYTES = 32
+# candidate emission (csrc/sidm_emit.cu), per (target, staged particle)
+# pair: d 3, r^2 5, compare, type, self (the count mode: + sqrt)
+EMIT_PAIR_OPS = 11
+SRC_BYTES = 16          # one source: x, y, z, aux
+SLOT_BYTES = 24         # one target slot: position, radius, type, id
+# gated DSMC tile (csrc/sidm_gated.cu), per live candidate pair: d 3, r^2
+# 5, sqrt, r < h, pending, u, W(u) 7, / h^3, w 3, v^2 5, sqrt, sigma v,
+# P 4, sum, P > 0, log and max 2, Gumbel 8 (clamp 2, scale, 2 logs, 2
+# negations, convert), key, compare; a candidate out of range or pending
+# stops after its first 12
+GATED_PAIR_OPS = 46
+GATED_MISS_OPS = 12
+GATED_TARGET_BYTES = 64  # tid, ncand, radius, dt, row in; four outputs
+CAND_ROW_BYTES = 32      # one candidate's row [pos3 vel3 mass aux]
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -79,8 +98,10 @@ def far_level_work(kw: dict, cnt):
     c = cnt.long()
     written = _n(torch.sum(c[C_FAR]) + torch.sum(c[C_SEG])
                  + torch.sum(c[C_NEXT]) + torch.sum(c[C_BK]))
-    ops = CLASSIFY_OPS * live
-    nbytes = (4 * (live + ng) + 28 * ng + CLASS_ROW_BYTES
+    rng = bool(kw.get("range_walk"))
+    ops = (RANGE_OPS if rng else CLASSIFY_OPS) * live
+    nbytes = (4 * (live + ng) + 28 * ng
+              + (RANGE_ROW_BYTES if rng else CLASS_ROW_BYTES)
               * min(tbl.shape[0], live) + 4 * written + 4 * N_CNT * ng)
     if kw.get("lists") is not None:
         nbytes += 2 * 4 * (2 + 5) * ng
@@ -144,3 +165,43 @@ def gather_work(tbl, ids, rowsum: bool):
     out = 4 if rowsum else ROW_BYTES
     return (15 * n if rowsum else 0,
             4 * n + out * n + ROW_BYTES * min(tbl.shape[0], n))
+
+
+def emit_work(keys, nn, gidx, n: int, written=None, count_mode=False):
+    """(ops, bytes) of one ``sidm_emit`` call: EMIT_PAIR_OPS (+1 for the
+    count mode's square root) per (valid target, covered particle) pair of
+    each group; bytes: the live keys, each covered source once (at most
+    n), the target slots, and per valid target its count (and demand),
+    plus the candidate ids written (``written``: the sum of ncand)."""
+    L = keys.shape[1]
+    live = torch.arange(L, device=keys.device)[None, :] < nn[:, None].long()
+    cov = torch.sum(torch.where(live, keys & 31, 0), dim=1).long()
+    nv = torch.sum(gidx >= 0, dim=1).long()
+    pairs = _n(torch.sum(cov * nv))
+    ops = (EMIT_PAIR_OPS + int(count_mode)) * pairs
+    nt = _n(torch.sum(nv))
+    nbytes = (4 * _n(torch.sum(torch.clamp(nn.long(), max=L)))
+              + SRC_BYTES * min(_n(torch.sum(cov)), n)
+              + SLOT_BYTES * gidx.numel()
+              + (4 if count_mode else 8) * nt
+              + (0 if written is None else 4 * _n(written)))
+    return ops, nbytes
+
+
+def gated_work(tid, ncand, cnt, cand):
+    """(ops, bytes) of one ``sidm_gated`` call on the targets ``tid``
+    (-1 = unused) with the counts ``cnt`` it returned: GATED_PAIR_OPS per
+    live pair and GATED_MISS_OPS per other candidate; bytes: per target
+    GATED_TARGET_BYTES, its candidate ids, and each distinct candidate's
+    row once."""
+    t = tid[tid >= 0].long()
+    pairs = _n(torch.sum(ncand[t].long()))
+    ok = _n(torch.sum(cnt[t].long()))
+    ops = GATED_PAIR_OPS * ok + GATED_MISS_OPS * (pairs - ok)
+    K = cand.shape[1]
+    c = cand[t]
+    live = torch.arange(K, device=c.device)[None, :] < ncand[t][:, None]
+    distinct = _n(torch.unique(c[live]).numel())
+    nbytes = (GATED_TARGET_BYTES * t.numel() + 4 * pairs
+              + CAND_ROW_BYTES * distinct)
+    return ops, nbytes

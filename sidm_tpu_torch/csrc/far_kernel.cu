@@ -28,6 +28,17 @@
 // counts and its telemetry (demand, drops), all integer, one block per
 // group: no atomics. What bounds it on the H100: the bytes of the live
 // frontier (ids and node rows) and of the compacted outputs.
+//
+// Range mode (mode 2, the SIDM candidate record's walk,
+// sidm_tpu/ops/list_range.py:_record_segments with the range test of
+// sidm_tpu/ops/fused_range.py:_range_classify): the rows are the 8-wide
+// range rows (geometric centre, count, node start, child start, child
+// count), the per-group threshold is the pad, and a cell is in range when
+// its box centre +- s_l/2 lies within pad of the group box (d^2 <= pad^2);
+// cells out of range are dropped (there is no far output). The appends,
+// caps and telemetry are the record mode's, except that particles past
+// big_chunks chunks of an overfull cell are not counted as drops, as the
+// JAX range walk does not count them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,7 +53,8 @@ enum { kFar, kSeg, kNext, kOpen, kOvfOpen, kBig, kBk, kBigDrop, kNCnt };
 enum { kNeedF, kNeedN, kOvfL, kOvfF, kOvfN };
 
 struct Args {
-    const float4* tbl;          // (cap, 4) float4: the (cap, 16) level rows
+    const float4* tbl;          // (cap, stride) float4: the level rows
+    int stride;                 // 4: (cap, 16) pack_tree rows; 2: range rows
     int nl_real;
     const int* fids;            // (ng, W) frontier, live prefix n_live
     const int* n_live;
@@ -50,9 +62,9 @@ struct Args {
     const float* s_l;           // () cell size (+ 2 drift)
     const float* glo;           // (ng, 3)
     const float* ghi;
-    const float* oac;           // (ng,)
+    const float* oac;           // (ng,) relative thresholds; range: the pad
     float theta2, leaf_cap;
-    int use_relative, last;
+    int mode, last;             // mode 0 geometric, 1 relative, 2 range
     int O, Wn, big_cap, big_chunks;
     int lvl_base, LC;           // record: flat offset of the level, level cap
     int* far;                   // (ng, far_w)
@@ -84,10 +96,11 @@ __device__ __forceinline__ Row load_row(const Args& a, int id) {
     Row r{make_float4(0.0f, 0.0f, 0.0f, 0.0f),
           make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0.0f};
     if (id >= 0 && id < a.nl_real) {
-        const float4* p = a.tbl + (int64_t)id * 4;
+        const float4* p = a.tbl + (int64_t)id * a.stride;
         r.r0 = __ldg(p);
         r.r1 = __ldg(p + 1);
-        r.bmax2 = __ldg(reinterpret_cast<const float*>(p) + 15);
+        if (a.mode != 2)
+            r.bmax2 = __ldg(reinterpret_cast<const float*>(p) + 15);
     }
     return r;
 }
@@ -100,6 +113,26 @@ __device__ __forceinline__ Node classify(const Args& a, const Row& row,
                                          float lo1, float lo2, float hi0,
                                          float hi1, float hi2, float oac) {
     const float4 r0 = row.r0, r1 = row.r1;
+    if (a.mode == 2) {
+        // range test: s2 holds half the cell size, oac the pad^2
+        const float e0 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo0, r0.x),
+                                                __fsub_rn(r0.x, hi0)), s2),
+                               0.0f);
+        const float e1 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo1, r0.y),
+                                                __fsub_rn(r0.y, hi1)), s2),
+                               0.0f);
+        const float e2 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo2, r0.z),
+                                                __fsub_rn(r0.z, hi2)), s2),
+                               0.0f);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0),
+                                             __fmul_rn(e1, e1)),
+                                   __fmul_rn(e2, e2));
+        const bool live = r1.x > 0.0f && d2 <= oac;
+        const bool is_leaf = r1.x <= a.leaf_cap;
+        return Node{false, live && is_leaf, live && !is_leaf && !a.last,
+                    live && !is_leaf && a.last, (int)r1.y, (int)r1.x,
+                    (int)r1.z, (int)r1.w};
+    }
     const float dx0 = fmaxf(fmaxf(lo0 - r0.x, r0.x - hi0), 0.0f);
     const float dx1 = fmaxf(fmaxf(lo1 - r0.y, r0.y - hi1), 0.0f);
     const float dx2 = fmaxf(fmaxf(lo2 - r0.z, r0.z - hi2), 0.0f);
@@ -107,7 +140,7 @@ __device__ __forceinline__ Node classify(const Args& a, const Row& row,
                                           __fmul_rn(dx1, dx1)),
                                 __fmul_rn(dx2, dx2));
     bool mac_open = s2 > __fmul_rn(a.theta2, r2b);
-    if (a.use_relative && oac > 0.0f)
+    if (a.mode == 1 && oac > 0.0f)
         mac_open = __fmul_rn(r0.w, s4) >
                    __fmul_rn(__fmul_rn(__fmul_rn(oac, r2b), r2b), r2b);
     mac_open = mac_open || (r2b <= row.bmax2);
@@ -134,9 +167,11 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
                 lo2 = a.glo[g * 3 + 2];
     const float hi0 = a.ghi[g * 3 + 0], hi1 = a.ghi[g * 3 + 1],
                 hi2 = a.ghi[g * 3 + 2];
-    const float oac = a.oac[g];
     const float s_l = *a.s_l;
-    const float s2 = __fmul_rn(s_l, s_l);
+    const bool range = a.mode == 2;
+    // range mode: half the cell size (exact) and pad^2
+    const float oac = range ? __fmul_rn(a.oac[g], a.oac[g]) : a.oac[g];
+    const float s2 = range ? 0.5f * s_l : __fmul_rn(s_l, s_l);
     const float s4 = __fmul_rn(s2, s2);
     const bool record = a.nf != nullptr;
     const int nl = min(max(a.n_live[g], 0), a.W);
@@ -267,7 +302,7 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
     a.stat[kNeedF * ng + g] += n_far;
     a.stat[kNeedN * ng + g] += n_seg + n_bk + over * a.big_chunks;
     a.stat[kOvfL * ng + g] += max(n_far - a.LC, 0) + max(n_seg - a.LC, 0)
-                              + ovf_open + over + big_drop;
+                              + ovf_open + over + (range ? 0 : big_drop);
     a.stat[kOvfF * ng + g] += ovf_f;
     a.stat[kOvfN * ng + g] += ovf_n + nn1 + n_bk - nn2;
     a.nf[g] = nf1;
@@ -279,12 +314,13 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
 // Walk mode: nf, nn and stat are null; far and seg are (ng, W) buffers
 // (far_w = seg_w = W, LC = W, lvl_base = 0) and bkey the last level's
 // chunk keys. Record mode: far and seg are the group lists (ng, LF) and
-// (ng, LN), appended at nf and nn; bkey is null.
-extern "C" int far_level_launch(const float* tbl, int nl_real,
+// (ng, LN), appended at nf and nn; bkey is null. Range mode (mode 2) is a
+// record mode on range rows (stride 2) whose far list is never written.
+extern "C" int far_level_launch(const float* tbl, int stride, int nl_real,
                                 const int* fids, const int* n_live, int ng,
                                 int W, const float* s_l, const float* glo,
                                 const float* ghi, const float* oac,
-                                float theta2, int use_relative,
+                                float theta2, int mode,
                                 float leaf_cap, int last, int O, int Wn,
                                 int big_cap, int big_chunks, int lvl_base,
                                 int LC, int* far, int far_w, int* seg,
@@ -293,8 +329,8 @@ extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 void* stream) {
     if (ng <= 0) return 0;
     if (big_cap > kBigMax) return (int)cudaErrorInvalidValue;
-    const Args a{reinterpret_cast<const float4*>(tbl), nl_real, fids, n_live,
-                 W, s_l, glo, ghi, oac, theta2, leaf_cap, use_relative, last,
+    const Args a{reinterpret_cast<const float4*>(tbl), stride, nl_real, fids,
+                 n_live, W, s_l, glo, ghi, oac, theta2, leaf_cap, mode, last,
                  O, Wn, big_cap, big_chunks, lvl_base, LC, far, far_w, seg,
                  seg_w, fids_next, bkey, cnt, nf, nn, stat, ng};
     far_level_kernel<<<ng, kT, 0, (cudaStream_t)stream>>>(a);

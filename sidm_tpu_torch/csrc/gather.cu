@@ -8,8 +8,15 @@
 // Four threads per output row, one 16-byte load each: a warp reads eight
 // whole 64-byte rows, neighbouring threads on neighbouring addresses. An id
 // outside [0, M) reads zeros (the list engine's dead entries point at
-// id M, an appended zero row). In row-sum mode the four partial sums of a
-// row are added with two warp shuffles.
+// id M, an appended zero row).
+//
+// Row sums: the sum of a gathered row is the gathered row sum, so the M
+// row sums are computed once per call (row_sums_kernel, one thread per
+// row) and the gather reads 4 bytes per id instead of 64
+// (sum_gather_kernel): each block of a persistent grid stages the M + 1
+// sums (the last one 0) in shared memory when they fit (both of the TPU
+// probe's tables do: 2^14 and 2^10 rows) and reads them from there,
+// otherwise from L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,28 +24,83 @@ namespace {
 
 constexpr int kThreads = 256;
 
+constexpr int kSumBlocks = 264;          // persistent grid: 2 per SM
+constexpr int kSumThreads = 1024;
+constexpr int kSmemSums = 48 * 1024;     // staged sums at most (floats)
+
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const float4* __restrict__ tbl, int M,
               const int* __restrict__ ids, int64_t n,
-              float4* __restrict__ rows, float* __restrict__ sums) {
+              float4* __restrict__ rows) {
     const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
     const int64_t r = tid >> 2;
     const int q = (int)(tid & 3);
+    if (r >= n) return;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < n) {
-        const int id = ids[r];
-        if (id >= 0 && id < M) v = __ldg(tbl + (int64_t)id * 4 + q);
+    const int id = ids[r];
+    if (id >= 0 && id < M) v = __ldg(tbl + (int64_t)id * 4 + q);
+    rows[r * 4 + q] = v;
+}
+
+// sums[m] = sum of row m (m < M), sums[M] = 0.
+__global__ void __launch_bounds__(kThreads)
+row_sums_kernel(const float4* __restrict__ tbl, int M,
+                float* __restrict__ sums) {
+    const int m = blockIdx.x * kThreads + threadIdx.x;
+    if (m > M) return;
+    float s = 0.0f;
+    if (m < M) {
+        const float4* p = tbl + (int64_t)m * 4;
+        const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2),
+                     d = __ldg(p + 3);
+        s = (((a.x + a.y) + (a.z + a.w)) + ((b.x + b.y) + (b.z + b.w)))
+            + (((c.x + c.y) + (c.z + c.w)) + ((d.x + d.y) + (d.z + d.w)));
     }
-    if (sums == nullptr) {
-        if (r < n) rows[r * 4 + q] = v;
-        return;
+    sums[m] = s;
+}
+
+// out[i] = sums[ids[i]] (0 for an id outside [0, M]). Each thread takes
+// four ids at a time (one 16-byte load, one 16-byte store), two such
+// groups in flight, over a persistent grid; vec = 0 (ids or out not
+// 16-byte aligned) takes them one at a time.
+__device__ __forceinline__ float lookup(const float* s, int M, int id) {
+    return (id >= 0 && id <= M) ? s[id] : 0.0f;
+}
+
+__global__ void __launch_bounds__(kSumThreads)
+sum_gather_kernel(const float* __restrict__ sums, int M, int staged,
+                  const int* __restrict__ ids, int64_t n, int vec,
+                  float* __restrict__ out) {
+    extern __shared__ float ss[];
+    if (staged)
+        for (int m = threadIdx.x; m <= M; m += kSumThreads) ss[m] = sums[m];
+    __syncthreads();
+    const float* s = staged ? ss : sums;
+    const int64_t stride = (int64_t)gridDim.x * kSumThreads;
+    const int64_t t0 = (int64_t)blockIdx.x * kSumThreads + threadIdx.x;
+    int64_t done = 0;
+    if (vec) {
+        const int64_t n4 = n / 4;
+        const int4* ids4 = reinterpret_cast<const int4*>(ids);
+        float4* out4 = reinterpret_cast<float4*>(out);
+        int64_t v = t0;
+        for (; v + stride < n4; v += 2 * stride) {
+            const int4 a = __ldg(ids4 + v), b = __ldg(ids4 + v + stride);
+            out4[v] = make_float4(lookup(s, M, a.x), lookup(s, M, a.y),
+                                  lookup(s, M, a.z), lookup(s, M, a.w));
+            out4[v + stride] = make_float4(
+                lookup(s, M, b.x), lookup(s, M, b.y), lookup(s, M, b.z),
+                lookup(s, M, b.w));
+        }
+        if (v < n4) {
+            const int4 a = __ldg(ids4 + v);
+            out4[v] = make_float4(lookup(s, M, a.x), lookup(s, M, a.y),
+                                  lookup(s, M, a.z), lookup(s, M, a.w));
+        }
+        done = 4 * n4;
     }
-    // every lane of the warp reaches the shuffles (the grid is a whole
-    // number of warps and no lane has returned)
-    float s = (v.x + v.y) + (v.z + v.w);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (q == 0 && r < n) sums[r] = s;
+    for (int64_t i = done + t0; i < n; i += stride)
+        out[i] = lookup(s, M, __ldg(ids + i));
 }
 
 // The compact table's rows from the tree: out[r] columns 0-3 = mac_rows[id]
@@ -82,16 +144,40 @@ extern "C" int node_rows_launch(const float* mac, const float* quad, int M,
     return (int)cudaGetLastError();
 }
 
-// rows != null: rows[i] = tbl[ids[i]]; otherwise sums[i] = sum of that row.
+// rows[i] = tbl[ids[i]].
 extern "C" int gather_launch(const float* tbl, int M, const int* ids,
-                             long long n, float* rows, float* sums,
-                             void* stream) {
+                             long long n, float* rows, void* stream) {
     if (n > 0) {
         const long long blocks = (4 * n + kThreads - 1) / kThreads;
         gather_kernel<<<(unsigned)blocks, kThreads, 0,
                         (cudaStream_t)stream>>>(
             reinterpret_cast<const float4*>(tbl), M, ids, (int64_t)n,
-            reinterpret_cast<float4*>(rows), sums);
+            reinterpret_cast<float4*>(rows));
+    }
+    return (int)cudaGetLastError();
+}
+
+// out[i] = sum of row ids[i] of tbl; sums (M + 1,) is the caller's scratch.
+extern "C" int rowsum_launch(const float* tbl, int M, const int* ids,
+                             long long n, float* sums, float* out,
+                             void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    row_sums_kernel<<<(M + kThreads) / kThreads, kThreads, 0, st>>>(
+        reinterpret_cast<const float4*>(tbl), M, sums);
+    if (n > 0) {
+        const int staged = M + 1 <= kSmemSums;
+        const size_t smem = staged ? (size_t)(M + 1) * sizeof(float) : 0;
+        if (smem > 48 * 1024)
+            cudaFuncSetAttribute(sum_gather_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+        const int vec = ((uintptr_t)ids % 16 == 0)
+                        && ((uintptr_t)out % 16 == 0);
+        const long long need = (n + 4LL * kSumThreads - 1)
+                               / (4LL * kSumThreads);
+        const int blocks = (int)(need < kSumBlocks ? need : kSumBlocks);
+        sum_gather_kernel<<<blocks, kSumThreads, smem, st>>>(
+            sums, M, staged, ids, (int64_t)n, vec, out);
     }
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,11 @@
 """bench.py's flagship problem for the ported slices.
 
+``flagship_config(**DSMC)`` is flagship-dsmc, bench.py's own run: the
+lists' configuration below with bench.py's SIDM settings (``SIDMOn 1``,
+``CrossSection 38.2614``, ``ProbabilityTol 0.2``, ``RandomSeed1/2
+55/497527``; ``DesNumNgb 30`` and ``MaxNumNgbDeviation 2`` are already in
+the base), DSMC on the cached candidate lists, with the same two cuts.
+
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
 ``SIDMOn 0`` and ``TreeWalkEngine wq``, on the cached interaction lists
@@ -43,6 +49,10 @@ FLAGSHIP = dict(
 
 # the second slice: the cached interaction lists
 LISTS = dict(ListMode=1, TreeRefreshSteps=4, ListNearCap=8192)
+
+# bench.py:44-47's SIDM settings (flagship-dsmc: flagship_config(**DSMC))
+DSMC = dict(SIDMOn=1, CrossSection=38.2614, ProbabilityTol=0.2,
+            RandomSeed1=55, RandomSeed2=497527)
 
 
 def flagship_config(**changes) -> SimConfig:

@@ -1,5 +1,5 @@
-"""Closed-form spline softening kernels
-(port of ``sidm_tpu/kernels.py:24-75``).
+"""Closed-form spline softening kernels and the SPH cubic spline
+(port of ``sidm_tpu/kernels.py:24-96``).
 
 Conventions (u = r/h, h = 2.8 eps, forcetree.c:834): the softened force on a
 unit-mass source is ``m * wf(u) / h^3 * dx`` for u < 1 and Newtonian
@@ -9,6 +9,8 @@ polynomials in the same order.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -55,3 +57,16 @@ def softened_potential(r, h, eps_floor=1e-37):
     newton = -1.0 / r_safe
     soft = grav_pot_kernel(torch.clamp(u, max=1.0)) * h_inv
     return torch.where(u >= 1.0, newton, soft)
+
+
+_EIGHT_OVER_PI = 8.0 / math.pi
+
+
+def sph_kernel(u):
+    """Cubic-spline W(u), 8/pi normalization; W(r;h) = sph_kernel(r/h)/h^3
+    (begrun.c:977-989); zero for u >= 1."""
+    inner = _EIGHT_OVER_PI * (1.0 - 6.0 * u * u * (1.0 - u))
+    om = 1.0 - u
+    outer = (_EIGHT_OVER_PI * 2.0) * om * om * om
+    w = torch.where(u < 0.5, inner, outer)
+    return torch.where(u < 1.0, w, torch.zeros_like(w))

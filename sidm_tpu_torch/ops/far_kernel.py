@@ -22,6 +22,19 @@ its caller already compacted, in frontier order (``Level``):
   caps, and the list counts and the telemetry (uncapped demand, drops) are
   updated in place; the next frontier and the counts are returned.
 
+* range mode (``range_walk``, record mode on the range rows of
+  ``ops/fused_range.range_levels``, the SIDM candidate record's walk,
+  ``sidm_tpu/ops/list_range.py:_record_segments`` :94-202): the range test
+  of ``sidm_tpu/ops/fused_range.py:_range_classify`` :99 replaces the MAC
+  (a cell is in range when its box, geometric centre +- s_l/2, lies within
+  the group's pad of the group box: d^2 <= pad^2; ``oac`` holds the pad),
+  cells out of range are dropped, and only segment and chunk keys are
+  appended (to ``lists.near``); frontier order, ``open_cap``, the level
+  and list caps and the big-cell chunks are the record mode's, and so is
+  the telemetry, except that particles past ``big_chunks`` chunks of an
+  overfull cell are not counted as drops (the JAX range walk does not
+  count them).
+
 Only a row's live prefix is written: entries past a count hold whatever
 the buffer held (``torch.empty``) and no consumer reads them.
 
@@ -55,7 +68,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .fused_force import (IMAX, R_CCNT, R_CNT, R_CSTART, R_NSTART, WC,
-                          classify, compact_plane)
+                          classify, compact_plane, range_classify)
 
 ITEM_BLOCK = 512   # plain version: (group, chunk) items per batch
 BIG_MAX = 64       # largest big_cap (csrc/far_kernel.cu kBigMax)
@@ -107,11 +120,12 @@ def list_buf(ng: int, LF: int, LN: int, device) -> ListBuf:
 
 def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                  theta2: float, use_relative: bool, leaf_cap: int,
-                 last: bool):
+                 last: bool, range_walk: bool = False):
     """The TPU kernel's classification in plain PyTorch: the dense
     (ng, W) int32 planes of far (level-local id), segment, open
     (``cstart*16+ccnt``) and big (id) keys, IMAX elsewhere. Live (group,
-    chunk) items run in batches of ITEM_BLOCK."""
+    chunk) items run in batches of ITEM_BLOCK. ``range_walk``: the range
+    test on range rows, oac the pad (no far keys)."""
     ng, W = fids.shape
     wc = min(WC, W)
     maxc = W // wc
@@ -131,8 +145,13 @@ def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         dead = (ids < 0) | (ids >= nl_real)
         rows = tbl[torch.clamp(ids, 0, tbl.shape[0] - 1)]
         rows = torch.where(dead[..., None], torch.zeros_like(rows), rows)
-        far, seg, opn, big = classify(rows, glo[g], ghi[g], oac[g], s_l,
-                                      theta2, use_relative, leaf_cap, last)
+        if range_walk:
+            far, seg, opn, big = range_classify(rows, glo[g], ghi[g], oac[g],
+                                                s_l, leaf_cap, last)
+        else:
+            far, seg, opn, big = classify(rows, glo[g], ghi[g], oac[g], s_l,
+                                          theta2, use_relative, leaf_cap,
+                                          last)
         ri = rows.to(torch.int32)
         imax = torch.full_like(ri[..., 0], IMAX)
         keys[0, g, c] = torch.where(far, ids.to(torch.int32), imax)
@@ -220,14 +239,16 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                     last: bool, Wn: int,
                     open_cap: int, big_cap: int, big_chunks: int,
                     lists: Optional[ListBuf] = None, lvl_base: int = 0,
-                    lvl_cap: Optional[int] = None) -> Level:
+                    lvl_cap: Optional[int] = None,
+                    range_walk: bool = False) -> Level:
     """Plain PyTorch version of ``far_level``: ``level_planes`` compacted
     and appended step by step, as the JAX package does."""
     ng, W = fids.shape
     dev = fids.device
     fark, segk, openk, bigk = level_planes(
         fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
-        use_relative=use_relative, leaf_cap=leaf_cap, last=last)
+        use_relative=use_relative, leaf_cap=leaf_cap, last=last,
+        range_walk=range_walk)
     zeros = torch.zeros(ng, dtype=torch.int32, device=dev)
     far, n_far = compact_plane(fark)
     seg, n_seg = compact_plane(segk)
@@ -264,7 +285,8 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         st[S_NEED_N] += (n_bk + over * big_chunks).to(torch.int32)
         ln, nn, d = _append(ln, nn, bkey, n_bk)
         st[S_OVF_N] += d.to(torch.int32)
-        st[S_OVF_L] += (over + big_drop).to(torch.int32)
+        st[S_OVF_L] += (over if range_walk else over + big_drop).to(
+            torch.int32)
     lists.far.copy_(lf)
     lists.near.copy_(ln)
     lists.nf.copy_(nf)
@@ -277,7 +299,8 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
               Wn: int, open_cap: int,
               big_cap: int, big_chunks: int,
               lists: Optional[ListBuf] = None, lvl_base: int = 0,
-              lvl_cap: Optional[int] = None) -> Level:
+              lvl_cap: Optional[int] = None,
+              range_walk: bool = False) -> Level:
     """One level of the walk for every group.
 
     fids (ng, W) int32 level-local node ids, live prefix n_live (ng,)
@@ -289,7 +312,8 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 
     With ``lists`` (record mode) lvl_base is the level's flat node offset
     and lvl_cap the level cap (None: none); the lists are updated in
-    place.
+    place. ``range_walk`` (with ``lists``): the range mode, tbl (cap, 8)
+    range rows, oac the per-group pad; counted in ``range_launches``.
 
     Returns a ``Level``."""
     if not fids.is_cuda:
@@ -298,16 +322,19 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
             use_relative=use_relative, leaf_cap=leaf_cap, last=last, Wn=Wn,
             open_cap=open_cap,
             big_cap=big_cap, big_chunks=big_chunks, lists=lists,
-            lvl_base=lvl_base, lvl_cap=lvl_cap)
+            lvl_base=lvl_base, lvl_cap=lvl_cap, range_walk=range_walk)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, W = fids.shape
     walk = lists is None
     if big_cap > BIG_MAX:
         raise ValueError(f"far_level: big_cap {big_cap} > {BIG_MAX}")
+    if range_walk and walk:
+        raise ValueError("far_level: the range mode records into lists")
+    width = 8 if range_walk else 16
     specs = dict(fids=(fids, torch.int32, (ng, W)),
                  n_live=(n_live, torch.int32, (ng,)),
-                 tbl=(tbl, torch.float32, (tbl.shape[0], 16)),
+                 tbl=(tbl, torch.float32, (tbl.shape[0], width)),
                  s_l=(s_l, torch.float32, ()),
                  glo=(glo, torch.float32, (ng, 3)),
                  ghi=(ghi, torch.float32, (ng, 3)),
@@ -333,15 +360,19 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         LC = W if lvl_cap is None else min(lvl_cap, W)
         dst = (lists.far, LF, lists.near, LN, None, lists.nf, lists.nn,
                lists.stat)
+    mode = 2 if range_walk else int(bool(use_relative))
     err = kernels_lib().far_level_launch(*launch_args(
-        tbl, int(nl_real), fids, n_live, ng, W, s_l, glo, ghi, oac,
-        float(theta2), int(use_relative), float(leaf_cap), int(last),
+        tbl, width // 4, int(nl_real), fids, n_live, ng, W, s_l, glo, ghi,
+        oac, float(theta2), mode, float(leaf_cap), int(last),
         min(W, int(open_cap)), int(Wn) if not last else 0, int(big_cap),
         int(big_chunks), int(lvl_base), LC, *dst[:4], fids_n, dst[4], cnt,
         *dst[5:]))
     if err:
         raise RuntimeError(f"far_level kernel launch failed: CUDA error "
                            f"{err}")
+    if range_walk:
+        far_level.range_launches += 1
+        return Level(far=None, seg=None, fids=fids_n, bkey=None, cnt=cnt)
     if not walk:
         far_level.record_launches += 1
         return Level(far=None, seg=None, fids=fids_n, bkey=None, cnt=cnt)
@@ -351,3 +382,4 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 
 far_level.launches = 0          # launches of the walk mode
 far_level.record_launches = 0   # launches of the record mode
+far_level.range_launches = 0    # launches of the range mode

@@ -178,6 +178,30 @@ def classify(rows, glo, ghi, oac, s_l, theta2, use_relative, leaf_cap,
     return far, seg, deep, torch.zeros_like(deep)
 
 
+def range_classify(rows, glo, ghi, pad, s_l, leaf_cap, last_level):
+    """In-range decision per (group, slot) of the SIDM range walk
+    (``sidm_tpu/ops/fused_range.py:_range_classify`` :99, non-periodic):
+    the cell box (geometric centre ``rows[..., 0:3]`` +- s_l/2) within
+    ``pad`` of the group box. rows (B, WC, >= 8) range rows; pad (B,).
+    Returns far (none), seg, opn, big boolean (B, WC) planes."""
+    ctr = rows[..., R_COM]
+    cnt = rows[..., R_CNT]
+    half = 0.5 * s_l
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    dx = torch.maximum(torch.maximum(glo[:, None, :] - ctr,
+                                     ctr - ghi[:, None, :]) - half, zero)
+    d2 = (dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1]
+          + dx[..., 2] * dx[..., 2])
+    live = (cnt > 0) & (d2 <= (pad * pad)[:, None])
+    is_leaf = cnt <= float(leaf_cap)
+    seg = live & is_leaf
+    deep = live & ~is_leaf
+    none = torch.zeros_like(deep)
+    if last_level:
+        return none, seg, none, deep
+    return none, seg, deep, none
+
+
 def far_tile(rows, xc, te, gc, need_pot=True):
     """Monopole + quadrupole of node rows against one group each
     (``_far_tile``, written as the Pallas kernel writes it).
@@ -291,8 +315,9 @@ def make_windows(keys_s, valid_s, n: int, depth: int):
     prefL = keys_s >> (3 * (min(depth, 10) - L))
     newcell = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                          prefL[1:] != prefL[:-1]])
-    run_start = torch.cummax(torch.where(newcell, idx, torch.zeros_like(idx)),
-                             dim=0).values
+    # the start of each particle's run (JAX: a running max of the starts)
+    run_id_s = torch.cumsum(newcell, 0) - 1
+    run_start = torch.nonzero(newcell).flatten()[run_id_s]
     newgroup = newcell | (((idx - run_start) % G) == 0)
     gid = torch.cumsum(newgroup, 0) - 1
     NGC0 = -(-n // G) + min(8 ** L, n)
@@ -310,7 +335,6 @@ def make_windows(keys_s, valid_s, n: int, depth: int):
     gstart0, gcount = starts(newgroup, gid, ngp)
     gstart = torch.where(gcount > 0, gstart0, torch.zeros_like(gstart0))
     # stable, as jnp.argsort
-    run_id_s = torch.cumsum(newcell, 0) - 1
     _, run_len = starts(newcell, run_id_s, min(8 ** L, n) + 1)
     rid_of_group = run_id_s[torch.clamp(gstart0, max=n - 1)]
     proxy = torch.where(gcount > 0, run_len[rid_of_group],

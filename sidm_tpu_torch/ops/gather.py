@@ -33,8 +33,11 @@ VMEM and gather with a vector take or a one-hot matmul. On Hopper the table
 (19 MB at the flagship's ``used_cap``, 4 MB at the probe's) stays in the
 50 MB L2 by itself, so the kernel is a plain streaming gather: four threads
 per output row, one 16-byte load each, so that a warp reads eight whole
-64-byte rows and writes them contiguously. The row sum adds the four
-partial sums with two warp shuffles. ``gather_nodes`` runs one thread
+64-byte rows and writes them contiguously. The row sum (redesigned)
+uses that a gathered row's sum is the gathered row sum: the M row sums are
+computed once per call, and the gather then reads 4 bytes per id instead
+of 64, from the sums staged in shared memory when M + 1 floats fit (48 K
+floats; the probe's tables have 2^14 and 2^10 rows), else from L2. ``gather_nodes`` runs one thread
 per row: three independent 16-byte loads (com and mass from the node's
 32-byte ``mac_rows`` row, the quadrupole and eps from its ``quad_rows``
 row) and the whole 64-byte row written. What bounds them on the H100:
@@ -77,9 +80,13 @@ def _launch(name, tbl, ids, rowsum: bool):
     n = ids.numel()
     out = torch.empty(*ids.shape, 1 if rowsum else ROW, dtype=torch.float32,
                       device=tbl.device)
-    err = kernels_lib().gather_launch(*launch_args(
-        tbl, int(M), ids, int(n), None if rowsum else out,
-        out if rowsum else None))
+    if rowsum:
+        sums = torch.empty(M + 1, dtype=torch.float32, device=tbl.device)
+        err = kernels_lib().rowsum_launch(*launch_args(
+            tbl, int(M), ids, int(n), sums, out))
+    else:
+        err = kernels_lib().gather_launch(*launch_args(
+            tbl, int(M), ids, int(n), out))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

@@ -3,6 +3,7 @@ flagship's cached-list cadence).
 
     python -m sidm_tpu_torch.profile_step [--n 1000000] [--trace DIR]
                                           [--cadence 16,8,4,2]
+                                          [--dsmc-cadence 16,8,4]
 
 Prints, beside the card's name and power limit:
   * per walk level, the far kernel in walk mode, its far field (far_list
@@ -31,10 +32,16 @@ Prints, beside the card's name and power limit:
     kernels and the top device kernels. ``--trace DIR`` also writes each
     profiled step's chrome trace there; ``--steps-only`` does only this
     (and runs on earlier checkouts of the package as well);
+  * for flagship-dsmc (``flagship_config(**DSMC)``, DSMC on the lists),
+    the same for a list step and a record step, whose phases ``sidmrec``
+    (the density clamp and the candidate record) and ``sidm`` (the DSMC
+    pass) follow ``force``, and whose top kernels include the range walk,
+    the emission and the gated tile;
   * for each ``TreeRefreshSteps`` of ``--cadence``, 10 steps of a fresh
     Simulation in the lists' configuration with that cadence: per step its
     kind, skin, displacement, record telemetry (``ovf``, ``need``) and
-    force-phase wall time.
+    force-phase wall time; the same with DSMC on for ``--dsmc-cadence``,
+    with the candidate record's telemetry and the DSMC phases.
 Needs a CUDA card; it never falls back to the CPU.
 """
 
@@ -47,7 +54,8 @@ import numpy as np
 import torch
 
 KERNELS = ("far_level_kernel", "far_list_kernel", "near_level_kernel",
-           "gather_kernel", "node_rows_kernel")
+           "gather_kernel", "node_rows_kernel", "sidm_emit_kernel",
+           "sidm_gated_kernel")
 
 
 def _device_us(evt) -> float:
@@ -340,9 +348,10 @@ def profiled_steps(sim, walls, kind_of, card, trace):
         avg = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(_device_us(e) for e in avg) / 1e6
-        launches = {k: (sum(e.count for e in avg if k in e.key),
+        # "::name" so that PyTorch's vectorized_gather_kernel is not ours
+        launches = {k: (sum(e.count for e in avg if "::" + k in e.key),
                         round(sum(_device_us(e) for e in avg
-                                  if k in e.key) / 1e3, 4))
+                                  if "::" + k in e.key) / 1e3, 4))
                     for k in KERNELS}
         wall, phases = walls[kind]
         print(f"step ({kind}): wall {wall * 1e3:.1f} ms (phases "
@@ -367,6 +376,9 @@ def main():
     ap.add_argument("--trace", default=None)
     ap.add_argument("--cadence", default="16,8,4,2",
                     help="TreeRefreshSteps values to sweep ('' for none)")
+    ap.add_argument("--dsmc-cadence", default="16,8,4",
+                    help="TreeRefreshSteps values to sweep with DSMC on "
+                    "('' for none)")
     ap.add_argument("--steps-only", action="store_true",
                     help="only the profiled list, record and walk steps "
                     "(runs on older checkouts of the package too)")
@@ -412,6 +424,41 @@ def main():
     del wsim
     if args.steps_only:
         return
+    from .flagship import DSMC
+    # flagship-dsmc: prepare records the candidates at skin 0; step 1 is a
+    # list step, step 2 a record step
+    dsim = new_sim(**DSMC)
+
+    def dsmc_kind(sim):
+        return "dsmc " + list_kind(sim)
+    walls = step_walls(dsim, 3, dsmc_kind, force_last=False)
+    profiled_steps(dsim, walls, dsmc_kind, card, args.trace)
+    del dsim
+    for k in [int(v) for v in args.dsmc_cadence.split(",") if v]:
+        csim = new_sim(TreeRefreshSteps=k, **DSMC)
+        for step in range(1, 11):
+            try:
+                csim.step()
+            except NotImplementedError as e:
+                # a record dropped entries: the lists were given up for the
+                # walk, whose DSMC is not ported
+                li = csim.last_list_info
+                print(f"dsmc cadence {k} step {step}: force record ovf "
+                      f"{li['ovf'] if li else None}; stopped: {e} "
+                      f"[{card}]", flush=True)
+                break
+            li, si = csim.last_list_info, csim.last_sidm_info
+            md = "-" if li["md"] is None else f"{li['md']:.4f}"
+            w = csim.last_phase_wall
+            print(f"dsmc cadence {k} step {step} ({li['kind']}"
+                  + (", candidate record" if si["record"] else "")
+                  + f"): skin {li['skin']:.4f}, md {md}, ovf {li['ovf']}, "
+                  f"need {li['need']}, candidate ovf {si['cand_ovf']} need "
+                  f"{si['cand_need']}, scatters {si['n_scat']}, "
+                  + ", ".join(f"{ph} {v * 1e3:.1f} ms"
+                              for ph, v in w.items()) + f" [{card}]",
+                  flush=True)
+        del csim
     for k in [int(v) for v in args.cadence.split(",") if v]:
         csim = new_sim(TreeRefreshSteps=k)
         for step in range(1, 11):

@@ -1,12 +1,14 @@
-"""The Simulation object, gravity-only (port of ``sidm_tpu/simulation.py``:
-``softening_table`` :44, ``Simulation.__init__``/setup :59-196, the phased
-step ``step_phased`` :839-1007 with ``_force_core`` :556-641,
-``_refit_list_caps`` :774-806 and ``phase_finish`` :726-741, ``prepare``
-:1285 and ``compute_potential`` :1550).
+"""The Simulation object (port of ``sidm_tpu/simulation.py``:
+``softening_table`` :44, ``Simulation.__init__``/setup :59-196 with
+``root_key`` :74, the phased step ``step_phased`` :839-1283 with
+``_force_core`` :556-641, ``_sidm_params_for_phased`` :748,
+``_refit_list_caps`` :774-806, ``_SIDM_K_CEILING`` and
+``_refit_sidm_caps`` :815-836 and ``phase_finish`` :726-741, ``prepare``
+:1285 with the SIDM smoothing-length init :1296-1312, and
+``compute_potential`` :1550).
 
 One step is the JAX package's phased step for a non-periodic tree run on
-the work-queue walk (``TreeWalkEngine wq``, ``SIDMOn 0``), in one of two
-cadences:
+the work-queue walk (``TreeWalkEngine wq``), in one of two cadences:
 
 * ``ListMode 1`` (cached interaction lists, the flagship's): on a rebuild
   step the octree is built and the interaction lists recorded under a skin
@@ -21,8 +23,19 @@ cadences:
   ``TreeRefreshSteps``-th force (or early once the refresh drift exceeds a
   quarter of the deepest cell) and moments-only refreshed otherwise.
 
-Then: kick factors -> DKD advance -> reflection -> new synchronized
-timesteps. Tensors live on the device given at construction and are never
+With ``SIDMOn 1`` (lists only) the DSMC pass follows the force: on every
+rebuild step (and after a mid-cycle invalidation) the smoothing lengths are
+clamped to 2.5x a cell-count density bound and the candidate lists are
+recorded under the force skin (up to 4 attempts with a cap refit in
+between; K truncation at the ceiling is accepted and its dropped share
+kept in ``sidm_trunc_frac``), the tail capacity is fitted; then every step
+runs ``sidm_scatter_lists`` on the cached lists, re-records next step once
+the particles moved more than half the candidate skin, and grows the gated
+and tail capacities after a drop. ``prepare`` sets the initial smoothing
+lengths by ``tree_hsml_init_fused``.
+
+Then: kick factors -> DKD advance (which applies the scattering kicks) ->
+reflection -> new synchronized timesteps. Tensors live on the device given at construction and are never
 moved; with no device given it is the CUDA card, and without one the
 constructor raises.
 
@@ -47,10 +60,16 @@ from .constants import MAX_REAL_NUMBER
 from .diagnostics import compute_system_state
 from .integrate import StepConsts
 from .ops.fused_force import default_depth
+from .ops.fused_range import cell_count_hsml_seed, tree_hsml_init_fused
 from .ops.list_force import (ListConfig, advance_tree, eval_lists,
                              max_displacement, record_lists)
+from .ops.list_range import (RangeListConfig,
+                             record_candidates_from_particles,
+                             sidm_scatter_lists)
+from .ops.sidm import SidmParams
 from .ops.tree import build_octree, refresh_octree
 from .ops.wq_force import wq_gravity, wq_gravity_tree
+from .rng import run_key, step_key
 from .state import Particles, make_particles
 
 
@@ -75,8 +94,11 @@ def _refuse(what: str, item: str):
 
 def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     """Raise NotImplementedError for anything outside the ported slice."""
-    if cfg.SIDMOn:
-        _refuse("SIDMOn 1 (DSMC scattering)", "A, next slice (a)")
+    if cfg.SIDMOn and not cfg.ListMode:
+        _refuse("SIDMOn 1 with ListMode 0 (DSMC on the walk, wq_range.py)",
+                "A, next slice (b)")
+    if cfg.SIDMOn and cfg.ScatterLog:
+        _refuse("ScatterLog 1 (the scatter log)", "A, item 13")
     if cfg.ForceMethod != "tree":
         _refuse(f"ForceMethod {cfg.ForceMethod}", "A, item 9")
     if cfg.TreeWalkEngine != "wq":
@@ -137,6 +159,11 @@ def resolve_device(device=None) -> torch.device:
 class Simulation:
     PHASE_THRESHOLD = 262144
     LIST_REFITS = 3     # cap refits before the walk takes over for good
+    SIDM_REFITS = 3     # candidate-cap refits before the lists are given up
+    # ceiling of the per-particle candidate storage (n K 4 bytes): demand
+    # above it comes from rare targets whose h is far out of the neighbour
+    # band; their lists truncate at K until their controllers shrink h
+    SIDM_K_CEILING = 384
 
     def __init__(self, cfg: SimConfig, restart_flag: int = 0,
                  mode: str = "synchronized", device=None):
@@ -176,6 +203,14 @@ class Simulation:
                                near_cap=int(cfg.ListNearCap))
         self._list_refits = 0
         self._diag_far = self._diag_near = 0
+        self.root_key = run_key(cfg.RandomSeed1, cfg.RandomSeed2)
+        self._sidm_rcfg: Optional[RangeListConfig] = None
+        self._sidm_refits = 0
+        self._sidm_tail_pending = 0
+        self._sidm_k_warned = False
+        self.sidm_trunc_frac = 0.0
+        self.sidm_trunc_targets = 0
+        self.last_sidm_info = None
         self._reset_cadence()
 
     def _reset_cadence(self):
@@ -191,6 +226,9 @@ class Simulation:
         self._t_rebuild = float(self.time)
         self._lists_disabled = False
         self._cadence_stale = False
+        self._steps_since_build = 0
+        self._sidm_cands = None
+        self._sidm_lists_disabled = False
 
     # ------------------------------------------------------------------ setup
 
@@ -302,6 +340,7 @@ class Simulation:
                                       need_pot=False)
             kind = "list"
             self._refresh_left -= 1
+            self._steps_since_build += 1
             md = float(max_displacement(lists, tree.pos_s))
             # displacement rate per unit simulation time
             t_elapsed = float(t_next) - self._t_rebuild
@@ -351,6 +390,7 @@ class Simulation:
                     nlive = torch.sum(lists.gvalid, dim=1)
                     self._diag_far = int(torch.sum(lists.nf * nlive))
                     self._diag_near = int(torch.sum(lists.nn * nlive))
+                self._steps_since_build = 0
             else:
                 raw_acc, pot, info = self._walk(tree, mass, eps, p.old_acc)
             self._refresh_left = refresh_steps - 1
@@ -378,6 +418,14 @@ class Simulation:
             self._tree_cache = tree
         clock.mark("force")
 
+        n_scat = 0
+        self.last_sidm_info = None
+        if cfg.SIDMOn and cfg.CrossSection > 0:
+            key = step_key(self.root_key,
+                           0x7FFFFFFF if first else self.step_count)
+            p, n_scat = self._sidm(p, pos_pred, tree, t_next, active, vmax,
+                                   key, use_lists, clock)
+
         # finish phase (simulation.py:726-741)
         p = integrate.advance(p, t_next, active, consts)
         if consts.reflection_radius > 0:
@@ -401,7 +449,163 @@ class Simulation:
         self.vmax = float(vmax_new)
         if not first:
             self.step_count += 1
-        return self.time - prev_time, int(n_active), 0
+        return self.time - prev_time, int(n_active), n_scat
+
+    # ------------------------------------------------------------------- SIDM
+
+    def _sidm_params(self) -> SidmParams:
+        cfg, u = self.cfg, self.units
+        return SidmParams(
+            cross_section_internal=u.CrossSectionInternal,
+            cross_section_type=cfg.CrossSectionType,
+            yukawa_velocity=cfg.YukawaVelocity,
+            cross_section_vel_scale=cfg.CrossSectionVelScale,
+            cross_section_pow_law=cfg.CrossSectionPowLaw,
+            des_num_ngb=cfg.DesNumNgb,
+            max_num_ngb_dev=cfg.MaxNumNgbDeviation,
+            comoving=bool(cfg.ComovingIntegrationOn),
+            hubble=u.Hubble, omega0=cfg.Omega0,
+            omega_lambda=cfg.OmegaLambda)
+
+    def _sidm(self, p, pos_pred, tree, t_next, active, vmax, key,
+              use_lists: bool, clock):
+        """The SIDM block of step_phased on the list cadence
+        (simulation.py:1013-1240): candidate record on rebuild steps, the
+        DSMC pass every step. Returns (particles, n_scattered)."""
+        params = self._sidm_params()
+        if not use_lists or self._sidm_lists_disabled:
+            _refuse("SIDM on the range walk (the force lists or the "
+                    "candidate lists were given up)", "A, next slice (b)")
+        info = dict(record=False)
+        if self._sidm_cands is None or self._steps_since_build == 0:
+            # ensure_neighbours-style clamp (sidm.c:814-968): stale-large
+            # smoothing lengths to 2.5x a cell-count density bound, once
+            # per rebuild
+            cap = 2.5 * cell_count_hsml_seed(tree, int(params.des_num_ngb))
+            p = dataclasses.replace(p, hsml_vd=torch.where(
+                p.is_collisionless & p.valid & (cap > 0),
+                torch.minimum(p.hsml_vd, cap), p.hsml_vd))
+            self._sidm_cands = None
+            self._sidm_cands = self._sidm_record(p, pos_pred, tree, params)
+            info.update(record=True)
+            clock.mark("sidmrec")
+        cands = self._sidm_cands
+        p, n_scat, viol, ovf_g, sinfo = sidm_scatter_lists(
+            p, pos_pred, tree, cands, t_next, active, vmax, key, params,
+            rcfg=self._sidm_rcfg, salt=self.step_count & 0xFFFFFFFF)
+        # mid-cycle re-record trigger: displacement only (2 md > skin)
+        d = tree.pos_s - cands.pos_ref
+        md_s = torch.sqrt(torch.max(torch.sum(d * d, dim=-1)))
+        # the step's host reads, at once
+        md_s, viol, n_scat, n_gated, n_prop, *ints = torch.cat([
+            torch.stack([md_s.double(), viol.double(), n_scat.double(),
+                         torch.sum(sinfo["hs"] > 0).double(),
+                         torch.sum(sinfo["proposal"] >= 0).double()]),
+            ovf_g.double(), cands.ovf.double(),
+            cands.need.double()]).tolist()
+        ovf_g = [int(x) for x in ints[:2]]
+        n_scat = int(n_scat)
+        if 2.0 * md_s > float(cands.skin):
+            self._sidm_cands = None
+        if ovf_g[0] > 0 or ovf_g[1] > 0:
+            self._sidm_capacity_overflow(ovf_g)
+        info.update(n_scat=n_scat, viol=viol, ovf_g=ovf_g, md=md_s,
+                    cand_ovf=[int(x) for x in ints[2:4]],
+                    cand_need=[int(x) for x in ints[4:6]],
+                    kick=sinfo["kick"], rounds=sinfo["rounds"],
+                    proposals=int(n_prop), dropped=sinfo["dropped"],
+                    n_gated=int(n_gated))
+        self.last_sidm_info = info
+        clock.mark("sidm")
+        return p, n_scat
+
+    def _sidm_record(self, p, pos_pred, tree, params):
+        """The candidate record with up to 4 attempts: a cap overflow refits
+        the caps from the recorded demand and records again; K truncation
+        alone at the ceiling is accepted (its dropped share kept)."""
+        for _ in range(4):
+            cands = record_candidates_from_particles(
+                p, pos_pred, tree, skin=self._skin_now, params=params,
+                rcfg=self._sidm_rcfg)
+            covf = cands.ovf.tolist()
+            if not (covf[0] or covf[1]):
+                break
+            need = cands.need.tolist()
+            rc = self._sidm_rcfg or RangeListConfig()
+            if covf[0] == 0 and rc.k_cap >= self.SIDM_K_CEILING:
+                # K truncation only, at the ceiling: accept; dropped
+                # candidates over all recorded ones bound the probability
+                # mass the truncated lists can lose this cycle
+                ncand_tot = int(torch.sum(cands.ncand))
+                self.sidm_trunc_targets = int(torch.sum(cands.ncand
+                                                        >= rc.k_cap))
+                self.sidm_trunc_frac = covf[1] / max(ncand_tot, 1)
+                if not self._sidm_k_warned:
+                    self._sidm_k_warned = True
+                    print(f"NOTE: SIDM candidate lists truncate at "
+                          f"K={rc.k_cap} for {self.sidm_trunc_targets} "
+                          f"outlier targets (demand {need[1]}); dropped "
+                          f"candidates = {self.sidm_trunc_frac:.2%} of "
+                          f"recorded probability mass (upper bound).",
+                          file=sys.stderr, flush=True)
+                break
+            refit = self._refit_sidm_caps(need)
+            print(f"WARNING: SIDM candidate caps overflowed (seg={covf[0]} "
+                  f"k={covf[1]}; demand seg/grp={need[0]} "
+                  f"k/part={need[1]}); "
+                  + ("resized caps, re-recording." if refit else
+                     "cap refit exhausted."), file=sys.stderr, flush=True)
+            if not refit:
+                self._sidm_lists_disabled = True
+                _refuse("SIDM on the range walk after the candidate-cap "
+                        "refit is exhausted", "A, next slice (b)")
+            cands = None
+        # fit the tail capacity once, generously, to the long lists
+        rc = self._sidm_rcfg or RangeListConfig()
+        n_long = int(torch.sum(cands.ncand > min(rc.k_dense, rc.k_cap)))
+        fit = max(16384, self._round_cap(4.0 * n_long, 4096))
+        if self._sidm_tail_pending > rc.tail_cap:
+            self._sidm_rcfg = rc._replace(
+                tail_cap=max(self._sidm_tail_pending, fit))
+            self._sidm_tail_pending = 0
+        elif rc.tail_cap == 0:
+            self._sidm_rcfg = rc._replace(tail_cap=fit)
+        return cands
+
+    def _refit_sidm_caps(self, need) -> bool:
+        """Grow the candidate caps from the recorded demand (need =
+        [segments/group, candidates/particle]); False once SIDM_REFITS
+        refits are spent or nothing would grow."""
+        if self._sidm_refits >= self.SIDM_REFITS:
+            return False
+        cur = self._sidm_rcfg or RangeListConfig()
+        new = cur._replace(
+            seg_cap=max(cur.seg_cap, self._round_cap(1.15 * int(need[0]))),
+            k_cap=max(cur.k_cap, min(self._round_cap(1.25 * int(need[1]), 32),
+                                     self.SIDM_K_CEILING)))
+        new = new._replace(lvl_cap=max(new.lvl_cap, new.seg_cap))
+        if new == cur:
+            return False
+        self._sidm_rcfg = new
+        self._sidm_refits += 1
+        return True
+
+    def _sidm_capacity_overflow(self, ovf_g):
+        """A gated or tail capacity dropped targets this step: the gated
+        capacity grows at once, the tail's at the next record."""
+        cur = self._sidm_rcfg or RangeListConfig()
+        new = cur
+        if ovf_g[0] > 0:
+            new = new._replace(gated_frac=min(1.0, 1.6 * new.gated_frac))
+        if ovf_g[1] > 0:
+            want = self._round_cap(1.6 * (cur.tail_cap or 4096) + ovf_g[1],
+                                   4096)
+            self._sidm_tail_pending = max(self._sidm_tail_pending, want)
+        self._sidm_rcfg = new
+        print(f"WARNING: gated/tail target caps exceeded by {ovf_g[0]}/"
+              f"{ovf_g[1]} this step (targets dropped); gated_frac -> "
+              f"{new.gated_frac:.2f}, tail growth deferred to the next "
+              f"rebuild.", file=sys.stderr, flush=True)
 
     def _walk(self, tree, mass, eps, old_acc):
         """The work-queue walk on ``tree``: (raw acc, pot (0), info)."""
@@ -452,10 +656,20 @@ class Simulation:
               file=sys.stderr, flush=True)
 
     def prepare(self):
-        """init() (nbody/init.c:20-199): first force evaluation at
-        TimeBegin (dt = 0), initial timesteps, initial system state."""
+        """init() (nbody/init.c:20-199): initial SIDM smoothing lengths,
+        first force evaluation at TimeBegin (dt = 0), initial timesteps,
+        initial system state."""
         if self.particles is None:
             raise RuntimeError("load particles first")
+        cfg, p = self.cfg, self.particles
+        if cfg.SIDMOn and cfg.CrossSection > 0:
+            # setup_smoothinglengths_sidm (init.c:159)
+            eps = self._softening()[torch.clamp(p.ptype, 0, 5).long()]
+            tree = build_octree(p.pos, torch.where(p.valid, p.mass,
+                                                   torch.zeros_like(p.mass)),
+                                eps, p.valid, depth=default_depth(p.n_padded))
+            self.particles = tree_hsml_init_fused(p, tree, cfg.DesNumNgb)
+            del tree
         self.vmax = float(timestep.get_vmax(self.particles))
         self.step(first=True)
         self.sys_state_at_start = compute_system_state(self.particles)

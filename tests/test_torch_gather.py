@@ -21,7 +21,10 @@ moments, at the used rows of lists the port records on them:
   counted on the card only).
 
 On the card (``gpu`` marker) the kernel is held bit-equal to the plain
-version, every column, on the same tables and on random ids."""
+version, every column, on the same tables and on random ids; and
+``gather_rowsum`` (the gathered row sums, computed once per call and
+gathered from shared memory or, for a table past the staging limit, from
+L2) to 1e-6 of the largest sum, on aligned and unaligned ids."""
 
 import dataclasses
 
@@ -38,7 +41,8 @@ from sidm_tpu.ops.tree import build_octree as jbuild
 from sidm_tpu_torch.ops import list_force as tlf
 from sidm_tpu_torch.ops.fused_force import flat_tables, pack_tree
 from sidm_tpu_torch.ops.gather import (NODE_COLS, UNSET_COLS, gather_nodes,
-                                       gather_nodes_plain)
+                                       gather_nodes_plain, gather_rowsum,
+                                       gather_rowsum_plain)
 from sidm_tpu_torch.ops.tree import build_octree
 
 torch.set_num_threads(2)
@@ -160,3 +164,23 @@ def test_gather_nodes_kernel_matches_plain_on_card(case, cuda):
         assert gather_nodes.launches == n0 + 1
         p = gather_nodes_plain(tt, ids)
         assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logm", [10, 14, 17])
+def test_gather_rowsum_kernel_matches_plain_on_card(cuda, logm):
+    """Tables of 2^10 and 2^14 rows (the probe's; staged in shared memory)
+    and 2^17 (read from L2); 1M + 3 ids, also through a view one element
+    in (no 16-byte loads); id M gives 0."""
+    g = torch.Generator(device="cpu").manual_seed(logm)
+    tbl = torch.randn(1 << logm, 16, generator=g).to(cuda)
+    ids = torch.randint(0, (1 << logm) + 1, ((1 << 20) + 4,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    for view in (ids[:-1], ids[1:]):
+        n0 = gather_rowsum.launches
+        k = gather_rowsum(tbl, view)
+        assert gather_rowsum.launches == n0 + 1
+        p = gather_rowsum_plain(tbl, view)
+        assert float(torch.max(torch.abs(k - p))) <= 1e-6 * float(
+            torch.max(torch.abs(p)))
+        assert bool(torch.all(k[view == (1 << logm)] == 0))
