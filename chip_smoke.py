@@ -70,11 +70,29 @@ Phases (each asserts; any failure exits non-zero):
      plain version on a subset of groups, at the run's K and at K = 16
      (truncating), timed on all groups; the gated tile on the next step's
      targets: counts equal, P_tot p99.9 relative error < 1e-5, partners
-     equal except at near-ties (counted).
+     equal except at near-ties (counted);
+ 10. flagship-dsmc-walk (bench.py's SIDM settings on the walk,
+     flagship_config(**DSMC_WALK)) through Simulation: prepare,
+     compute_potential, 4 steps, compute_potential: scatters > 0, no walk
+     or segment drop of the DSMC range walk, no force walk overflow,
+     |dE/E| < 1e-3, every step's kicks conserving momentum, launches of
+     the range walk (far_level range mode) and the segment pass
+     (sidm_near, K4) beside the force walk's kernels; on its end state K4
+     against sidm_near_plain on a subset of the next step's gated groups
+     (counts equal, P_tot p99.9 < 1e-5, partners equal except at
+     near-ties), timed on all groups with its bound. Then a periodic
+     uniform box at N = 1e5 (the rate harness's): the range walk's range
+     mode (every level, all groups) and the emission (and its count mode)
+     bit-equal to their plain versions with the box, the gated tile and
+     K4 at phase 9's bars, one pass of each DSMC engine on the same inputs
+     (equal neighbour counts, partners equal except at near-ties), and a
+     short rate check (hard sphere, 64 passes, both engines, held to the
+     harness's bar max(1 %, 3 sigma) with no drop).
 Before the last line it prints one JSON object with the per-kernel results
-(``launches``: on this slice's main path, phase 9; ``launches_by_path``:
-phase 5's, phase 8's and phase 9's counts, each path's counters set to 0
-just before it and read just after; for far_list and near_level
+(``launches``: the sum over the main paths driven here, ``launches_by_path``:
+phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc") and phase 10's
+("dsmc_walk") counts, each path's counters set to 0 just before it and
+read just after; for far_list and near_level
 ``full_ms`` and
 ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
@@ -102,6 +120,9 @@ K6_CAP, K6_BLOCKS, K6_IDS = 65536, 256, 2048   # pallas_gather_probe.py
 K45_IDS = 1 << 23      # scripts/gatherbench.py F
 EMIT_GROUPS = 64       # groups of the emission's kernel-vs-plain check
 EMIT_TINY_K = 16       # the truncating K of that check
+WALK_DSMC_STEPS = 4    # flagship-dsmc-walk, after prepare
+BOX_N = 100_000        # the periodic box of phase 10 (the rate harness's)
+RATE_PASSES = 64       # phase 10's short rate check, per engine
 
 
 def card_line() -> str:
@@ -468,6 +489,7 @@ def main():
                                            gather_rowsum_plain)
     from sidm_tpu_torch.ops.list_force import (ListConfig, eval_inputs,
                                                eval_lists, record_lists)
+    from sidm_tpu_torch.ops.fused_range import sidm_near
     from sidm_tpu_torch.ops.list_range import sidm_emit, sidm_gated
     from sidm_tpu_torch.ops.near_kernel import (near_level, near_level_plain,
                                                 near_split)
@@ -673,6 +695,7 @@ def main():
                 "sidm_emit": (sidm_emit, "launches"),
                 "sidm_emit_count": (sidm_emit, "count_launches"),
                 "sidm_gated": (sidm_gated, "launches"),
+                "sidm_near": (sidm_near, "launches"),
                 "near_level": (near_level, "launches"),
                 "far_list": (far_list, "launches"),
                 "gather_rows": (gather_rows, "launches"),
@@ -915,6 +938,20 @@ def main():
     dsmc_kernels(res, dsim, dev, card)
     del dsim
 
+    # ---- this slice's path: flagship-dsmc-walk ------------------------------
+    zero_counts()
+    wdsim = dsmc_walk_path(pos, vel, mass, n, dev, card)
+    walk_dsmc_launches = read_counts()
+    for key in ("far_level", "far_level_range", "sidm_near",
+                "sidm_emit_count", "far_list", "near_level"):
+        assert walk_dsmc_launches[key] > 0, (key, walk_dsmc_launches)
+    # K4 on every DSMC step after prepare's (dt = 0 there: nothing gated)
+    assert walk_dsmc_launches["sidm_near"] >= WALK_DSMC_STEPS, \
+        walk_dsmc_launches
+    dsmc_walk_kernels(res, wdsim, dev, card)
+    del wdsim
+    box_phase(res, dev, card)
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -940,17 +977,20 @@ def main():
                             "sidm_tpu/ops/fused_range.py:179"),
         "sidm_gated": ("sidm_tpu_torch/csrc/sidm_gated.cu",
                        "sidm_tpu/ops/list_range.py:434"),
+        "sidm_near": ("sidm_tpu_torch/csrc/sidm_near.cu",
+                      "sidm_tpu/ops/fused_range.py:127"),
     }
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
         r = res.rows[name]
         bms, by = bound_ms(r["ops"], r["bytes"])
+        by_path = {"lists": list_launches[name],
+                   "walk": walk_launches[name], "dsmc": launches[name],
+                   "dsmc_walk": walk_dsmc_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
-            "replaces": repl, "launches": launches[name],
-            "launches_by_path": {"lists": list_launches[name],
-                                 "walk": walk_launches[name],
-                                 "dsmc": launches[name]},
+            "replaces": repl, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": r["library_ms"],
@@ -1335,6 +1375,306 @@ def dsmc_kernels(res, sim, dev, card):
     res.add("sidm_gated", max_abs, ms, plain_ms, ops, nb)
     res.rows["sidm_gated"].update(partner_near_ties=n_tie,
                                   p999_rel_err=p999)
+
+
+def near_check(res, near, sub, card, label, box=False):
+    """K4 (``sidm_near``) against ``sidm_near_plain`` on the groups
+    ``sub`` of one call's arguments ``near``: counts equal, P_tot p99.9
+    relative error < 1e-5, partners equal except at near-ties (best keys
+    within 4 float32 ULPs); the kernel timed on all groups against its
+    bound (the plain version on the subset). The times of a ``box`` call
+    go into the JSON row's ``box_*`` keys."""
+    from sidm_tpu_torch.bounds import bound_ms, near_dsmc_work
+    from sidm_tpu_torch.ops.fused_range import sidm_near, sidm_near_plain
+    per_group = ("keys", "nn", "gt", "gv", "gh", "gdt", "gty", "gidx")
+    skw = {k: (v[sub].contiguous() if k in per_group else v)
+           for k, v in near.items()}
+    k = sidm_near(**skw)
+    pl = sidm_near_plain(**skw)
+    live = (skw["gidx"] >= 0) & (skw["gh"] > 0)
+    assert torch.equal(k[1], pl[1]), ("sidm_near counts", label)
+    rel = (torch.abs(k[0] - pl[0]) / torch.clamp(torch.abs(pl[0]),
+                                                 min=1e-30))[live]
+    p999 = q999(rel)
+    diff = (k[3] != pl[3])[live]
+    kk, pk = k[2][live], pl[2][live]
+    tie = diff & (torch.abs(kk - pk) <= 4 * torch.finfo(torch.float32).eps
+                  * torch.clamp(torch.abs(pk), min=1.0))
+    n_diff, n_tie = int(diff.sum()), int(tie.sum())
+    max_abs = float(torch.max(torch.abs(k[0] - pl[0])[live])) \
+        if bool(live.any()) else 0.0
+    msg = (f"kernel sidm_near ({label}; {len(sub)} of "
+           f"{near['keys'].shape[0]} groups, {int(live.sum())} gated "
+           f"slots, {int(torch.sum(pl[1]))} pairs): counts equal, P_tot "
+           f"p99.9 rel err {p999:.3e}, max abs {max_abs:.3e}, partners "
+           f"differing {n_diff} (near-ties {n_tie}) of "
+           f"{int(torch.sum(pl[3][live] >= 0))}")
+    assert p999 < 1e-5 and n_diff == n_tie, (label, p999, n_diff, n_tie)
+    ms = cuda_ms(lambda: sidm_near(**near), 10)
+    sub_ms = cuda_ms(lambda: sidm_near(**skw), 10)
+    plain_ms = cuda_ms(lambda: sidm_near_plain(**skw), 1)
+    full = sidm_near(**near)
+    ops, nb = near_dsmc_work(near["keys"], near["nn"], near["gidx"],
+                             near["gh"], full[1])
+    bms, by = bound_ms(ops, nb)
+    print(msg + f"; all groups: kernel {ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), at {bms / ms:.1%} of the bound's speed; subset: kernel "
+          f"{sub_ms:.4f} ms, plain {plain_ms:.3f} ms [{card}]", flush=True)
+    if box:
+        res.add("sidm_near", max_abs, 0.0, 0.0, 0.0, 0.0)
+        box_row(res, "sidm_near", box_ms=ms, box_bound_ms=bms,
+                box_plain_ms=plain_ms, box_subset_ms=sub_ms,
+                box_p999_rel_err=p999)
+        return
+    res.add("sidm_near", max_abs, ms, plain_ms, ops, nb)
+    res.rows["sidm_near"].update(p999_rel_err=p999,
+                                 partner_near_ties=n_tie,
+                                 subset_groups=len(sub), subset_ms=sub_ms,
+                                 groups=int(near["keys"].shape[0]),
+                                 pairs=int(torch.sum(full[1])))
+
+
+def box_row(res, name, **times):
+    """A kernel's times on the periodic box, beside its main-path row."""
+    res.add(name, 0.0, 0.0, 0.0, 0.0, 0.0)
+    res.rows[name].update(**times)
+
+
+def subset(ng, k, dev):
+    return torch.unique(torch.linspace(0, max(ng - 1, 0), min(k, ng),
+                                       device=dev).long())
+
+
+def dsmc_walk_path(pos, vel, mass, n, dev, card):
+    """flagship-dsmc-walk (the walk every step, DSMC on the range walk)
+    through Simulation: prepare, compute_potential, WALK_DSMC_STEPS steps,
+    compute_potential, with the asserts of phase 10. Returns the
+    Simulation."""
+    from sidm_tpu_torch.flagship import DSMC_WALK, flagship_config
+    from sidm_tpu_torch.simulation import Simulation
+
+    sim = Simulation(flagship_config(**DSMC_WALK), mode="phased", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32),
+                                  pad_to_multiple=4096)
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    sim.compute_potential()
+    e_start = sim_energy(sim)
+    ovf, scat, drops = 0, [], []
+    t0 = time.perf_counter()
+    for k in range(WALK_DSMC_STEPS):
+        _, _, n_scat = sim.step()
+        si, wi = dict(sim.last_sidm_info), sim.last_walk_info
+        ovf += sum(int(wi[f]) for f in ("ovf_open", "ovf_big", "ovf_items"))
+        m = sim.particles.mass[:, None].double()
+        kick = si["kick"].double()
+        mom = float(torch.linalg.norm(torch.sum(m * kick, 0)))
+        scale = float(torch.sum(m * torch.linalg.norm(kick, dim=1,
+                                                      keepdim=True)))
+        assert mom <= 1e-5 * scale, ("momentum", mom, scale)
+        assert si["engine"] == "walk", si["engine"]
+        scat.append(n_scat)
+        drops.append(si["walk_ovf"])
+        print(f"dsmc-walk step {k + 1} "
+              f"({'rebuild' if sim.last_step_rebuilt else 'refresh'}): "
+              + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in
+                          sim.last_phase_wall.items())
+              + f", scatters {n_scat} of {si['proposals']} proposals, gated "
+              f"{si['n_gated']} in {si['groups']} groups (segment cap "
+              f"{si['seg_cap']}, walk caps (w_max, open_cap, big_cap, "
+              f"big_chunks) {si['walk_caps']}), walk drops (cells, big, "
+              "segments) "
+              f"{si['walk_ovf']}, |sum m dv| {mom:.3e} of sum m|dv| "
+              f"{scale:.3e} [{card}]", flush=True)
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    sim.compute_potential()
+    torch.cuda.synchronize()
+    de = abs(sim_energy(sim) - e_start) / abs(e_start)
+    finite = all(bool(torch.isfinite(getattr(sim.particles, f)).all())
+                 for f in ("pos", "vel", "hsml_vd", "dvel"))
+    print(f"DSMC walk path (flagship-dsmc-walk, ListMode 0, SIDMOn 1): N {n}, "
+          f"prepare {t_prep:.3f} s, {WALK_DSMC_STEPS} steps {t_steps:.3f} s, "
+          f"{n * WALK_DSMC_STEPS / t_steps:.1f} particle-steps/s, scatters "
+          f"{scat} (total {sum(scat)}), walk drops {drops}, force overflow "
+          f"{ovf}, t = {sim.time:.6g}, |dE/E| {de:.3e}, finite {finite} "
+          f"[{card}]", flush=True)
+    assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
+    assert sum(scat) > 0, scat
+    assert all(d == [0, 0, 0] for d in drops), drops
+    return sim
+
+
+def dsmc_walk_kernels(res, sim, dev, card):
+    """K4 on the DSMC walk run's end state: the next step's segment pass
+    against its plain version on a subset of the gated groups, timed on
+    all of them."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.fused_range import sidm_scatter_fused
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.rng import step_key
+
+    p = sim.particles
+    t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, _ = integrate.predict_positions(p, t_next, sim.consts)
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    tree = build_octree(pos_pred, mass, eps, p.valid,
+                        depth=default_depth(p.n_padded))
+    vmax = torch.tensor(sim.vmax, dtype=pos_pred.dtype, device=dev)
+    near = {}
+    sidm_scatter_fused(p, pos_pred, tree, t_next, active, vmax,
+                       step_key(sim.root_key, sim.step_count),
+                       sim._sidm_params(), cfg=sim._walk_fcfg,
+                       salt=sim.step_count, seg_cap=sim._walk_seg_cap,
+                       on_near=near.update)
+    ng = near["keys"].shape[0]
+    near_check(res, near, subset(ng, SUBSET_GROUPS, dev), card,
+               "flagship-dsmc-walk's next step")
+
+
+def box_phase(res, dev, card):
+    """Phase 10 on a periodic uniform box (the rate harness's, N =
+    BOX_N): K1's range mode and K2 bit-equal to their plain versions with
+    the box, K3 and K4 at phase 9's bars; one step of each engine on the
+    same inputs (equal counts, partners equal except at near-ties); the
+    short rate check of both engines. Returns nothing; asserts."""
+    from sidm_tpu_torch import validate_rate as vr
+    from sidm_tpu_torch.bounds import bound_ms, emit_work, gated_work
+    from sidm_tpu_torch.ops.fused_range import sidm_scatter_fused
+    from sidm_tpu_torch.ops.list_range import (
+        count_neighbours, gated_targets, record_candidates_from_particles,
+        sidm_emit, sidm_emit_plain, sidm_gated, sidm_gated_plain,
+        sidm_scatter_lists)
+    from sidm_tpu_torch.rng import run_key, step_key
+    import dataclasses
+
+    box = vr.BOX
+    t0 = time.perf_counter()
+    p0, tree, _ = vr.make_box(BOX_N, dev)
+    torch.cuda.synchronize()
+    print(f"periodic box: N {BOX_N} uniform, hsml init with the box "
+          f"{time.perf_counter() - t0:.3f} s, mean neighbours "
+          f"{float(p0.ngb_vd[p0.valid].float().mean()):.2f} [{card}]",
+          flush=True)
+    params = vr.rate_params(0)
+    # K1 (range mode) and K2 with the box, each timed on all groups
+    fl = FarLevelCheck(card)
+    emit = {}
+    cands = record_candidates_from_particles(
+        p0, p0.pos, tree, skin=0.0, params=params, box=box,
+        on_level=fl.range_level, on_emit=emit.update)
+    assert cands.ovf.tolist() == [0, 0], cands.ovf
+    t = fl.t["range"]
+    bms, by = bound_ms(t["ops"], t["bytes"])
+    print(f"kernel far_level range mode with the periodic box (the rate "
+          f"box's record, all groups, {t['levels']} levels): lists, counts "
+          f"and telemetry equal to the plain version's; device "
+          f"{t['ms']:.3f} ms per range walk, plain {t['plain_ms']:.3f} ms, "
+          f"bound {bms:.4f} ms ({by}), at {bms / t['ms']:.1%} of the "
+          f"bound's speed [{card}]", flush=True)
+    box_row(res, "far_level_range", box_ms=t["ms"], box_bound_ms=bms,
+            box_plain_ms=t["plain_ms"])
+    ng = emit["keys"].shape[0]
+    sub = subset(ng, EMIT_GROUPS, dev)
+    base = [emit[k][sub].contiguous() if k not in ("src",) else emit[k]
+            for k in ("keys", "nn", "src", "gt", "gr", "gty", "gidx")]
+    n = p0.n_padded
+    for K in (emit["K"], EMIT_TINY_K):
+        a = sidm_emit(*base, n, K, box=box)
+        b = sidm_emit_plain(*base, n, K, box=box)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), ("emit box", K)
+    assert torch.equal(count_neighbours(*base, n, box=box),
+                       sidm_emit_plain(*base, n, 0, count_mode=True,
+                                       box=box)), "count mode box"
+    full = [emit[k] for k in ("keys", "nn", "src", "gt", "gr", "gty",
+                              "gidx")]
+    ms = cuda_ms(lambda: sidm_emit(*full, n, emit["K"], box=box), 3)
+    plain_ms = cuda_ms(lambda: sidm_emit_plain(*base, n, emit["K"],
+                                               box=box), 1)
+    ops, nb = emit_work(emit["keys"], emit["nn"], emit["gidx"], n,
+                        written=torch.sum(cands.ncand))
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel sidm_emit with the periodic box (K {emit['K']} and "
+          f"{EMIT_TINY_K}, count mode; {len(sub)} of {ng} groups): "
+          f"bit-equal to the plain version; all groups {ms:.3f} ms, bound "
+          f"{bms:.4f} ms ({by}), at {bms / ms:.1%} of the bound's speed; "
+          f"plain on {len(sub)} groups {plain_ms:.3f} ms [{card}]",
+          flush=True)
+    box_row(res, "sidm_emit", box_ms=ms, box_bound_ms=bms,
+            box_plain_ms=plain_ms)
+    # one frozen pass of each engine: K3 and K4 vs plain, then the engines
+    dt = vr.EVENT_FRACTION / vr.analytic_sigma_v(0, 1.0)
+    p = dataclasses.replace(p0, current_time=torch.full_like(
+        p0.current_time, 1.0 - dt / 2))
+    t = torch.tensor(1.0, device=dev)
+    vmax = torch.sqrt(torch.max(torch.sum(p.vel ** 2, -1)))
+    key = step_key(run_key(7, 0), 0)
+    near = {}
+    _, ns_w, winfo = sidm_scatter_fused(p, p.pos, tree, t, p.valid, vmax,
+                                        key, params, salt=0, box=box,
+                                        return_info=True,
+                                        on_near=near.update)
+    assert [int(winfo[k]) for k in ("ovf_walk", "ovf_big", "ovf_seg")] \
+        == [0, 0, 0]
+    near_check(res, near, subset(near["keys"].shape[0], SUBSET_GROUPS, dev),
+               card, "periodic box", box=True)
+    _, ns_l, _, ovf_g, linfo = sidm_scatter_lists(
+        p, p.pos, tree, cands, t, p.valid, vmax, key, params, salt=0,
+        box=box)
+    assert ovf_g.tolist() == [0, 0]
+    tid, _ = gated_targets(linfo["hs"], cands.ncand, cands.cand.shape[1],
+                           linfo["ngc"], linfo["ntail"], linfo["kd"])
+    gargs = (linfo["rows"], cands.cand, cands.ncand, linfo["hs"],
+             linfo["dts"], tid, 0, t, linfo["sigma_co"], params, box)
+    k3, p3 = sidm_gated(*gargs), sidm_gated_plain(*gargs)
+    sel = tid[tid >= 0].long()
+    assert torch.equal(k3[1], p3[1]), "sidm_gated counts box"
+    rel = (torch.abs(k3[0] - p3[0])
+           / torch.clamp(torch.abs(p3[0]), min=1e-30))[sel]
+    d3 = (k3[3] != p3[3])[sel]
+    t3 = d3 & (torch.abs(k3[2] - p3[2])[sel]
+               <= 4 * torch.finfo(torch.float32).eps
+               * torch.clamp(torch.abs(p3[2][sel]), min=1.0))
+    assert q999(rel) < 1e-5 and int(d3.sum()) == int(t3.sum())
+    ms = cuda_ms(lambda: sidm_gated(*gargs), 10)
+    plain_ms = cuda_ms(lambda: sidm_gated_plain(*gargs), 2)
+    gbms, gby = bound_ms(*gated_work(tid, cands.ncand, k3[1], cands.cand))
+    box_row(res, "sidm_gated", box_ms=ms, box_bound_ms=gbms,
+            box_plain_ms=plain_ms)
+    # the engines on the same pass: the same gated targets, pair sets and
+    # keys
+    gate = linfo["hs"] > 0
+    assert torch.equal(gate, winfo["hs"] > 0)
+    same_cnt = torch.equal(winfo["cnt"][gate], linfo["cnt"][gate])
+    dj = (winfo["bestj"] != linfo["bestj"])[gate]
+    gap = torch.abs(winfo["bestk"] - linfo["bestk"])[gate]
+    tj = dj & (gap <= 4 * torch.finfo(torch.float32).eps
+               * torch.clamp(torch.abs(linfo["bestk"][gate]), min=1.0))
+    print(f"kernel sidm_gated with the periodic box ({sel.numel()} gated "
+          f"targets): counts equal, P_tot p99.9 rel err {q999(rel):.3e}, "
+          f"partners differing {int(d3.sum())} (near-ties "
+          f"{int(t3.sum())}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {gbms:.4f} ms ({gby}), at {gbms / ms:.1%} of the bound's "
+          f"speed; engines on one pass: walk {int(ns_w)} and "
+          f"lists {int(ns_l)} scatters, neighbour counts equal "
+          f"{same_cnt} on {int(gate.sum())} gated targets, partners "
+          f"differing {int(dj.sum())} (near-ties {int(tj.sum())}) [{card}]",
+          flush=True)
+    assert same_cnt and int(dj.sum()) == int(tj.sum())
+    # the short rate check, hard sphere, both engines
+    for eng in ("walk", "lists"):
+        r = vr.run_type(p0, tree, 0, eng, RATE_PASSES, BOX_N)
+        print(f"rate (hard sphere, N {BOX_N}, {RATE_PASSES} passes, {eng}): "
+              f"events {r['events']}, expected {r['expected']:.1f}, ratio "
+              f"{r['ratio']:.4f} +- {r['err']:.4f} "
+              f"({'OK' if r['ok'] else 'FAIL'} at max(1 %, 3 sigma)), drops "
+              f"{r['drops']}, {r['seconds']:.2f} s [{card}]", flush=True)
+        assert r["ok"] and not any(r["drops"].values()), r
 
 
 def sim_energy(sim) -> float:

@@ -4,9 +4,10 @@ The JAX package ``sidm_tpu`` is the reference; this package mirrors its
 module names and layout (``sidm_tpu/X.py`` -> ``sidm_tpu_torch/X.py``) and
 never imports jax. Implemented so far: the phased step of the flagship on
 the work-queue tree walk (``TreeWalkEngine wq``, ``ListMode 0``) and on
-the cached interaction lists (``ListMode 1``), the latter also with DSMC
-scattering (``SIDMOn 1``); everything else raises ``NotImplementedError``
-naming its ROADMAP item.
+the cached interaction lists (``ListMode 1``), both also with DSMC
+scattering (``SIDMOn 1``: on the cached candidate lists, or on the range
+walk), and the periodic minimum image on the DSMC path's ops; everything
+else raises ``NotImplementedError`` naming its ROADMAP item.
 
 All work is float32 except the octree's moment sums, which are taken in
 float64 and rounded once to float32 (see ``ops/tree.py``). TF32 is switched

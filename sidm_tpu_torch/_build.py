@@ -10,11 +10,12 @@ interface, loaded with ``ctypes``:
 
 ``<h>`` hashes the source's own flags, the source and every header, so an
 edited file builds anew and an unchanged one is reused. ``-fmad=false`` is
-given to ``far_kernel.cu``, ``sidm_emit.cu`` and ``sidm_gated.cu``: it
-keeps every product and sum rounded as in the plain PyTorch version
-(beside explicit ``__fmul_rn``/``__fadd_rn``), so that the walk's
-classification, the candidate tests and the DSMC keys, and hence every
-emitted id, key and chosen partner, match the plain version's exactly.
+given to ``far_kernel.cu``, ``sidm_emit.cu``, ``sidm_gated.cu`` and
+``sidm_near.cu``: it keeps every product and sum rounded as in the plain
+PyTorch version (beside explicit ``__fmul_rn``/``__fadd_rn``), so that the
+walk's classification, the candidate tests and the DSMC keys, and hence
+every emitted id, key and chosen partner, match the plain version's
+exactly.
 The other sources are built with FMA: the peak of 67 TFLOP/s that ``bounds.py``
 divides by counts an FMA as two operations, so a kernel without FMA can
 reach at most half of its bound. Each C entry point
@@ -42,15 +43,15 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 # source stem -> flags of its own, after _FLAGS
 _SOURCE_FLAGS = {"far_kernel": ["-fmad=false"], "sidm_emit": ["-fmad=false"],
-                 "sidm_gated": ["-fmad=false"]}
+                 "sidm_gated": ["-fmad=false"], "sidm_near": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # entry point -> (source stem, argument types)
 _SIGNATURES = {
     "far_level_launch": ("far_kernel", [
-        _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I,
-        _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]),
+        _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _F, _F, _I, _I,
+        _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]),
     "near_level_launch": ("near_kernel", [
         _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P]),
     "near_split_launch": ("near_kernel", [_P, _P, _I, _I, _P, _I, _P]),
@@ -60,10 +61,13 @@ _SIGNATURES = {
     "gather_launch": ("gather", [_P, _I, _P, _L, _P, _P]),
     "rowsum_launch": ("gather", [_P, _I, _P, _L, _P, _P, _P]),
     "sidm_emit_launch": ("sidm_emit", [
-        _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]),
+        _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P]),
     "sidm_gated_launch": ("sidm_gated", [
         _P, _P, _I, _I, _P, _P, _P, _P, _I, ctypes.c_uint, _I, _F, _F, _F,
-        _F, _P, _P, _P, _P, _P]),
+        _F, _F, _P, _P, _P, _P, _P]),
+    "sidm_near_launch": ("sidm_near", [
+        _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, ctypes.c_uint, _I,
+        _F, _F, _F, _F, _F, _P, _P, _P, _P, _P]),
     "node_rows_launch": ("gather", [_P, _P, _I, _P, _L, _P, _P]),
 }
 

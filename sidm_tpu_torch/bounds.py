@@ -65,6 +65,11 @@ GATED_PAIR_OPS = 46
 GATED_MISS_OPS = 12
 GATED_TARGET_BYTES = 64  # tid, ncand, radius, dt, row in; four outputs
 CAND_ROW_BYTES = 32      # one candidate's row [pos3 vel3 mass aux]
+# the walk's DSMC segment pass (csrc/sidm_near.cu): the gated tile's pair
+# math (GATED_PAIR_OPS per live pair, GATED_MISS_OPS per other (live
+# slot, segment particle) pair); per slot its position, velocity, h, dt,
+# type and id in and its four outputs
+NEAR_SLOT_BYTES = 56
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -204,4 +209,25 @@ def gated_work(tid, ncand, cnt, cand):
     distinct = _n(torch.unique(c[live]).numel())
     nbytes = (GATED_TARGET_BYTES * t.numel() + 4 * pairs
               + CAND_ROW_BYTES * distinct)
+    return ops, nbytes
+
+
+def near_dsmc_work(keys, nn, gidx, gh, ncnt):
+    """(ops, bytes) of one ``sidm_near`` call with the counts ``ncnt`` it
+    returned: GATED_PAIR_OPS per live pair and GATED_MISS_OPS per other
+    (live slot, covered particle) pair of each group; bytes: the live
+    keys, each distinct covered particle's row once, every slot's inputs
+    and outputs."""
+    from .ops.fused_range import segment_particles
+    L = keys.shape[1]
+    live = torch.arange(L, device=keys.device)[None, :] < nn[:, None].long()
+    cov = torch.sum(torch.where(live, keys & 31, 0), dim=1).long()
+    nv = torch.sum((gidx >= 0) & (gh > 0), dim=1).long()
+    pairs = _n(torch.sum(cov * nv))
+    ok = _n(torch.sum(ncnt.long()))
+    ops = GATED_PAIR_OPS * ok + GATED_MISS_OPS * (pairs - ok)
+    idx, val = segment_particles(keys, nn)
+    distinct = _n(torch.unique(idx[val]).numel())
+    nbytes = (4 * _n(torch.sum(torch.clamp(nn.long(), max=L)))
+              + CAND_ROW_BYTES * distinct + NEAR_SLOT_BYTES * gidx.numel())
     return ops, nbytes

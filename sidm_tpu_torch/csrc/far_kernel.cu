@@ -38,7 +38,10 @@
 // cells out of range are dropped (there is no far output). The appends,
 // caps and telemetry are the record mode's, except that particles past
 // big_chunks chunks of an overfull cell are not counted as drops, as the
-// JAX range walk does not count them.
+// JAX range walk does not count them. With a periodic box (box > 0) the
+// distance is taken from the group box's centre by the minimum image,
+// d - box*rint(d/box) (rint rounds half to even, as torch.round and
+// jnp.round do), with the plain version's rounding step by step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,7 +66,7 @@ struct Args {
     const float* glo;           // (ng, 3)
     const float* ghi;
     const float* oac;           // (ng,) relative thresholds; range: the pad
-    float theta2, leaf_cap;
+    float theta2, box, leaf_cap;   // box: range mode's periodic box, 0 none
     int mode, last;             // mode 0 geometric, 1 relative, 2 range
     int O, Wn, big_cap, big_chunks;
     int lvl_base, LC;           // record: flat offset of the level, level cap
@@ -105,6 +108,18 @@ __device__ __forceinline__ Row load_row(const Args& a, int id) {
     return r;
 }
 
+// The range test's gap along one axis in a periodic box: the cell centre
+// c against the group box [lo, hi] by the minimum image from the box's
+// centre, max(|d| - hw - half, 0), rounded as the plain version rounds.
+__device__ __forceinline__ float min_image_gap(float c, float lo, float hi,
+                                               float half, float box) {
+    const float gc = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    const float hw = __fmul_rn(0.5f, __fsub_rn(hi, lo));
+    float d = __fsub_rn(c, gc);
+    d = __fsub_rn(d, __fmul_rn(box, rintf(__fdiv_rn(d, box))));
+    return fmaxf(__fsub_rn(__fsub_rn(fabsf(d), hw), half), 0.0f);
+}
+
 // A row classified against the group box: explicit round-to-nearest
 // products and sums, in the order of fused_force.classify (no FMA
 // contraction, exact decisions).
@@ -115,15 +130,19 @@ __device__ __forceinline__ Node classify(const Args& a, const Row& row,
     const float4 r0 = row.r0, r1 = row.r1;
     if (a.mode == 2) {
         // range test: s2 holds half the cell size, oac the pad^2
-        const float e0 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo0, r0.x),
-                                                __fsub_rn(r0.x, hi0)), s2),
-                               0.0f);
-        const float e1 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo1, r0.y),
-                                                __fsub_rn(r0.y, hi1)), s2),
-                               0.0f);
-        const float e2 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo2, r0.z),
-                                                __fsub_rn(r0.z, hi2)), s2),
-                               0.0f);
+        float e0, e1, e2;
+        if (a.box > 0.0f) {
+            e0 = min_image_gap(r0.x, lo0, hi0, s2, a.box);
+            e1 = min_image_gap(r0.y, lo1, hi1, s2, a.box);
+            e2 = min_image_gap(r0.z, lo2, hi2, s2, a.box);
+        } else {
+            e0 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo0, r0.x),
+                                       __fsub_rn(r0.x, hi0)), s2), 0.0f);
+            e1 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo1, r0.y),
+                                       __fsub_rn(r0.y, hi1)), s2), 0.0f);
+            e2 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo2, r0.z),
+                                       __fsub_rn(r0.z, hi2)), s2), 0.0f);
+        }
         const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0),
                                              __fmul_rn(e1, e1)),
                                    __fmul_rn(e2, e2));
@@ -320,7 +339,7 @@ extern "C" int far_level_launch(const float* tbl, int stride, int nl_real,
                                 const int* fids, const int* n_live, int ng,
                                 int W, const float* s_l, const float* glo,
                                 const float* ghi, const float* oac,
-                                float theta2, int mode,
+                                float theta2, int mode, float box,
                                 float leaf_cap, int last, int O, int Wn,
                                 int big_cap, int big_chunks, int lvl_base,
                                 int LC, int* far, int far_w, int* seg,
@@ -330,7 +349,8 @@ extern "C" int far_level_launch(const float* tbl, int stride, int nl_real,
     if (ng <= 0) return 0;
     if (big_cap > kBigMax) return (int)cudaErrorInvalidValue;
     const Args a{reinterpret_cast<const float4*>(tbl), stride, nl_real, fids,
-                 n_live, W, s_l, glo, ghi, oac, theta2, leaf_cap, mode, last,
+                 n_live, W, s_l, glo, ghi, oac, theta2, box, leaf_cap, mode,
+                 last,
                  O, Wn, big_cap, big_chunks, lvl_base, LC, far, far_w, seg,
                  seg_w, fids_next, bkey, cnt, nf, nn, stat, ng};
     far_level_kernel<<<ng, kT, 0, (cudaStream_t)stream>>>(a);

@@ -16,11 +16,14 @@
 // neighbour count, sidm_tpu/ops/fused_range.py:179-183) counts the
 // non-pending hits with sqrt(r^2) < h instead. Products and sums are
 // rounded one by one as the plain version rounds them (the file builds
-// with -fmad=false), so every decision is the plain version's. What bounds
-// it on the H100: operations, about 12 per (target, staged particle) pair;
+// with -fmad=false), so every decision is the plain version's. With a
+// periodic box (box > 0) each difference is taken by the minimum image
+// (sidm_pair.cuh). What bounds it on the H100: operations, about 12 per (target, staged particle) pair;
 // the staged particles are read once from device memory per group.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sidm_pair.cuh"
 
 namespace {
 
@@ -34,7 +37,7 @@ sidm_emit_kernel(const int* __restrict__ keys, const int* __restrict__ nn,
                  int LR, const float4* __restrict__ src,
                  const float* __restrict__ gt, const float* __restrict__ gr,
                  const int* __restrict__ gty, const int* __restrict__ gidx,
-                 int K, int count_mode, int* __restrict__ cand,
+                 int K, int count_mode, float box, int* __restrict__ cand,
                  int* __restrict__ ncand, int* __restrict__ needk) {
     __shared__ float4 sp[kChunk * kMaxSeg];
     __shared__ int sj[kChunk * kMaxSeg];
@@ -92,9 +95,12 @@ sidm_emit_kernel(const int* __restrict__ keys, const int* __restrict__ nn,
         if (live) {
             for (int k = 0; k < total; ++k) {
                 const float4 q = sp[k];
-                const float d0 = __fsub_rn(tx, q.x);
-                const float d1 = __fsub_rn(ty, q.y);
-                const float d2 = __fsub_rn(tz, q.z);
+                const float d0 = sidm_pair::min_image(__fsub_rn(tx, q.x),
+                                                      box);
+                const float d1 = sidm_pair::min_image(__fsub_rn(ty, q.y),
+                                                      box);
+                const float d2 = sidm_pair::min_image(__fsub_rn(tz, q.z),
+                                                      box);
                 const float rr = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0),
                                                      __fmul_rn(d1, d1)),
                                            __fmul_rn(d2, d2));
@@ -125,19 +131,21 @@ sidm_emit_kernel(const int* __restrict__ keys, const int* __restrict__ nn,
 }  // namespace
 
 // keys (ng, LR) segment keys with live counts nn; src (n,) float4 [x y z
-// aux]; gt (ng, 64, 3), gr/gty/gidx (ng, 64); cand (n, K) IMAX-filled by
+// aux]; gt (ng, 64, 3), gr/gty/gidx (ng, 64); box the periodic box (0:
+// none); cand (n, K) IMAX-filled by
 // the caller, ncand/needk (n,) zero-filled (count mode: cand and needk
 // null, the counts in ncand).
 extern "C" int sidm_emit_launch(const int* keys, const int* nn, int ng,
                                 int LR, const float* src, int n,
                                 const float* gt, const float* gr,
                                 const int* gty, const int* gidx, int K,
-                                int count_mode, int* cand, int* ncand,
+                                int count_mode, float box, int* cand,
+                                int* ncand,
                                 int* needk, void* stream) {
     (void)n;
     if (ng <= 0) return 0;
     sidm_emit_kernel<<<ng, kG, 0, (cudaStream_t)stream>>>(
         keys, nn, LR, reinterpret_cast<const float4*>(src), gt, gr, gty,
-        gidx, K, count_mode, cand, ncand, needk);
+        gidx, K, count_mode, box, cand, ncand, needk);
     return (int)cudaGetLastError();
 }

@@ -15,72 +15,33 @@
 // where(key == max, j, -1) does. The pair arithmetic is the plain
 // version's, rounded one operation at a time (the file builds with
 // -fmad=false), so the keys match it bit for bit; the sum is taken in
-// another order (float32 rounding). What bounds it on the H100: bytes, the
-// candidate ids and the candidates' 32-byte rows gathered.
+// another order (float32 rounding). With a periodic box (box > 0) each
+// difference is taken by the minimum image. The pair math lives in
+// sidm_pair.cuh, shared with the walk's segment pass. What bounds it on
+// the H100: bytes, the candidate ids and the candidates' 32-byte rows
+// gathered.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sidm_pair.cuh"
+
 namespace {
+
+using sidm_pair::min_image;
+using sidm_pair::pair_gumbel;
+using sidm_pair::Sigma;
+using sidm_pair::sph_kernel;
 
 constexpr int kWarps = 8;
 constexpr int kImax = 2147483647;
-constexpr float kEightOverPi = 2.5464790894703255f;    // 8/pi
-constexpr float kSixteenOverPi = 5.092958178940651f;   // 16/pi
-
-__device__ __forceinline__ uint32_t mix32(uint32_t a, uint32_t b,
-                                          uint32_t c) {
-    uint32_t u = (a * 0x9E3779B1u) ^ (b * 0x85EBCA77u) ^ (c * 0xC2B2AE3Du);
-    u ^= u >> 16;
-    u *= 0x7FEB352Du;
-    u ^= u >> 15;
-    u *= 0x846CA68Bu;
-    return u ^ (u >> 16);
-}
-
-__device__ __forceinline__ float pair_gumbel(uint32_t i, uint32_t j,
-                                             uint32_t salt) {
-    float uf = (float)(mix32(i, j, salt) >> 8) * (1.0f / 16777216.0f);
-    uf = fminf(fmaxf(uf, 1e-7f), 0.99999988f);
-    return -logf(-logf(uf));
-}
-
-__device__ __forceinline__ float sph_kernel(float u) {
-    if (u >= 1.0f) return 0.0f;
-    if (u < 0.5f)
-        return kEightOverPi * (1.0f - 6.0f * u * u * (1.0f - u));
-    const float om = 1.0f - u;
-    return kSixteenOverPi * om * om * om;
-}
-
-struct Sigma {
-    int type;
-    float sigma_co, vc, vel_scale, pow_law;
-
-    __device__ __forceinline__ float operator()(float rv) const {
-        switch (type) {
-            case 1:
-                return sigma_co;
-            case 2: {
-                const float beta = rv / vc;
-                const float v_dep = 1.0f / (1.0f + beta * beta);
-                return sigma_co * rv * v_dep * v_dep;
-            }
-            case 3:
-                return sigma_co * rv * powf(fmaxf(rv, 1e-30f) / vel_scale,
-                                            pow_law);
-            default:   // 0 hard sphere, 4 (angle by rejection later)
-                return sigma_co * rv;
-        }
-    }
-};
 
 __global__ void __launch_bounds__(kWarps * 32)
 sidm_gated_kernel(const float4* __restrict__ rows, const int* __restrict__ cand,
                   int n, int K, const int* __restrict__ ncand,
                   const float* __restrict__ hs, const float* __restrict__ dts,
                   const int* __restrict__ tid, int T, uint32_t salt,
-                  Sigma sigma, float* __restrict__ ptot,
+                  Sigma sigma, float box, float* __restrict__ ptot,
                   int* __restrict__ cnt, float* __restrict__ bestk,
                   int* __restrict__ bestj) {
     const int lane = threadIdx.x & 31;
@@ -103,7 +64,9 @@ sidm_gated_kernel(const float4* __restrict__ rows, const int* __restrict__ cand,
         const int j = min(max(cj, 0), n - 1);
         const float4 b0 = __ldg(rows + (int64_t)j * 2);
         const float4 b1 = __ldg(rows + (int64_t)j * 2 + 1);
-        const float d0 = a0.x - b0.x, d1 = a0.y - b0.y, d2 = a0.z - b0.z;
+        const float d0 = min_image(a0.x - b0.x, box);
+        const float d1 = min_image(a0.y - b0.y, box);
+        const float d2 = min_image(a0.z - b0.z, box);
         const float r = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
         if (!(r < th) || b1.w >= 8.0f) continue;
         ++cn;
@@ -143,7 +106,8 @@ sidm_gated_kernel(const float4* __restrict__ rows, const int* __restrict__ cand,
 }  // namespace
 
 // rows (n, 8) float32 sorted [pos3 vel3 mass aux]; cand (n, K) with live
-// counts ncand; hs, dts (n,); tid (T,) target ids, -1 = unused; outputs
+// counts ncand; hs, dts (n,); tid (T,) target ids, -1 = unused; box the
+// periodic box (0: none); outputs
 // (n,) prefilled by the caller (0, 0, -inf, -1) and written at the
 // targets.
 extern "C" int sidm_gated_launch(const float* rows, const int* cand, int n,
@@ -151,13 +115,14 @@ extern "C" int sidm_gated_launch(const float* rows, const int* cand, int n,
                                  const float* dts, const int* tid, int T,
                                  unsigned salt, int cs_type, float sigma_co,
                                  float vc, float vel_scale, float pow_law,
-                                 float* ptot, int* cnt, float* bestk,
+                                 float box, float* ptot, int* cnt,
+                                 float* bestk,
                                  int* bestj, void* stream) {
     if (T <= 0) return 0;
     const Sigma sigma{cs_type, sigma_co, vc, vel_scale, pow_law};
     sidm_gated_kernel<<<(T + kWarps - 1) / kWarps, kWarps * 32, 0,
                         (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(rows), cand, n, K, ncand, hs, dts,
-        tid, T, (uint32_t)salt, sigma, ptot, cnt, bestk, bestj);
+        tid, T, (uint32_t)salt, sigma, box, ptot, cnt, bestk, bestj);
     return (int)cudaGetLastError();
 }

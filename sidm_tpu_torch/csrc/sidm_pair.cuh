@@ -1,0 +1,72 @@
+// The DSMC pair math shared by the gated tile (sidm_gated.cu) and the
+// walk's segment pass (sidm_near.cu), so that both compute the same keys
+// bit for bit: the pair hash and its Gumbel noise
+// (sidm_tpu/ops/sidm_tree.py:_mix32, _pair_gumbel), the cubic-spline
+// kernel (sidm_tpu/kernels.py:sph_kernel), sigma(v) v for cross-section
+// types 0-4 (sidm_tpu/sidm_common.py:sigma_v_product) and the minimum
+// image of a periodic box. Both files build with -fmad=false, so every
+// product and sum is rounded as in the plain PyTorch versions.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+namespace sidm_pair {
+
+constexpr float kEightOverPi = 2.5464790894703255f;    // 8/pi
+constexpr float kSixteenOverPi = 5.092958178940651f;   // 16/pi
+
+__device__ __forceinline__ uint32_t mix32(uint32_t a, uint32_t b,
+                                          uint32_t c) {
+    uint32_t u = (a * 0x9E3779B1u) ^ (b * 0x85EBCA77u) ^ (c * 0xC2B2AE3Du);
+    u ^= u >> 16;
+    u *= 0x7FEB352Du;
+    u ^= u >> 15;
+    u *= 0x846CA68Bu;
+    return u ^ (u >> 16);
+}
+
+__device__ __forceinline__ float pair_gumbel(uint32_t i, uint32_t j,
+                                             uint32_t salt) {
+    float uf = (float)(mix32(i, j, salt) >> 8) * (1.0f / 16777216.0f);
+    uf = fminf(fmaxf(uf, 1e-7f), 0.99999988f);
+    return -logf(-logf(uf));
+}
+
+__device__ __forceinline__ float sph_kernel(float u) {
+    if (u >= 1.0f) return 0.0f;
+    if (u < 0.5f)
+        return kEightOverPi * (1.0f - 6.0f * u * u * (1.0f - u));
+    const float om = 1.0f - u;
+    return kSixteenOverPi * om * om * om;
+}
+
+// d - box*round(d/box) for box > 0 (rintf rounds half to even, as
+// torch.round and jnp.round do; roundf would not), d itself for box 0.
+__device__ __forceinline__ float min_image(float d, float box) {
+    return box > 0.0f ? d - box * rintf(d / box) : d;
+}
+
+struct Sigma {
+    int type;
+    float sigma_co, vc, vel_scale, pow_law;
+
+    __device__ __forceinline__ float operator()(float rv) const {
+        switch (type) {
+            case 1:
+                return sigma_co;
+            case 2: {
+                const float beta = rv / vc;
+                const float v_dep = 1.0f / (1.0f + beta * beta);
+                return sigma_co * rv * v_dep * v_dep;
+            }
+            case 3:
+                return sigma_co * rv * powf(fmaxf(rv, 1e-30f) / vel_scale,
+                                            pow_law);
+            default:   // 0 hard sphere, 4 (angle by rejection later)
+                return sigma_co * rv;
+        }
+    }
+};
+
+}  // namespace sidm_pair

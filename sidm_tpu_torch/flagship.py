@@ -5,6 +5,9 @@ lists' configuration below with bench.py's SIDM settings (``SIDMOn 1``,
 ``CrossSection 38.2614``, ``ProbabilityTol 0.2``, ``RandomSeed1/2
 55/497527``; ``DesNumNgb 30`` and ``MaxNumNgbDeviation 2`` are already in
 the base), DSMC on the cached candidate lists, with the same two cuts.
+``flagship_config(**DSMC_WALK)`` (``DSMC`` with ``ListMode 0``) is
+flagship-dsmc-walk: the same SIDM settings on the walk, bench.py's
+``TreeRefreshSteps 16``, the DSMC pass on the range walk every step.
 
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
@@ -53,6 +56,10 @@ LISTS = dict(ListMode=1, TreeRefreshSteps=4, ListNearCap=8192)
 # bench.py:44-47's SIDM settings (flagship-dsmc: flagship_config(**DSMC))
 DSMC = dict(SIDMOn=1, CrossSection=38.2614, ProbabilityTol=0.2,
             RandomSeed1=55, RandomSeed2=497527)
+
+# flagship-dsmc-walk: bench.py's SIDM settings on the walk (the DSMC pass
+# on the range walk every step; TreeRefreshSteps 16, bench.py's)
+DSMC_WALK = dict(DSMC, ListMode=0)
 
 
 def flagship_config(**changes) -> SimConfig:

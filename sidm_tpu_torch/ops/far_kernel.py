@@ -33,7 +33,10 @@ its caller already compacted, in frontier order (``Level``):
   and list caps and the big-cell chunks are the record mode's, and so is
   the telemetry, except that particles past ``big_chunks`` chunks of an
   overfull cell are not counted as drops (the JAX range walk does not
-  count them).
+  count them). With a periodic ``box`` the distance is taken from the
+  group box's centre by the minimum image, ``d - box*round(d/box)``
+  (``_range_classify``'s periodic branch; dead groups are parked with an
+  inverted huge box, so no cell is in range of them).
 
 Only a row's live prefix is written: entries past a count hold whatever
 the buffer held (``torch.empty``) and no consumer reads them.
@@ -120,12 +123,13 @@ def list_buf(ng: int, LF: int, LN: int, device) -> ListBuf:
 
 def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                  theta2: float, use_relative: bool, leaf_cap: int,
-                 last: bool, range_walk: bool = False):
+                 last: bool, range_walk: bool = False, box: float = 0.0):
     """The TPU kernel's classification in plain PyTorch: the dense
     (ng, W) int32 planes of far (level-local id), segment, open
     (``cstart*16+ccnt``) and big (id) keys, IMAX elsewhere. Live (group,
     chunk) items run in batches of ITEM_BLOCK. ``range_walk``: the range
-    test on range rows, oac the pad (no far keys)."""
+    test on range rows, oac the pad (no far keys), minimum-image with a
+    periodic ``box`` > 0."""
     ng, W = fids.shape
     wc = min(WC, W)
     maxc = W // wc
@@ -147,7 +151,7 @@ def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         rows = torch.where(dead[..., None], torch.zeros_like(rows), rows)
         if range_walk:
             far, seg, opn, big = range_classify(rows, glo[g], ghi[g], oac[g],
-                                                s_l, leaf_cap, last)
+                                                s_l, leaf_cap, last, box)
         else:
             far, seg, opn, big = classify(rows, glo[g], ghi[g], oac[g], s_l,
                                           theta2, use_relative, leaf_cap,
@@ -240,7 +244,7 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                     open_cap: int, big_cap: int, big_chunks: int,
                     lists: Optional[ListBuf] = None, lvl_base: int = 0,
                     lvl_cap: Optional[int] = None,
-                    range_walk: bool = False) -> Level:
+                    range_walk: bool = False, box: float = 0.0) -> Level:
     """Plain PyTorch version of ``far_level``: ``level_planes`` compacted
     and appended step by step, as the JAX package does."""
     ng, W = fids.shape
@@ -248,7 +252,7 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
     fark, segk, openk, bigk = level_planes(
         fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
         use_relative=use_relative, leaf_cap=leaf_cap, last=last,
-        range_walk=range_walk)
+        range_walk=range_walk, box=box)
     zeros = torch.zeros(ng, dtype=torch.int32, device=dev)
     far, n_far = compact_plane(fark)
     seg, n_seg = compact_plane(segk)
@@ -300,7 +304,7 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
               big_cap: int, big_chunks: int,
               lists: Optional[ListBuf] = None, lvl_base: int = 0,
               lvl_cap: Optional[int] = None,
-              range_walk: bool = False) -> Level:
+              range_walk: bool = False, box: float = 0.0) -> Level:
     """One level of the walk for every group.
 
     fids (ng, W) int32 level-local node ids, live prefix n_live (ng,)
@@ -313,16 +317,22 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
     With ``lists`` (record mode) lvl_base is the level's flat node offset
     and lvl_cap the level cap (None: none); the lists are updated in
     place. ``range_walk`` (with ``lists``): the range mode, tbl (cap, 8)
-    range rows, oac the per-group pad; counted in ``range_launches``.
+    range rows, oac the per-group pad; counted in ``range_launches``;
+    ``box`` > 0 (range mode only): minimum-image distances in the periodic
+    box.
 
     Returns a ``Level``."""
+    if box and not range_walk:
+        raise ValueError("far_level: a periodic box is ported for the range "
+                         "mode only (ROADMAP.md A, item 11)")
     if not fids.is_cuda:
         return far_level_plain(
             fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
             use_relative=use_relative, leaf_cap=leaf_cap, last=last, Wn=Wn,
             open_cap=open_cap,
             big_cap=big_cap, big_chunks=big_chunks, lists=lists,
-            lvl_base=lvl_base, lvl_cap=lvl_cap, range_walk=range_walk)
+            lvl_base=lvl_base, lvl_cap=lvl_cap, range_walk=range_walk,
+            box=box)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, W = fids.shape
@@ -363,7 +373,7 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
     mode = 2 if range_walk else int(bool(use_relative))
     err = kernels_lib().far_level_launch(*launch_args(
         tbl, width // 4, int(nl_real), fids, n_live, ng, W, s_l, glo, ghi,
-        oac, float(theta2), mode, float(leaf_cap), int(last),
+        oac, float(theta2), mode, float(box), float(leaf_cap), int(last),
         min(W, int(open_cap)), int(Wn) if not last else 0, int(big_cap),
         int(big_chunks), int(lvl_base), LC, *dst[:4], fids_n, dst[4], cnt,
         *dst[5:]))

@@ -2,7 +2,8 @@
 (port of ``sidm_tpu/ops/fused_force.py``: ``FusedConfig`` :79,
 ``compact_plane`` :135, ``pack_tree`` :173, ``_w_schedule`` :249,
 ``_far_tile`` :280, ``_near_tile`` :350, ``_classify`` :427,
-``default_depth`` :890, ``make_windows`` :897; non-periodic forms only).
+``default_depth`` :890, ``make_windows`` :897; non-periodic forms only,
+but for the SIDM range test's minimum image, ``min_image``).
 
 Semantics are the JAX package's (reference: force_treeevaluate,
 forcetree.c:786-1377): targets are 64-wide Morton windows restarted at
@@ -178,18 +179,36 @@ def classify(rows, glo, ghi, oac, s_l, theta2, use_relative, leaf_cap,
     return far, seg, deep, torch.zeros_like(deep)
 
 
-def range_classify(rows, glo, ghi, pad, s_l, leaf_cap, last_level):
+def min_image(d, box: float):
+    """``d - box*round(d/box)`` (round half to even, as ``jnp.round``);
+    ``d`` itself when ``box`` is 0. The same roundings as that
+    expression, in one buffer."""
+    if not box:
+        return d
+    q = torch.round_(d / box).mul_(box)
+    return torch.sub(d, q, out=q)
+
+
+def range_classify(rows, glo, ghi, pad, s_l, leaf_cap, last_level,
+                   box: float = 0.0):
     """In-range decision per (group, slot) of the SIDM range walk
-    (``sidm_tpu/ops/fused_range.py:_range_classify`` :99, non-periodic):
-    the cell box (geometric centre ``rows[..., 0:3]`` +- s_l/2) within
-    ``pad`` of the group box. rows (B, WC, >= 8) range rows; pad (B,).
+    (``sidm_tpu/ops/fused_range.py:_range_classify`` :99): the cell box
+    (geometric centre ``rows[..., 0:3]`` +- s_l/2) within ``pad`` of the
+    group box; ``box`` > 0: by minimum-image distances from the group
+    box's centre. rows (B, WC, >= 8) range rows; pad (B,).
     Returns far (none), seg, opn, big boolean (B, WC) planes."""
     ctr = rows[..., R_COM]
     cnt = rows[..., R_CNT]
     half = 0.5 * s_l
     zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
-    dx = torch.maximum(torch.maximum(glo[:, None, :] - ctr,
-                                     ctr - ghi[:, None, :]) - half, zero)
+    if box:
+        gc = 0.5 * (glo + ghi)[:, None, :]
+        hw = 0.5 * (ghi - glo)[:, None, :]
+        delta = min_image(ctr - gc, box)
+        dx = torch.maximum(torch.abs(delta) - hw - half, zero)
+    else:
+        dx = torch.maximum(torch.maximum(glo[:, None, :] - ctr,
+                                         ctr - ghi[:, None, :]) - half, zero)
     d2 = (dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1]
           + dx[..., 2] * dx[..., 2])
     live = (cnt > 0) & (d2 <= (pad * pad)[:, None])

@@ -28,8 +28,10 @@ wrapper runs the plain version for CPU tensors and the kernel
 (``csrc/sidm_emit.cu``, ``csrc/sidm_gated.cu``) for CUDA tensors, and
 counts its launches.
 
-Periodic boxes (``box``) are not ported (ROADMAP A.11): the minimum image
-is absent from every distance here.
+With a periodic ``box`` > 0 every distance here (the range walk's, the
+emission's and the gated tile's) is the minimum image ``d - box*round(d/
+box)``, as in the JAX functions' ``box`` branches; dead groups are parked
+with an inverted huge box.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ import torch
 
 from ..kernels import sph_kernel
 from ..sidm_common import sigma_v_product
-from .fused_force import G, IMAX, FusedConfig, make_windows
-from .fused_range import group_targets, range_levels, range_segments
+from .fused_force import G, IMAX, FusedConfig, make_windows, min_image
+from .fused_range import (group_targets, range_levels, range_segments,
+                          segment_particles)
 from .sidm import SidmParams
 from .sidm_tree import (h_eff_of, pair_gumbel, sidm_rows, tree_sidm_finish,
                         tree_sidm_prep)
@@ -79,26 +82,8 @@ def sidm_sources(pos_sorted, aux_sorted):
     return torch.cat([pos_sorted, aux_sorted[:, None]], dim=1).contiguous()
 
 
-def _segment_particles(keys, nn):
-    """Per group the particles of its live segment keys, in key order
-    then particle order: (sorted ids (B, P) int64, valid (B, P))."""
-    B, L = keys.shape
-    dev = keys.device
-    live = (torch.arange(L, device=dev)[None, :] < nn[:, None].long()) \
-        & (keys != IMAX)
-    k = torch.where(live, keys, torch.zeros_like(keys)).long()
-    cnt = torch.where(live, k & 31, torch.zeros_like(k))
-    cum = torch.cumsum(cnt, dim=1)
-    tot = cum[:, -1] if L else torch.zeros(B, dtype=torch.long, device=dev)
-    P = int(tot.max()) if B else 0
-    pp = torch.arange(P, device=dev).expand(B, P).contiguous()
-    seg = torch.clamp(torch.searchsorted(cum, pp, right=True), max=L - 1)
-    ex = (cum - cnt).gather(1, seg)
-    idx = (k >> 5).gather(1, seg) + pp - ex
-    return idx, pp < tot[:, None]
-
-
-def _pair_tiles(keys, nn, src, gt, gty, gidx, budget=1 << 24):
+def _pair_tiles(keys, nn, src, gt, gty, gidx, box: float = 0.0,
+                budget=1 << 24):
     """Yield (group slice, source ids, ok mask without the radius test,
     r^2) for batches of groups, in the JAX order of operations."""
     ng = keys.shape[0]
@@ -110,10 +95,11 @@ def _pair_tiles(keys, nn, src, gt, gty, gidx, budget=1 << 24):
     b0 = 0
     while b0 < ng:
         sl = slice(b0, b0 + B)
-        idx, val = _segment_particles(keys[sl], nn[sl])
+        idx, val = segment_particles(keys[sl], nn[sl])
         s = src[idx]                                   # (B, P, 4)
         t = gt[sl]
-        d = [t[:, :, None, c] - s[:, None, :, c] for c in range(3)]
+        d = [min_image(t[:, :, None, c] - s[:, None, :, c], box)
+             for c in range(3)]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]   # (B, G, P)
         aux = s[..., 3]
         s_type = torch.remainder(aux, 8.0).to(torch.int32)
@@ -124,14 +110,15 @@ def _pair_tiles(keys, nn, src, gt, gty, gidx, budget=1 << 24):
 
 
 def sidm_emit_plain(keys, nn, src, gt, gr, gty, gidx, n: int, K: int,
-                    count_mode: bool = False):
+                    count_mode: bool = False, box: float = 0.0):
     """Plain PyTorch version of ``sidm_emit``."""
     dev = keys.device
     ncand = torch.zeros(n + 1, dtype=torch.int32, device=dev)
     needk = torch.zeros(n + 1, dtype=torch.int32, device=dev)
     cand = None if count_mode else torch.full((n + 1, K), IMAX,
                                               dtype=torch.int32, device=dev)
-    for sl, idx, ok, r2, aux in _pair_tiles(keys, nn, src, gt, gty, gidx):
+    for sl, idx, ok, r2, aux in _pair_tiles(keys, nn, src, gt, gty, gidx,
+                                            box):
         rows = torch.where(gidx[sl] >= 0, gidx[sl],
                            torch.full_like(gidx[sl], n)).long()
         r = gr[sl][:, :, None]
@@ -155,7 +142,7 @@ def sidm_emit_plain(keys, nn, src, gt, gr, gty, gidx, n: int, K: int,
 
 
 def sidm_emit(keys, nn, src, gt, gr, gty, gidx, n: int, K: int = 0,
-              count_mode: bool = False):
+              count_mode: bool = False, box: float = 0.0):
     """Candidate emission for every group's targets (``_emit_candidates``
     :205-317). keys (ng, LR) int32 segment keys with live counts nn (ng,);
     src (n, 4) ``sidm_sources``; gt (ng, G, 3) targets, gr (ng, G) radii
@@ -164,10 +151,10 @@ def sidm_emit(keys, nn, src, gt, gr, gty, gidx, n: int, K: int = 0,
     ncand, ncand (n,), needk (n,) uncapped demand), rows of particles in
     no valid slot empty; in ``count_mode`` (the hsml init's count,
     ``fused_range.py:179-183``) the (n,) count of non-pending sources with
-    sqrt(r^2) < gr instead."""
+    sqrt(r^2) < gr instead. ``box`` > 0: minimum-image distances."""
     if not keys.is_cuda:
         return sidm_emit_plain(keys, nn, src, gt, gr, gty, gidx, n, K,
-                               count_mode)
+                               count_mode, box)
     from .._build import check_cuda, kernels_lib, launch_args
     ng, LR = keys.shape
     check_cuda("sidm_emit", keys=(keys, torch.int32, (ng, LR)),
@@ -186,7 +173,7 @@ def sidm_emit(keys, nn, src, gt, gr, gty, gidx, n: int, K: int = 0,
         needk = torch.zeros(n, **i32)
     err = kernels_lib().sidm_emit_launch(*launch_args(
         keys, nn, ng, LR, src, n, gt, gr, gty, gidx, int(K),
-        int(count_mode), cand, ncand, needk))
+        int(count_mode), float(box), cand, ncand, needk))
     if err:
         raise RuntimeError(f"sidm_emit kernel launch failed: CUDA error "
                            f"{err}")
@@ -201,22 +188,26 @@ sidm_emit.launches = 0        # emission launches
 sidm_emit.count_launches = 0  # count-mode launches
 
 
-def count_neighbours(keys, nn, src, gt, gh, gty, gidx, n: int):
+def count_neighbours(keys, nn, src, gt, gh, gty, gidx, n: int,
+                     box: float = 0.0):
     """(n,) int32 neighbour counts of the targets (sorted order): the count
     mode of ``sidm_emit``."""
-    return sidm_emit(keys, nn, src, gt, gh, gty, gidx, n, count_mode=True)
+    return sidm_emit(keys, nn, src, gt, gh, gty, gidx, n, count_mode=True,
+                     box=box)
 
 
 def record_candidates(tree: Octree, rows_sorted, h_all_sorted, type_sorted,
                       valid_sorted, *, skin=0.0,
                       cfg: Optional[FusedConfig] = None,
                       rcfg: Optional[RangeListConfig] = None,
-                      on_level=None, on_emit=None) -> SidmCandidates:
+                      box: float = 0.0, on_level=None,
+                      on_emit=None) -> SidmCandidates:
     """Candidate lists for all valid collisionless particles of ``tree``.
 
     rows_sorted (n, 8) [pos3, vel3, mass, aux] in sorted order;
     h_all_sorted the per-particle h_eff in sorted order (ungated too);
-    type_sorted the type (or -9 for non-collisionless). on_level: see
+    type_sorted the type (or -9 for non-collisionless); box > 0: the
+    periodic box (minimum-image distances). on_level: see
     ``range_segments``; on_emit: optional observer ``on_emit(kw)`` of the
     emission's arguments."""
     rcfg = rcfg or RangeListConfig()
@@ -228,17 +219,18 @@ def record_candidates(tree: Octree, rows_sorted, h_all_sorted, type_sorted,
                         rcfg.pad_fac * h_all_sorted + skin,
                         torch.zeros_like(h_all_sorted))
     gt, gr, gty, gidx, glo, ghi, gmax = group_targets(
-        tree, pidx, gvalid, r_all, type_sorted)
+        tree, pidx, gvalid, r_all, type_sorted, box=box)
     pad = (gmax + tree.drift).contiguous()
     keys, nn, ovf_seg, need_seg, _ = range_segments(
         tree, range_levels(tree), glo, ghi, pad, seg_cap=rcfg.seg_cap,
-        lvl_cap=rcfg.lvl_cap, cfg=cfg, on_level=on_level)
+        lvl_cap=rcfg.lvl_cap, cfg=cfg, box=box, on_level=on_level)
     src = sidm_sources(rows_sorted[:, 0:3], rows_sorted[:, 7])
     K = rcfg.k_cap
     if on_emit is not None:
         on_emit(dict(keys=keys, nn=nn, src=src, gt=gt, gr=gr, gty=gty,
-                     gidx=gidx, n=n, K=K))
-    cand, ncand, needk = sidm_emit(keys, nn, src, gt, gr, gty, gidx, n, K)
+                     gidx=gidx, n=n, K=K, box=box))
+    cand, ncand, needk = sidm_emit(keys, nn, src, gt, gr, gty, gidx, n, K,
+                                   box=box)
     ovf_k = torch.sum(torch.clamp(needk.long() - K, min=0))
     return SidmCandidates(
         cand=cand, ncand=ncand, r_ref=r_all, pos_ref=tree.pos_s,
@@ -288,7 +280,8 @@ def _gated_consts(time, sigma_co, params: SidmParams):
 
 
 def sidm_gated_plain(rows, cand, ncand, hs, dts, tid, salt: int, time,
-                     sigma_co, params: SidmParams, block: int = 32768):
+                     sigma_co, params: SidmParams, box: float = 0.0,
+                     block: int = 32768):
     """Plain PyTorch version of ``sidm_gated``: JAX's dense tile over the
     targets ``tid``, each over its first ncand candidate columns."""
     n, K = cand.shape
@@ -312,7 +305,8 @@ def sidm_gated_plain(rows, cand, ncand, hs, dts, tid, salt: int, time,
         cjc = torch.clamp(torch.where(cv, cj, torch.zeros_like(cj)), 0,
                           n - 1).long()
         jrow = rows[cjc]
-        d = [trow[:, None, c] - jrow[..., c] for c in range(3)]
+        d = [min_image(trow[:, None, c] - jrow[..., c], box)
+             for c in range(3)]
         r = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
         ok = cv & (r < th[:, None]) & ~(jrow[..., 7] >= 8.0)
         h_safe = torch.clamp(th, min=1e-30)[:, None]
@@ -342,16 +336,16 @@ def sidm_gated_plain(rows, cand, ncand, hs, dts, tid, salt: int, time,
 
 
 def sidm_gated(rows, cand, ncand, hs, dts, tid, salt: int, time, sigma_co,
-               params: SidmParams):
+               params: SidmParams, box: float = 0.0):
     """The gated DSMC tile (``_eval_gated``'s ``tile`` :434-484) over the
     targets ``tid`` (sorted ids, -1 = unused; ``gated_targets``). rows (n,
     8) sorted [pos3 vel3 mass aux]; cand (n, K) with live counts ncand; hs
-    the targets' search radii, dts their dt_h0. Returns sorted-order
-    (ptot, cnt, best key, best partner); targets not in tid keep (0, 0,
-    -inf, -1)."""
+    the targets' search radii, dts their dt_h0; box > 0: minimum-image
+    distances. Returns sorted-order (ptot, cnt, best key, best partner);
+    targets not in tid keep (0, 0, -inf, -1)."""
     if not rows.is_cuda:
         return sidm_gated_plain(rows, cand, ncand, hs, dts, tid, salt, time,
-                                sigma_co, params)
+                                sigma_co, params, box)
     from .._build import check_cuda, kernels_lib, launch_args
     n, K = cand.shape
     T = tid.shape[0]
@@ -368,8 +362,8 @@ def sidm_gated(rows, cand, ncand, hs, dts, tid, salt: int, time, sigma_co,
     sco, vc, vs, pl = _gated_consts(time, sigma_co, params)
     err = kernels_lib().sidm_gated_launch(*launch_args(
         rows, cand, n, K, ncand, hs, dts, tid, T, int(salt) & 0xFFFFFFFF,
-        int(params.cross_section_type), sco, vc, vs, pl, ptot, cnt, bestk,
-        bestj))
+        int(params.cross_section_type), sco, vc, vs, pl, float(box), ptot,
+        cnt, bestk, bestj))
     if err:
         raise RuntimeError(f"sidm_gated kernel launch failed: CUDA error "
                            f"{err}")
@@ -391,13 +385,14 @@ def gated_caps(n: int, rcfg: RangeListConfig):
 
 
 def eval_gated(rows, cand, ncand, hs, dts, salt: int, time, sigma_co,
-               params: SidmParams, ngc: int, ntail: int = 0, kd: int = 0):
+               params: SidmParams, ngc: int, ntail: int = 0, kd: int = 0,
+               box: float = 0.0):
     """``_eval_gated``: the gated targets (hs > 0) in their tiers, through
     ``sidm_gated``. Returns sorted-order (ptot, cnt, best key, best partner,
     ovf2 (2,) int64)."""
     tid, ovf2 = gated_targets(hs, ncand, cand.shape[1], ngc, ntail, kd)
     ptot, cnt, bestk, bestj = sidm_gated(rows, cand, ncand, hs, dts, tid,
-                                         salt, time, sigma_co, params)
+                                         salt, time, sigma_co, params, box)
     return ptot, cnt, bestk, bestj, ovf2
 
 
@@ -415,8 +410,9 @@ def candidates_valid(cands: SidmCandidates, pos_sorted, h_eff_sorted):
 def sidm_scatter_lists(p, pos_pred, tree: Octree, cands: SidmCandidates,
                        time, active, vmax, key, params: SidmParams,
                        rcfg: Optional[RangeListConfig] = None,
-                       salt: int = 0):
-    """One step's DSMC from the cached candidate lists. Returns (particles
+                       salt: int = 0, box: float = 0.0):
+    """One step's DSMC from the cached candidate lists (``box`` > 0: the
+    periodic box). Returns (particles
     with the kicks in ``dvel``, n_scattered, validity margin, ovf2 (2,),
     info): info as ``tree_sidm_finish``'s (the step's kicks, accepted set,
     resolver rounds) plus the pass's sorted-order outputs. n_scattered,
@@ -434,7 +430,7 @@ def sidm_scatter_lists(p, pos_pred, tree: Octree, cands: SidmCandidates,
     ngc, ntail, kd = gated_caps(n, rcfg)
     ptot_t, cnt_t, best_t, bj_t, ovf_g = eval_gated(
         rows, cands.cand, cands.ncand, hs, dts, salt, time, sigma_co,
-        params, ngc, ntail, kd)
+        params, ngc, ntail, kd, box)
     inv = torch.empty_like(tree.perm)
     inv[tree.perm] = torch.arange(n, device=inv.device)
     p2, n_scat, info = tree_sidm_finish(
@@ -457,7 +453,7 @@ def record_candidates_from_particles(p, pos_pred, tree: Octree, *, skin=0.0,
                                      params: SidmParams,
                                      cfg: Optional[FusedConfig] = None,
                                      rcfg: Optional[RangeListConfig] = None,
-                                     on_level=None,
+                                     box: float = 0.0, on_level=None,
                                      on_emit=None) -> SidmCandidates:
     """Pack the SIDM rows and record candidate lists for the current tree
     topology."""
@@ -470,4 +466,4 @@ def record_candidates_from_particles(p, pos_pred, tree: Octree, *, skin=0.0,
                                 torch.zeros_like(p.mass)) > 0)[tree.perm]
     return record_candidates(tree, rows, h_all, typ.to(torch.int32),
                              valid_sorted, skin=skin, cfg=cfg, rcfg=rcfg,
-                             on_level=on_level, on_emit=on_emit)
+                             box=box, on_level=on_level, on_emit=on_emit)

@@ -42,9 +42,13 @@ def morton_keys2(pos, origin, extent, depth: int):
     return hi, _interleave(ij & ((1 << d_lo) - 1))
 
 
-def bounding_cube(pos, valid, pad: float = 1.001):
-    """(origin (3,), extent ()) cube enclosing all valid positions
-    (non-periodic runs only; periodic runs are not part of this port)."""
+def bounding_cube(pos, valid, box: float = 0.0, pad: float = 1.001):
+    """(origin (3,), extent ()) cube enclosing all valid positions; with a
+    periodic ``box`` the box itself (the tree is built over the box
+    domain)."""
+    if box:
+        return (torch.zeros(3, dtype=pos.dtype, device=pos.device),
+                torch.full((), box, dtype=pos.dtype, device=pos.device))
     inf = torch.full_like(pos, float("inf"))
     lo = torch.min(torch.where(valid[:, None], pos, inf), dim=0).values
     hi = torch.max(torch.where(valid[:, None], pos, -inf), dim=0).values

@@ -105,16 +105,17 @@ def _segment_sums(seg, vals, cap):
     return out.index_add_(0, seg, vals)
 
 
-def build_octree(pos, mass, eps, valid, *, depth: int = 10,
-                 uniform_eps: bool = False) -> Octree:
+def build_octree(pos, mass, eps, valid, *, box: float = 0.0,
+                 depth: int = 10, uniform_eps: bool = False) -> Octree:
     """Build the full tree. Padding particles (valid False) sort last via a
-    sentinel key and contribute nothing.
+    sentinel key and contribute nothing. ``box`` > 0: the periodic box is
+    the root cube.
 
     uniform_eps: promise that all valid particles share one softening —
     node eps_max is then a broadcast instead of a per-node max."""
     dtype, dev = pos.dtype, pos.device
     n = pos.shape[0]
-    origin, extent = bounding_cube(pos, valid)
+    origin, extent = bounding_cube(pos, valid, box=box)
     hi, lo = morton_keys2(pos, origin, extent, depth)
     sent = torch.full_like(hi, SENTINEL)
     hi = torch.where(valid, hi, sent)
@@ -240,12 +241,16 @@ def build_octree(pos, mass, eps, valid, *, depth: int = 10,
         level_offsets=tuple(offs[:-1]), depth=depth)
 
 
-def refresh_octree(tree: Octree, pos, mass, eps, valid) -> Octree:
+def refresh_octree(tree: Octree, pos, mass, eps, valid,
+                   box: float = 0.0) -> Octree:
     """Moments-only refresh on a FROZEN topology: permutation, segments,
     child links, ranges and geometric centres are reused; mass, centre of
     mass and quadrupole are re-summed from the new positions; eps_max is
     kept stale, as in the JAX package. ``drift`` accumulates the largest
-    particle displacement since the build."""
+    particle displacement since the build. ``box`` > 0: displacements are
+    minimum-image and the refreshed positions stay in the build's wrap
+    image (a particle wrapped since the build would otherwise leave its
+    frozen node), as JAX's ``refresh_octree`` :464-471."""
     dtype = tree.pos_s.dtype
     n = pos.shape[0]
     perm = tree.perm
@@ -255,6 +260,9 @@ def refresh_octree(tree: Octree, pos, mass, eps, valid) -> Octree:
     eps_s = eps[perm]
 
     d = pos_s - tree.pos_s
+    if box:
+        d = d - box * torch.round(d / box)
+        pos_s = tree.pos_s + d
     d2 = torch.where(valid_s, torch.sum(d * d, dim=1),
                      torch.zeros_like(mass_s))
     drift = tree.drift + torch.sqrt(torch.max(d2))

@@ -36,7 +36,10 @@ Prints, beside the card's name and power limit:
     the same for a list step and a record step, whose phases ``sidmrec``
     (the density clamp and the candidate record) and ``sidm`` (the DSMC
     pass) follow ``force``, and whose top kernels include the range walk,
-    the emission and the gated tile;
+    the emission and the gated tile; and for flagship-dsmc-walk
+    (``flagship_config(**DSMC_WALK)``: the walk and DSMC on the range walk
+    every step) a refresh and a rebuild step, whose ``sidm`` phase holds
+    the gated windows, the range walk and the segment pass (sidm_near);
   * for each ``TreeRefreshSteps`` of ``--cadence``, 10 steps of a fresh
     Simulation in the lists' configuration with that cadence: per step its
     kind, skin, displacement, record telemetry (``ovf``, ``need``) and
@@ -55,7 +58,7 @@ import torch
 
 KERNELS = ("far_level_kernel", "far_list_kernel", "near_level_kernel",
            "gather_kernel", "node_rows_kernel", "sidm_emit_kernel",
-           "sidm_gated_kernel")
+           "sidm_gated_kernel", "sidm_near_kernel")
 
 
 def _device_us(evt) -> float:
@@ -434,27 +437,31 @@ def main():
     walls = step_walls(dsim, 3, dsmc_kind, force_last=False)
     profiled_steps(dsim, walls, dsmc_kind, card, args.trace)
     del dsim
+    # flagship-dsmc-walk: the walk and the DSMC range walk every step
+    from .flagship import DSMC_WALK
+    wdsim = new_sim(**DSMC_WALK)
+
+    def dsmc_walk_kind(sim):
+        return "dsmc " + walk_kind(sim)
+    walls = step_walls(wdsim, 3, dsmc_walk_kind, force_last=True)
+    profiled_steps(wdsim, walls, dsmc_walk_kind, card, args.trace)
+    del wdsim
     for k in [int(v) for v in args.dsmc_cadence.split(",") if v]:
         csim = new_sim(TreeRefreshSteps=k, **DSMC)
         for step in range(1, 11):
-            try:
-                csim.step()
-            except NotImplementedError as e:
-                # a record dropped entries: the lists were given up for the
-                # walk, whose DSMC is not ported
-                li = csim.last_list_info
-                print(f"dsmc cadence {k} step {step}: force record ovf "
-                      f"{li['ovf'] if li else None}; stopped: {e} "
-                      f"[{card}]", flush=True)
-                break
+            csim.step()
             li, si = csim.last_list_info, csim.last_sidm_info
             md = "-" if li["md"] is None else f"{li['md']:.4f}"
             w = csim.last_phase_wall
+            # a record that dropped entries gives the lists up: the walk
+            # and the DSMC range walk take over
+            cand = (f"candidate ovf {si['cand_ovf']} need "
+                    f"{si['cand_need']}" if si["engine"] == "lists" else
+                    f"DSMC on the range walk, drops {si['walk_ovf']}")
             print(f"dsmc cadence {k} step {step} ({li['kind']}"
                   + (", candidate record" if si["record"] else "")
                   + f"): skin {li['skin']:.4f}, md {md}, ovf {li['ovf']}, "
-                  f"need {li['need']}, candidate ovf {si['cand_ovf']} need "
-                  f"{si['cand_need']}, scatters {si['n_scat']}, "
+                  f"need {li['need']}, {cand}, scatters {si['n_scat']}, "
                   + ", ".join(f"{ph} {v * 1e3:.1f} ms"
                               for ph, v in w.items()) + f" [{card}]",
                   flush=True)

@@ -23,16 +23,20 @@ the work-queue walk (``TreeWalkEngine wq``), in one of two cadences:
   ``TreeRefreshSteps``-th force (or early once the refresh drift exceeds a
   quarter of the deepest cell) and moments-only refreshed otherwise.
 
-With ``SIDMOn 1`` (lists only) the DSMC pass follows the force: on every
-rebuild step (and after a mid-cycle invalidation) the smoothing lengths are
-clamped to 2.5x a cell-count density bound and the candidate lists are
-recorded under the force skin (up to 4 attempts with a cap refit in
-between; K truncation at the ceiling is accepted and its dropped share
+With ``SIDMOn 1`` the DSMC pass follows the force. On the list cadence: on
+every rebuild step (and after a mid-cycle invalidation) the smoothing
+lengths are clamped to 2.5x a cell-count density bound and the candidate
+lists are recorded under the force skin (up to 4 attempts with a cap refit
+in between; K truncation at the ceiling is accepted and its dropped share
 kept in ``sidm_trunc_frac``), the tail capacity is fitted; then every step
 runs ``sidm_scatter_lists`` on the cached lists, re-records next step once
 the particles moved more than half the candidate skin, and grows the gated
-and tail capacities after a drop. ``prepare`` sets the initial smoothing
-lengths by ``tree_hsml_init_fused``.
+and tail capacities after a drop. With ``ListMode 0``, once the candidate
+cap refit is exhausted (from that step on), and once the force lists are
+given up, the step runs the DSMC pass on the range walk instead
+(``sidm_scatter_wq``, JAX ``simulation.py:1128-1134, 1242-1250``); its
+drops are reported in ``last_sidm_info`` and on stderr. ``prepare`` sets
+the initial smoothing lengths by ``tree_hsml_init_fused``.
 
 Then: kick factors -> DKD advance (which applies the scattering kicks) ->
 reflection -> new synchronized timesteps. Tensors live on the device given at construction and are never
@@ -69,6 +73,7 @@ from .ops.list_range import (RangeListConfig,
 from .ops.sidm import SidmParams
 from .ops.tree import build_octree, refresh_octree
 from .ops.wq_force import wq_gravity, wq_gravity_tree
+from .ops.wq_range import sidm_scatter_wq
 from .rng import run_key, step_key
 from .state import Particles, make_particles
 
@@ -94,9 +99,6 @@ def _refuse(what: str, item: str):
 
 def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     """Raise NotImplementedError for anything outside the ported slice."""
-    if cfg.SIDMOn and not cfg.ListMode:
-        _refuse("SIDMOn 1 with ListMode 0 (DSMC on the walk, wq_range.py)",
-                "A, next slice (b)")
     if cfg.SIDMOn and cfg.ScatterLog:
         _refuse("ScatterLog 1 (the scatter log)", "A, item 13")
     if cfg.ForceMethod != "tree":
@@ -208,6 +210,8 @@ class Simulation:
         self._sidm_refits = 0
         self._sidm_tail_pending = 0
         self._sidm_k_warned = False
+        self._walk_seg_cap = 8192   # the walk engine's segment lists and
+        self._walk_fcfg = None      # caps, grown to its demand
         self.sidm_trunc_frac = 0.0
         self.sidm_trunc_targets = 0
         self.last_sidm_info = None
@@ -302,7 +306,8 @@ class Simulation:
     # ------------------------------------------------------------------- step
 
     def step(self, first: bool = False):
-        """One synchronized step; returns (dt, n_active, n_scatter=0)."""
+        """One synchronized step; returns (dt, n_active, n_scatter): the
+        step's size, its active particles and its scatters."""
         if self.particles is None:
             raise RuntimeError("load particles first")
         if not self._use_phased():
@@ -469,13 +474,15 @@ class Simulation:
 
     def _sidm(self, p, pos_pred, tree, t_next, active, vmax, key,
               use_lists: bool, clock):
-        """The SIDM block of step_phased on the list cadence
-        (simulation.py:1013-1240): candidate record on rebuild steps, the
-        DSMC pass every step. Returns (particles, n_scattered)."""
+        """The SIDM block of step_phased (simulation.py:1013-1262): on the
+        list cadence the candidate record on rebuild steps and the DSMC
+        pass on the cached lists every step; on the walk (``ListMode 0``,
+        given-up force lists, or an exhausted candidate cap refit) the
+        DSMC pass on the range walk. Returns (particles, n_scattered)."""
         params = self._sidm_params()
         if not use_lists or self._sidm_lists_disabled:
-            _refuse("SIDM on the range walk (the force lists or the "
-                    "candidate lists were given up)", "A, next slice (b)")
+            return self._sidm_walk(p, pos_pred, tree, t_next, active, vmax,
+                                   key, params, dict(record=False), clock)
         info = dict(record=False)
         if self._sidm_cands is None or self._steps_since_build == 0:
             # ensure_neighbours-style clamp (sidm.c:814-968): stale-large
@@ -489,6 +496,10 @@ class Simulation:
             self._sidm_cands = self._sidm_record(p, pos_pred, tree, params)
             info.update(record=True)
             clock.mark("sidmrec")
+            if self._sidm_cands is None:
+                # the refit is exhausted: the walk from this step on
+                return self._sidm_walk(p, pos_pred, tree, t_next, active,
+                                       vmax, key, params, info, clock)
         cands = self._sidm_cands
         p, n_scat, viol, ovf_g, sinfo = sidm_scatter_lists(
             p, pos_pred, tree, cands, t_next, active, vmax, key, params,
@@ -509,8 +520,8 @@ class Simulation:
             self._sidm_cands = None
         if ovf_g[0] > 0 or ovf_g[1] > 0:
             self._sidm_capacity_overflow(ovf_g)
-        info.update(n_scat=n_scat, viol=viol, ovf_g=ovf_g, md=md_s,
-                    cand_ovf=[int(x) for x in ints[2:4]],
+        info.update(engine="lists", n_scat=n_scat, viol=viol, ovf_g=ovf_g,
+                    md=md_s, cand_ovf=[int(x) for x in ints[2:4]],
                     cand_need=[int(x) for x in ints[4:6]],
                     kick=sinfo["kick"], rounds=sinfo["rounds"],
                     proposals=int(n_prop), dropped=sinfo["dropped"],
@@ -519,10 +530,44 @@ class Simulation:
         clock.mark("sidm")
         return p, n_scat
 
+    def _sidm_walk(self, p, pos_pred, tree, t_next, active, vmax, key,
+                   params, info, clock):
+        """The DSMC pass on the range walk (``sidm_scatter_wq``), its
+        segment lists and walk caps grown to the walk's demand and kept
+        across steps. What it still drops (cells past the walk's caps,
+        particles past the overfull cells' chunks) is a rate biased low:
+        reported, never silent."""
+        p, n_scat, w = sidm_scatter_wq(
+            p, pos_pred, tree, t_next, active, vmax, key, params,
+            cfg=self._walk_fcfg, salt=self.step_count & 0xFFFFFFFF,
+            return_info=True, seg_cap=self._walk_seg_cap)
+        self._walk_seg_cap = max(self._walk_seg_cap, int(w["seg_cap"]))
+        self._walk_fcfg = w["cfg"]
+        n_scat, n_gated, n_prop, *drops = (int(x) for x in torch.stack([
+            n_scat.long(), w["n_gated"].long(),
+            torch.sum(w["proposal"] >= 0).long(), w["ovf_walk"],
+            w["ovf_big"], w["ovf_seg"]]).tolist())
+        if sum(drops):
+            print(f"WARNING: the DSMC range walk dropped cells {drops[0]}, "
+                  f"overfull-cell particles {drops[1]}, segments "
+                  f"{drops[2]} this step (scattering rate biased low).",
+                  file=sys.stderr, flush=True)
+        info.update(engine="walk", n_scat=n_scat, walk_ovf=drops,
+                    ovf_g=[0, 0], seg_cap=self._walk_seg_cap,
+                    walk_caps=tuple(w["cfg"]),
+                    groups=int(w["groups"]), kick=w["kick"],
+                    rounds=w["rounds"], proposals=n_prop,
+                    dropped=w["dropped"], n_gated=n_gated)
+        self.last_sidm_info = info
+        clock.mark("sidm")
+        return p, n_scat
+
     def _sidm_record(self, p, pos_pred, tree, params):
         """The candidate record with up to 4 attempts: a cap overflow refits
         the caps from the recorded demand and records again; K truncation
-        alone at the ceiling is accepted (its dropped share kept)."""
+        alone at the ceiling is accepted (its dropped share kept). None
+        once the refit is exhausted: the candidate lists are given up for
+        the walk."""
         for _ in range(4):
             cands = record_candidates_from_particles(
                 p, pos_pred, tree, skin=self._skin_now, params=params,
@@ -554,11 +599,11 @@ class Simulation:
                   f"k={covf[1]}; demand seg/grp={need[0]} "
                   f"k/part={need[1]}); "
                   + ("resized caps, re-recording." if refit else
-                     "cap refit exhausted."), file=sys.stderr, flush=True)
+                     "cap refit exhausted - falling back to the range "
+                     "walk."), file=sys.stderr, flush=True)
             if not refit:
                 self._sidm_lists_disabled = True
-                _refuse("SIDM on the range walk after the candidate-cap "
-                        "refit is exhausted", "A, next slice (b)")
+                return None
             cands = None
         # fit the tail capacity once, generously, to the long lists
         rc = self._sidm_rcfg or RangeListConfig()

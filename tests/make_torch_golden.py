@@ -31,12 +31,28 @@ per-file budget of the test suite, so their outputs are committed:
   steps, with the state, the smoothing lengths and the cadence after every
   step.
 
+* ``tests/data/torch_sidm_walk_golden.npz`` (tests/test_torch_sidm_walk.py,
+  tests/test_torch_sidm_walk_slice.py): the DSMC engine on the range walk.
+  ``n_*``: ``_sidm_near_tile`` as ``_sidm_near_level`` runs it, on random
+  segment lists of a random particle set, for hard-sphere and Yukawa
+  cross-sections, the second in a periodic box; ``a_*``:
+  ``sidm_scatter_fused`` on a uniform N = 2048 box (the setup of
+  tests/test_fused_range.py); ``b_*``: a cluster across the corner of a
+  periodic box, with ``tree_hsml_init_fused(box=)``,
+  ``record_candidates_from_particles(box=)``, ``_eval_gated(box=)`` and
+  ``sidm_scatter_fused(box=)``; ``w{k}_``/``x{k}_``: the JAX
+  ``Simulation`` of flagship-dsmc-walk (``ListMode 0``) and of
+  flagship-dsmc whose candidate cap refit is exhausted at once, both on
+  ``TreeWalkEngine fused`` (JAX's ``wq`` branch raises ``NameError``,
+  ROADMAP C.9).
+
 Each test file has a ``slow`` test that reruns its JAX outputs and holds the
 file to them. Rerun this script to regenerate the files (all, or the ones
-named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``):
+named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``,
+``sidm_walk``):
 
     python -m tests.make_torch_golden [slice] [list_slice] [list] [sidm]
-        [sidm_slice]
+        [sidm_slice] [sidm_walk]
 """
 
 import os
@@ -435,11 +451,259 @@ def jax_sidm_trajectory() -> dict:
     return out
 
 
+SIDM_WALK_GOLDEN = os.path.join(_DATA, "torch_sidm_walk_golden.npz")
+# the segment pass on random segments (n_*): sources, groups, keys
+NEAR = dict(n=2048, groups=12, keys=40, salt=9, time=0.05, box=1.0)
+# sidm_scatter_fused on the uniform box of tests/test_fused_range.py (a_*)
+WALK_A = dict(n=2048, seed=1, sigma=20.0, time=0.01, vmax=5.0, salt=3)
+# ... and on a cluster across the corner of a periodic box (b_*), the
+# setup of test_fused_range.py::test_periodic_hsml_counts_exact_min_image
+WALK_B = dict(n=2048, seed=3, box=50.0, depth=8, sigma=2000.0, time=0.01,
+              vmax=5.0, salt=4, skin=0.5, step=3)
+# flagship-dsmc-walk with CrossSection raised as in SIDM_SLICE_CONFIG
+SIDM_WALK_CONFIG = {**FLAGSHIP, **DSMC, "ListMode": 0,
+                    "CrossSection": 3826.14}
+# flagship-dsmc with its first candidate record overflowing tiny caps and
+# no refit left: the walk from prepare's step on
+SIDM_EXHAUST_CONFIG = SIDM_SLICE_CONFIG
+SIDM_EXHAUST_CAPS = dict(k_cap=16, seg_cap=64, lvl_cap=16)
+WALK_STEPS = 4
+
+
+def near_inputs(box: float):
+    """Random inputs of the segment pass: (rows (n, 8) sorted [pos3 vel3
+    mass aux], keys (ng, L) with live counts nn, slots gt, gv, gh, gdt,
+    gty, gidx). Sources of types 1 and 2, some pending; slots of both
+    types, some dead; positions in [0, box) (or [0, 1))."""
+    rng = np.random.default_rng(21 if box else 20)
+    c = NEAR
+    n, ng, L = c["n"], c["groups"], c["keys"]
+    f32 = np.float32
+    pos = rng.uniform(0, box or 1.0, (n, 3))
+    rows = np.concatenate([
+        pos, rng.normal(0, 1, (n, 3)), rng.uniform(0.5, 1.5, (n, 1)) / n,
+        (rng.integers(1, 3, n) + 8 * (rng.random(n) < 0.05))[:, None]],
+        axis=1).astype(f32)
+    keys = np.full((ng, L), 2147483647, np.int32)
+    nn = rng.integers(L // 2, L + 1, ng).astype(np.int32)
+    for g in range(ng):
+        # the walk's keys cover at most LEAF_CAP = 16 particles (a leaf or
+        # a chunk of an overfull cell); JAX's tile reads 32 from the key's
+        # 16-aligned start
+        st = rng.integers(0, n - 16, nn[g])
+        cnt = rng.integers(1, 17, nn[g])
+        keys[g, :nn[g]] = st * 32 + cnt
+    tid = rng.integers(0, n, (ng, 64))
+    dead = rng.random((ng, 64)) < 0.2
+    gt = rows[tid, :3] + rng.normal(0, 0.02, (ng, 64, 3)).astype(f32)
+    if box:
+        gt = np.mod(gt, box).astype(f32)
+    gv = np.where(dead[..., None], 0, rows[tid, 3:6]).astype(f32)
+    # radii that give each live slot ~20-80 pairs among its segments'
+    # ~300 random particles, as the walk's targets have (DesNumNgb ~30):
+    # a sum of one pair at r ~ h would show one float32 ULP of r, which
+    # XLA and PyTorch may round apart, amplified by 1/(1 - r/h) in W
+    gh = np.where(dead, 0, rng.uniform(0.25, 0.4, (ng, 64))).astype(f32)
+    gdt = np.where(dead, 0, rng.uniform(0.5, 1.0, (ng, 64))).astype(f32)
+    gty = np.where(dead, -9, rng.integers(1, 3, (ng, 64))).astype(np.int32)
+    gidx = np.where(dead, -1, tid).astype(np.int32)
+    return rows, keys, nn, gt.astype(f32), gv, gh, gdt, gty, gidx
+
+
+def near_params(cs_type: int):
+    """(SidmParams fields, sigma_co) of the segment pass checks."""
+    return (dict(cross_section_internal=1e3, cross_section_type=cs_type,
+                 yukawa_velocity=0.7, cross_section_vel_scale=1.0,
+                 cross_section_pow_law=0.0, des_num_ngb=30,
+                 max_num_ngb_dev=2, comoving=False, hubble=0.1, omega0=0.0,
+                 omega_lambda=0.0), 1e3)
+
+
+def walk_a_inputs():
+    """(pos, vel, mass) of WALK_A (tests/test_fused_range.py:_setup)."""
+    rng = np.random.default_rng(WALK_A["seed"])
+    n = WALK_A["n"]
+    return (rng.uniform(0, 1, (n, 3)), rng.normal(0, 1, (n, 3)),
+            np.full(n, 1.0 / n))
+
+
+def walk_b_inputs():
+    """(pos, vel, mass) of WALK_B: a Gaussian cluster (sigma 3) wrapped
+    around the corner of the box."""
+    rng = np.random.default_rng(WALK_B["seed"])
+    n, box = WALK_B["n"], WALK_B["box"]
+    pos = (rng.standard_normal((n, 3)) * 3.0) % box
+    return pos, rng.normal(0, 1, (n, 3)), np.full(n, 1.0 / n)
+
+
+def jax_sidm_walk_ops() -> dict:
+    """The JAX walk engine's pieces (see the module note)."""
+    import dataclasses
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu import rng
+    from sidm_tpu.ops import fused_range as jfr
+    from sidm_tpu.ops import list_range as jlr
+    from sidm_tpu.ops import sidm_tree as jst
+    from sidm_tpu.ops.fused_force import FusedConfig
+    from sidm_tpu.ops.neighbors import setup_smoothing_lengths
+    from sidm_tpu.ops.sidm import SidmParams
+    from sidm_tpu.ops.tree import build_octree
+    from sidm_tpu.state import make_particles
+
+    out = {}
+    # the segment pass on random segments, one group per block
+    cfg = FusedConfig()
+    for name, cs_type, box in (("n0_", 0, 0.0), ("n2_", 2, NEAR["box"])):
+        rows, keys, nn, gt, gv, gh, gdt, gty, gidx = near_inputs(box)
+        fields, sco = near_params(cs_type)
+        params = SidmParams(**fields)
+        n, ng = rows.shape[0], keys.shape[0]
+        W = -(-keys.shape[1] // cfg.sc) * cfg.sc
+        seg = np.full((ng, W), 2147483647, np.int32)
+        seg[:, :keys.shape[1]] = keys
+        np16 = -(-n // 16)
+        planes = np.zeros((8, np16 * 16), np.float32)
+        planes[:, :n] = rows.T
+        rows16 = planes.reshape(8, np16, 16).transpose(1, 0, 2).reshape(
+            np16, 128)
+        rt = jfr.RangeTree(levels=(), rows16=jnp.asarray(rows16),
+                           n_levels=())
+        state = (jnp.zeros((ng, 64), jnp.float32),
+                 jnp.zeros((ng, 64), jnp.int32),
+                 jnp.full((ng, 64), -jnp.inf, jnp.float32),
+                 jnp.full((ng, 64), -1, jnp.int32))
+
+        def blk(x):
+            return jnp.asarray(x).reshape((ng, 1) + x.shape[1:])
+
+        res = jfr._sidm_near_level(
+            state, jnp.asarray(seg), jnp.asarray(nn), rt, blk(gt), blk(gv),
+            blk(gh), blk(gdt), blk(gty), blk(gidx),
+            jnp.uint32(NEAR["salt"]), jnp.float32(NEAR["time"]),
+            jnp.float32(sco), params, cfg, ng, 1, box)
+        for f, v in zip(("ptot", "ncnt", "bestk", "bestj"), res):
+            out[name + f] = np.asarray(v)
+
+    # sidm_scatter_fused on the uniform box
+    a = WALK_A
+    pos, vel, mass = walk_a_inputs()
+    n = a["n"]
+    p = make_particles(pos, vel, mass, np.ones(n, np.int32),
+                       pad_to_multiple=n)
+    p = setup_smoothing_lengths(p, 30, 2)
+    out["a_hsml"] = np.asarray(p.hsml_vd)
+    params = SidmParams(a["sigma"], 0, 1.0, 1.0, 0.0, 30, 2, False, 0.1,
+                        0.0, 0.0, maintenance_rate=1.0)
+    tree = build_octree(p.pos, p.mass, jnp.full(n, 0.01, jnp.float32),
+                        p.valid)
+    q, ns, info = jfr.sidm_scatter_fused(
+        p, p.pos, tree, jnp.float32(a["time"]), p.valid,
+        jnp.float32(a["vmax"]), rng.run_key(5, 5), params, salt=a["salt"],
+        return_info=True)
+    out["a_n_scat"] = np.int64(ns)
+    for f in ("dvel", "hsml_vd", "ngb_vd"):
+        out["a_" + f] = np.asarray(getattr(q, f))
+    out["a_ovf"] = np.array([int(info["ovf_open"]), int(info["ovf_big"])])
+    out["a_ngb_total"] = np.int64(info["ngb_total"])
+
+    # the periodic cluster: hsml init, candidates, gated tile, walk
+    b = WALK_B
+    box = b["box"]
+    pos, vel, mass = walk_b_inputs()
+    n = b["n"]
+    p = make_particles(pos, vel, mass, np.ones(n, np.int32),
+                       pad_to_multiple=n)
+    tree = build_octree(p.pos, p.mass, jnp.full(n, 0.1, jnp.float32),
+                        p.valid, box=box, depth=b["depth"])
+    out["b_perm"] = np.asarray(tree.perm)
+    p = jfr.tree_hsml_init_fused(p, tree, 30, box=box)
+    out["b_hsml"] = np.asarray(p.hsml_vd)
+    out["b_ngb"] = np.asarray(p.ngb_vd)
+    params = SidmParams(b["sigma"], 0, 1.0, 1.0, 0.0, 30, 2, False, 0.1,
+                        0.0, 0.0, maintenance_rate=1.0)
+    rcfg = jlr.RangeListConfig(k_dense=48)
+    c = jlr.record_candidates_from_particles(
+        p, p.pos, tree, skin=b["skin"], params=params, box=box, rcfg=rcfg)
+    for f in ("cand", "ncand", "r_ref", "ovf", "need"):
+        out["b_c_" + f] = np.asarray(getattr(c, f))
+    t = jnp.float32(b["time"])
+    vmax = jnp.float32(b["vmax"])
+    key = rng.step_key(rng.run_key(*SIDM_SEED), b["step"])
+    pp = dataclasses.replace(p, dvel=jnp.asarray(sidm_pending(n)))
+    rows, hs, dts, typs, sigma_co, *_ = jst._tree_sidm_prep(
+        pp, pp.pos, tree.perm, t, pp.valid, vmax, key, params)
+    ngc = max(4096, -(-int(rcfg.gated_frac * n) // 4096) * 4096)
+    ntail = max(4096, -(-int(rcfg.tail_frac * ngc) // 4096) * 4096)
+    hs_c = jnp.minimum(hs, c.r_ref)
+    res = jlr._eval_gated(rows, c.cand, c.ncand, hs_c, dts, typs,
+                          jnp.uint32(b["salt"]), t, sigma_co, params, ngc,
+                          ntail, 48, box)
+    for f, v in zip(("ptot", "cnt", "bestk", "bestj", "ovf2"), res):
+        out["b_g_" + f] = np.asarray(v)
+    q, ns, info = jfr.sidm_scatter_fused(
+        pp, pp.pos, tree, t, pp.valid, vmax, key, params, salt=b["salt"],
+        box=box, return_info=True)
+    out["b_n_scat"] = np.int64(ns)
+    for f in ("dvel", "hsml_vd", "ngb_vd"):
+        out["b_" + f] = np.asarray(getattr(q, f))
+    out["b_ovf"] = np.array([int(info["ovf_open"]), int(info["ovf_big"])])
+    return out
+
+
+def jax_sidm_walk_trajectories() -> dict:
+    """The JAX Simulation of SIDM_WALK_CONFIG (``w{k}_``) and of
+    SIDM_EXHAUST_CONFIG with the refit exhausted (``x{k}_``), both on
+    ``TreeWalkEngine fused``: prepare + WALK_STEPS steps, snapshots as
+    jax_sidm_trajectory's (``hsml_vd``, ``ngb_vd``, ``dvel`` and the step's
+    scatter count)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.diagnostics import compute_system_state
+    from sidm_tpu.ops.list_range import RangeListConfig
+    from sidm_tpu.simulation import Simulation
+
+    pos, vel, mass = flagship_ics(N, SEED)
+    out = {}
+    for tag, cfg in (("w", SIDM_WALK_CONFIG), ("x", SIDM_EXHAUST_CONFIG)):
+        sim = Simulation(SimConfig(**{**cfg, "TreeWalkEngine": "fused"}),
+                         mode="phased", quiet=True)
+        sim.set_particles_from_arrays(pos, vel, mass, np.ones(N, np.int32))
+        if tag == "x":
+            sim._sidm_rcfg = RangeListConfig(**SIDM_EXHAUST_CAPS)
+            sim._sidm_resizes = 3          # no refit left
+
+        def state(k, n_scat):
+            prefix = f"{tag}{k}_"
+            snapshot(sim.particles, sim,
+                     compute_system_state(sim.particles), prefix, out)
+            for f in ("hsml_vd", "ngb_vd", "dvel"):
+                out[prefix + f] = np.asarray(getattr(sim.particles, f))
+            out[prefix + "n_scat"] = np.int64(n_scat)
+
+        sim.prepare()
+        state(0, 0)
+        if tag == "x":
+            out["x_disabled"] = np.bool_(sim._sidm_lists_disabled)
+        for k in range(1, WALK_STEPS + 1):
+            _, _, n_scat = sim.step()
+            state(k, n_scat)
+    return out
+
+
+def jax_sidm_walk() -> dict:
+    return {**jax_sidm_walk_ops(), **jax_sidm_walk_trajectories()}
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
            "sidm": (SIDM_GOLDEN, jax_sidm_ops),
-           "sidm_slice": (SIDM_SLICE_GOLDEN, jax_sidm_trajectory)}
+           "sidm_slice": (SIDM_SLICE_GOLDEN, jax_sidm_trajectory),
+           "sidm_walk": (SIDM_WALK_GOLDEN, jax_sidm_walk)}
 
 
 def main(names):

@@ -208,7 +208,7 @@ _BASE = dict(SIDMOn=0, TreeWalkEngine="wq", ListMode=0)
 
 @pytest.mark.parametrize("change", [
     dict(ListMode=1, SIDMOn=1, ScatterLog=1), dict(TreeWalkEngine="fused"),
-    dict(SIDMOn=1),
+    dict(SIDMOn=1, ScatterLog=1),
     dict(PeriodicBoundariesOn=1, BoxSize=10.0), dict(PMVacuum=1),
     dict(ForceMethod="direct"), dict(ComovingIntegrationOn=1),
     dict(VelDispOn=1)])
