@@ -87,12 +87,31 @@ Phases (each asserts; any failure exits non-zero):
      K4 at phase 9's bars, one pass of each DSMC engine on the same inputs
      (equal neighbour counts, partners equal except at near-ties), and a
      short rate check (hard sphere, 64 passes, both engines, held to the
-     harness's bar max(1 %, 3 sigma) with no drop).
+     harness's bar max(1 %, 3 sigma) with no drop);
+ 11. the run loop and the CLI: bench.py's run (``bench.bench_config()``,
+     SIDM on the cached lists at cadence 16) with ``ScatterLog 1`` from a
+     Gadget IC of the same halo written by the port's writer, through the
+     calls ``cli.main`` makes (``from_parameter_file``, ``load_ic``,
+     ``prepare``, ``run(max_steps=6)``), the statistics and snapshot
+     cadences set from phase 9's step times so that the window holds two
+     statistics and one snapshot: the snapshot read back by the native and
+     the numpy readers bit-equal to the predicted state at its write, two
+     energy rows of 24 finite columns with |dE/E| < 1e-3, the info, CPU and
+     timings logs one entry per step, the scatter log's records as many as
+     the steps' scatters with valid ids, the restart file bit-equal to the
+     state written, and launches of far_level (walk, record and range
+     modes), near_level, far_list, gather_nodes, sidm_emit (and its count
+     mode) and sidm_gated; then ``python -m sidm_tpu_torch <param> 1`` with
+     a ``stop`` file: exit 0 after one step, its restart at step 7, its
+     logs appended, the next snapshot and ``sct_`` numbers taken; it
+     prints particle-steps/s over the 6 steps and the walls of the IC
+     write, prepare, energy_statistics, the snapshot, the restart write and
+     the resumed process.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
-phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc") and phase 10's
-("dsmc_walk") counts, each path's counters set to 0 just before it and
-read just after; for far_list and near_level
+phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
+("dsmc_walk") and phase 11's ("cli") counts, each path's counters set to 0
+just before it and read just after; for far_list and near_level
 ``full_ms`` and
 ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
@@ -929,7 +948,7 @@ def main():
 
     # ---- this slice's path: flagship-dsmc ----------------------------------
     zero_counts()
-    dsim = dsmc_path(pos, vel, mass, n, dev, card)
+    dsim, dsmc_times = dsmc_path(pos, vel, mass, n, dev, card)
     launches = read_counts()
     for key in ("far_level_range", "sidm_emit", "sidm_emit_count",
                 "sidm_gated", "far_level_record", "far_list", "near_level",
@@ -951,6 +970,10 @@ def main():
     dsmc_walk_kernels(res, wdsim, dev, card)
     del wdsim
     box_phase(res, dev, card)
+
+    # ---- the run loop and the CLI: bench.py's run with the scatter log ------
+    cli_launches = cli_path(pos, vel, mass, n, dev, card, dsmc_times,
+                            zero_counts, read_counts)
 
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
@@ -986,7 +1009,8 @@ def main():
         bms, by = bound_ms(r["ops"], r["bytes"])
         by_path = {"lists": list_launches[name],
                    "walk": walk_launches[name], "dsmc": launches[name],
-                   "dsmc_walk": walk_dsmc_launches[name]}
+                   "dsmc_walk": walk_dsmc_launches[name],
+                   "cli": cli_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -1156,10 +1180,11 @@ def dsmc_path(pos, vel, mass, n, dev, card):
     prep_walls = dict(sim.last_phase_wall)
     sim.compute_potential()
     e_start = sim_energy(sim)
-    ovf, walls, scat = 0, [], []
+    ovf, walls, scat, times = 0, [], [], [sim.time]
     t0 = time.perf_counter()
     for _ in range(STEPS):
         _, _, n_scat = sim.step()
+        times.append(sim.time)
         li, si = dict(sim.last_list_info), dict(sim.last_sidm_info)
         infos.append(dict(si, kind=li["kind"]))
         if li["ovf"] is not None:
@@ -1218,7 +1243,7 @@ def dsmc_path(pos, vel, mass, n, dev, card):
         assert i["cand_ovf"][0] == 0, i["cand_ovf"]
         assert i["cand_ovf"][1] == 0 or rcfg.k_cap >= sim.SIDM_K_CEILING
     assert all(i["ovf_g"] == [0, 0] for i in infos), "gated/tail drops"
-    return sim
+    return sim, times
 
 
 def dsmc_kernels(res, sim, dev, card):
@@ -1675,6 +1700,192 @@ def box_phase(res, dev, card):
               f"({'OK' if r['ok'] else 'FAIL'} at max(1 %, 3 sigma)), drops "
               f"{r['drops']}, {r['seconds']:.2f} s [{card}]", flush=True)
         assert r["ok"] and not any(r["drops"].values()), r
+
+
+CLI_STEPS = 6           # phase 11's run(max_steps=...)
+
+
+def cli_path(pos, vel, mass, n, dev, card, dsmc_times, zero_counts,
+             read_counts):
+    """Phase 11: bench.py's run (``bench_config()`` with ``ScatterLog 1``)
+    through the calls ``cli.main`` makes, from a Gadget IC of the halo
+    written by the port's writer, then ``python -m sidm_tpu_torch <param> 1``
+    with a ``stop`` file. The cadences come from phase 9's step times (the
+    same ICs and timestep criterion): statistics every ~3.5 steps (two in
+    the window: t = 0 and the fifth step's start), snapshots every ~5.5
+    (one in the window, the next in the resumed step). Returns the path's
+    launch counts."""
+    import os
+    import shutil
+    import tempfile
+    from sidm_tpu_torch.bench import bench_config
+    from sidm_tpu_torch.config import write_parameters_out
+    from sidm_tpu_torch.diagnostics import CpuLog
+    from sidm_tpu_torch.io.checkpoint import read_restart, read_scatter_log
+    from sidm_tpu_torch.io.gadget import (GadgetHeader, Snapshot,
+                                          read_snapshot, write_snapshot)
+    from sidm_tpu_torch.simulation import Simulation
+    from sidm_tpu_torch.state import state_dict
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        out = os.path.join(tmp, "out") + "/"
+        ic = os.path.join(tmp, "ic")
+        t0 = time.perf_counter()
+        write_snapshot(ic, Snapshot(
+            header=GadgetHeader(), pos=pos.astype(np.float32),
+            vel=vel.astype(np.float32),
+            pid=np.arange(1, n + 1, dtype=np.uint32),
+            mass=mass.astype(np.float32), ptype=np.ones(n, np.int32)))
+        t_ic = time.perf_counter() - t0
+        cfg = bench_config().replace(
+            ScatterLog=1, OutputDir=out, InitCondFile=ic,
+            TimeBetStatistics=0.5 * (dsmc_times[3] + dsmc_times[4]),
+            TimeOfFirstSnapshot=0.0,
+            TimeBetSnapshot=0.5 * (dsmc_times[5] + dsmc_times[6]),
+            ResubmitCommand="none",
+            OutputListFilename="none")
+        param = write_parameters_out(cfg, tmp)
+        os.replace(param, os.path.join(tmp, "param.txt"))
+        param = os.path.join(tmp, "param.txt")
+
+        torch.cuda.synchronize()
+        zero_counts()
+        sim = Simulation.from_parameter_file(param, device=dev)
+        sim.load_ic()
+        t0 = time.perf_counter()
+        sim.prepare()
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        # observers: the state each snapshot writes, each step's scatters
+        # and walls
+        pred, scats, step_walls, kinds = [], [], [], []
+        write_snap, step = sim.write_snapshot_file, sim.step
+
+        def snap_observed(count):
+            pred.append((count, *sim._predicted_host_state(),
+                         sim.particles.valid.cpu().numpy()))
+            return write_snap(count)
+
+        def step_observed(first=False):
+            t = time.perf_counter()
+            r = step(first)
+            step_walls.append(time.perf_counter() - t)
+            scats.append(r[2])
+            kinds.append((sim.last_list_info or {}).get("kind"))
+            return r
+
+        sim.write_snapshot_file, sim.step = snap_observed, step_observed
+        t0 = time.perf_counter()
+        steps = sim.run(max_steps=CLI_STEPS)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = read_counts()
+        sim.close_logs()
+        t0 = time.perf_counter()
+        sim.write_restart_file()
+        t_rst = time.perf_counter() - t0
+        written = state_dict(sim.particles)
+        back, rv = read_restart(os.path.join(out, "rst_out"), device=dev)
+        back = state_dict(back)
+        restart_equal = all(np.array_equal(written[k], back[k])
+                            for k in written)
+
+        def read(name):
+            with open(os.path.join(out, name)) as f:
+                return f.read()
+
+        logs = {k: read(k) for k in ("energy_out", "info_out", "cpu_out",
+                                     "timings_out")}
+        energy = np.array([[float(x) for x in line.split()]
+                           for line in logs["energy_out"].splitlines()])
+        e_tot = energy[:, 2] + energy[:, 3] + energy[:, 1]
+        de = abs(e_tot[-1] - e_tot[0]) / abs(e_tot[0])
+        cpu = sim.cpu_log.cpu
+        assert list(cpu) == CpuLog.BUCKETS and all(
+            len(line.split()) == len(cpu)
+            for line in logs["cpu_out"].splitlines()[1::2])
+        sct = sorted(f for f in os.listdir(out) if f.startswith("sct_"))
+        events = [read_scatter_log(os.path.join(out, f)) for f in sct]
+        n_ev = sum(len(e[0]) for e in events)
+        ids_ok = all(((e[1] >= 1) & (e[1] <= n) & (e[2] >= 1) & (e[2] <= n)
+                      & (e[1] != e[2])).all() for e in events)
+        snaps_ok = []
+        for count, ppos, pvel, valid in pred:
+            name = os.path.join(out, f"snp_{count:03d}")
+            for native in (True, False):
+                s = read_snapshot(name, use_native=native)
+                snaps_ok.append(
+                    np.array_equal(s.pos, ppos[valid])
+                    and np.array_equal(s.vel, pvel[valid])
+                    and np.array_equal(s.pid.astype(np.int64),
+                                       np.arange(1, n + 1)))
+        rate = n * CLI_STEPS / sum(step_walls)
+        print(f"cli path (bench_config, ScatterLog 1): N {n}, IC write "
+              f"{t_ic:.3f} s, prepare {t_prep:.3f} s, {steps} steps "
+              f"{kinds} {sum(step_walls):.3f} s, "
+              f"{rate:.1f} particle-steps/s (steps only; run() wall "
+              f"{t_run:.3f} s, {n * CLI_STEPS / t_run:.1f} with its I/O), "
+              f"energy_statistics {len(energy)} x (Potential "
+              f"{cpu['Potential']:.3f} s + Diagnostic {cpu['Diagnostic']:.3f}"
+              f" s in all), snapshot {cpu['Snapshot']:.3f} s "
+              f"({len(pred)} written), restart write {t_rst:.3f} s, "
+              f"|dE/E| {de:.3e}, scatters {scats} -> {n_ev} records in "
+              f"{sct}, CPU log buckets (s) "
+              f"{ {k: round(v, 4) for k, v in cpu.items()} } [{card}]",
+              flush=True)
+        assert steps == CLI_STEPS and len(step_walls) == CLI_STEPS
+        assert energy.shape == (2, 24) and np.isfinite(energy).all(), \
+            energy.shape
+        assert de < 1e-3, de
+        assert logs["info_out"].count("Begin Step") == CLI_STEPS
+        assert len(logs["cpu_out"].splitlines()) == 2 * CLI_STEPS
+        assert len(logs["timings_out"].splitlines()) == 2 * CLI_STEPS
+        assert len(pred) == 1 and all(snaps_ok), (len(pred), snaps_ok)
+        assert n_ev == sum(scats) and 0 < n_ev and ids_ok, \
+            (n_ev, scats)
+        assert max(scats) <= 4096
+        assert restart_equal and rv["step_count"] == CLI_STEPS
+        for key in ("far_level", "far_level_record", "far_level_range",
+                    "near_level", "far_list", "gather_nodes", "sidm_emit",
+                    "sidm_emit_count", "sidm_gated"):
+            assert counts[key] > 0, (key, counts)
+        del sim, written, back
+        torch.cuda.empty_cache()
+
+        # ---- the same run resumed by the CLI, with a stop file ------------
+        open(os.path.join(out, "stop"), "w").close()
+        before = {f: open(os.path.join(out, f), "rb").read()
+                  for f in os.listdir(out) if f != "rst_out.npz"}
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sidm_tpu_torch", param, "1"], cwd=root,
+            env=env, capture_output=True, text=True, timeout=600)
+        t_resume = time.perf_counter() - t0
+        _, rv2 = read_restart(os.path.join(out, "rst_out"), device="cpu")
+        after = set(os.listdir(out))
+        info2 = read("info_out")
+        new = sorted(after - set(before) - {"rst_out.npz"})
+        appended = all(open(os.path.join(out, f), "rb").read()
+                       .startswith(b) for f, b in before.items())
+        print(f"cli resume (python -m sidm_tpu_torch param 1, stop file): "
+              f"exit {proc.returncode}, {t_resume:.2f} s wall (process, "
+              f"prepare, one step, restart), step_count {rv2['step_count']}, "
+              f"snapshot_count {rv2['snapshot_count']}, new files {new}, "
+              f"logs appended {appended}, stdout "
+              f"{proc.stdout.strip().splitlines()[-1:]} [{card}]",
+              flush=True)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert rv2["step_count"] == CLI_STEPS + 1, rv2
+        assert appended and info2.count("Begin Step") == CLI_STEPS + 1
+        assert f"Begin Step {CLI_STEPS + 1}," in info2
+        assert rv2["snapshot_count"] == 2 and "snp_001" in new, (rv2, new)
+        assert all(f in ("snp_001", "sct_002.0") for f in new), new
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def sim_energy(sim) -> float:

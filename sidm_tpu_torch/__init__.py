@@ -23,8 +23,8 @@ _torch.backends.cudnn.allow_tf32 = False
 from .config import (SimConfig, Units, parse_parameter_file,  # noqa: E402
                      set_units)
 from .state import (Particles, SystemState, make_particles,  # noqa: E402
-                    particles_from_numpy, particles_to_numpy)
+                    state_dict, state_from_dict)
 
 __all__ = ["SimConfig", "Units", "parse_parameter_file", "set_units",
            "Particles", "SystemState", "make_particles",
-           "particles_from_numpy", "particles_to_numpy"]
+           "state_dict", "state_from_dict"]

@@ -480,8 +480,10 @@ def sidm_scatter_fused(p, pos_pred, tree: Octree, time, active, vmax, key,
     larger caps (``sized_segments``; JAX's walk drops them
     silently): ``cfg`` and ``seg_cap`` are the first guesses, the ones used
     come back in ``info``. Returns (particles with the kicks in ``dvel``,
-    n_scattered (a 0-d tensor)) and, with ``return_info``, a dict: the
-    finish's (kicks, accepted set, proposals, resolver rounds and drops),
+    n_scattered (a 0-d tensor)), with ``params.log_events`` and no
+    ``return_info`` also the step's events (JAX's return), and with
+    ``return_info`` a dict: the finish's (kicks, accepted set, proposals,
+    resolver rounds and drops; ``events`` with ``params.log_events``),
     the walk's drops (``ovf_walk``: cells past its caps; ``ovf_big``:
     particles past the overfull cells' chunks; ``ovf_seg``: segment list
     drops, 0 after the resize) as 0-d tensors, ``n_gated``, ``ngb_total``,
@@ -528,10 +530,11 @@ def sidm_scatter_fused(p, pos_pred, tree: Octree, time, active, vmax, key,
     inv = torch.empty_like(tree.perm)
     inv[tree.perm] = torch.arange(n, device=inv.device)
     p2, n_scat, info = tree_sidm_finish(
-        p, tree.perm, inv, ptot_t, cnt_t, bj_t, time, active, scan, p_max,
-        u, key, params)
+        p, pos_pred, tree.perm, inv, ptot_t, cnt_t, bj_t, time, active,
+        scan, p_max, u, key, params)
     if not return_info:
-        return p2, n_scat
+        return (p2, n_scat, info["events"]) if params.log_events \
+            else (p2, n_scat)
     info.update(ovf_walk=torch.sum(stat[S_OVF_L].long()),
                 ovf_big=drops["big_drop"],
                 ovf_seg=torch.sum(stat[S_OVF_N].long()),

@@ -415,7 +415,8 @@ def sidm_scatter_lists(p, pos_pred, tree: Octree, cands: SidmCandidates,
     periodic box). Returns (particles
     with the kicks in ``dvel``, n_scattered, validity margin, ovf2 (2,),
     info): info as ``tree_sidm_finish``'s (the step's kicks, accepted set,
-    resolver rounds) plus the pass's sorted-order outputs. n_scattered,
+    resolver rounds; ``events`` with ``params.log_events``) plus the
+    pass's sorted-order outputs. n_scattered,
     the margin and ovf2 are device tensors (no host read)."""
     rcfg = rcfg or RangeListConfig()
     n = pos_pred.shape[0]
@@ -434,8 +435,8 @@ def sidm_scatter_lists(p, pos_pred, tree: Octree, cands: SidmCandidates,
     inv = torch.empty_like(tree.perm)
     inv[tree.perm] = torch.arange(n, device=inv.device)
     p2, n_scat, info = tree_sidm_finish(
-        p, tree.perm, inv, ptot_t, cnt_t, bj_t, time, active, scan, p_max,
-        u, key, params)
+        p, pos_pred, tree.perm, inv, ptot_t, cnt_t, bj_t, time, active,
+        scan, p_max, u, key, params)
     viol = candidates_valid(cands, tree.pos_s, h_eff[tree.perm])
     info.update(rows=rows, hs=hs, dts=dts, ptot=ptot_t, cnt=cnt_t,
                 bestk=best_t, bestj=bj_t, ngc=ngc, ntail=ntail, kd=kd,

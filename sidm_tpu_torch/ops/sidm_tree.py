@@ -26,7 +26,8 @@ from ..constants import SCAT_KERNEL_FACTOR
 from ..cosmo import drift_factor
 from ..rng import M32, mul32, particle_uniforms, random_directions
 from ..sidm_common import cross_section_co, sidm_cmax
-from .sidm import SidmParams, perp_unit, resolve_conflicts_compact
+from .sidm import (SidmParams, collect_events, perp_unit,
+                   resolve_conflicts_compact)
 
 
 def mix32(a, b, c: int):
@@ -126,14 +127,16 @@ def tree_sidm_prep(p, pos_pred, perm, time, active, vmax, key,
             h_eff, p_max, u)
 
 
-def tree_sidm_finish(p, perm, inv, ptot_t, cnt_t, bj_t, time, active,
-                     scan, p_max, u, key, params: SidmParams):
+def tree_sidm_finish(p, pos_pred, perm, inv, ptot_t, cnt_t, bj_t, time,
+                     active, scan, p_max, u, key, params: SidmParams):
     """Scatter decision, conflict resolution, kicks and the hsml
     controller. ptot_t, cnt_t and bj_t (partner, a sorted index, -1 for
-    none) are in sorted order; u the prep's uniforms. Returns (particles,
-    n_scattered (a 0-d tensor), info): info holds the kicks of this step
-    (``dvel`` added), the accepted set, the proposals, the resolver's
-    rounds and its dropped proposers."""
+    none) are in sorted order; u the prep's uniforms; pos_pred the
+    predicted positions (read only for the scatter log). Returns
+    (particles, n_scattered (a 0-d tensor), info): info holds the kicks of
+    this step (``dvel`` added), the accepted set, the proposals, the
+    resolver's rounds and its dropped proposers, and with
+    ``params.log_events`` the step's ``events`` (``collect_events``)."""
     n = p.pos.shape[0]
     dtype = p.pos.dtype
     ptot = ptot_t[inv]
@@ -184,7 +187,8 @@ def tree_sidm_finish(p, perm, inv, ptot_t, cnt_t, bj_t, time, active,
     mi, mj = p.mass, p.mass[pj]
     msum = torch.clamp(mi + mj, min=1e-30)
     zero = torch.zeros_like(delta)
-    kick = torch.where(accepted[:, None], (mj / msum)[:, None] * delta, zero)
+    dv_i = (mj / msum)[:, None] * delta
+    kick = torch.where(accepted[:, None], dv_i, zero)
     # the partners' recoil, over the proposers (JAX adds zeros for the
     # rest, at index 0)
     kick = kick.index_add(0, pj[ti], torch.where(
@@ -201,5 +205,9 @@ def tree_sidm_finish(p, perm, inv, ptot_t, cnt_t, bj_t, time, active,
         p, dvel=p.dvel + kick,
         hsml_vd=torch.where(upd, h_new, p.hsml_vd),
         ngb_vd=torch.where(upd, cnt.to(torch.int32), p.ngb_vd))
-    return p, n_scat, dict(kick=kick, accepted=accepted, proposal=proposal,
-                           rounds=rounds, dropped=dropped)
+    info = dict(kick=kick, accepted=accepted, proposal=proposal,
+                rounds=rounds, dropped=dropped)
+    if params.log_events:
+        info["events"] = collect_events(p, pos_pred, time, accepted, pj,
+                                        dv_i, params.event_cap)
+    return p, n_scat, info

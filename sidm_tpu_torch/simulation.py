@@ -4,8 +4,11 @@
 ``_force_core`` :556-641, ``_sidm_params_for_phased`` :748,
 ``_refit_list_caps`` :774-806, ``_SIDM_K_CEILING`` and
 ``_refit_sidm_caps`` :815-836 and ``phase_finish`` :726-741, ``prepare``
-:1285 with the SIDM smoothing-length init :1296-1312, and
-``compute_potential`` :1550).
+:1285 with the SIDM smoothing-length init :1296-1312, the run loop ``run``
+:1421 with ``load_ic`` :113, ``_open_logs`` :1411,
+``_write_scatter_log`` :1387, ``write_snapshot_file`` :1524,
+``compute_potential`` :1550, ``energy_statistics`` :1576 and
+``write_restart_file``/``load_restart_file`` :1591-1615).
 
 One step is the JAX package's phased step for a non-periodic tree run on
 the work-queue walk (``TreeWalkEngine wq``), in one of two cadences:
@@ -43,6 +46,17 @@ reflection -> new synchronized timesteps. Tensors live on the device given at co
 moved; with no device given it is the CUDA card, and without one the
 constructor raises.
 
+``run`` is the main loop of run.c with the JAX package's cadences: energy
+statistics every ``TimeBetStatistics``, snapshots from
+``TimeOfFirstSnapshot`` every ``TimeBetSnapshot`` (or at
+``OutputListTimes``), the info, CPU and timings logs every step, the
+scatter log (``ScatterLog 1``: ``sct_XXX.0``, the first
+``SidmParams.event_cap`` events of each step; the rest are counted in
+``last_sidm_info["events_dropped"]``), restarts every
+``CpuTimeBetRestartFile`` and at the end, and the stops of a ``stop``
+file and of 85 % of ``TimeLimitCPU``. A resumed run (``restart_flag
+1``) re-reads the whole parameter file, as JAX does.
+
 Configurations outside the port raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.
 """
@@ -50,6 +64,8 @@ ROADMAP.md item that ports them.
 from __future__ import annotations
 
 import dataclasses
+import os
+import subprocess
 import sys
 import time as _wallclock
 from typing import Optional
@@ -61,8 +77,11 @@ from . import integrate, timestep
 from .config import SimConfig, Units, parse_parameter_file, set_units, \
     write_parameters_out
 from .constants import MAX_REAL_NUMBER
-from .diagnostics import compute_system_state
+from .diagnostics import (CpuLog, EnergyLog, InfoLog, Timer, TimingsLog,
+                          compute_system_state, system_state_to_host)
 from .integrate import StepConsts
+from .io import checkpoint as ckpt
+from .io.gadget import GadgetHeader, Snapshot, read_snapshot, write_snapshot
 from .ops.fused_force import default_depth
 from .ops.fused_range import cell_count_hsml_seed, tree_hsml_init_fused
 from .ops.list_force import (ListConfig, advance_tree, eval_lists,
@@ -99,8 +118,6 @@ def _refuse(what: str, item: str):
 
 def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     """Raise NotImplementedError for anything outside the ported slice."""
-    if cfg.SIDMOn and cfg.ScatterLog:
-        _refuse("ScatterLog 1 (the scatter log)", "A, item 13")
     if cfg.ForceMethod != "tree":
         _refuse(f"ForceMethod {cfg.ForceMethod}", "A, item 9")
     if cfg.TreeWalkEngine != "wq":
@@ -172,8 +189,6 @@ class Simulation:
         check_supported(cfg, mode, torch.device(device if device is not None
                                                 else "cuda"))
         self.device = resolve_device(device)
-        if restart_flag:
-            _refuse("restarts", "A, item 13")
         self.cfg = cfg
         self.units: Units = set_units(cfg)
         self.mode = mode
@@ -181,6 +196,12 @@ class Simulation:
         self.particles: Optional[Particles] = None
         self.time = cfg.TimeBegin
         self.step_count = 0
+        self.snapshot_count = 0
+        self.time_last_statistics = cfg.TimeBegin - cfg.TimeBetStatistics
+        self.time_of_first_snapshot = cfg.TimeOfFirstSnapshot
+        self.cpu_this_run = 0.0
+        self.time_last_restart = 0.0
+        self._logs_open = False
         self.vmax = 0.0
         self.sys_state_at_start = None
         self.last_phase_wall = {}
@@ -243,14 +264,34 @@ class Simulation:
         write_parameters_out(cfg)
         return sim
 
-    def set_particles_from_arrays(self, pos, vel, mass, ptype,
+    def set_particles_from_arrays(self, pos, vel, mass, ptype, pid=None,
                                   pad_to_multiple: int = 256):
         if np.any(np.asarray(ptype) == 0):
             _refuse("gas particles (SPH)", "A, item 12")
-        p = make_particles(pos, vel, mass, ptype,
+        p = make_particles(pos, vel, mass, ptype, pid=pid,
                            pad_to_multiple=pad_to_multiple, dtype=self.dtype,
                            device=self.device)
         self.particles = self._init_particle_times(p)
+
+    def load_ic(self, path: Optional[str] = None):
+        """read_ic (nbody/read_ic.c): a Gadget snapshot (``ICFormat 1``) or
+        ZIC cluster ICs (``ICFormat 3``, not on restart flag 2) as initial
+        conditions, the path ``InitCondFile`` beside ``OutputDir`` as JAX
+        joins it. Restart flag 2 takes the time from the snapshot header
+        (read_ic.c:118-121). Gas is refused."""
+        path = path or os.path.join(os.path.dirname(self.cfg.OutputDir),
+                                    self.cfg.InitCondFile)
+        if self.cfg.ICFormat == 3 and self.restart_flag != 2:
+            from .io.zic import read_ic_cluster
+            zic = read_ic_cluster(path, self.units.G)
+            self.set_particles_from_arrays(zic.pos, zic.vel, zic.mass,
+                                           zic.ptype, pid=zic.pid)
+            return
+        snap = read_snapshot(path)
+        if self.restart_flag == 2:
+            self.time = float(snap.header.time)
+        self.set_particles_from_arrays(snap.pos, snap.vel, snap.mass,
+                                       snap.ptype, pid=snap.pid)
 
     def _init_particle_times(self, p: Particles) -> Particles:
         t0 = torch.full_like(p.current_time, self.time)
@@ -454,6 +495,9 @@ class Simulation:
         self.vmax = float(vmax_new)
         if not first:
             self.step_count += 1
+            if cfg.ScatterLog and self.last_sidm_info is not None \
+                    and "events" in self.last_sidm_info:
+                self._write_scatter_log(self.last_sidm_info["events"])
         return self.time - prev_time, int(n_active), n_scat
 
     # ------------------------------------------------------------------- SIDM
@@ -470,7 +514,18 @@ class Simulation:
             max_num_ngb_dev=cfg.MaxNumNgbDeviation,
             comoving=bool(cfg.ComovingIntegrationOn),
             hubble=u.Hubble, omega0=cfg.Omega0,
-            omega_lambda=cfg.OmegaLambda)
+            omega_lambda=cfg.OmegaLambda, log_events=bool(cfg.ScatterLog))
+
+    def _event_info(self, info, n_scat: int) -> dict:
+        """The scatter log's part of ``last_sidm_info``: the step's events
+        (records on the device, their count: the scatters up to the event
+        cap, known without a read) and the scatters past the cap."""
+        if "events" not in info:
+            return {}
+        cap = self._sidm_params().event_cap
+        rec, ids, _ = info["events"]
+        return dict(events=(rec, ids, min(n_scat, cap)),
+                    events_dropped=max(n_scat - cap, 0))
 
     def _sidm(self, p, pos_pred, tree, t_next, active, vmax, key,
               use_lists: bool, clock):
@@ -525,7 +580,7 @@ class Simulation:
                     cand_need=[int(x) for x in ints[4:6]],
                     kick=sinfo["kick"], rounds=sinfo["rounds"],
                     proposals=int(n_prop), dropped=sinfo["dropped"],
-                    n_gated=int(n_gated))
+                    n_gated=int(n_gated), **self._event_info(sinfo, n_scat))
         self.last_sidm_info = info
         clock.mark("sidm")
         return p, n_scat
@@ -557,7 +612,8 @@ class Simulation:
                     walk_caps=tuple(w["cfg"]),
                     groups=int(w["groups"]), kick=w["kick"],
                     rounds=w["rounds"], proposals=n_prop,
-                    dropped=w["dropped"], n_gated=n_gated)
+                    dropped=w["dropped"], n_gated=n_gated,
+                    **self._event_info(w, n_scat))
         self.last_sidm_info = info
         clock.mark("sidm")
         return p, n_scat
@@ -739,3 +795,196 @@ class Simulation:
             pot = pot - 0.5 * cfg.OmegaLambda * H * H * r2
         self.particles = dataclasses.replace(p, pot=pot)
         return pot
+
+    # ------------------------------------------------------------------ run()
+
+    def _write_scatter_log(self, events):
+        """Append the step's events to ``sct_XXX.0`` in OutputDir
+        (SCATTERLOG, sidm.c:96-104, 571-601; struct scatlog sidm.h:1-10):
+        20 x 4 bytes per record, [time f32, id1 i32, id2 i32, h1, h2,
+        x1(3), x2(3), v1(3), v2(3), dv(3) f32]. The records are packed on
+        the device and copied to the host at once. ``events`` = (rec, ids,
+        count), as ``collect_events`` gives them."""
+        rec, ids, cnt = events
+        cnt = int(cnt)
+        if cnt == 0:
+            return
+        rec = rec[:cnt].to(torch.float32)
+        out = torch.cat([rec[:, :1], ids[:cnt].view(torch.float32),
+                         rec[:, 1:]], dim=1).cpu().numpy()
+        path = os.path.join(self.cfg.OutputDir,
+                            f"sct_{self.snapshot_count:03d}.0")
+        with open(path, "ab") as f:
+            out.tofile(f)
+
+    def _open_logs(self, append: bool):
+        d = self.cfg.OutputDir
+        os.makedirs(d, exist_ok=True)
+        self.energy_log = EnergyLog(os.path.join(d, self.cfg.EnergyFile),
+                                    append)
+        self.info_log = InfoLog(os.path.join(d, self.cfg.InfoFile), append)
+        self.cpu_log = CpuLog(os.path.join(d, self.cfg.CpuFile), append)
+        self.timings_log = TimingsLog(
+            os.path.join(d, self.cfg.TimingsFile), append)
+        self._logs_open = True
+
+    def close_logs(self):
+        if self._logs_open:
+            for log in (self.energy_log, self.info_log, self.cpu_log,
+                        self.timings_log):
+                log.close()
+            self._logs_open = False
+
+    def run(self, max_steps: Optional[int] = None) -> int:
+        """Main loop (run.c:17-221) until TimeMax, a stop or ``max_steps``
+        (the step count, which a resumed run continues); returns the step
+        count. The logs are opened to append on a resumed run."""
+        cfg = self.cfg
+        if not self._logs_open:
+            self._open_logs(append=self.restart_flag == 1)
+        if self.sys_state_at_start is None:
+            self.prepare()
+        # the steps end at TimeMax rounded to the state's dtype (JAX compares
+        # with TimeMax itself and never ends where the rounding is below
+        # it; ROADMAP C.10)
+        t_max = float(torch.tensor(cfg.TimeMax, dtype=self.dtype))
+        stop = False
+        while self.time < t_max and not stop:
+            if max_steps is not None and self.step_count >= max_steps:
+                break
+            t0 = _wallclock.perf_counter()
+
+            # statistics cadence (run.c:51-59)
+            if (cfg.TimeBetStatistics > 0 and self.time
+                    - self.time_last_statistics >= cfg.TimeBetStatistics):
+                self.energy_statistics()
+                self.time_last_statistics += cfg.TimeBetStatistics
+
+            # snapshot cadence (run.c:61-74)
+            if cfg.TimeBetSnapshot > 0 and \
+                    self.time - self.time_of_first_snapshot >= 0:
+                with Timer(self.cpu_log, "Snapshot"):
+                    self.write_snapshot_file(self.snapshot_count)
+                self.snapshot_count += 1
+                if cfg.OutputListOn and cfg.OutputListTimes:
+                    nxt = [t for t in cfg.OutputListTimes if t > self.time]
+                    self.time_of_first_snapshot = (nxt[0] if nxt
+                                                   else MAX_REAL_NUMBER)
+                else:
+                    self.time_of_first_snapshot += cfg.TimeBetSnapshot
+
+            dt, n_active, n_scat = self.step()
+            self.info_log.write(self.step_count, self.time, n_active, dt)
+            if cfg.FindNbrLog and n_scat:
+                print(f"SCT {n_active} {n_scat}")
+
+            step_wall = _wallclock.perf_counter() - t0
+            self.cpu_this_run += step_wall
+            # per-phase buckets from the step's CUDA-event clock
+            # (run.c:250-285 FdCPU analog)
+            ph = self.last_phase_wall
+            self.cpu_log.add("Gravity", ph.get("force", 0.0))
+            self.cpu_log.add("Sidm", ph.get("sidm", 0.0))
+            self.cpu_log.add("EnsureNgb", ph.get("sidmrec", 0.0))
+            self.cpu_log.add("TimeLine", ph.get("finish", 0.0))
+            self.cpu_log.add("Predict", max(step_wall - sum(ph.values()),
+                                            0.0))
+            # sub-buckets: force time split by rebuild vs reuse steps
+            self.cpu_log.add_sub("TreeConstruction" if self.last_step_rebuilt
+                                 else "TreeWalk", ph.get("force", 0.0))
+            self.cpu_log.write(self.step_count, self.time)
+            self.timings_log.write(self.step_count, self.time, n_active,
+                                   n_pairs=self._diag_far,
+                                   n_segs=self._diag_near, wall_s=step_wall)
+
+            # interruption checks (run.c:152-202)
+            if ckpt.stopfile_present(cfg.OutputDir):
+                stop = True
+            if self.cpu_this_run > 0.85 * cfg.TimeLimitCPU:
+                stop = True
+                # CPU-limit self-stop with optional resubmission
+                # (run.c:169-181): fire the user's resubmit command once
+                if cfg.ResubmitOn and cfg.ResubmitCommand not in ("", "none"):
+                    try:
+                        subprocess.Popen(cfg.ResubmitCommand, shell=True)
+                    except OSError as e:
+                        print(f"resubmit command failed: {e}",
+                              file=sys.stderr)
+            if (self.cpu_this_run - self.time_last_restart
+                    >= cfg.CpuTimeBetRestartFile):
+                self.write_restart_file()
+                self.time_last_restart = self.cpu_this_run
+
+        self.write_restart_file()
+        if self.time >= t_max:
+            self.write_snapshot_file(self.snapshot_count)
+            self.snapshot_count += 1
+        return self.step_count
+
+    # ------------------------------------------------------------- I/O pieces
+
+    def _predicted_host_state(self):
+        """(pos, vel) predicted to the current time, as numpy arrays."""
+        t = torch.tensor(self.time, dtype=self.dtype, device=self.device)
+        pos, vel = integrate.predict_positions(self.particles, t,
+                                               self.consts)
+        return pos.cpu().numpy(), vel.cpu().numpy()
+
+    def write_snapshot_file(self, count: int):
+        """``<OutputDir>/<SnapshotFileBase>_<count>``: the valid particles
+        predicted to the current time (io.c savepositions)."""
+        p = self.particles
+        valid = p.valid.cpu().numpy()
+        pos, vel = self._predicted_host_state()
+        hdr = GadgetHeader(time=self.time, redshift=0.0,
+                           box_size=self.cfg.BoxSize, omega0=self.cfg.Omega0,
+                           omega_lambda=self.cfg.OmegaLambda,
+                           hubble_param=self.cfg.HubbleParam)
+        snap = Snapshot(header=hdr, pos=pos[valid], vel=vel[valid],
+                        pid=p.pid.cpu().numpy()[valid].astype(np.uint32),
+                        mass=p.mass.cpu().numpy()[valid],
+                        ptype=p.ptype.cpu().numpy()[valid])
+        base = os.path.join(self.cfg.OutputDir,
+                            f"{self.cfg.SnapshotFileBase}_{count:03d}")
+        return write_snapshot(base, snap,
+                              num_files=max(1, self.cfg.NumFilesPerSnapshot))
+
+    def energy_statistics(self):
+        """energy_statistics (run.c:295-330): the potential at the current
+        time, the system state, and its line in the energy log when the
+        logs are open; returns the state (numpy fields)."""
+        log = self.cpu_log if self._logs_open else None
+        with Timer(log, "Potential"):
+            self.compute_potential()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        with Timer(log, "Diagnostic"):
+            sys_state = system_state_to_host(
+                compute_system_state(self.particles))
+            if self._logs_open:
+                self.energy_log.write(self.time, sys_state)
+        return sys_state
+
+    def write_restart_file(self):
+        base = os.path.join(self.cfg.OutputDir, self.cfg.RestartFile)
+        run_vars = dict(
+            time=self.time, step_count=self.step_count,
+            snapshot_count=self.snapshot_count,
+            time_last_statistics=self.time_last_statistics,
+            time_of_first_snapshot=self.time_of_first_snapshot,
+            vmax=self.vmax, cpu_this_run=self.cpu_this_run)
+        return ckpt.write_restart(base, self.particles, run_vars)
+
+    def load_restart_file(self):
+        base = os.path.join(self.cfg.OutputDir, self.cfg.RestartFile)
+        p, rv = ckpt.read_restart(base, device=self.device)
+        self.particles = p
+        self.time = rv["time"]
+        self.step_count = rv["step_count"]
+        self.snapshot_count = rv["snapshot_count"]
+        self.time_last_statistics = rv["time_last_statistics"]
+        self.time_of_first_snapshot = rv["time_of_first_snapshot"]
+        self.vmax = rv["vmax"]
+        self.cpu_this_run = 0.0
+        if self.sys_state_at_start is None:
+            self.sys_state_at_start = compute_system_state(p)

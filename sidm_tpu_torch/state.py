@@ -3,8 +3,8 @@
 Same fields, padding and meaning as the JAX ``Particles`` pytree: arrays
 have a padded length N; padding slots carry ``ptype == -1`` and
 ``mass == 0`` so every operation treats them as inert. Particle ids are
-int64 here (torch has no uint32 arithmetic); ``particles_to_numpy`` hands
-them back as uint32, the JAX package's type.
+int64 here (torch has no uint32 arithmetic); ``state_dict`` hands them back
+as uint32, the JAX package's type.
 """
 
 from __future__ import annotations
@@ -127,10 +127,11 @@ def make_particles(pos, vel, mass, ptype, pid=None, *, egy_spec=None,
         curl_vel=zeros1(), ngb_sph=izeros())
 
 
-def particles_to_numpy(p: Particles) -> dict:
-    """All fields as numpy arrays, in the JAX package's dtypes (pid uint32):
-    ``sidm_tpu.state.Particles(**{k: jnp.asarray(v)})`` rebuilds the JAX
-    state from the result."""
+def state_dict(p: Particles) -> dict:
+    """All fields as numpy arrays, in the JAX package's dtypes (pid uint32;
+    JAX ``state.py:207``, what a restart file holds):
+    ``sidm_tpu.state.state_from_dict`` rebuilds the JAX state from the
+    result."""
     out = {}
     for f in dataclasses.fields(p):
         a = getattr(p, f.name).detach().cpu().numpy()
@@ -138,9 +139,9 @@ def particles_to_numpy(p: Particles) -> dict:
     return out
 
 
-def particles_from_numpy(d: dict, device=None) -> Particles:
-    """Particles from a dict of numpy arrays (e.g. the fields of a JAX
-    ``Particles``, each passed through ``np.asarray``)."""
+def state_from_dict(d: dict, device=None) -> Particles:
+    """Particles from a dict of numpy arrays (JAX ``state.py:212``; e.g.
+    JAX's ``state_dict`` of its ``Particles``), on ``device``."""
     kw = {}
     for f in dataclasses.fields(Particles):
         a = np.asarray(d[f.name])

@@ -46,17 +46,26 @@ per-file budget of the test suite, so their outputs are committed:
   ``TreeWalkEngine fused`` (JAX's ``wq`` branch raises ``NameError``,
   ROADMAP C.9).
 
+* ``tests/data/torch_run_golden.npz`` (tests/test_torch_run.py): the JAX
+  run loop on ``RUN_CONFIG`` (flagship-dsmc as in ``SIDM_SLICE_CONFIG``
+  with ``ScatterLog 1`` and statistics and snapshot cadences) from a Gadget
+  IC of the N = 2048 halo: ``load_ic``, prepare and ``run(max_steps=6)``
+  (``a_``), then a second ``Simulation(restart_flag=1)`` resuming from its
+  restart file in the same directory for 3 steps (``b_``); each output
+  file's bytes after each run.
+
 Each test file has a ``slow`` test that reruns its JAX outputs and holds the
 file to them. Rerun this script to regenerate the files (all, or the ones
 named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``,
-``sidm_walk``):
+``sidm_walk``, ``run``):
 
     python -m tests.make_torch_golden [slice] [list_slice] [list] [sidm]
-        [sidm_slice] [sidm_walk]
+        [sidm_slice] [sidm_walk] [run]
 """
 
 import os
 import sys
+import tempfile
 
 import numpy as np
 
@@ -698,12 +707,76 @@ def jax_sidm_walk() -> dict:
     return {**jax_sidm_walk_ops(), **jax_sidm_walk_trajectories()}
 
 
+RUN_GOLDEN = os.path.join(_DATA, "torch_run_golden.npz")
+# two statistics (t = 0 and t = 0.00082) and two snapshots (t = 0 and
+# t = 0.00115) in the first 6 steps; the resume's 3 steps take a third
+# statistics and snapshot
+RUN_CONFIG = {**SIDM_SLICE_CONFIG, "ScatterLog": 1,
+              "TimeBetStatistics": 0.0008, "TimeBetSnapshot": 0.001,
+              "TimeOfFirstSnapshot": 0.0, "ResubmitCommand": "none",
+              "OutputListFilename": "none"}
+RUN_STEPS = 6
+RESUME_STEPS = 3
+
+
+def run_ic(snapshot_cls, header_cls, n: int = N):
+    """The Gadget IC of the n-particle halo, as a package's ``Snapshot``."""
+    pos, vel, mass = flagship_ics(n, SEED)
+    return snapshot_cls(header=header_cls(), pos=pos.astype(np.float32),
+                        vel=vel.astype(np.float32),
+                        pid=np.arange(1, n + 1, dtype=np.uint32),
+                        mass=mass.astype(np.float32),
+                        ptype=np.ones(n, np.int32))
+
+
+def output_files(d: str, tag: str) -> dict:
+    """Every file of output directory ``d`` as uint8 bytes, keyed
+    ``<tag>file_<name>``."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[f"{tag}file_{name}"] = np.frombuffer(f.read(), np.uint8)
+    return out
+
+
+def jax_run() -> dict:
+    """The JAX run loop on RUN_CONFIG: ``ic`` (the IC file's bytes), the
+    output files after ``run(max_steps=RUN_STEPS)`` (``a_``) and after the
+    resume's RESUME_STEPS steps (``b_``)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.io.gadget import GadgetHeader, Snapshot, write_snapshot
+    from sidm_tpu.simulation import Simulation
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ic = os.path.join(tmp, "ic")
+        write_snapshot(ic, run_ic(Snapshot, GadgetHeader))
+        out_dir = os.path.join(tmp, "out") + "/"
+        cfg = SimConfig(**{**RUN_CONFIG, "OutputDir": out_dir,
+                           "InitCondFile": ic})
+        with open(ic, "rb") as f:
+            out = {"ic": np.frombuffer(f.read(), np.uint8)}
+        sim = Simulation(cfg, mode="phased", quiet=True)
+        sim.load_ic()
+        sim.prepare()
+        sim.run(max_steps=RUN_STEPS)
+        out.update(output_files(out_dir, "a_"))
+        sim = Simulation(cfg, restart_flag=1, mode="phased", quiet=True)
+        sim.load_restart_file()
+        sim.prepare()
+        sim.run(max_steps=RUN_STEPS + RESUME_STEPS)
+        out.update(output_files(out_dir, "b_"))
+    return out
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
            "sidm": (SIDM_GOLDEN, jax_sidm_ops),
            "sidm_slice": (SIDM_SLICE_GOLDEN, jax_sidm_trajectory),
-           "sidm_walk": (SIDM_WALK_GOLDEN, jax_sidm_walk)}
+           "sidm_walk": (SIDM_WALK_GOLDEN, jax_sidm_walk),
+           "run": (RUN_GOLDEN, jax_run)}
 
 
 def main(names):

@@ -100,11 +100,11 @@ def _random_state(seed=0, n=300):
         dens_vd=rng.uniform(0.1, 10.0, npad))
     extra["max_pred_time"] = extra["current_time"] + rng.uniform(
         0, 0.01, npad)
-    d = tstate.particles_to_numpy(tp)
+    d = tstate.state_dict(tp)
     for k, v in extra.items():
         d[k] = v.astype(np.float32)
     jp = jstate.Particles(**{k: jnp.asarray(v) for k, v in d.items()})
-    return jp, tstate.particles_from_numpy(d)
+    return jp, tstate.state_from_dict(d)
 
 
 def _close(a, b, rtol=RTOL, atol=0.0):
@@ -120,12 +120,12 @@ def test_make_particles_equal():
             rng.uniform(size=n), rng.integers(0, 6, n))
     jp = jstate.make_particles(*args, pad_to_multiple=256)
     tp = tstate.make_particles(*args, pad_to_multiple=256)
-    d = tstate.particles_to_numpy(tp)
+    d = tstate.state_dict(tp)
     for f in dataclasses.fields(jp):
         a = np.asarray(getattr(jp, f.name))
         assert a.dtype == d[f.name].dtype, f.name
         np.testing.assert_array_equal(a, d[f.name], err_msg=f.name)
-    back = tstate.particles_from_numpy(d)
+    back = tstate.state_from_dict(d)
     assert torch.equal(back.pos, tp.pos) and torch.equal(back.pid, tp.pid)
 
 
@@ -207,8 +207,8 @@ _BASE = dict(SIDMOn=0, TreeWalkEngine="wq", ListMode=0)
 
 
 @pytest.mark.parametrize("change", [
-    dict(ListMode=1, SIDMOn=1, ScatterLog=1), dict(TreeWalkEngine="fused"),
-    dict(SIDMOn=1, ScatterLog=1),
+    dict(ListMode=1, VelDispOn=1), dict(TreeWalkEngine="fused"),
+    dict(SIDMOn=1, ForceMethod="direct"),
     dict(PeriodicBoundariesOn=1, BoxSize=10.0), dict(PMVacuum=1),
     dict(ForceMethod="direct"), dict(ComovingIntegrationOn=1),
     dict(VelDispOn=1)])

@@ -128,7 +128,8 @@ def test_kicks_conserve_momentum(run):
 
 
 @pytest.mark.parametrize("changes, item", [
-    (dict(VelDispOn=1), "item 10"), (dict(ScatterLog=1), "item 13")])
+    (dict(VelDispOn=1), "item 10"), (dict(ComovingIntegrationOn=1),
+                                      "item 11")])
 def test_refuses_what_is_not_ported(changes, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):
