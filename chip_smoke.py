@@ -66,11 +66,15 @@ Phases (each asserts; any failure exits non-zero):
      far_level (record), far_list, near_level and gather_nodes; then, on
      the run's end state, the range walk of a record and of a prepare pass
      against its plain version on every level, all groups, bit-equal
-     (timed per walk); the emission and its count mode bit-equal to the
-     plain version on a subset of groups, at the run's K and at K = 16
-     (truncating), timed on all groups; the gated tile on the next step's
-     targets: counts equal, P_tot p99.9 relative error < 1e-5, partners
-     equal except at near-ties (counted);
+     (timed per walk); the groups' staged-particle totals (segment_totals,
+     the emission's longest-first order and the segment pass's weights)
+     bit-equal on a record's and a prepare pass's lists; the emission and its count mode bit-equal to
+     the plain version (every row) on a subset of groups with the 8
+     longest among them, at the run's K and at K = 16 (truncating), timed
+     on all groups beside the parent design's time, the bound (of the
+     pairs in the batches each target may reach) and ptxas's registers;
+     the gated tile on the next step's targets: counts equal, P_tot p99.9
+     relative error < 1e-5, partners equal except at near-ties (counted);
  10. flagship-dsmc-walk (bench.py's SIDM settings on the walk,
      flagship_config(**DSMC_WALK)) through Simulation: prepare,
      compute_potential, 4 steps, compute_potential: scatters > 0, no walk
@@ -79,8 +83,11 @@ Phases (each asserts; any failure exits non-zero):
      the range walk (far_level range mode) and the segment pass
      (sidm_near, K4) beside the force walk's kernels; on its end state K4
      against sidm_near_plain on a subset of the next step's gated groups
-     (counts equal, P_tot p99.9 < 1e-5, partners equal except at
-     near-ties), timed on all groups with its bound. Then a periodic
+     with the 8 longest among them and two groups made from the longest,
+     one with a single live slot and one with all 64 live (counts equal,
+     P_tot p99.9 < 1e-5, partners equal except at near-ties), timed on all
+     groups with its bound, the parent design's time, the staged particles
+     and live slots per group, its work items, and ptxas's registers. Then a periodic
      uniform box at N = 1e5 (the rate harness's): the range walk's range
      mode (every level, all groups) and the emission (and its count mode)
      bit-equal to their plain versions with the box, the gated tile and
@@ -142,6 +149,17 @@ EMIT_TINY_K = 16       # the truncating K of that check
 WALK_DSMC_STEPS = 4    # flagship-dsmc-walk, after prepare
 BOX_N = 100_000        # the periodic box of phase 10 (the rate harness's)
 RATE_PASSES = 64       # phase 10's short rate check, per engine
+LONGEST = 8            # the longest groups added to each DSMC kernel's
+                       # kernel-vs-plain subset
+# the DSMC kernels' parent designs (sidm_emit.cu: one thread per target,
+# 64 a block; sidm_near.cu: 4 threads per slot, all 64 slots) at these
+# shapes: this script's run on the tree before their redesign (NVIDIA
+# H100 80GB HBM3, 700 W), printed beside the kernel lines' own times (not
+# in the kernels JSON line, which holds only this run's measurements)
+PARENT_MS = {"sidm_emit": 4.834, "sidm_emit_count": 4.995,
+             "sidm_near": 9.9736, "sidm_emit_box": 0.997,
+             "sidm_near_box": 0.1875}
+USAGE = {}             # kernel -> ptxas's registers, shared memory, spills
 
 
 def card_line() -> str:
@@ -149,6 +167,42 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(log: str) -> dict:
+    """{entry function: "R registers, S B smem, spills ..."} from nvcc's
+    -Xptxas -v output."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "spill stores" in line:
+            out[entry] = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].strip()
+            out[entry] = f"{regs}; {out.get(entry, '')}"
+            entry = None
+    return out
+
+
+def usage_of(kernel: str) -> str:
+    """ptxas's lines of the entry functions named ``kernel`` (one per
+    template instance), "not built here" when the libraries were reused."""
+    found = [v for k, v in USAGE.items() if kernel in k]
+    return " | ".join(found) if found else "not built here"
+
+
+def pair_counts(cnt: dict) -> str:
+    """The emission bound's pair counts (bounds.emit_work's ``counts``)."""
+    return (f"{cnt['reach_pairs']} of {cnt['pairs']} (target, staged "
+            f"particle) pairs in reachable batches, {cnt['box_tests']} box "
+            f"tests")
+
+
+def with_longest(sub, tot, k=LONGEST):
+    """The groups ``sub`` and the ``k`` with the most staged particles."""
+    top = torch.topk(tot, min(k, tot.numel())).indices
+    return torch.unique(torch.cat([sub, top]))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -508,7 +562,7 @@ def main():
                                            gather_rowsum_plain)
     from sidm_tpu_torch.ops.list_force import (ListConfig, eval_inputs,
                                                eval_lists, record_lists)
-    from sidm_tpu_torch.ops.fused_range import sidm_near
+    from sidm_tpu_torch.ops.fused_range import segment_totals, sidm_near
     from sidm_tpu_torch.ops.list_range import sidm_emit, sidm_gated
     from sidm_tpu_torch.ops.near_kernel import (near_level, near_level_plain,
                                                 near_split)
@@ -531,6 +585,7 @@ def main():
     for line in info["log"].splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    USAGE.update(ptxas_usage(info["log"]))
 
     # ---- the N = 1e6 NFW halo (bench.py's ICs), padded as the main path ---
     n = args.n
@@ -715,6 +770,7 @@ def main():
                 "sidm_emit_count": (sidm_emit, "count_launches"),
                 "sidm_gated": (sidm_gated, "launches"),
                 "sidm_near": (sidm_near, "launches"),
+                "segment_totals": (segment_totals, "launches"),
                 "near_level": (near_level, "launches"),
                 "far_list": (far_list, "launches"),
                 "gather_rows": (gather_rows, "launches"),
@@ -951,8 +1007,8 @@ def main():
     dsim, dsmc_times = dsmc_path(pos, vel, mass, n, dev, card)
     launches = read_counts()
     for key in ("far_level_range", "sidm_emit", "sidm_emit_count",
-                "sidm_gated", "far_level_record", "far_list", "near_level",
-                "gather_nodes"):
+                "segment_totals", "sidm_gated", "far_level_record",
+                "far_list", "near_level", "gather_nodes"):
         assert launches[key] > 0, (key, launches)
     dsmc_kernels(res, dsim, dev, card)
     del dsim
@@ -962,7 +1018,8 @@ def main():
     wdsim = dsmc_walk_path(pos, vel, mass, n, dev, card)
     walk_dsmc_launches = read_counts()
     for key in ("far_level", "far_level_range", "sidm_near",
-                "sidm_emit_count", "far_list", "near_level"):
+                "sidm_emit_count", "segment_totals", "far_list",
+                "near_level"):
         assert walk_dsmc_launches[key] > 0, (key, walk_dsmc_launches)
     # K4 on every DSMC step after prepare's (dt = 0 there: nothing gated)
     assert walk_dsmc_launches["sidm_near"] >= WALK_DSMC_STEPS, \
@@ -1002,6 +1059,9 @@ def main():
                        "sidm_tpu/ops/list_range.py:434"),
         "sidm_near": ("sidm_tpu_torch/csrc/sidm_near.cu",
                       "sidm_tpu/ops/fused_range.py:127"),
+        # the DSMC kernels' schedule: JAX length-sorts the emission's groups
+        "segment_totals": ("sidm_tpu_torch/csrc/work_items.cuh",
+                           "sidm_tpu/ops/list_range.py:230"),
     }
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
@@ -1253,11 +1313,14 @@ def dsmc_kernels(res, sim, dev, card):
     groups at the run's K and at EMIT_TINY_K (bit-equal; the kernel timed
     on all groups), the gated tile on the next step's targets."""
     from sidm_tpu_torch import integrate
-    from sidm_tpu_torch.bounds import bound_ms, emit_work, gated_work
+    from sidm_tpu_torch.bounds import (bound_ms, emit_work, gated_work,
+                                       segment_totals_work)
     from sidm_tpu_torch.ops.fused_force import default_depth, make_windows
     from sidm_tpu_torch.ops.fused_range import (group_targets,
                                                 range_levels,
-                                                range_segments)
+                                                range_segments,
+                                                segment_totals,
+                                                segment_totals_plain)
     from sidm_tpu_torch.ops.list_range import (
         count_neighbours, gated_targets, record_candidates_from_particles,
         sidm_emit, sidm_emit_plain, sidm_gated, sidm_gated_plain,
@@ -1297,10 +1360,33 @@ def dsmc_kernels(res, sim, dev, card):
     torch.cuda.synchronize()
     fl.report("range_prep", res)
 
-    # K2: emission and count mode, kernel vs plain on a subset of groups
+    # the groups' staged particles (the DSMC kernels' schedule), kernel vs
+    # plain on a record's and a prepare pass's segment lists
     kw = captured
     ng = kw["keys"].shape[0]
-    sub = torch.linspace(0, ng - 1, min(EMIT_GROUPS, ng), device=dev).long()
+    tot = segment_totals(kw["keys"], kw["nn"])
+    tot_c = segment_totals(keys, nn)
+    assert torch.equal(tot, segment_totals_plain(kw["keys"], kw["nn"]))
+    assert torch.equal(tot_c, segment_totals_plain(keys, nn))
+    ms = cuda_ms(lambda: segment_totals(kw["keys"], kw["nn"]), 10)
+    plain_ms = cuda_ms(lambda: segment_totals_plain(kw["keys"], kw["nn"]), 3)
+    ops, nb = segment_totals_work(kw["keys"], kw["nn"])
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel segment_totals (a record's {ng} groups, keys "
+          f"{tuple(kw['keys'].shape)}, {int(kw['nn'].sum())} live): "
+          f"bit-equal to the plain version, here and on a prepare pass's "
+          f"lists ({int(nn.sum())} live keys); staged particles per group "
+          f"sum {int(tot.sum())} max {int(tot.max())} (prepare pass: sum "
+          f"{int(tot_c.sum())} max {int(tot_c.max())}); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), at "
+          f"{bms / ms:.1%} of the bound's speed; ptxas "
+          f"{usage_of('cover_count')} [{card}]", flush=True)
+    res.add("segment_totals", 0.0, ms, plain_ms, ops, nb)
+    res.rows["segment_totals"].update(ptxas=usage_of("cover_count"))
+
+    # K2: emission and count mode, kernel vs plain on a subset of groups
+    # (spread over the index range, and the longest)
+    sub = with_longest(subset(ng, EMIT_GROUPS, dev), tot)
     skw = {k: (v[sub].contiguous() if k in ("keys", "nn", "gt", "gr", "gty",
                                             "gidx") else v)
            for k, v in kw.items()}
@@ -1311,16 +1397,18 @@ def dsmc_kernels(res, sim, dev, card):
         b = sidm_emit_plain(*base, n, K)
         assert all(torch.equal(x, y) for x, y in zip(a, b)), ("emit", K)
         ovf_k = int(torch.sum(torch.clamp(b[2].long() - K, min=0)))
-        print(f"kernel sidm_emit ({len(sub)} of {ng} groups, K {K}): "
-              f"candidate lists, ncand and demand bit-equal to the plain "
-              f"version's, {int(torch.sum(b[1]))} candidates, K drops "
-              f"{ovf_k} [{card}]", flush=True)
+        print(f"kernel sidm_emit ({len(sub)} of {ng} groups, the {LONGEST} "
+              f"longest among them, K {K}): candidate lists (every row, "
+              f"those no slot owns included), ncand and demand bit-equal "
+              f"to the plain version's, {int(torch.sum(b[1]))} candidates, "
+              f"K drops {ovf_k} [{card}]", flush=True)
         if K == EMIT_TINY_K:
             assert ovf_k > 0
-    cargs = dict(keys=keys[sub].contiguous(), nn=nn[sub].contiguous(),
-                 src=kw["src"], gt=gt[sub].contiguous(),
-                 gh=gh[sub].contiguous(), gty=gty[sub].contiguous(),
-                 gidx=gidx[sub].contiguous(), n=n)
+    sub_c = with_longest(subset(ng, EMIT_GROUPS, dev), tot_c)
+    cargs = dict(keys=keys[sub_c].contiguous(), nn=nn[sub_c].contiguous(),
+                 src=kw["src"], gt=gt[sub_c].contiguous(),
+                 gh=gh[sub_c].contiguous(), gty=gty[sub_c].contiguous(),
+                 gidx=gidx[sub_c].contiguous(), n=n)
     ck = count_neighbours(**cargs)
     cp = sidm_emit_plain(*[cargs[k] for k in ("keys", "nn", "src", "gt",
                                               "gh", "gty", "gidx")], n, 0,
@@ -1328,36 +1416,46 @@ def dsmc_kernels(res, sim, dev, card):
     assert torch.equal(ck, cp), "count mode"
     K = kw["K"]
     full = [kw[k] for k in ("keys", "nn", "src", "gt", "gr", "gty", "gidx")]
-    ms = cuda_ms(lambda: sidm_emit(*full, n, K), 3)
+    ms = cuda_ms(lambda: sidm_emit(*full, n, K), 5)
     sub_ms = cuda_ms(lambda: sidm_emit(*base, n, K), 3)
     plain_ms = cuda_ms(lambda: sidm_emit_plain(*base, n, K), 1)
-    ops, nb = emit_work(kw["keys"], kw["nn"], kw["gidx"], n,
-                        written=torch.sum(cands.ncand))
+    cnt = {}
+    ops, nb = emit_work(*full[:5], full[6], n, K, counts=cnt)
     bms, by = bound_ms(ops, nb)
     print(f"kernel sidm_emit (a record's emission, all {ng} groups, K {K}): "
-          f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), at {bms / ms:.1%} of "
-          f"the bound's speed; {len(sub)} groups: kernel {sub_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms [{card}]", flush=True)
+          f"{ms:.3f} ms (parent {PARENT_MS['sidm_emit']:.3f} ms), bound "
+          f"{bms:.3f} ms ({by}; the whole (n, K) output counted; "
+          f"{pair_counts(cnt)}), at {bms / ms:.1%} of the bound's speed; "
+          f"{len(sub)} groups: kernel {sub_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; ptxas {usage_of('sidm_emit_kernel')} "
+          f"[{card}]", flush=True)
     res.add("sidm_emit", 0.0, ms, plain_ms, ops, nb)
-    res.rows["sidm_emit"].update(subset_groups=len(sub), subset_ms=sub_ms)
+    res.rows["sidm_emit"].update(subset_groups=len(sub), subset_ms=sub_ms,
+                                 ptxas=usage_of("sidm_emit_kernel"), **cnt)
     call = [keys, nn, kw["src"], gt, gh, gty, gidx]
-    ms = cuda_ms(lambda: count_neighbours(*call, n), 3)
+    ms = cuda_ms(lambda: count_neighbours(*call, n), 5)
     csub = [cargs[k] for k in ("keys", "nn", "src", "gt", "gh", "gty",
                                "gidx")]
     sub_ms = cuda_ms(lambda: count_neighbours(*csub, n), 3)
     plain_ms = cuda_ms(lambda: sidm_emit_plain(*csub, n, 0,
                                                count_mode=True), 1)
-    ops, nb = emit_work(keys, nn, gidx, n, count_mode=True)
+    cnt = {}
+    ops, nb = emit_work(keys, nn, kw["src"], gt, gh, gidx, n,
+                        count_mode=True, counts=cnt)
     bms, by = bound_ms(ops, nb)
     print(f"kernel sidm_emit count mode (a prepare pass, all {ng} groups): "
-          f"counts on {len(sub)} groups equal to the plain version's; "
-          f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), at {bms / ms:.1%} of "
-          f"the bound's speed; {len(sub)} groups: kernel {sub_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms [{card}]", flush=True)
+          f"counts on {len(sub_c)} groups (the {LONGEST} longest among "
+          f"them) equal to the plain version's; {ms:.3f} ms (parent "
+          f"{PARENT_MS['sidm_emit_count']:.3f} ms), bound {bms:.3f} ms "
+          f"({by}; {pair_counts(cnt)}), at {bms / ms:.1%} of the bound's "
+          f"speed; {len(sub_c)} groups: kernel {sub_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; ptxas {usage_of('sidm_emit_kernel')} "
+          f"[{card}]", flush=True)
     res.add("sidm_emit_count", 0.0, ms, plain_ms, ops, nb)
-    res.rows["sidm_emit_count"].update(subset_groups=len(sub),
-                                       subset_ms=sub_ms)
-    del keys, nn, stat, captured, kw, skw, base, full, call
+    res.rows["sidm_emit_count"].update(
+        subset_groups=len(sub_c), subset_ms=sub_ms,
+        ptxas=usage_of("sidm_emit_kernel"), **cnt)
+    del keys, nn, stat, captured, kw, skw, base, full, call, tot, tot_c
 
     # K3: the next step's gated tile, kernel vs plain
     t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
@@ -1402,21 +1500,53 @@ def dsmc_kernels(res, sim, dev, card):
                                   p999_rel_err=p999)
 
 
+def one_and_all_live(near, g):
+    """Group g's per-group arguments as two extra groups: one with only its
+    first live slot live, one with its live slots cycled over all 64."""
+    from sidm_tpu_torch.ops.fused_range import G
+    live = torch.nonzero((near["gidx"][g] >= 0)
+                         & (near["gh"][g] > 0)).flatten()
+    one, every = {}, {}
+    for k in ("keys", "nn", "gt", "gv", "gh", "gdt", "gty", "gidx"):
+        v = near[k][g]
+        every[k] = v if k in ("keys", "nn") else \
+            v[live[torch.arange(G, device=v.device) % live.numel()]]
+        dead = {"gidx": -1, "gty": -9}.get(k, 0)
+        one[k] = v if k in ("keys", "nn") else torch.where(
+            (torch.arange(G, device=v.device) == live[0]).reshape(
+                (G,) + (1,) * (v.dim() - 1)), v, torch.full_like(v, dead))
+    return one, every
+
+
 def near_check(res, near, sub, card, label, box=False):
     """K4 (``sidm_near``) against ``sidm_near_plain`` on the groups
-    ``sub`` of one call's arguments ``near``: counts equal, P_tot p99.9
-    relative error < 1e-5, partners equal except at near-ties (best keys
-    within 4 float32 ULPs); the kernel timed on all groups against its
-    bound (the plain version on the subset). The times of a ``box`` call
-    go into the JSON row's ``box_*`` keys."""
+    ``sub`` of one call's arguments ``near``, the LONGEST longest groups
+    and two made from the longest: one with a single live slot and one with
+    all 64 live. Counts equal, P_tot p99.9 relative error < 1e-5, partners
+    equal except at near-ties (best keys within 4 float32 ULPs); the kernel
+    timed on all groups against its bound (the plain version on the
+    subset), with the workload it staged. The times of a ``box`` call go
+    into the JSON row's ``box_*`` keys."""
     from sidm_tpu_torch.bounds import bound_ms, near_dsmc_work
-    from sidm_tpu_torch.ops.fused_range import sidm_near, sidm_near_plain
+    from sidm_tpu_torch.ops.fused_range import (IMAX, NEAR_PIECE,
+                                                live_slots, near_pairs,
+                                                segment_totals,
+                                                segment_totals_plain,
+                                                sidm_near, sidm_near_plain)
+    from sidm_tpu_torch.ops.work_items import item_cap, plan_items
     per_group = ("keys", "nn", "gt", "gv", "gh", "gdt", "gty", "gidx")
-    skw = {k: (v[sub].contiguous() if k in per_group else v)
-           for k, v in near.items()}
+    tot = segment_totals(near["keys"], near["nn"])
+    assert torch.equal(tot, segment_totals_plain(near["keys"], near["nn"]))
+    nlive = live_slots(near["gidx"], near["gh"])
+    sub = with_longest(sub, tot)
+    one, every = one_and_all_live(near, int(torch.argmax(
+        torch.where(nlive > 0, tot, torch.full_like(tot, -1)))))
+    skw = {k: (torch.cat([v[sub], one[k][None], every[k][None]])
+               if k in per_group else v) for k, v in near.items()}
     k = sidm_near(**skw)
     pl = sidm_near_plain(**skw)
     live = (skw["gidx"] >= 0) & (skw["gh"] > 0)
+    assert live_slots(skw["gidx"], skw["gh"])[-2:].tolist() == [1, 64]
     assert torch.equal(k[1], pl[1]), ("sidm_near counts", label)
     rel = (torch.abs(k[0] - pl[0]) / torch.clamp(torch.abs(pl[0]),
                                                  min=1e-30))[live]
@@ -1428,11 +1558,13 @@ def near_check(res, near, sub, card, label, box=False):
     n_diff, n_tie = int(diff.sum()), int(tie.sum())
     max_abs = float(torch.max(torch.abs(k[0] - pl[0])[live])) \
         if bool(live.any()) else 0.0
-    msg = (f"kernel sidm_near ({label}; {len(sub)} of "
-           f"{near['keys'].shape[0]} groups, {int(live.sum())} gated "
-           f"slots, {int(torch.sum(pl[1]))} pairs): counts equal, P_tot "
-           f"p99.9 rel err {p999:.3e}, max abs {max_abs:.3e}, partners "
-           f"differing {n_diff} (near-ties {n_tie}) of "
+    ng = near["keys"].shape[0]
+    msg = (f"kernel sidm_near ({label}; {len(sub)} of {ng} groups, the "
+           f"{LONGEST} longest among them, and two made from the longest "
+           f"with 1 and 64 live slots; {int(live.sum())} gated slots, "
+           f"{int(torch.sum(pl[1]))} pairs): counts equal, P_tot p99.9 rel "
+           f"err {p999:.3e}, max abs {max_abs:.3e}, partners differing "
+           f"{n_diff} (near-ties {n_tie}) of "
            f"{int(torch.sum(pl[3][live] >= 0))}")
     assert p999 < 1e-5 and n_diff == n_tie, (label, p999, n_diff, n_tie)
     ms = cuda_ms(lambda: sidm_near(**near), 10)
@@ -1442,9 +1574,36 @@ def near_check(res, near, sub, card, label, box=False):
     ops, nb = near_dsmc_work(near["keys"], near["nn"], near["gidx"],
                              near["gh"], full[1])
     bms, by = bound_ms(ops, nb)
-    print(msg + f"; all groups: kernel {ms:.4f} ms, bound {bms:.4f} ms "
-          f"({by}), at {bms / ms:.1%} of the bound's speed; subset: kernel "
-          f"{sub_ms:.4f} ms, plain {plain_ms:.3f} ms [{card}]", flush=True)
+    parent = PARENT_MS["sidm_near_box" if box else "sidm_near"]
+    work = dict(keys_sum=int(torch.sum(torch.clamp(
+                    near["nn"], min=0, max=near["keys"].shape[1]))),
+                staged_sum=int(tot.sum()), staged_max=int(tot.max()),
+                live_sum=int(nlive.sum()), live_max=int(nlive.max()),
+                slot_pairs=int(torch.sum(tot.long() * nlive.long())),
+                heaviest_pairs=int(torch.max(tot.long() * nlive.long())),
+                groups_one_live=int(torch.sum(nlive == 1)),
+                groups_all_live=int(torch.sum(nlive == 64)))
+    # the kernel's work items: items_plan's plain version (held to the
+    # card's items_plan by the near_level and far_list checks) on the
+    # same weights; printed, not in the JSON line
+    _, off, _ = plan_items(near_pairs(near["keys"], near["nn"],
+                                      near["gidx"], near["gh"]), IMAX,
+                           item_cap(ng), NEAR_PIECE)
+    n_it = off[1:] - off[:-1]
+    print(msg + f"; all groups: kernel {ms:.4f} ms (parent {parent:.4f} "
+          f"ms), bound {bms:.4f} ms ({by}), at {bms / ms:.1%} of the "
+          f"bound's speed; segment keys {work['keys_sum']}, staged "
+          f"particles per group sum {work['staged_sum']} max "
+          f"{work['staged_max']}, live slots sum "
+          f"{work['live_sum']} max {work['live_max']} (groups with 1: "
+          f"{work['groups_one_live']}, with 64: "
+          f"{work['groups_all_live']}), (live slot, staged particle) pairs "
+          f"{work['slot_pairs']} (heaviest group {work['heaviest_pairs']}), "
+          f"work items {int(off[-1])} ({int(torch.sum(n_it > 1))} groups "
+          f"cut, into at most {int(n_it.max())}); subset: kernel "
+          f"{sub_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; ptxas {usage_of('sidm_near_kernel')} "
+          f"[{card}]", flush=True)
     if box:
         res.add("sidm_near", max_abs, 0.0, 0.0, 0.0, 0.0)
         box_row(res, "sidm_near", box_ms=ms, box_bound_ms=bms,
@@ -1454,9 +1613,10 @@ def near_check(res, near, sub, card, label, box=False):
     res.add("sidm_near", max_abs, ms, plain_ms, ops, nb)
     res.rows["sidm_near"].update(p999_rel_err=p999,
                                  partner_near_ties=n_tie,
-                                 subset_groups=len(sub), subset_ms=sub_ms,
-                                 groups=int(near["keys"].shape[0]),
-                                 pairs=int(torch.sum(full[1])))
+                                 subset_groups=len(sub) + 2,
+                                 subset_ms=sub_ms, groups=ng,
+                                 pairs=int(torch.sum(full[1])),
+                                 ptxas=usage_of("sidm_near_kernel"), **work)
 
 
 def box_row(res, name, **times):
@@ -1570,7 +1730,8 @@ def box_phase(res, dev, card):
     short rate check of both engines. Returns nothing; asserts."""
     from sidm_tpu_torch import validate_rate as vr
     from sidm_tpu_torch.bounds import bound_ms, emit_work, gated_work
-    from sidm_tpu_torch.ops.fused_range import sidm_scatter_fused
+    from sidm_tpu_torch.ops.fused_range import (segment_totals,
+                                                sidm_scatter_fused)
     from sidm_tpu_torch.ops.list_range import (
         count_neighbours, gated_targets, record_candidates_from_particles,
         sidm_emit, sidm_emit_plain, sidm_gated, sidm_gated_plain,
@@ -1605,7 +1766,8 @@ def box_phase(res, dev, card):
     box_row(res, "far_level_range", box_ms=t["ms"], box_bound_ms=bms,
             box_plain_ms=t["plain_ms"])
     ng = emit["keys"].shape[0]
-    sub = subset(ng, EMIT_GROUPS, dev)
+    sub = with_longest(subset(ng, EMIT_GROUPS, dev),
+                       segment_totals(emit["keys"], emit["nn"]))
     base = [emit[k][sub].contiguous() if k not in ("src",) else emit[k]
             for k in ("keys", "nn", "src", "gt", "gr", "gty", "gidx")]
     n = p0.n_padded
@@ -1621,15 +1783,16 @@ def box_phase(res, dev, card):
     ms = cuda_ms(lambda: sidm_emit(*full, n, emit["K"], box=box), 3)
     plain_ms = cuda_ms(lambda: sidm_emit_plain(*base, n, emit["K"],
                                                box=box), 1)
-    ops, nb = emit_work(emit["keys"], emit["nn"], emit["gidx"], n,
-                        written=torch.sum(cands.ncand))
+    ops, nb = emit_work(*full[:5], full[6], n, emit["K"], box=box)
     bms, by = bound_ms(ops, nb)
     print(f"kernel sidm_emit with the periodic box (K {emit['K']} and "
-          f"{EMIT_TINY_K}, count mode; {len(sub)} of {ng} groups): "
-          f"bit-equal to the plain version; all groups {ms:.3f} ms, bound "
-          f"{bms:.4f} ms ({by}), at {bms / ms:.1%} of the bound's speed; "
-          f"plain on {len(sub)} groups {plain_ms:.3f} ms [{card}]",
-          flush=True)
+          f"{EMIT_TINY_K}, count mode; {len(sub)} of {ng} groups, the "
+          f"{LONGEST} longest among them): bit-equal to the plain version; "
+          f"all groups {ms:.3f} ms (parent "
+          f"{PARENT_MS['sidm_emit_box']:.3f} ms), bound {bms:.4f} ms "
+          f"({by}), at {bms / ms:.1%} of the bound's speed; plain on "
+          f"{len(sub)} groups {plain_ms:.3f} ms; ptxas "
+          f"{usage_of('sidm_emit_kernel')} [{card}]", flush=True)
     box_row(res, "sidm_emit", box_ms=ms, box_bound_ms=bms,
             box_plain_ms=plain_ms)
     # one frozen pass of each engine: K3 and K4 vs plain, then the engines
@@ -1848,7 +2011,7 @@ def cli_path(pos, vel, mass, n, dev, card, dsmc_times, zero_counts,
         assert restart_equal and rv["step_count"] == CLI_STEPS
         for key in ("far_level", "far_level_record", "far_level_range",
                     "near_level", "far_list", "gather_nodes", "sidm_emit",
-                    "sidm_emit_count", "sidm_gated"):
+                    "sidm_emit_count", "segment_totals", "sidm_gated"):
             assert counts[key] > 0, (key, counts)
         del sim, written, back
         torch.cuda.empty_cache()

@@ -61,13 +61,15 @@ _SIGNATURES = {
     "gather_launch": ("gather", [_P, _I, _P, _L, _P, _P]),
     "rowsum_launch": ("gather", [_P, _I, _P, _L, _P, _P, _P]),
     "sidm_emit_launch": ("sidm_emit", [
-        _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P]),
+        _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P,
+        _P]),
     "sidm_gated_launch": ("sidm_gated", [
         _P, _P, _I, _I, _P, _P, _P, _P, _I, ctypes.c_uint, _I, _F, _F, _F,
         _F, _F, _P, _P, _P, _P, _P]),
     "sidm_near_launch": ("sidm_near", [
         _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, ctypes.c_uint, _I,
-        _F, _F, _F, _F, _F, _P, _P, _P, _P, _P]),
+        _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "segment_totals_launch": ("near_kernel", [_P, _P, _I, _I, _P, _P]),
     "node_rows_launch": ("gather", [_P, _P, _I, _P, _L, _P, _P]),
 }
 

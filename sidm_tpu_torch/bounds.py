@@ -52,8 +52,18 @@ PART_BYTES = 20         # one particle's pos, mass, eps
 RANGE_OPS = 23
 RANGE_ROW_BYTES = 32
 # candidate emission (csrc/sidm_emit.cu), per (target, staged particle)
-# pair: d 3, r^2 5, compare, type, self (the count mode: + sqrt)
+# pair of a batch the target may reach: d 3, r^2 5, compare, type, self
+# (the count mode compares r^2 with a per-target bound instead of taking
+# the root: the same count)
 EMIT_PAIR_OPS = 11
+# ... its box test (may_reach) per (valid target, batch of 32 staged
+# particles): 3 x (2 differences, 2 max), d^2 5, the margin 2, compare;
+# and per staged particle its share of the batch's box (6 min/max)
+EMIT_BOX_OPS = 20
+EMIT_BOX_PART_OPS = 6
+EMIT_ROUND = 2048       # csrc/sidm_emit.cu kCap: particles staged a round
+EMIT_SCAN = 512         # csrc/seg_rounds.cuh kScan: keys scanned a round
+EMIT_CHUNK = 1 << 17    # batches tested at once in emit_reach
 SRC_BYTES = 16          # one source: x, y, z, aux
 SLOT_BYTES = 24         # one target slot: position, radius, type, id
 # gated DSMC tile (csrc/sidm_gated.cu), per live candidate pair: d 3, r^2
@@ -172,25 +182,119 @@ def gather_work(tbl, ids, rowsum: bool):
             4 * n + out * n + ROW_BYTES * min(tbl.shape[0], n))
 
 
-def emit_work(keys, nn, gidx, n: int, written=None, count_mode=False):
-    """(ops, bytes) of one ``sidm_emit`` call: EMIT_PAIR_OPS (+1 for the
-    count mode's square root) per (valid target, covered particle) pair of
-    each group; bytes: the live keys, each covered source once (at most
-    n), the target slots, and per valid target its count (and demand),
-    plus the candidate ids written (``written``: the sum of ncand)."""
+def emit_batches(keys, nn):
+    """The emission kernel's batches of 32 staged particles: each group's
+    live keys taken in rounds (``csrc/seg_rounds.cuh`` plan: from the
+    round's first key, the longest run of at most EMIT_SCAN keys whose
+    particles fit EMIT_ROUND), each round's particles cut into batches of
+    32 in staged order. Returns (staged sorted ids (P,), batch of each
+    (P,), group of each batch (nb,)), in staged order."""
+    from .ops.fused_force import IMAX
+    B, L = keys.shape
+    dev = keys.device
+    col = torch.arange(L, device=dev)[None, :]
+    nk = torch.clamp(nn.long(), 0, L)[:, None]
+    cnt = torch.where((col < nk) & (keys != IMAX), keys & 31, 0).long()
+    inc = torch.cumsum(cnt, 1)
+    ex = torch.cat([inc - cnt, inc[:, -1:]], 1)     # (B, L + 1)
+    rnd = torch.zeros_like(cnt)                     # each key's round
+    at = torch.zeros_like(cnt)                      # ... and offset there
+    c0 = torch.zeros_like(nk)
+    r = 0
+    while bool(torch.any(c0 < nk)):
+        base = torch.gather(ex, 1, c0)
+        take = ((col >= c0) & (col < torch.minimum(c0 + EMIT_SCAN, nk))
+                & (inc - base <= EMIT_ROUND))
+        rnd = torch.where(take, r, rnd)
+        at = torch.where(take, ex[:, :L] - base, at)
+        c0 = c0 + torch.sum(take, 1, keepdim=True)
+        r += 1
+    gk, kk = torch.nonzero(cnt > 0, as_tuple=True)
+    c = cnt[gk, kk]
+    rep = torch.repeat_interleave(torch.arange(c.numel(), device=dev), c)
+    i = torch.arange(rep.numel(), device=dev) - (torch.cumsum(c, 0) - c)[rep]
+    ids = (keys[gk, kk].long() >> 5)[rep] + i
+    g = gk[rep]
+    tag = ((g * max(r, 1) + rnd[gk, kk][rep]) * (EMIT_ROUND // 32)
+           + (at[gk, kk][rep] + i) // 32)
+    new = torch.ones_like(tag, dtype=torch.bool)
+    new[1:] = tag[1:] != tag[:-1]
+    return ids, torch.cumsum(new, 0) - 1, g[new]
+
+
+def emit_reach(keys, nn, src, gt, gr, gidx):
+    """Which (batch, slot) pairs the emission kernel takes: those of a
+    valid slot whose radius may reach the batch's box of finite particles
+    (``csrc/sidm_emit.cu`` may_reach, with the record mode's r^2 < r*r
+    standing for the count mode's test, a few float32 ULPs away and far
+    inside the test's 1e-4 margin). Returns (reach (nb, 64) bool, staged
+    particles per batch (nb,), group of each batch (nb,)) over
+    ``emit_batches``."""
+    ids, batch, bgroup = emit_batches(keys, nn)
+    nb = bgroup.numel()
+    dev = keys.device
+    size = torch.bincount(batch, minlength=nb)
+    p = src[ids, :3]
+    fin = torch.all(torch.isfinite(p), 1)
+    at = batch[fin][:, None].expand(-1, 3)
+    lo = torch.full((nb, 3), float("inf"), device=dev).scatter_reduce(
+        0, at, p[fin], "amin")
+    hi = torch.full((nb, 3), -float("inf"), device=dev).scatter_reduce(
+        0, at, p[fin], "amax")
+    reach = torch.zeros((nb, gidx.shape[1]), dtype=torch.bool, device=dev)
+    for a in range(0, nb, EMIT_CHUNK):
+        g = bgroup[a:a + EMIT_CHUNK]
+        t = gt[g]
+        d = torch.clamp(torch.maximum(lo[a:a + EMIT_CHUNK, None] - t,
+                                      t - hi[a:a + EMIT_CHUNK, None]),
+                        min=0.0)
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+              + d[..., 2] * d[..., 2])
+        r = gr[g]
+        reach[a:a + EMIT_CHUNK] = (gidx[g] >= 0) & ~(
+            d2 > (r * r) * 1.0001 + 1e-30)
+    return reach, size, bgroup
+
+
+def emit_work(keys, nn, src, gt, gr, gidx, n: int, K: int = 0,
+              count_mode=False, box: float = 0.0, counts=None):
+    """(ops, bytes) of one ``sidm_emit`` call: EMIT_PAIR_OPS per (valid
+    target, staged particle) pair of the batches the target may reach
+    (``emit_reach``; with a periodic box, where the kernel skips nothing,
+    of every batch), EMIT_BOX_OPS per (valid target, batch) box test and
+    EMIT_BOX_PART_OPS per staged particle; bytes: the live keys, each
+    covered source once (at most n), the target slots, and in count mode
+    each valid target's count, in record mode the whole (n, K) candidate
+    array (the wrapper fills it, the kernel writes the hits) and every
+    row's count and demand. ``counts`` (a dict) receives the pairs, the
+    reachable pairs and the box tests."""
+    from .ops.fused_range import segment_totals_plain
     L = keys.shape[1]
-    live = torch.arange(L, device=keys.device)[None, :] < nn[:, None].long()
-    cov = torch.sum(torch.where(live, keys & 31, 0), dim=1).long()
+    cov = segment_totals_plain(keys, nn).long()
     nv = torch.sum(gidx >= 0, dim=1).long()
     pairs = _n(torch.sum(cov * nv))
-    ops = (EMIT_PAIR_OPS + int(count_mode)) * pairs
-    nt = _n(torch.sum(nv))
+    if box > 0:
+        reach_pairs, tests = pairs, 0
+    else:
+        reach, size, bgroup = emit_reach(keys, nn, src, gt, gr, gidx)
+        reach_pairs = _n(torch.sum(torch.sum(reach, 1) * size))
+        tests = _n(torch.sum(nv[bgroup]))
+    ops = (EMIT_PAIR_OPS * reach_pairs + EMIT_BOX_OPS * tests
+           + (0 if box > 0 else EMIT_BOX_PART_OPS * _n(torch.sum(cov))))
+    if counts is not None:
+        counts.update(pairs=pairs, reach_pairs=reach_pairs, box_tests=tests)
     nbytes = (4 * _n(torch.sum(torch.clamp(nn.long(), max=L)))
               + SRC_BYTES * min(_n(torch.sum(cov)), n)
               + SLOT_BYTES * gidx.numel()
-              + (4 if count_mode else 8) * nt
-              + (0 if written is None else 4 * _n(written)))
+              + (4 * _n(torch.sum(nv)) if count_mode else 4 * n * (K + 2)))
     return ops, nbytes
+
+
+def segment_totals_work(keys, nn):
+    """(ops, bytes) of one ``segment_totals`` call: a sum over the live
+    keys (one operation each); bytes: the live keys, nn and the totals."""
+    live = _n(torch.sum(torch.clamp(nn.long(), min=0, max=keys.shape[1])))
+    return live, 4 * live + 8 * nn.numel()
 
 
 def gated_work(tid, ncand, cnt, cand):
@@ -218,11 +322,11 @@ def near_dsmc_work(keys, nn, gidx, gh, ncnt):
     (live slot, covered particle) pair of each group; bytes: the live
     keys, each distinct covered particle's row once, every slot's inputs
     and outputs."""
-    from .ops.fused_range import segment_particles
+    from .ops.fused_range import (live_slots, segment_particles,
+                                  segment_totals_plain)
     L = keys.shape[1]
-    live = torch.arange(L, device=keys.device)[None, :] < nn[:, None].long()
-    cov = torch.sum(torch.where(live, keys & 31, 0), dim=1).long()
-    nv = torch.sum((gidx >= 0) & (gh > 0), dim=1).long()
+    cov = segment_totals_plain(keys, nn).long()
+    nv = live_slots(gidx, gh).long()
     pairs = _n(torch.sum(cov * nv))
     ok = _n(torch.sum(ncnt.long()))
     ops = GATED_PAIR_OPS * ok + GATED_MISS_OPS * (pairs - ok)

@@ -8,8 +8,8 @@
 // design spends few instructions per pair and spreads long lists:
 //   * items_plan (work_items.cuh) cuts each group's list into work items
 //     of about equal entry count; far_list_kernel runs one block per item;
-//     items_sum adds each group's item slots in item order (no float
-//     atomics, the same result from run to run).
+//     items_fold (items::ItemsSum) adds each group's item slots in item
+//     order (no float atomics, the same result from run to run).
 //   * Per 256-entry chunk each thread gathers one row by id from the
 //     compact table (three 16-byte loads; the table stays in the 50 MB
 //     L2), dead entries (ids out of range, the zero row) are dropped by a
@@ -188,6 +188,6 @@ extern "C" int far_list_launch(const float* tbl, int nrows, const int* ids,
     kern<<<icap, kThreads, 0, st>>>(tbl, nrows, ids, nf, LF, ng, w.unit, w.off,
                                     w.item_g, xc, te, gc, part);
     if ((err = (int)cudaGetLastError())) return err;
-    items::items_sum<<<ng, 256, 0, st>>>(part, w.off, acc);
+    items::items_fold<<<ng, 256, 0, st>>>(w.off, items::ItemsSum{part, acc});
     return (int)cudaGetLastError();
 }

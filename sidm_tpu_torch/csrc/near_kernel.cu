@@ -7,11 +7,11 @@
 // group covers up to ~2e5 particles while the mean is ~1e3, so the design
 // is about spending few instructions per pair and about spreading heavy
 // groups over the card:
-//   * near_count sums each group's covered particles (key & 31 over the
-//     live prefix); items_plan (work_items.cuh) cuts the groups into work
-//     items of about equal covered-particle count; near_mark finds each
-//     item's first and last key with a block-wide scan of the group's
-//     counts. An item never splits a key.
+//   * cover_count (work_items.cuh) sums each group's covered particles
+//     (key & 31 over the live prefix); items_plan (work_items.cuh) cuts
+//     the groups into work items of about equal covered-particle count;
+//     near_mark finds each item's first and last key with a block-wide
+//     scan of the group's counts. An item never splits a key.
 //   * near_level_kernel runs one 256-thread block per item (a grid of
 //     icap blocks; those past the last item return at once, and the block
 //     scheduler balances the rest). A block decodes 256 keys at a time
@@ -38,8 +38,9 @@
 //     instructions a pair; deferring the softened pairs of 32-pair batches
 //     to a second loop saves the branch but spends as much on the
 //     bookkeeping.
-//   * items_sum adds each group's item slots in item order: no float
-//     atomics, the same result from run to run, every group written.
+//   * items_fold (items::ItemsSum) adds each group's item slots in item
+//     order: no float atomics, the same result from run to run, every
+//     group written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,25 +77,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Covered particles of every group: one warp per group.
-__global__ void __launch_bounds__(256)
-near_count(const int* __restrict__ keys, const int* __restrict__ n_seg,
-           int ng, int K, int* __restrict__ cov) {
-    const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (g >= ng) return;
-    const int nseg = min(max(n_seg[g], 0), K);
-    const int* kg = keys + (int64_t)g * K;
-    int s = 0;
-    for (int k = lane; k < nseg; k += 32) {
-        const int key = kg[k];
-        s += (key != SIDM_IMAX) ? (key & 31) : 0;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) cov[g] = s;
 }
 
 // First key (k0) and end key (k1) of every item: one block per group. Key
@@ -293,8 +275,8 @@ near_level_kernel(const int* __restrict__ keys, int K,
 
 int split(const int* keys, const int* n_seg, int ng, int K,
           const items::Ws& w, int icap, cudaStream_t st) {
-    near_count<<<(ng * 32 + 255) / 256, 256, 0, st>>>(keys, n_seg, ng, K,
-                                                      w.cov);
+    items::cover_count<<<(ng * 32 + 255) / 256, 256, 0, st>>>(
+        keys, n_seg, ng, K, w.cov);
     int err = (int)cudaGetLastError();
     if (err) return err;
     items::items_plan<<<1, items::kPlanThreads, 0, st>>>(
@@ -306,6 +288,17 @@ int split(const int* keys, const int* n_seg, int ng, int K,
 }
 
 }  // namespace
+
+// Per group the particles its live segment keys cover (tot (ng,) int32):
+// cover_count alone, for the emission's launch order (ops/fused_range.py
+// segment_totals).
+extern "C" int segment_totals_launch(const int* keys, const int* n_seg,
+                                     int ng, int K, int* tot, void* stream) {
+    if (ng <= 0) return 0;
+    items::cover_count<<<(ng * 32 + 255) / 256, 256, 0,
+                         (cudaStream_t)stream>>>(keys, n_seg, ng, K, tot);
+    return (int)cudaGetLastError();
+}
 
 // The work items alone (for checks): fills the workspace.
 extern "C" int near_split_launch(const int* keys, const int* n_seg, int ng,
@@ -331,6 +324,6 @@ extern "C" int near_level_launch(const int* keys, const int* n_seg, int ng,
                                     w.off + ng, pos_s, mass_s, eps_s, n, xr,
                                     te, part);
     if ((err = (int)cudaGetLastError())) return err;
-    items::items_sum<<<ng, 256, 0, st>>>(part, w.off, acc);
+    items::items_fold<<<ng, 256, 0, st>>>(w.off, items::ItemsSum{part, acc});
     return (int)cudaGetLastError();
 }

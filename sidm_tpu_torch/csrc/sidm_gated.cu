@@ -29,9 +29,9 @@
 namespace {
 
 using sidm_pair::min_image;
-using sidm_pair::pair_gumbel;
+using sidm_pair::pair_key;
+using sidm_pair::pair_prob;
 using sidm_pair::Sigma;
-using sidm_pair::sph_kernel;
 
 constexpr int kWarps = 8;
 constexpr int kImax = 2147483647;
@@ -70,14 +70,11 @@ sidm_gated_kernel(const float4* __restrict__ rows, const int* __restrict__ cand,
         const float r = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
         if (!(r < th) || b1.w >= 8.0f) continue;
         ++cn;
-        const float wk = sph_kernel(r / h) / h3;
-        const float w0 = a0.w - b0.w, w1 = a1.x - b1.x, w2 = a1.y - b1.y;
-        const float rv = sqrtf(w0 * w0 + w1 * w1 + w2 * w2);
-        const float prob = 0.5f * b1.z * wk * sigma(rv) * tdt;
+        const float prob = pair_prob(r, h, h3, a0.w - b0.w, a1.x - b1.x,
+                                     a1.y - b1.y, b1.z, tdt, sigma);
         psum += prob;
         if (prob > 0.0f) {
-            const float key = logf(fmaxf(prob, 1e-37f))
-                              + pair_gumbel((uint32_t)i, (uint32_t)j, salt);
+            const float key = pair_key(prob, (uint32_t)i, (uint32_t)j, salt);
             if (key > bk || (key == bk && j > bj)) {
                 bk = key;
                 bj = j;

@@ -3,9 +3,12 @@
 // bit for bit: the pair hash and its Gumbel noise
 // (sidm_tpu/ops/sidm_tree.py:_mix32, _pair_gumbel), the cubic-spline
 // kernel (sidm_tpu/kernels.py:sph_kernel), sigma(v) v for cross-section
-// types 0-4 (sidm_tpu/sidm_common.py:sigma_v_product) and the minimum
-// image of a periodic box. Both files build with -fmad=false, so every
-// product and sum is rounded as in the plain PyTorch versions.
+// types 0-4 (sidm_tpu/sidm_common.py:sigma_v_product), a pair's
+// probability and key, the minimum image of a periodic box, and the
+// squared-radius bound that stands in for a root in a pair loop (also
+// used by the emission, sidm_emit.cu). Every including file builds with
+// -fmad=false, so every product and sum is rounded as in the plain
+// PyTorch versions.
 #pragma once
 
 #include <math.h>
@@ -47,6 +50,22 @@ __device__ __forceinline__ float min_image(float d, float box) {
     return box > 0.0f ? d - box * rintf(d / box) : d;
 }
 
+// The least float t >= 0 with sqrt_rn(t) >= r (0 when r <= 0 or NaN).
+// The correctly rounded root is monotone, so for every float rr >= 0
+// (and NaN) rr < t exactly when sqrt_rn(rr) < r: a pair loop that tests
+// rr < t makes the decisions of one that takes every pair's root, and
+// pays the root once per target. The two walks step one ULP at a time
+// from r*r, which lies within a few ULPs of t.
+__device__ __forceinline__ float sqrt_lt_bound(float r) {
+    if (!(r > 0.0f)) return 0.0f;
+    float t = __fmul_rn(r, r);
+    while (t > 0.0f
+           && __fsqrt_rn(__int_as_float(__float_as_int(t) - 1)) >= r)
+        t = __int_as_float(__float_as_int(t) - 1);
+    while (__fsqrt_rn(t) < r) t = __int_as_float(__float_as_int(t) + 1);
+    return t;
+}
+
 struct Sigma {
     int type;
     float sigma_co, vc, vel_scale, pow_law;
@@ -68,5 +87,23 @@ struct Sigma {
         }
     }
 };
+
+// P_j = 0.5 m_j W(r/h)/h^3 sigma(v) v dt of a pair at distance r < h
+// (h floored at 1e-30, h3 = h*h*h) with relative velocity w.
+__device__ __forceinline__ float pair_prob(float r, float h, float h3,
+                                           float w0, float w1, float w2,
+                                           float m, float dt,
+                                           const Sigma& sigma) {
+    const float wk = sph_kernel(r / h) / h3;
+    const float rv = sqrtf(w0 * w0 + w1 * w1 + w2 * w2);
+    return 0.5f * m * wk * sigma(rv) * dt;
+}
+
+// The Gumbel-max key log(max(P, 1e-37)) + Gumbel(i, j, salt) of a pair
+// with P > 0.
+__device__ __forceinline__ float pair_key(float prob, uint32_t i,
+                                          uint32_t j, uint32_t salt) {
+    return logf(fmaxf(prob, 1e-37f)) + pair_gumbel(i, j, salt);
+}
 
 }  // namespace sidm_pair

@@ -1,17 +1,19 @@
-// Work items of about equal size for the near and list-far kernels, the
-// layout of their integer workspace, and the fixed-order second pass that
-// sums their partial results per group (sidm_tpu_torch/ops/work_items.py
-// is the plain version of the split and sizes the workspace).
+// Work items of about equal size for the near, list-far and DSMC segment
+// kernels, the layout of their integer workspace, the per-group count of
+// covered particles, and the fixed-order second pass that folds their
+// partial results per group (sidm_tpu_torch/ops/work_items.py is the plain
+// version of the split and sizes the workspace).
 //
-// A group of weight w (covered particles, or list entries) is cut into
-// ceil(w / P) items of ceil(w / items) each, with one P for the call:
+// A group of weight w (covered particles, list entries, or (live slot,
+// staged particle) pairs) is cut into ceil(w / P) items of ceil(w /
+// items) each, with one P for the call:
 // P = max(p_min, ceil(sum w / (icap - ng))), so that at most icap items
 // exist (sum ceil(w/P) <= sum w / P + ng) whatever the lists hold. Items
 // are numbered group by group; every item writes its own (64, 4) slot of
-// the partial buffer and items_sum adds a group's slots in item order, so
-// the result does not depend on which block ran which item and there are
-// no float atomics. The main kernels run one block per item: a grid of
-// icap blocks, of which those past off[ng] return at once, so the
+// the partial buffer and items_fold combines a group's slots in item
+// order, so the result does not depend on which block ran which item and
+// there are no float atomics. The main kernels run one block per item: a
+// grid of icap blocks, of which those past off[ng] return at once, so the
 // hardware block scheduler balances the items over the SMs.
 #pragma once
 
@@ -21,6 +23,7 @@
 namespace items {
 
 constexpr int kPlanThreads = 1024;
+constexpr int kImax = 2147483647;    // a segment key that covers nothing
 constexpr int kPlanChunk = 8192;     // groups per shared-memory chunk
 
 // Exclusive scan of v over the block; *total gets the block's sum. sh
@@ -47,6 +50,36 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* sh,
     __syncthreads();
     *total = sum;
     return before + incl - v;
+}
+
+// The particles one group's live segment keys start*32+cnt cover (cnt <=
+// 31; IMAX keys and keys past the live count nseg cover none), for a
+// whole warp: the lanes read the keys side by side, and every lane gets
+// the sum.
+__device__ __forceinline__ int warp_cover(const int* __restrict__ kg,
+                                          int nseg, int lane) {
+    int s = 0;
+    for (int k = lane; k < nseg; k += 32) {
+        const int key = kg[k];
+        s += (key != kImax) ? (key & 31) : 0;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+}
+
+// Covered particles of every group (keys (ng, K) with live counts n_seg),
+// one warp per group: the near kernel's weights and the emission's launch
+// order (ops/fused_range.py segment_totals).
+__global__ void __launch_bounds__(256)
+cover_count(const int* __restrict__ keys, const int* __restrict__ n_seg,
+            int ng, int K, int* __restrict__ cov) {
+    const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (g >= ng) return;
+    const int s = warp_cover(keys + (int64_t)g * K,
+                             min(max(n_seg[g], 0), K), lane);
+    if (lane == 0) cov[g] = s;
 }
 
 // Integer workspace (int32): unit[ng] | off[ng+1] | item_g[icap], and for
@@ -122,17 +155,29 @@ items_plan(const int* __restrict__ w, int wcap, int ng, int icap, int p_min,
     if (tid == 0) off[ng] = carry;
 }
 
-// One block of 256 threads per group: out[g] = sum of the group's item
-// slots in item order (0 for a group without items).
+// The second pass, one block per group: thread c calls fold(g, c, a, b)
+// with the group's items a .. b-1 (a == b for a group without items),
+// which combines column c of their slots in item order and writes the
+// group's result, so that every group is written.
+template <class Fold>
 __global__ void __launch_bounds__(256)
-items_sum(const float* __restrict__ part, const int* __restrict__ off,
-          float* __restrict__ out) {
-    const int g = blockIdx.x, c = threadIdx.x;
-    const int a = off[g], b = off[g + 1];
-    float s = 0.0f;
-    for (int i = a; i < b; ++i) s += part[(int64_t)i * 256 + c];
-    out[(int64_t)g * 256 + c] = s;
+items_fold(const int* __restrict__ off, const Fold fold) {
+    const int g = blockIdx.x;
+    fold(g, (int)threadIdx.x, off[g], off[g + 1]);
 }
+
+// items_fold's sum, on blocks of 256 threads: out[g] = the sum of the
+// group's (64, 4) item slots in item order (0 for a group without items).
+struct ItemsSum {
+    const float* __restrict__ part;
+    float* __restrict__ out;
+    __device__ __forceinline__ void operator()(int g, int c, int a,
+                                               int b) const {
+        float s = 0.0f;
+        for (int i = a; i < b; ++i) s += part[(int64_t)i * 256 + c];
+        out[(int64_t)g * 256 + c] = s;
+    }
+};
 
 // Thread (slice, t) of a block of S x 64 threads holds the sums of one
 // slice for target t: add the slices in a fixed order (0, 1, ..., S-1)

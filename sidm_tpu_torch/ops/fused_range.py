@@ -163,6 +163,67 @@ def segment_particles(keys, nn):
     return torch.where(val, idx, torch.zeros_like(idx)), val
 
 
+def segment_totals_plain(keys, nn):
+    """Plain PyTorch version of ``segment_totals``."""
+    live = (torch.arange(keys.shape[1], device=keys.device)[None, :]
+            < nn[:, None].long()) & (keys != IMAX)
+    return torch.sum(torch.where(live, keys & 31, 0), dim=1).to(torch.int32)
+
+
+def segment_totals(keys, nn):
+    """(ng,) int32: per group the particles its live segment keys cover
+    (keys (ng, L) int32 ``start*32+cnt`` with live counts nn (ng,); IMAX
+    keys cover none), the particles ``sidm_emit`` and ``sidm_near`` stage
+    for it. Kernel ``cover_count`` (``csrc/work_items.cuh``, launched from
+    ``csrc/near_kernel.cu``) on a CUDA tensor."""
+    if not keys.is_cuda:
+        return segment_totals_plain(keys, nn)
+    from .._build import check_cuda, kernels_lib, launch_args
+    ng, L = keys.shape
+    check_cuda("segment_totals", keys=(keys, torch.int32, (ng, L)),
+               nn=(nn, torch.int32, (ng,)))
+    tot = torch.empty(ng, dtype=torch.int32, device=keys.device)
+    err = kernels_lib().segment_totals_launch(*launch_args(keys, nn, ng, L,
+                                                           tot))
+    if err:
+        raise RuntimeError(f"segment_totals kernel launch failed: CUDA "
+                           f"error {err}")
+    segment_totals.launches += 1
+    return tot
+
+
+segment_totals.launches = 0
+
+
+def group_order(keys, nn):
+    """(ng,) int32 launch order of the emission's groups: the most staged
+    particles (``segment_totals``) first, ties in index order, so that the
+    longest groups do not start last (JAX length-sorts its groups for the
+    emission, ``sidm_tpu/ops/list_range.py:230``)."""
+    return torch.argsort(segment_totals(keys, nn), descending=True,
+                         stable=True).to(torch.int32)
+
+
+def live_slots(gidx, gh):
+    """(ng,) int32: per group its live slots, those with a target (gidx >=
+    0) and a radius (gh > 0): the slots ``sidm_near``'s kernel gives
+    threads (the others only get (0, 0, -inf, -1))."""
+    return torch.sum((gidx >= 0) & (gh > 0), dim=1).to(torch.int32)
+
+
+def near_pairs(keys, nn, gidx, gh):
+    """(ng,) int32: per group its (live slot, staged particle) pairs, the
+    work of ``sidm_near``'s kernel and the weights of its work items
+    (``work_items.plan_items`` with p_min NEAR_PIECE); the plain version
+    of the kernel's ``near_weight`` (``csrc/sidm_near.cu``)."""
+    pairs = segment_totals(keys, nn).long() * live_slots(gidx, gh).long()
+    return torch.clamp(pairs, max=IMAX).to(torch.int32)
+
+
+NEAR_PIECE = 1 << 16    # least (live slot, staged particle) pairs of one
+                        # work item of sidm_near's kernel
+
+
 MAX_GROW = 5    # cap doublings of the walk's caps in sized_segments
 
 
@@ -425,12 +486,18 @@ def sidm_near(keys, nn, rows, gt, gv, gh, gdt, gty, gidx, salt: int, time,
     (ng, G) radius (0: not gated) and dt_h0; gty, gidx (ng, G) int32 type
     and sorted id (-9, -1 on dead slots); box > 0: minimum-image distances.
     Returns (ng, G) (ptot, ncnt, bestk, bestj); a slot with no partner
-    keeps (0, 0, -inf, -1)."""
+    keeps (0, 0, -inf, -1). On a CUDA tensor the kernel
+    (``csrc/sidm_near.cu``) gives threads to the live slots only and runs
+    one block per work item (``csrc/work_items.cuh``: the groups cut by
+    their (live slot, staged particle) pairs, ``near_pairs``, into items
+    of at least NEAR_PIECE pairs, each an even share of its group's keys),
+    whose partials it adds in item order."""
     if not keys.is_cuda:
         return sidm_near_plain(keys, nn, rows, gt, gv, gh, gdt, gty, gidx,
                                salt, time, sigma_co, params, box)
     from .._build import check_cuda, kernels_lib, launch_args
     from .list_range import _gated_consts
+    from .work_items import item_buffers
     ng, L = keys.shape
     n = rows.shape[0]
     check_cuda("sidm_near", keys=(keys, torch.int32, (ng, L)),
@@ -450,10 +517,13 @@ def sidm_near(keys, nn, rows, gt, gv, gh, gdt, gty, gidx, salt: int, time,
     if ng == 0:
         return ptot, ncnt, bestk, bestj
     sco, vc, vs, pl = _gated_consts(time, sigma_co, params)
+    icap, ws, part = item_buffers(ng, dev, near=False)
+    w = torch.empty(ng, dtype=torch.int32, device=dev)
     err = kernels_lib().sidm_near_launch(*launch_args(
         keys, nn, ng, L, rows, n, gt, gv, gh, gdt, gty, gidx,
         int(salt) & 0xFFFFFFFF, int(params.cross_section_type), sco, vc, vs,
-        pl, float(box), ptot, ncnt, bestk, bestj))
+        pl, float(box), NEAR_PIECE, icap, w, ws, part, ptot, ncnt, bestk,
+        bestj))
     if err:
         raise RuntimeError(f"sidm_near kernel launch failed: CUDA error "
                            f"{err}")

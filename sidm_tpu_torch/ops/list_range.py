@@ -43,8 +43,8 @@ import torch
 from ..kernels import sph_kernel
 from ..sidm_common import sigma_v_product
 from .fused_force import G, IMAX, FusedConfig, make_windows, min_image
-from .fused_range import (group_targets, range_levels, range_segments,
-                          segment_particles)
+from .fused_range import (group_order, group_targets, range_levels,
+                          range_segments, segment_particles)
 from .sidm import SidmParams
 from .sidm_tree import (h_eff_of, pair_gumbel, sidm_rows, tree_sidm_finish,
                         tree_sidm_prep)
@@ -151,7 +151,9 @@ def sidm_emit(keys, nn, src, gt, gr, gty, gidx, n: int, K: int = 0,
     ncand, ncand (n,), needk (n,) uncapped demand), rows of particles in
     no valid slot empty; in ``count_mode`` (the hsml init's count,
     ``fused_range.py:179-183``) the (n,) count of non-pending sources with
-    sqrt(r^2) < gr instead. ``box`` > 0: minimum-image distances."""
+    sqrt(r^2) < gr instead. ``box`` > 0: minimum-image distances. On a
+    CUDA tensor the kernel (``csrc/sidm_emit.cu``) takes the groups in
+    ``group_order``."""
     if not keys.is_cuda:
         return sidm_emit_plain(keys, nn, src, gt, gr, gty, gidx, n, K,
                                count_mode, box)
@@ -171,8 +173,9 @@ def sidm_emit(keys, nn, src, gt, gr, gty, gidx, n: int, K: int = 0,
     else:
         cand = torch.full((n, K), IMAX, **i32)
         needk = torch.zeros(n, **i32)
+    order = group_order(keys, nn)
     err = kernels_lib().sidm_emit_launch(*launch_args(
-        keys, nn, ng, LR, src, n, gt, gr, gty, gidx, int(K),
+        order, keys, nn, ng, LR, src, n, gt, gr, gty, gidx, int(K),
         int(count_mode), float(box), cand, ncand, needk))
     if err:
         raise RuntimeError(f"sidm_emit kernel launch failed: CUDA error "

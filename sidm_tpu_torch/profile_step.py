@@ -58,7 +58,7 @@ import torch
 
 KERNELS = ("far_level_kernel", "far_list_kernel", "near_level_kernel",
            "gather_kernel", "node_rows_kernel", "sidm_emit_kernel",
-           "sidm_gated_kernel", "sidm_near_kernel")
+           "cover_count", "sidm_gated_kernel", "sidm_near_kernel")
 
 
 def _device_us(evt) -> float:
@@ -83,7 +83,7 @@ def _cuda_ms(fn, reps: int) -> float:
 # the device kernels of one far_level call, and of one far_list call (its
 # work-item split, pass and item sums)
 FAR_LEVEL_KERNELS = ("far_level_kernel",)
-FAR_LIST_KERNELS = ("far_list_kernel", "items_plan", "items_sum")
+FAR_LIST_KERNELS = ("far_list_kernel", "items_plan", "items_fold")
 
 
 def device_ms(fn, reps: int, names) -> float:
