@@ -61,12 +61,21 @@ Phases (each asserts; any failure exits non-zero):
      the K ceiling (sidm_trunc_frac printed), no gated or tail drops, no
      force-list or walk overflow, finite state, |dE/E| < 1e-3, every
      step's kicks conserving momentum (|sum m dv| <= 1e-5 sum m |dv|), and
-     launches of the range walk (far_level range mode), the candidate
-     emission and its count mode (sidm_emit), the gated tile (sidm_gated),
-     far_level (record), far_list, near_level and gather_nodes; then, on
-     the run's end state, the range walk of a record and of a prepare pass
-     against its plain version on every level, all groups, bit-equal
-     (timed per walk); the groups' staged-particle totals (segment_totals,
+     launches of the range walk (range_segments, one launch a walk), the
+     candidate emission and its count mode (sidm_emit), the gated tile
+     (sidm_gated), far_level (record), far_list, near_level and
+     gather_nodes; then, on the run's end state, the range walk of a
+     record and of a prepare pass in one launch against the plain walk
+     (range_walk_plain, level by level), all groups: keys with their IMAX
+     tails, counts, ovf, need, telemetry and drops bit-equal, one
+     far_level.range_launches a walk, the live frontier widths per level
+     printed, timed per walk (the walk kernel's and the call's device
+     time, the call by CUDA events, beside the parent design's times and
+     the bound); the same equality for the record's walk with the caps cut
+     small (open_cap, big_cap, big_chunks, seg_cap and lvl_cap in one walk,
+     the frontier width w_max in another: each path drops) and with every
+     frontier id through the global scratch row (shared_ids 0); the
+     groups' staged-particle totals (segment_totals,
      the emission's longest-first order and the segment pass's weights)
      bit-equal on a record's and a prepare pass's lists; the emission and its count mode bit-equal to
      the plain version (every row) on a subset of groups with the 8
@@ -74,22 +83,25 @@ Phases (each asserts; any failure exits non-zero):
      on all groups beside the parent design's time, the bound (of the
      pairs in the batches each target may reach) and ptxas's registers;
      the gated tile on the next step's targets: counts equal, P_tot p99.9
-     relative error < 1e-5, partners equal except at near-ties (counted);
+     relative error < 1e-5, partners equal except at near-ties (counted),
+     timed as one call (its fill included) with its device time split
+     between the fill and the tile, beside the parent design's;
  10. flagship-dsmc-walk (bench.py's SIDM settings on the walk,
      flagship_config(**DSMC_WALK)) through Simulation: prepare,
      compute_potential, 4 steps, compute_potential: scatters > 0, no walk
      or segment drop of the DSMC range walk, no force walk overflow,
      |dE/E| < 1e-3, every step's kicks conserving momentum, launches of
-     the range walk (far_level range mode) and the segment pass
-     (sidm_near, K4) beside the force walk's kernels; on its end state K4
+     the range walk and the segment pass (sidm_near, K4) beside the force
+     walk's kernels; on its end state the next step's range walk against
+     the plain walk (as in phase 9, timed), and K4
      against sidm_near_plain on a subset of the next step's gated groups
      with the 8 longest among them and two groups made from the longest,
      one with a single live slot and one with all 64 live (counts equal,
      P_tot p99.9 < 1e-5, partners equal except at near-ties), timed on all
      groups with its bound, the parent design's time, the staged particles
      and live slots per group, its work items, and ptxas's registers. Then a periodic
-     uniform box at N = 1e5 (the rate harness's): the range walk's range
-     mode (every level, all groups) and the emission (and its count mode)
+     uniform box at N = 1e5 (the rate harness's): the range walk (one
+     launch, all groups, timed) and the emission (and its count mode)
      bit-equal to their plain versions with the box, the gated tile and
      K4 at phase 9's bars, one pass of each DSMC engine on the same inputs
      (equal neighbour counts, partners equal except at near-ties), and a
@@ -106,12 +118,12 @@ Phases (each asserts; any failure exits non-zero):
      energy rows of 24 finite columns with |dE/E| < 1e-3, the info, CPU and
      timings logs one entry per step, the scatter log's records as many as
      the steps' scatters with valid ids, the restart file bit-equal to the
-     state written, and launches of far_level (walk, record and range
-     modes), near_level, far_list, gather_nodes, sidm_emit (and its count
-     mode) and sidm_gated; then ``python -m sidm_tpu_torch <param> 1`` with
-     a ``stop`` file: exit 0 after one step, its restart at step 7, its
-     logs appended, the next snapshot and ``sct_`` numbers taken; it
-     prints particle-steps/s over the 6 steps and the walls of the IC
+     state written, and launches of far_level (walk and record modes), the
+     range walk, near_level, far_list, gather_nodes, sidm_emit (and its
+     count mode) and sidm_gated; then ``python -m sidm_tpu_torch <param>
+     1`` with a ``stop`` file: exit 0 after one step, its restart at step
+     7, its logs appended, the next snapshot and ``sct_`` numbers taken;
+     it prints particle-steps/s over the 6 steps and the walls of the IC
      write, prepare, energy_statistics, the snapshot, the restart write and
      the resumed process.
 Before the last line it prints one JSON object with the per-kernel results
@@ -159,6 +171,17 @@ LONGEST = 8            # the longest groups added to each DSMC kernel's
 PARENT_MS = {"sidm_emit": 4.834, "sidm_emit_count": 4.995,
              "sidm_near": 9.9736, "sidm_emit_box": 0.997,
              "sidm_near_box": 0.1875}
+# the range walk's and the gated tile's parent designs (far_level's range
+# mode, one launch a level; the tile after four (n,) fills, a warp a target
+# slot) as this script printed them on the tree before their redesign, in
+# PR 8's run (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), printed
+# beside the kernel lines' own times (not in the kernels JSON line). Range
+# walk: (device ms of its far_level launches, their calls' ms, None where
+# that run's line is not kept); gated tile: ms of one call, fills included.
+# That script did not time the DSMC walk's range walk.
+PARENT_RANGE = {"record": (0.506, 1.281), "prepare pass": (0.492, None),
+                "rate box": (0.061, None)}
+PARENT_GATED = {"dsmc": 0.109, "rate box": 0.0790}
 USAGE = {}             # kernel -> ptxas's registers, shared memory, spills
 
 
@@ -219,6 +242,56 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def loaded_ms(fn, reps: int):
+    """Device ms per call over ``reps`` calls of fn, by CUDA events around
+    the calls while the device is held busy (``torch.cuda._sleep``) until
+    the host has queued them all, so that no host time falls between the
+    events. None if the device was no longer busy by then (fn waits for the
+    device)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    # ~2e6 clock cycles a millisecond: twice the calls' host time and 5 ms
+    torch.cuda._sleep(int(2e6 * (2 * reps * host_ms + 5)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    queued = not a.query()
+    b.synchronize()
+    return a.elapsed_time(b) / reps if queued else None
+
+
+def device_time(fn, reps: int, names, whole: bool):
+    """Device ms per call of the kernels named ``names``
+    (``profile_step.device_ms``), profiled again (three tries) when
+    torch.profiler saw no device event of them (it sometimes reports none).
+    If it never does: where those kernels are all the call's device work
+    (``whole``), the call's device time by ``loaded_ms``, else None; a
+    phase fails if neither can time it. Returns (ms or None, how)."""
+    from sidm_tpu_torch.profile_step import device_ms
+    for _ in range(3):
+        ms = device_ms(fn, reps, names)
+        if ms > 0:
+            return ms, "torch.profiler"
+    ms = loaded_ms(fn, reps) if whole else None
+    how = ("CUDA events on a loaded device (torch.profiler saw no device "
+           "event)" if ms is not None else
+           "not measured (torch.profiler saw no device event)")
+    print(f"  ({names}: {how})", flush=True)
+    assert ms is not None or not whole, (names, how)
+    return ms, how
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def rel_err(a, b, valid):
     """Per-target |a-b|/|b| of [ax ay az] and |pot_a-pot_b|/|pot_b|."""
     va, vb = a[..., :3][valid], b[..., :3][valid]
@@ -238,6 +311,10 @@ class Results:
 
     def __init__(self):
         self.rows = {}
+        self.notes = {}     # name -> the device times not by torch.profiler
+
+    def note(self, name, label, how):
+        self.notes.setdefault(name, []).append(f"{label}: {how}")
 
     def add(self, name, max_abs, ms, plain_ms, ops, nbytes, library_ms=None):
         r = self.rows.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
@@ -278,8 +355,7 @@ class FarLevelCheck:
 
     def __init__(self, card, stress=False):
         self.card, self.stress = card, stress
-        self.t = {m: dict(levels=0) for m in ("walk", "record", "far_list",
-                                              "range", "range_prep")}
+        self.t = {m: dict(levels=0) for m in ("walk", "record", "far_list")}
         self.err, self.max_abs = 0.0, 0.0   # the walk's far field vs plain
         self.worst = None                   # (level, which, its far_list kw)
         self.far_total = 0.0                # the plain far field, all levels
@@ -303,9 +379,7 @@ class FarLevelCheck:
                        ("dense_bytes", dense[1])):
             t[key] = t.get(key, 0.0) + v
         name = {"walk": "far_level (walk)", "record": "far_level (record)",
-                "far_list": "far_list (walk far field)",
-                "range": "far_level (range, record)",
-                "range_prep": "far_level (range, prepare pass)"}[mode]
+                "far_list": "far_list (walk far field)"}[mode]
         print(f"  {name} level {level}: width {width}, device {ms:.3f} ms, "
               f"call {call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{bound_ms(*work)[0]:.4f} ms"
@@ -440,7 +514,7 @@ class FarLevelCheck:
                    max_open=[int(x) for x in info["max_open"]])
         assert got == self.info, (got, self.info)
 
-    def record_level(self, level, kw, mode="record"):
+    def record_level(self, level, kw):
         from sidm_tpu_torch.bounds import far_level_dense_work, far_level_work
         from sidm_tpu_torch.ops.far_kernel import (ListBuf, far_level,
                                                    far_level_plain)
@@ -449,7 +523,7 @@ class FarLevelCheck:
         k = far_level(**dict(kw, lists=bufs[0]))
         p = far_level_plain(**dict(kw, lists=bufs[1]))
         assert all(torch.equal(a, b) for a, b in zip(*bufs)), \
-            ("far_level", mode, level)
+            ("far_level", "record", level)
         self._same(k, p)
         if self.stress:
             return
@@ -465,40 +539,25 @@ class FarLevelCheck:
         def timed(fn, b, reps):
             return (cuda_ms(lambda: (restore(b), fn(**dict(kw, lists=b))),
                             reps) - cuda_ms(lambda: restore(b), reps))
-        self._time(mode, level, kw["fids"].shape[1],
+        self._time("record", level, kw["fids"].shape[1],
                    device_ms(lambda: (restore(bufs[0]),
                                       far_level(**dict(kw, lists=bufs[0]))),
                              5, FAR_LEVEL_KERNELS),
                    timed(far_level, bufs[0], 5),
                    timed(far_level_plain, bufs[1], 1),
-                   far_level_work(kw, p.cnt),
-                   (0.0, 0.0) if kw.get("range_walk")
-                   else far_level_dense_work(kw))
-
-    def range_level(self, level, kw):
-        self.record_level(level, kw, "range")
-
-    def range_prep_level(self, level, kw):
-        self.record_level(level, kw, "range_prep")
+                   far_level_work(kw, p.cnt), far_level_dense_work(kw))
 
     def report(self, mode, res):
         from sidm_tpu_torch.bounds import bound_ms
         t = self.t[mode]
         bms, by = bound_ms(t["ops"], t["bytes"])
-        walk = {"record": "record walk", "range": "range walk of a record",
-                "range_prep": "range walk of a prepare pass"}.get(mode,
-                                                                  "walk")
+        walk = {"record": "record walk"}.get(mode, "walk")
         name = {"walk": "far_level", "record": "far_level_record",
-                "far_list": "far_list", "range": "far_level_range",
-                "range_prep": "far_level_range"}[mode]
+                "far_list": "far_list"}[mode]
         what = {"walk": "outputs, counts and info equal to the plain "
                         "version's",
                 "record": "outputs, counts, lists and telemetry equal to "
                           "the plain version's",
-                "range": "lists, counts and telemetry equal to the plain "
-                         "version's",
-                "range_prep": "lists, counts and telemetry equal to the "
-                              "plain version's",
                 "far_list": f"the walk's far field, p99.9 err "
                             f"{self.err:.3e} (largest of acc, acc with pot, "
                             f"pot), max abs {self.max_abs:.3e}"}[mode]
@@ -511,12 +570,6 @@ class FarLevelCheck:
               f"included), plain {t['plain_ms']:.3f} ms, bound {bms:.3f} ms "
               f"({by}), at {bms / t['ms']:.1%} of the bound's speed{dense} "
               f"[{self.card}]", flush=True)
-        if mode == "range_prep":
-            res.add(name, 0.0, 0.0, 0.0, 0.0, 0.0)
-            res.rows[name].update(prepare_pass_ms=t["ms"],
-                                  prepare_pass_bound_ms=bms,
-                                  prepare_pass_plain_ms=t["plain_ms"])
-            return
         if mode == "far_list":
             res.add(name, self.max_abs, 0.0, 0.0, 0.0, 0.0)
             res.rows[name].update(walk_ms=t["ms"], walk_bound_ms=bms,
@@ -765,7 +818,7 @@ def main():
     # ---- main path: the list-mode Simulation on the card --------------------
     counters = {"far_level": (far_level, "launches"),
                 "far_level_record": (far_level, "record_launches"),
-                "far_level_range": (far_level, "range_launches"),
+                "range_walk": (far_level, "range_launches"),
                 "sidm_emit": (sidm_emit, "launches"),
                 "sidm_emit_count": (sidm_emit, "count_launches"),
                 "sidm_gated": (sidm_gated, "launches"),
@@ -1006,7 +1059,7 @@ def main():
     zero_counts()
     dsim, dsmc_times = dsmc_path(pos, vel, mass, n, dev, card)
     launches = read_counts()
-    for key in ("far_level_range", "sidm_emit", "sidm_emit_count",
+    for key in ("range_walk", "sidm_emit", "sidm_emit_count",
                 "segment_totals", "sidm_gated", "far_level_record",
                 "far_list", "near_level", "gather_nodes"):
         assert launches[key] > 0, (key, launches)
@@ -1017,7 +1070,7 @@ def main():
     zero_counts()
     wdsim = dsmc_walk_path(pos, vel, mass, n, dev, card)
     walk_dsmc_launches = read_counts()
-    for key in ("far_level", "far_level_range", "sidm_near",
+    for key in ("far_level", "range_walk", "sidm_near",
                 "sidm_emit_count", "segment_totals", "far_list",
                 "near_level"):
         assert walk_dsmc_launches[key] > 0, (key, walk_dsmc_launches)
@@ -1049,8 +1102,8 @@ def main():
                          "scripts/pallas_gather_probe.py:40"),
         # the DSMC kernels have no TPU original: the JAX package's plain
         # XLA functions they port
-        "far_level_range": ("sidm_tpu_torch/csrc/far_kernel.cu",
-                            "sidm_tpu/ops/list_range.py:94"),
+        "range_walk": ("sidm_tpu_torch/csrc/range_walk.cu",
+                       "sidm_tpu/ops/list_range.py:94"),
         "sidm_emit": ("sidm_tpu_torch/csrc/sidm_emit.cu",
                       "sidm_tpu/ops/list_range.py:205"),
         "sidm_emit_count": ("sidm_tpu_torch/csrc/sidm_emit.cu",
@@ -1080,7 +1133,9 @@ def main():
             "library_ms": r["library_ms"],
             **{k: v for k, v in r.items() if k not in (
                 "max_abs_err", "ms", "plain_ms", "ops", "bytes",
-                "library_ms")}})
+                "library_ms")},
+            **({"device_time_notes": res.notes[name]}
+               if name in res.notes else {})})
     print(json.dumps({"kernels": kernels_json}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1222,6 +1277,102 @@ def near_stress(res, lists, btree, gt, te, card):
                  "self and coincident pairs", card)
 
 
+def frontier_widths(widths) -> str:
+    """Per level of a range walk: the live frontier width's max, p99,
+    median and mean over the groups, and the groups wider than the
+    kernel's shared buffer (``fused_range.RANGE_SHARED_IDS``)."""
+    from sidm_tpu_torch.ops.fused_range import RANGE_SHARED_IDS
+    out = []
+    for l, w in widths:
+        q = torch.quantile(w, torch.tensor([0.5, 0.99], device=w.device))
+        out.append(f"L{l} {int(w.max())}/{float(q[1]):.0f}/"
+                   f"{float(q[0]):.0f}/{float(w.mean()):.1f}/"
+                   f"{int(torch.sum(w > RANGE_SHARED_IDS))}")
+    return " ".join(out)
+
+
+def every_drop(label, stat, drops, paths):
+    """The walk's drops on each of ``paths`` (of "open", "big_over",
+    "big_drop", "seg_cap", "lvl_cap") counted and > 0."""
+    from sidm_tpu_torch.ops.far_kernel import S_OVF_L, S_OVF_N
+    got = {k: int(v) for k, v in drops.items()}
+    got["seg_cap"] = int(stat[S_OVF_N].sum())
+    got["lvl_cap"] = (int(stat[S_OVF_L].sum()) - got["open"]
+                      - got["big_over"])
+    assert all(got[k] > 0 for k in paths), (label, got)
+    return got
+
+
+def range_walk_check(res, card, kw, label, parent=None, **kernel_kw):
+    """The one-launch range walk (``range_segments`` on the card, with
+    ``kernel_kw``) against the plain walk (``range_walk_plain``) on the
+    same inputs ``kw`` (range_segments' arguments): keys with their IMAX
+    tails, counts, ovf, need, telemetry and the drops bit-equal, and one
+    ``far_level.range_launches``; the live frontier widths per level
+    printed. Timed: the walk kernel's device time and all the call's
+    kernels' (torch.profiler), the call by CUDA events, the plain walk;
+    with its bound and the parent design's (device, call) times
+    ``parent``. Returns (times, the kernel's outputs, its drops)."""
+    from sidm_tpu_torch.bounds import (bound_ms, range_level_rows,
+                                       range_walk_work)
+    from sidm_tpu_torch.ops.far_kernel import far_level
+    from sidm_tpu_torch.ops.fused_range import (range_segments,
+                                                range_walk_plain)
+    levels, widths = [], []
+
+    def observe(l, lk):
+        levels.append(range_level_rows(lk))
+        widths.append((l, torch.clamp(lk["n_live"], max=lk["fids"].shape[1])
+                       .float()))
+    dp, dk = {}, {}
+    ref = range_walk_plain(**kw, drops=dp, on_level=observe)
+    n0 = far_level.range_launches
+    got = range_segments(**kw, drops=dk, **kernel_kw)
+    assert far_level.range_launches == n0 + 1, (label, "one launch a walk")
+    for name, a, b in zip(("keys", "nn", "ovf", "need", "stat"), got, ref):
+        assert a.shape == b.shape and torch.equal(a, b), (label, name)
+    dks = {k: int(v) for k, v in dk.items()}
+    assert dks == {k: int(v) for k, v in dp.items()}, (label, dks, dp)
+    ng = kw["glo"].shape[0]
+    cfg = kw.get("cfg")
+    print(f"range walk ({label}; {ng} groups, seg_cap {kw['seg_cap']}, "
+          f"lvl_cap {kw.get('lvl_cap')}, caps "
+          f"{tuple(cfg) if cfg else 'default'}"
+          + "".join(f", {k} {v}" for k, v in kernel_kw.items())
+          + f"): keys, counts, ovf {int(ref[2])}, need {int(ref[3])}, "
+          f"telemetry and "
+          f"drops {dks} bit-equal to the plain walk; live frontier widths "
+          f"per level (max/p99/median/mean/groups past the shared buffer): "
+          f"{frontier_widths(widths)} [{card}]", flush=True)
+    run = lambda: range_segments(**kw, **kernel_kw)    # noqa: E731
+    # the walk kernel is the call's only kernel (a memset of its 5 totals
+    # beside it)
+    t = dict(zip(("ms", "ms_by"), device_time(run, 5, ("range_walk_kernel",),
+                                              whole=True)),
+             all_ms=device_time(run, 5, ("",), whole=True)[0],
+             call_ms=cuda_ms(run, 10),
+             plain_ms=cuda_ms(lambda: range_walk_plain(**kw), 1))
+    t["ops"], t["bytes"] = range_walk_work(levels, ng, kw["seg_cap"])
+    t["bound_ms"], by = bound_ms(t["ops"], t["bytes"])
+    par = "" if parent is None else (
+        f" (parent design, this script on the tree before the redesign, "
+        f"PR 8's run: its far_level launches {parent[0]:.3f} ms of device "
+        f"time" + ("" if parent[1] is None else
+                   f", their calls {parent[1]:.3f} ms") + ")")
+    print(f"kernel range_walk ({label}, one launch, {len(levels)} levels): "
+          f"device {t['ms']:.4f} ms ({t['ms_by']}), all the call's kernels "
+          f"{t['all_ms']:.4f} ms, call {t['call_ms']:.4f} ms by CUDA "
+          f"events{par}; plain {t['plain_ms']:.3f} ms; bound "
+          f"{t['bound_ms']:.4f} ms ({by}: {sum(c for c, _ in levels)} "
+          f"classified cells, {sum(d for _, d in levels)} distinct rows, "
+          f"({ng}, {kw['seg_cap']}) keys), at {t['bound_ms'] / t['ms']:.1%} "
+          f"of the bound's speed; ptxas {usage_of('range_walk_kernel')} "
+          f"[{card}]", flush=True)
+    if t["ms_by"] != "torch.profiler":
+        res.note("range_walk", label, t["ms_by"])
+    return t, got, dks
+
+
 def dsmc_path(pos, vel, mass, n, dev, card):
     """flagship-dsmc through Simulation: prepare, compute_potential, STEPS
     steps, compute_potential, with the asserts of phase 9. Returns the
@@ -1313,9 +1464,10 @@ def dsmc_kernels(res, sim, dev, card):
     groups at the run's K and at EMIT_TINY_K (bit-equal; the kernel timed
     on all groups), the gated tile on the next step's targets."""
     from sidm_tpu_torch import integrate
-    from sidm_tpu_torch.bounds import (bound_ms, emit_work, gated_work,
+    from sidm_tpu_torch.bounds import (bound_ms, emit_work,
                                        segment_totals_work)
-    from sidm_tpu_torch.ops.fused_force import default_depth, make_windows
+    from sidm_tpu_torch.ops.fused_force import (FusedConfig, default_depth,
+                                                make_windows)
     from sidm_tpu_torch.ops.fused_range import (group_targets,
                                                 range_levels,
                                                 range_segments,
@@ -1335,14 +1487,42 @@ def dsmc_kernels(res, sim, dev, card):
     eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
     tree = build_octree(p.pos, mass, eps, p.valid,
                         depth=default_depth(n))
-    fl = FarLevelCheck(card)
-    captured = {}
+    captured, walks = {}, []
     cands = record_candidates_from_particles(
         p, p.pos, tree, skin=sim._skin_now, params=params,
-        rcfg=sim._sidm_rcfg, on_level=fl.range_level,
+        rcfg=sim._sidm_rcfg, on_walk=walks.append,
         on_emit=lambda kw: captured.update(kw))
     torch.cuda.synchronize()
-    fl.report("range", res)
+    t, _, _ = range_walk_check(res, card, walks[0], "a record",
+                               PARENT_RANGE["record"])
+    res.add("range_walk", 0.0, t["ms"], t["plain_ms"], t["ops"], t["bytes"])
+    res.rows["range_walk"].update(
+        call_ms=t["call_ms"], all_kernels_ms=t["all_ms"],
+        ptxas=usage_of("range_walk_kernel"))
+    # the caps cut small: every drop path in one walk, on a tree of the
+    # same particles 3 levels shallower (the core's deepest cells overfull
+    # there), and the frontier width alone in another (it counts as "open",
+    # as open_cap does); and every frontier id through the global scratch
+    # row
+    rkw, shallow, d_small = walks[0], [], max(tree.depth - 3, 6)
+    record_candidates_from_particles(
+        p, p.pos, build_octree(p.pos, mass, eps, p.valid, depth=d_small),
+        skin=sim._skin_now, params=params, rcfg=sim._sidm_rcfg,
+        on_walk=shallow.append)
+    for label, kw_small, paths in (
+            (f"depth {d_small}, open_cap 16, big_cap 2, big_chunks 2, "
+             "seg_cap 128, lvl_cap 64", dict(shallow[0], cfg=FusedConfig(
+                 open_cap=16, big_cap=2, big_chunks=2), seg_cap=128,
+                 lvl_cap=64),
+             ("open", "big_over", "big_drop", "seg_cap", "lvl_cap")),
+            ("w_max 128", dict(rkw, cfg=FusedConfig(w_max=128)), ("open",))):
+        _, got, dks = range_walk_check(res, card, kw_small,
+                                       f"a record's, caps {label}")
+        print(f"  drops by path: {every_drop(label, got[4], dks, paths)}",
+              flush=True)
+    t, _, _ = range_walk_check(res, card, rkw, "a record, shared_ids 0",
+                               shared_ids=0)
+    res.rows["range_walk"].update(global_frontier_ms=t["ms"])
     # a prepare pass: pad = the largest h of the group, no skin
     col = p.is_collisionless & p.valid
     h_s = torch.where(col, p.hsml_vd, torch.zeros_like(p.hsml_vd))[tree.perm]
@@ -1353,12 +1533,15 @@ def dsmc_kernels(res, sim, dev, card):
                                                      typ)
     rlev = range_levels(tree)
     need = int(range_segments(tree, rlev, glo, ghi, pad, seg_cap=1024)[3])
-    keys, nn, _, _, stat = range_segments(
-        tree, rlev, glo, ghi, pad, seg_cap=-(-need // 1024) * 1024,
-        on_level=fl.range_prep_level)
+    t, (keys, nn, _, _, stat), _ = range_walk_check(
+        res, card, dict(tree=tree, rlev=rlev, glo=glo, ghi=ghi, pad=pad,
+                        seg_cap=-(-need // 1024) * 1024),
+        "a prepare pass", PARENT_RANGE["prepare pass"])
     assert int(stat[4].sum()) == 0, "prepare pass segment drops"
-    torch.cuda.synchronize()
-    fl.report("range_prep", res)
+    res.rows["range_walk"].update(
+        prepare_pass_ms=t["ms"], prepare_pass_call_ms=t["call_ms"],
+        prepare_pass_bound_ms=t["bound_ms"],
+        prepare_pass_plain_ms=t["plain_ms"])
 
     # the groups' staged particles (the DSMC kernels' schedule), kernel vs
     # plain on a record's and a prepare pass's segment lists
@@ -1484,20 +1667,56 @@ def dsmc_kernels(res, sim, dev, card):
                    * torch.clamp(torch.abs(pk), min=1.0))
     n_diff, n_tie = int(diff.sum()), int(near.sum())
     max_abs = float(torch.max(torch.abs(k[0] - pl[0])[sel]))
-    ms = cuda_ms(lambda: sidm_gated(*gargs), 10)
-    plain_ms = cuda_ms(lambda: sidm_gated_plain(*gargs), 2)
-    ops, nb = gated_work(tid, cands.ncand, k[1], cands.cand)
-    bms, by = bound_ms(ops, nb)
+    t = gated_times(res, "the next step", gargs, tid, cands, k[1])
     print(f"kernel sidm_gated (the next step's {sel.numel()} gated targets, "
-          f"drops {drops}): counts equal, P_tot p99.9 rel err {p999:.3e}, "
-          f"max abs {max_abs:.3e}, partners differing {n_diff} (near-ties "
-          f"{n_tie}) of {int(torch.sum(pl[3][sel] >= 0))}; kernel {ms:.3f} "
-          f"ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), at "
-          f"{bms / ms:.1%} of the bound's speed [{card}]", flush=True)
+          f"drops {drops}; candidates per target {ncand_line(cands, sel)}): "
+          f"counts equal, P_tot p99.9 rel err {p999:.3e}, max abs "
+          f"{max_abs:.3e}, partners differing {n_diff} (near-ties "
+          f"{n_tie}) of {int(torch.sum(pl[3][sel] >= 0))}; "
+          f"{gated_line(t, PARENT_GATED['dsmc'])} [{card}]", flush=True)
     assert p999 < 1e-5 and n_diff == n_tie, (p999, n_diff, n_tie)
-    res.add("sidm_gated", max_abs, ms, plain_ms, ops, nb)
-    res.rows["sidm_gated"].update(partner_near_ties=n_tie,
-                                  p999_rel_err=p999)
+    res.add("sidm_gated", max_abs, t["ms"], t["plain_ms"], t["ops"],
+            t["bytes"])
+    res.rows["sidm_gated"].update(
+        partner_near_ties=n_tie, p999_rel_err=p999, fill_ms=t["fill_ms"],
+        tile_ms=t["tile_ms"], ptxas=usage_of("sidm_gated"))
+
+
+def gated_times(res, label, gargs, tid, cands, cnt):
+    """K3 timed as one call, the fill included (CUDA events), its device
+    time split between the fill and the tile (torch.profiler; None where
+    it saw neither, noted in ``res``), the plain version and the bound."""
+    from sidm_tpu_torch.bounds import bound_ms, gated_work
+    from sidm_tpu_torch.ops.list_range import sidm_gated, sidm_gated_plain
+    run = lambda: sidm_gated(*gargs)    # noqa: E731
+    (fill, fill_by), (tile, tile_by) = (
+        device_time(run, 10, (k,), whole=False)
+        for k in ("sidm_gated_fill", "sidm_gated_kernel"))
+    for part, how in (("fill", fill_by), ("tile", tile_by)):
+        if how != "torch.profiler":
+            res.note("sidm_gated", f"{label}, {part}", how)
+    t = dict(ms=cuda_ms(run, 10), fill_ms=fill, tile_ms=tile,
+             plain_ms=cuda_ms(lambda: sidm_gated_plain(*gargs), 2))
+    t["ops"], t["bytes"] = gated_work(tid, cands.ncand, cnt, cands.cand)
+    t["bound_ms"], t["by"] = bound_ms(t["ops"], t["bytes"])
+    return t
+
+
+def gated_line(t, parent):
+    return (f"one call {t['ms']:.4f} ms by CUDA events (device: fill "
+            f"{fmt_ms(t['fill_ms'])}, tile {fmt_ms(t['tile_ms'])}; parent "
+            f"design, this script on the tree before the redesign, PR 8's "
+            f"run: one call {parent:.4f} ms), plain {t['plain_ms']:.3f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['by']}), at "
+            f"{t['bound_ms'] / t['ms']:.1%} of the bound's speed; ptxas "
+            f"{usage_of('sidm_gated')}")
+
+
+def ncand_line(cands, sel) -> str:
+    c = cands.ncand[sel].float()
+    q = torch.quantile(c, torch.tensor([0.1, 0.5, 0.9], device=c.device))
+    return (f"mean {float(c.mean()):.1f}, p10/p50/p90 "
+            f"{'/'.join(f'{float(x):.0f}' for x in q)}, max {int(c.max())}")
 
 
 def one_and_all_live(near, g):
@@ -1606,7 +1825,7 @@ def near_check(res, near, sub, card, label, box=False):
           f"[{card}]", flush=True)
     if box:
         res.add("sidm_near", max_abs, 0.0, 0.0, 0.0, 0.0)
-        box_row(res, "sidm_near", box_ms=ms, box_bound_ms=bms,
+        side_row(res, "sidm_near", box_ms=ms, box_bound_ms=bms,
                 box_plain_ms=plain_ms, box_subset_ms=sub_ms,
                 box_p999_rel_err=p999)
         return
@@ -1619,8 +1838,9 @@ def near_check(res, near, sub, card, label, box=False):
                                  ptxas=usage_of("sidm_near_kernel"), **work)
 
 
-def box_row(res, name, **times):
-    """A kernel's times on the periodic box, beside its main-path row."""
+def side_row(res, name, **times):
+    """A kernel's times on another input (the periodic box, another
+    walk), beside its main-path row."""
     res.add(name, 0.0, 0.0, 0.0, 0.0, 0.0)
     res.rows[name].update(**times)
 
@@ -1711,12 +1931,17 @@ def dsmc_walk_kernels(res, sim, dev, card):
     tree = build_octree(pos_pred, mass, eps, p.valid,
                         depth=default_depth(p.n_padded))
     vmax = torch.tensor(sim.vmax, dtype=pos_pred.dtype, device=dev)
-    near = {}
+    near, walks = {}, []
     sidm_scatter_fused(p, pos_pred, tree, t_next, active, vmax,
                        step_key(sim.root_key, sim.step_count),
                        sim._sidm_params(), cfg=sim._walk_fcfg,
                        salt=sim.step_count, seg_cap=sim._walk_seg_cap,
-                       on_near=near.update)
+                       on_walk=walks.append, on_near=near.update)
+    t, _, _ = range_walk_check(res, card, walks[-1],
+                               "flagship-dsmc-walk's next step")
+    side_row(res, "range_walk",
+            walk_step_ms=t["ms"], walk_step_call_ms=t["call_ms"],
+            walk_step_bound_ms=t["bound_ms"])
     ng = near["keys"].shape[0]
     near_check(res, near, subset(ng, SUBSET_GROUPS, dev), card,
                "flagship-dsmc-walk's next step")
@@ -1729,7 +1954,7 @@ def box_phase(res, dev, card):
     same inputs (equal counts, partners equal except at near-ties); the
     short rate check of both engines. Returns nothing; asserts."""
     from sidm_tpu_torch import validate_rate as vr
-    from sidm_tpu_torch.bounds import bound_ms, emit_work, gated_work
+    from sidm_tpu_torch.bounds import bound_ms, emit_work
     from sidm_tpu_torch.ops.fused_range import (segment_totals,
                                                 sidm_scatter_fused)
     from sidm_tpu_torch.ops.list_range import (
@@ -1748,23 +1973,17 @@ def box_phase(res, dev, card):
           f"{float(p0.ngb_vd[p0.valid].float().mean()):.2f} [{card}]",
           flush=True)
     params = vr.rate_params(0)
-    # K1 (range mode) and K2 with the box, each timed on all groups
-    fl = FarLevelCheck(card)
-    emit = {}
+    # K1 and K2 with the box, each timed on all groups
+    emit, walks = {}, []
     cands = record_candidates_from_particles(
         p0, p0.pos, tree, skin=0.0, params=params, box=box,
-        on_level=fl.range_level, on_emit=emit.update)
+        on_walk=walks.append, on_emit=emit.update)
     assert cands.ovf.tolist() == [0, 0], cands.ovf
-    t = fl.t["range"]
-    bms, by = bound_ms(t["ops"], t["bytes"])
-    print(f"kernel far_level range mode with the periodic box (the rate "
-          f"box's record, all groups, {t['levels']} levels): lists, counts "
-          f"and telemetry equal to the plain version's; device "
-          f"{t['ms']:.3f} ms per range walk, plain {t['plain_ms']:.3f} ms, "
-          f"bound {bms:.4f} ms ({by}), at {bms / t['ms']:.1%} of the "
-          f"bound's speed [{card}]", flush=True)
-    box_row(res, "far_level_range", box_ms=t["ms"], box_bound_ms=bms,
-            box_plain_ms=t["plain_ms"])
+    t, _, _ = range_walk_check(res, card, walks[0],
+                               "the rate box's record, periodic",
+                               PARENT_RANGE["rate box"])
+    side_row(res, "range_walk", box_ms=t["ms"], box_call_ms=t["call_ms"],
+            box_bound_ms=t["bound_ms"], box_plain_ms=t["plain_ms"])
     ng = emit["keys"].shape[0]
     sub = with_longest(subset(ng, EMIT_GROUPS, dev),
                        segment_totals(emit["keys"], emit["nn"]))
@@ -1793,7 +2012,7 @@ def box_phase(res, dev, card):
           f"({by}), at {bms / ms:.1%} of the bound's speed; plain on "
           f"{len(sub)} groups {plain_ms:.3f} ms; ptxas "
           f"{usage_of('sidm_emit_kernel')} [{card}]", flush=True)
-    box_row(res, "sidm_emit", box_ms=ms, box_bound_ms=bms,
+    side_row(res, "sidm_emit", box_ms=ms, box_bound_ms=bms,
             box_plain_ms=plain_ms)
     # one frozen pass of each engine: K3 and K4 vs plain, then the engines
     dt = vr.EVENT_FRACTION / vr.analytic_sigma_v(0, 1.0)
@@ -1829,11 +2048,10 @@ def box_phase(res, dev, card):
                <= 4 * torch.finfo(torch.float32).eps
                * torch.clamp(torch.abs(p3[2][sel]), min=1.0))
     assert q999(rel) < 1e-5 and int(d3.sum()) == int(t3.sum())
-    ms = cuda_ms(lambda: sidm_gated(*gargs), 10)
-    plain_ms = cuda_ms(lambda: sidm_gated_plain(*gargs), 2)
-    gbms, gby = bound_ms(*gated_work(tid, cands.ncand, k3[1], cands.cand))
-    box_row(res, "sidm_gated", box_ms=ms, box_bound_ms=gbms,
-            box_plain_ms=plain_ms)
+    gt3 = gated_times(res, "the rate box", gargs, tid, cands, k3[1])
+    side_row(res, "sidm_gated", box_ms=gt3["ms"], box_fill_ms=gt3["fill_ms"],
+            box_tile_ms=gt3["tile_ms"], box_bound_ms=gt3["bound_ms"],
+            box_plain_ms=gt3["plain_ms"])
     # the engines on the same pass: the same gated targets, pair sets and
     # keys
     gate = linfo["hs"] > 0
@@ -1844,11 +2062,11 @@ def box_phase(res, dev, card):
     tj = dj & (gap <= 4 * torch.finfo(torch.float32).eps
                * torch.clamp(torch.abs(linfo["bestk"][gate]), min=1.0))
     print(f"kernel sidm_gated with the periodic box ({sel.numel()} gated "
-          f"targets): counts equal, P_tot p99.9 rel err {q999(rel):.3e}, "
-          f"partners differing {int(d3.sum())} (near-ties "
-          f"{int(t3.sum())}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {gbms:.4f} ms ({gby}), at {gbms / ms:.1%} of the bound's "
-          f"speed; engines on one pass: walk {int(ns_w)} and "
+          f"targets; candidates per target {ncand_line(cands, sel)}): counts "
+          f"equal, P_tot p99.9 rel err {q999(rel):.3e}, partners differing "
+          f"{int(d3.sum())} (near-ties {int(t3.sum())}); "
+          f"{gated_line(gt3, PARENT_GATED['rate box'])}; engines on one "
+          f"pass: walk {int(ns_w)} and "
           f"lists {int(ns_l)} scatters, neighbour counts equal "
           f"{same_cnt} on {int(gate.sum())} gated targets, partners "
           f"differing {int(dj.sum())} (near-ties {int(tj.sum())}) [{card}]",
@@ -2009,7 +2227,7 @@ def cli_path(pos, vel, mass, n, dev, card, dsmc_times, zero_counts,
             (n_ev, scats)
         assert max(scats) <= 4096
         assert restart_equal and rv["step_count"] == CLI_STEPS
-        for key in ("far_level", "far_level_record", "far_level_range",
+        for key in ("far_level", "far_level_record", "range_walk",
                     "near_level", "far_list", "gather_nodes", "sidm_emit",
                     "sidm_emit_count", "segment_totals", "sidm_gated"):
             assert counts[key] > 0, (key, counts)

@@ -10,10 +10,11 @@ interface, loaded with ``ctypes``:
 
 ``<h>`` hashes the source's own flags, the source and every header, so an
 edited file builds anew and an unchanged one is reused. ``-fmad=false`` is
-given to ``far_kernel.cu``, ``sidm_emit.cu``, ``sidm_gated.cu`` and
-``sidm_near.cu``: it keeps every product and sum rounded as in the plain
-PyTorch version (beside explicit ``__fmul_rn``/``__fadd_rn``), so that the
-walk's classification, the candidate tests and the DSMC keys, and hence
+given to ``far_kernel.cu``, ``range_walk.cu``, ``sidm_emit.cu``,
+``sidm_gated.cu`` and ``sidm_near.cu``: it keeps every product and sum
+rounded as in the plain PyTorch version (beside explicit
+``__fmul_rn``/``__fadd_rn``), so that the walks' classifications, the
+candidate tests and the DSMC keys, and hence
 every emitted id, key and chosen partner, match the plain version's
 exactly.
 The other sources are built with FMA: the peak of 67 TFLOP/s that ``bounds.py``
@@ -42,16 +43,21 @@ _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 # source stem -> flags of its own, after _FLAGS
-_SOURCE_FLAGS = {"far_kernel": ["-fmad=false"], "sidm_emit": ["-fmad=false"],
-                 "sidm_gated": ["-fmad=false"], "sidm_near": ["-fmad=false"]}
+_SOURCE_FLAGS = {"far_kernel": ["-fmad=false"], "range_walk": ["-fmad=false"],
+                 "sidm_emit": ["-fmad=false"], "sidm_gated": ["-fmad=false"],
+                 "sidm_near": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)     # a host int array (``int_array``)
 # entry point -> (source stem, argument types)
 _SIGNATURES = {
     "far_level_launch": ("far_kernel", [
-        _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _F, _F, _I, _I,
-        _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]),
+        _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I,
+        _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]),
+    "range_walk_launch": ("range_walk", [
+        _P, _IP, _IP, _IP, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I,
+        _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "near_level_launch": ("near_kernel", [
         _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P]),
     "near_split_launch": ("near_kernel", [_P, _P, _I, _I, _P, _I, _P]),
@@ -151,9 +157,16 @@ def kernels_lib() -> _Kernels:
     return _lib
 
 
+def int_array(values):
+    """A host int32 array argument (``_IP``) holding ``values``."""
+    values = [int(v) for v in values]
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
 def launch_args(*args):
     """C arguments for an entry point: tensors by data pointer, Python
-    scalars as they are, and the current CUDA stream last."""
+    scalars and host arrays (``int_array``) as they are, and the current
+    CUDA stream last."""
     out = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     out.append(torch.cuda.current_stream().cuda_stream)
     return out

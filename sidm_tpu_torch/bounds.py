@@ -46,11 +46,14 @@ CLASS_ROW_BYTES = 36    # ... the fields classification reads: com, mass,
                         # count, node_start, child_start, child_count, bmax^2
 NODE_IN_BYTES = 44      # gather_nodes: com, mass, quadrupole, eps_max
 PART_BYTES = 20         # one particle's pos, mass, eps
-# the range mode of far_level: per node the range test (3 x (2 differences,
-# 2 max, 1 difference), d^2 5, compare, count > 0, leaf) on the range row's
-# centre, count, node_start, child_start, child_count
+# the range walk (csrc/range_walk.cu): per classified cell the range test
+# (3 x (2 differences, 2 max, 1 difference), d^2 5, compare, count > 0,
+# leaf) on the range row's centre, count, node_start, child_start,
+# child_count
 RANGE_OPS = 23
 RANGE_ROW_BYTES = 32
+RANGE_GROUP_BYTES = 28   # ... per group its box and pad in
+RANGE_TELE_BYTES = 68    # ... and its count and 8 int64 telemetry out
 # candidate emission (csrc/sidm_emit.cu), per (target, staged particle)
 # pair of a batch the target may reach: d 3, r^2 5, compare, type, self
 # (the count mode compares r^2 with a per-target bound instead of taking
@@ -73,7 +76,8 @@ SLOT_BYTES = 24         # one target slot: position, radius, type, id
 # stops after its first 12
 GATED_PAIR_OPS = 46
 GATED_MISS_OPS = 12
-GATED_TARGET_BYTES = 64  # tid, ncand, radius, dt, row in; four outputs
+GATED_TARGET_BYTES = 48  # tid, ncand, radius, dt, row in
+GATED_OUT_BYTES = 16     # ptot, cnt, bestk, bestj of every one of n rows
 CAND_ROW_BYTES = 32      # one candidate's row [pos3 vel3 mass aux]
 # the walk's DSMC segment pass (csrc/sidm_near.cu): the gated tile's pair
 # math (GATED_PAIR_OPS per live pair, GATED_MISS_OPS per other (live
@@ -113,14 +117,42 @@ def far_level_work(kw: dict, cnt):
     c = cnt.long()
     written = _n(torch.sum(c[C_FAR]) + torch.sum(c[C_SEG])
                  + torch.sum(c[C_NEXT]) + torch.sum(c[C_BK]))
-    rng = bool(kw.get("range_walk"))
-    ops = (RANGE_OPS if rng else CLASSIFY_OPS) * live
+    ops = CLASSIFY_OPS * live
     nbytes = (4 * (live + ng) + 28 * ng
-              + (RANGE_ROW_BYTES if rng else CLASS_ROW_BYTES)
-              * min(tbl.shape[0], live) + 4 * written + 4 * N_CNT * ng)
+              + CLASS_ROW_BYTES * min(tbl.shape[0], live) + 4 * written
+              + 4 * N_CNT * ng)
     if kw.get("lists") is not None:
         nbytes += 2 * 4 * (2 + 5) * ng
     return ops, nbytes
+
+
+def range_level_rows(kw: dict):
+    """(classified cells, distinct real cells) of one level of the range
+    walk: ``kw`` the level's arguments as ``fused_range.range_walk_plain``
+    hands them to its ``on_level`` observer."""
+    fids, n_live = kw["fids"], kw["n_live"]
+    W = fids.shape[1]
+    live = (torch.arange(W, device=fids.device)[None, :]
+            < torch.clamp(n_live.long(), max=W)[:, None])
+    ids = fids[live]
+    real = ids[(ids >= 0) & (ids < kw["nl_real"])]
+    return _n(torch.sum(live)), _n(torch.unique(real).numel())
+
+
+def range_walk_work(levels, ng: int, seg_cap: int):
+    """(ops, bytes) of one whole range walk (``fused_range.
+    range_segments``) of ng groups into (ng, seg_cap) lists; ``levels``:
+    ``range_level_rows`` of each of its levels. Operations: RANGE_OPS per
+    classified cell. Bytes: each level's distinct range rows once, each
+    group's box and pad once, the whole key lists (IMAX tails included)
+    and each group's count and telemetry written once; no frontier is
+    counted (a level's frontier is not an input or an output of the
+    walk)."""
+    classified = sum(c for c, _ in levels)
+    distinct = sum(d for _, d in levels)
+    nbytes = (RANGE_ROW_BYTES * distinct + RANGE_GROUP_BYTES * ng
+              + 4 * ng * seg_cap + RANGE_TELE_BYTES * ng)
+    return RANGE_OPS * classified, nbytes
 
 
 def far_level_dense_work(kw: dict):
@@ -301,8 +333,8 @@ def gated_work(tid, ncand, cnt, cand):
     """(ops, bytes) of one ``sidm_gated`` call on the targets ``tid``
     (-1 = unused) with the counts ``cnt`` it returned: GATED_PAIR_OPS per
     live pair and GATED_MISS_OPS per other candidate; bytes: per target
-    GATED_TARGET_BYTES, its candidate ids, and each distinct candidate's
-    row once."""
+    GATED_TARGET_BYTES, its candidate ids, each distinct candidate's row
+    once, and the (n,) outputs written whole (GATED_OUT_BYTES a row)."""
     t = tid[tid >= 0].long()
     pairs = _n(torch.sum(ncand[t].long()))
     ok = _n(torch.sum(cnt[t].long()))
@@ -312,7 +344,7 @@ def gated_work(tid, ncand, cnt, cand):
     live = torch.arange(K, device=c.device)[None, :] < ncand[t][:, None]
     distinct = _n(torch.unique(c[live]).numel())
     nbytes = (GATED_TARGET_BYTES * t.numel() + 4 * pairs
-              + CAND_ROW_BYTES * distinct)
+              + CAND_ROW_BYTES * distinct + GATED_OUT_BYTES * cand.shape[0])
     return ops, nbytes
 
 

@@ -28,20 +28,6 @@
 // counts and its telemetry (demand, drops), all integer, one block per
 // group: no atomics. What bounds it on the H100: the bytes of the live
 // frontier (ids and node rows) and of the compacted outputs.
-//
-// Range mode (mode 2, the SIDM candidate record's walk,
-// sidm_tpu/ops/list_range.py:_record_segments with the range test of
-// sidm_tpu/ops/fused_range.py:_range_classify): the rows are the 8-wide
-// range rows (geometric centre, count, node start, child start, child
-// count), the per-group threshold is the pad, and a cell is in range when
-// its box centre +- s_l/2 lies within pad of the group box (d^2 <= pad^2);
-// cells out of range are dropped (there is no far output). The appends,
-// caps and telemetry are the record mode's, except that particles past
-// big_chunks chunks of an overfull cell are not counted as drops, as the
-// JAX range walk does not count them. With a periodic box (box > 0) the
-// distance is taken from the group box's centre by the minimum image,
-// d - box*rint(d/box) (rint rounds half to even, as torch.round and
-// jnp.round do), with the plain version's rounding step by step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,8 +42,7 @@ enum { kFar, kSeg, kNext, kOpen, kOvfOpen, kBig, kBk, kBigDrop, kNCnt };
 enum { kNeedF, kNeedN, kOvfL, kOvfF, kOvfN };
 
 struct Args {
-    const float4* tbl;          // (cap, stride) float4: the level rows
-    int stride;                 // 4: (cap, 16) pack_tree rows; 2: range rows
+    const float4* tbl;          // (cap, 4) float4: the level's pack_tree rows
     int nl_real;
     const int* fids;            // (ng, W) frontier, live prefix n_live
     const int* n_live;
@@ -65,9 +50,9 @@ struct Args {
     const float* s_l;           // () cell size (+ 2 drift)
     const float* glo;           // (ng, 3)
     const float* ghi;
-    const float* oac;           // (ng,) relative thresholds; range: the pad
-    float theta2, box, leaf_cap;   // box: range mode's periodic box, 0 none
-    int mode, last;             // mode 0 geometric, 1 relative, 2 range
+    const float* oac;           // (ng,) relative thresholds
+    float theta2, leaf_cap;
+    int mode, last;             // mode 0 geometric, 1 relative
     int O, Wn, big_cap, big_chunks;
     int lvl_base, LC;           // record: flat offset of the level, level cap
     int* far;                   // (ng, far_w)
@@ -99,25 +84,12 @@ __device__ __forceinline__ Row load_row(const Args& a, int id) {
     Row r{make_float4(0.0f, 0.0f, 0.0f, 0.0f),
           make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0.0f};
     if (id >= 0 && id < a.nl_real) {
-        const float4* p = a.tbl + (int64_t)id * a.stride;
+        const float4* p = a.tbl + (int64_t)id * 4;
         r.r0 = __ldg(p);
         r.r1 = __ldg(p + 1);
-        if (a.mode != 2)
-            r.bmax2 = __ldg(reinterpret_cast<const float*>(p) + 15);
+        r.bmax2 = __ldg(reinterpret_cast<const float*>(p) + 15);
     }
     return r;
-}
-
-// The range test's gap along one axis in a periodic box: the cell centre
-// c against the group box [lo, hi] by the minimum image from the box's
-// centre, max(|d| - hw - half, 0), rounded as the plain version rounds.
-__device__ __forceinline__ float min_image_gap(float c, float lo, float hi,
-                                               float half, float box) {
-    const float gc = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    const float hw = __fmul_rn(0.5f, __fsub_rn(hi, lo));
-    float d = __fsub_rn(c, gc);
-    d = __fsub_rn(d, __fmul_rn(box, rintf(__fdiv_rn(d, box))));
-    return fmaxf(__fsub_rn(__fsub_rn(fabsf(d), hw), half), 0.0f);
 }
 
 // A row classified against the group box: explicit round-to-nearest
@@ -128,30 +100,6 @@ __device__ __forceinline__ Node classify(const Args& a, const Row& row,
                                          float lo1, float lo2, float hi0,
                                          float hi1, float hi2, float oac) {
     const float4 r0 = row.r0, r1 = row.r1;
-    if (a.mode == 2) {
-        // range test: s2 holds half the cell size, oac the pad^2
-        float e0, e1, e2;
-        if (a.box > 0.0f) {
-            e0 = min_image_gap(r0.x, lo0, hi0, s2, a.box);
-            e1 = min_image_gap(r0.y, lo1, hi1, s2, a.box);
-            e2 = min_image_gap(r0.z, lo2, hi2, s2, a.box);
-        } else {
-            e0 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo0, r0.x),
-                                       __fsub_rn(r0.x, hi0)), s2), 0.0f);
-            e1 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo1, r0.y),
-                                       __fsub_rn(r0.y, hi1)), s2), 0.0f);
-            e2 = fmaxf(__fsub_rn(fmaxf(__fsub_rn(lo2, r0.z),
-                                       __fsub_rn(r0.z, hi2)), s2), 0.0f);
-        }
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0),
-                                             __fmul_rn(e1, e1)),
-                                   __fmul_rn(e2, e2));
-        const bool live = r1.x > 0.0f && d2 <= oac;
-        const bool is_leaf = r1.x <= a.leaf_cap;
-        return Node{false, live && is_leaf, live && !is_leaf && !a.last,
-                    live && !is_leaf && a.last, (int)r1.y, (int)r1.x,
-                    (int)r1.z, (int)r1.w};
-    }
     const float dx0 = fmaxf(fmaxf(lo0 - r0.x, r0.x - hi0), 0.0f);
     const float dx1 = fmaxf(fmaxf(lo1 - r0.y, r0.y - hi1), 0.0f);
     const float dx2 = fmaxf(fmaxf(lo2 - r0.z, r0.z - hi2), 0.0f);
@@ -187,10 +135,8 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
     const float hi0 = a.ghi[g * 3 + 0], hi1 = a.ghi[g * 3 + 1],
                 hi2 = a.ghi[g * 3 + 2];
     const float s_l = *a.s_l;
-    const bool range = a.mode == 2;
-    // range mode: half the cell size (exact) and pad^2
-    const float oac = range ? __fmul_rn(a.oac[g], a.oac[g]) : a.oac[g];
-    const float s2 = range ? 0.5f * s_l : __fmul_rn(s_l, s_l);
+    const float oac = a.oac[g];
+    const float s2 = __fmul_rn(s_l, s_l);
     const float s4 = __fmul_rn(s2, s2);
     const bool record = a.nf != nullptr;
     const int nl = min(max(a.n_live[g], 0), a.W);
@@ -321,7 +267,7 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
     a.stat[kNeedF * ng + g] += n_far;
     a.stat[kNeedN * ng + g] += n_seg + n_bk + over * a.big_chunks;
     a.stat[kOvfL * ng + g] += max(n_far - a.LC, 0) + max(n_seg - a.LC, 0)
-                              + ovf_open + over + (range ? 0 : big_drop);
+                              + ovf_open + over + big_drop;
     a.stat[kOvfF * ng + g] += ovf_f;
     a.stat[kOvfN * ng + g] += ovf_n + nn1 + n_bk - nn2;
     a.nf[g] = nf1;
@@ -333,14 +279,13 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
 // Walk mode: nf, nn and stat are null; far and seg are (ng, W) buffers
 // (far_w = seg_w = W, LC = W, lvl_base = 0) and bkey the last level's
 // chunk keys. Record mode: far and seg are the group lists (ng, LF) and
-// (ng, LN), appended at nf and nn; bkey is null. Range mode (mode 2) is a
-// record mode on range rows (stride 2) whose far list is never written.
-extern "C" int far_level_launch(const float* tbl, int stride, int nl_real,
+// (ng, LN), appended at nf and nn; bkey is null.
+extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 const int* fids, const int* n_live, int ng,
                                 int W, const float* s_l, const float* glo,
                                 const float* ghi, const float* oac,
-                                float theta2, int mode, float box,
-                                float leaf_cap, int last, int O, int Wn,
+                                float theta2, int mode, float leaf_cap,
+                                int last, int O, int Wn,
                                 int big_cap, int big_chunks, int lvl_base,
                                 int LC, int* far, int far_w, int* seg,
                                 int seg_w, int* fids_next, int* bkey,
@@ -348,9 +293,8 @@ extern "C" int far_level_launch(const float* tbl, int stride, int nl_real,
                                 void* stream) {
     if (ng <= 0) return 0;
     if (big_cap > kBigMax) return (int)cudaErrorInvalidValue;
-    const Args a{reinterpret_cast<const float4*>(tbl), stride, nl_real, fids,
-                 n_live, W, s_l, glo, ghi, oac, theta2, box, leaf_cap, mode,
-                 last,
+    const Args a{reinterpret_cast<const float4*>(tbl), nl_real, fids,
+                 n_live, W, s_l, glo, ghi, oac, theta2, leaf_cap, mode, last,
                  O, Wn, big_cap, big_chunks, lvl_base, LC, far, far_w, seg,
                  seg_w, fids_next, bkey, cnt, nf, nn, stat, ng};
     far_level_kernel<<<ng, kT, 0, (cudaStream_t)stream>>>(a);

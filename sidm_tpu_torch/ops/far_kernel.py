@@ -22,21 +22,25 @@ its caller already compacted, in frontier order (``Level``):
   caps, and the list counts and the telemetry (uncapped demand, drops) are
   updated in place; the next frontier and the counts are returned.
 
-* range mode (``range_walk``, record mode on the range rows of
-  ``ops/fused_range.range_levels``, the SIDM candidate record's walk,
-  ``sidm_tpu/ops/list_range.py:_record_segments`` :94-202): the range test
-  of ``sidm_tpu/ops/fused_range.py:_range_classify`` :99 replaces the MAC
-  (a cell is in range when its box, geometric centre +- s_l/2, lies within
-  the group's pad of the group box: d^2 <= pad^2; ``oac`` holds the pad),
-  cells out of range are dropped, and only segment and chunk keys are
-  appended (to ``lists.near``); frontier order, ``open_cap``, the level
-  and list caps and the big-cell chunks are the record mode's, and so is
-  the telemetry, except that particles past ``big_chunks`` chunks of an
-  overfull cell are not counted as drops (the JAX range walk does not
-  count them). With a periodic ``box`` the distance is taken from the
-  group box's centre by the minimum image, ``d - box*round(d/box)``
-  (``_range_classify``'s periodic branch; dead groups are parked with an
-  inverted huge box, so no cell is in range of them).
+``far_level_plain`` also runs the range test (``range_walk``, record mode
+on the range rows of ``ops/fused_range.range_levels``, the SIDM candidate
+record's walk, ``sidm_tpu/ops/list_range.py:_record_segments`` :94-202):
+the range test of ``sidm_tpu/ops/fused_range.py:_range_classify`` :99
+replaces the MAC (a cell is in range when its box, geometric centre +-
+s_l/2, lies within the group's pad of the group box: d^2 <= pad^2; ``oac``
+holds the pad), cells out of range are dropped, and only segment and chunk
+keys are appended (to ``lists.near``); frontier order, ``open_cap``, the
+level and list caps and the big-cell chunks are the record mode's, and so
+is the telemetry, except that particles past ``big_chunks`` chunks of an
+overfull cell are not counted as drops (the JAX range walk does not count
+them). With a periodic ``box`` the distance is taken from the group box's
+centre by the minimum image, ``d - box*round(d/box)``
+(``_range_classify``'s periodic branch; dead groups are parked with an
+inverted huge box, so no cell is in range of them). That level is a step of
+``fused_range.range_walk_plain``, the plain version of the whole range
+walk; on the card the walk is one launch of its own kernel
+(``csrc/range_walk.cu``, ``fused_range.range_segments``), not a
+``far_level`` per level.
 
 Only a row's live prefix is written: entries past a count hold whatever
 the buffer held (``torch.empty``) and no consumer reads them.
@@ -303,8 +307,7 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
               Wn: int, open_cap: int,
               big_cap: int, big_chunks: int,
               lists: Optional[ListBuf] = None, lvl_base: int = 0,
-              lvl_cap: Optional[int] = None,
-              range_walk: bool = False, box: float = 0.0) -> Level:
+              lvl_cap: Optional[int] = None) -> Level:
     """One level of the walk for every group.
 
     fids (ng, W) int32 level-local node ids, live prefix n_live (ng,)
@@ -316,35 +319,25 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 
     With ``lists`` (record mode) lvl_base is the level's flat node offset
     and lvl_cap the level cap (None: none); the lists are updated in
-    place. ``range_walk`` (with ``lists``): the range mode, tbl (cap, 8)
-    range rows, oac the per-group pad; counted in ``range_launches``;
-    ``box`` > 0 (range mode only): minimum-image distances in the periodic
-    box.
+    place.
 
     Returns a ``Level``."""
-    if box and not range_walk:
-        raise ValueError("far_level: a periodic box is ported for the range "
-                         "mode only (ROADMAP.md A, item 11)")
     if not fids.is_cuda:
         return far_level_plain(
             fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
             use_relative=use_relative, leaf_cap=leaf_cap, last=last, Wn=Wn,
             open_cap=open_cap,
             big_cap=big_cap, big_chunks=big_chunks, lists=lists,
-            lvl_base=lvl_base, lvl_cap=lvl_cap, range_walk=range_walk,
-            box=box)
+            lvl_base=lvl_base, lvl_cap=lvl_cap)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, W = fids.shape
     walk = lists is None
     if big_cap > BIG_MAX:
         raise ValueError(f"far_level: big_cap {big_cap} > {BIG_MAX}")
-    if range_walk and walk:
-        raise ValueError("far_level: the range mode records into lists")
-    width = 8 if range_walk else 16
     specs = dict(fids=(fids, torch.int32, (ng, W)),
                  n_live=(n_live, torch.int32, (ng,)),
-                 tbl=(tbl, torch.float32, (tbl.shape[0], width)),
+                 tbl=(tbl, torch.float32, (tbl.shape[0], 16)),
                  s_l=(s_l, torch.float32, ()),
                  glo=(glo, torch.float32, (ng, 3)),
                  ghi=(ghi, torch.float32, (ng, 3)),
@@ -370,19 +363,15 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         LC = W if lvl_cap is None else min(lvl_cap, W)
         dst = (lists.far, LF, lists.near, LN, None, lists.nf, lists.nn,
                lists.stat)
-    mode = 2 if range_walk else int(bool(use_relative))
     err = kernels_lib().far_level_launch(*launch_args(
-        tbl, width // 4, int(nl_real), fids, n_live, ng, W, s_l, glo, ghi,
-        oac, float(theta2), mode, float(box), float(leaf_cap), int(last),
+        tbl, int(nl_real), fids, n_live, ng, W, s_l, glo, ghi, oac,
+        float(theta2), int(bool(use_relative)), float(leaf_cap), int(last),
         min(W, int(open_cap)), int(Wn) if not last else 0, int(big_cap),
         int(big_chunks), int(lvl_base), LC, *dst[:4], fids_n, dst[4], cnt,
         *dst[5:]))
     if err:
         raise RuntimeError(f"far_level kernel launch failed: CUDA error "
                            f"{err}")
-    if range_walk:
-        far_level.range_launches += 1
-        return Level(far=None, seg=None, fids=fids_n, bkey=None, cnt=cnt)
     if not walk:
         far_level.record_launches += 1
         return Level(far=None, seg=None, fids=fids_n, bkey=None, cnt=cnt)
@@ -392,4 +381,5 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 
 far_level.launches = 0          # launches of the walk mode
 far_level.record_launches = 0   # launches of the record mode
-far_level.range_launches = 0    # launches of the range mode
+far_level.range_launches = 0    # launches of the whole range walk
+                                # (fused_range.range_segments, one a walk)

@@ -10,10 +10,12 @@ The range walk is the force record walk with a range test in place of the
 MAC: per target group, the cells whose box lies within the group's pad of
 the group box are opened, leaves become segment keys ``start*32+cnt`` and
 overfull deepest cells 16-particle chunk keys; cells out of range are
-dropped. ``range_segments`` runs it level by level with ``far_level`` in
-its range mode (the kernel on the card) and returns each group's segment
-list in frontier order. With a periodic ``box`` every distance is the
-minimum image and the tree is built on the box.
+dropped. ``range_segments`` walks every level of every group and returns
+each group's segment list in frontier order: on the card in one launch
+of its kernel (``csrc/range_walk.cu``), on the CPU by its plain version
+``range_walk_plain``, level by level with ``far_level_plain`` in its range
+mode. With a periodic ``box`` every distance is the minimum image and the
+tree is built on the box.
 
 ``sidm_scatter_fused`` is the DSMC pass on the walk (the engine of
 ``SIDMOn 1`` with ``ListMode 0``, and of the list cadence once its
@@ -60,7 +62,8 @@ import torch
 from ..kernels import sph_kernel
 from ..sidm_common import sigma_v_product
 from .far_kernel import (BIG_MAX, C_BIG, C_BIG_DROP, C_NEXT, C_OVF_OPEN,
-                         S_NEED_N, S_OVF_L, S_OVF_N, far_level, list_buf)
+                         S_NEED_N, S_OVF_L, S_OVF_N, far_level,
+                         far_level_plain, list_buf)
 from .fused_force import (G, IMAX, LEAF_CAP, START_LEVEL, FusedConfig,
                           make_windows, min_image, w_schedule)
 from .morton import SENTINEL
@@ -69,43 +72,59 @@ from .sidm_tree import pair_gumbel, tree_sidm_finish, tree_sidm_prep
 from .tree import Octree, level_offsets
 
 
-def range_levels(tree: Octree) -> List[torch.Tensor]:
-    """Per level (cap_l, 8) float32 range rows [geometric centre xyz, 0,
-    count, node start, level-local child start, child count]."""
+@dataclasses.dataclass(frozen=True)
+class RangeRows:
+    """The range rows of every level in one table: ``table`` (M, 8)
+    float32 [geometric centre xyz, 0, count, node start, level-local child
+    start, child count], level l at rows ``offs[l]:offs[l + 1]``
+    (``level_offsets``); ``rows[l]`` is that level's view."""
+    table: torch.Tensor
+    offs: List[int]
+
+    def __getitem__(self, l: int) -> torch.Tensor:
+        return self.table[self.offs[l]:self.offs[l + 1]]
+
+
+def range_levels(tree: Octree) -> RangeRows:
+    """The range rows of every level (``RangeRows``), built in one pass
+    over the tree's node arrays."""
     n = tree.pos_s.shape[0]
     depth = tree.depth
     offs = level_offsets(n, depth)
-    dtype = tree.pos_s.dtype
-    out = []
-    for l in range(depth + 1):
-        sl = slice(offs[l], offs[l + 1])
-        mac = tree.mac_rows[sl]
-        child_local = tree.child_start[sl] - (offs[l + 1] if l < depth else 0)
-        out.append(torch.cat([
-            mac[:, 4:7], torch.zeros_like(mac[:, 7:8]), mac[:, 7:8],
-            tree.node_start[sl, None].to(dtype),
-            torch.clamp(child_local, min=0)[:, None].to(dtype),
-            tree.child_count[sl, None].to(dtype)], dim=1).contiguous())
-    return out
+    M = offs[-1]
+    dtype, dev = tree.pos_s.dtype, tree.pos_s.device
+    mac = tree.mac_rows[:M]
+    # each node's next level offset: children are level-local
+    nxt = torch.repeat_interleave(
+        torch.tensor([offs[l + 1] if l < depth else 0
+                      for l in range(depth + 1)], device=dev),
+        torch.tensor([offs[l + 1] - offs[l] for l in range(depth + 1)],
+                     device=dev), output_size=M)
+    child_local = torch.clamp(tree.child_start[:M] - nxt, min=0)
+    table = torch.cat([
+        mac[:, 4:7], torch.zeros_like(mac[:, 7:8]), mac[:, 7:8],
+        tree.node_start[:M, None].to(dtype), child_local[:, None].to(dtype),
+        tree.child_count[:M, None].to(dtype)], dim=1).contiguous()
+    return RangeRows(table, offs)
 
 
-def range_segments(tree: Octree, rlev, glo, ghi, pad, *, seg_cap: int,
-                   lvl_cap: Optional[int] = None,
-                   cfg: Optional[FusedConfig] = None, box: float = 0.0,
-                   on_level=None, drops: Optional[dict] = None):
-    """The range walk of every group (``_record_segments`` :94-202):
-    segment and chunk keys appended in frontier order to (ng, seg_cap)
-    lists under the level cap (None: none) and ``seg_cap``; ``box`` > 0:
-    minimum-image distances in the periodic box. Returns (keys, counts,
-    ovf, need, stat): ovf the dropped entries (level, walk and list caps),
-    need the largest per-group demand, stat the (5, ng) telemetry.
+# rows of the range walk kernel's telemetry past stat's five
+# (far_kernel.S_*): the walk's cap drops per group (csrc/range_walk.cu
+# kOpen ... kBigDrop); and its totals (kSumOvf ... kSumBigDrop)
+N_TELE = 8
+R_OVF, R_NEED, R_OPEN, R_BIG_OVER, R_BIG_DROP = range(5)
+RANGE_SHARED_IDS = 256   # frontier ids per group kept in shared memory
+                         # (csrc/range_walk.cu kFS)
+
+
+def range_walk_plain(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
+                     seg_cap: int, lvl_cap: Optional[int] = None,
+                     cfg: Optional[FusedConfig] = None, box: float = 0.0,
+                     on_level=None, drops: Optional[dict] = None):
+    """Plain PyTorch version of ``range_segments``: the walk level by
+    level, each level a ``far_level_plain`` call in its range mode.
     on_level: optional observer ``on_level(level, kw)`` before every
-    ``far_level`` call; drops: optional dict that receives the walk's cap
-    drops as 0-d tensors: ``open`` (cells past ``open_cap`` and children
-    past the frontier width, summed over the levels), ``big_over``
-    (overfull deepest cells past ``big_cap``) and ``big_drop`` (particles
-    past ``big_chunks`` chunks of those cells; JAX's walk counts them in
-    ``ovf_big``, its list record does not)."""
+    level's call."""
     cfg = cfg or FusedConfig()
     n = tree.pos_s.shape[0]
     depth = tree.depth
@@ -129,7 +148,7 @@ def range_segments(tree: Octree, rlev, glo, ghi, pad, *, seg_cap: int,
                   lvl_cap=lvl_cap, range_walk=True, box=box)
         if on_level is not None:
             on_level(l, kw)
-        out = far_level(**kw)
+        out = far_level_plain(**kw)
         fids, n_live = out.fids, out.cnt[C_NEXT]
         if drops is not None:
             opened = opened + torch.sum(out.cnt[C_OVF_OPEN].long())
@@ -141,6 +160,84 @@ def range_segments(tree: Octree, rlev, glo, ghi, pad, *, seg_cap: int,
     ovf = torch.sum(stat[S_OVF_L]) + torch.sum(stat[S_OVF_N])
     need = torch.max(torch.cat([stat[S_NEED_N], stat.new_zeros(1)]))
     return buf.near, buf.nn, ovf, need, stat
+
+
+def range_segments(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
+                   seg_cap: int, lvl_cap: Optional[int] = None,
+                   cfg: Optional[FusedConfig] = None, box: float = 0.0,
+                   on_level=None, drops: Optional[dict] = None,
+                   shared_ids: int = RANGE_SHARED_IDS):
+    """The range walk of every group (``_record_segments`` :94-202):
+    segment and chunk keys appended in frontier order to (ng, seg_cap)
+    lists (IMAX past each count) under the level cap (None: none) and
+    ``seg_cap``; ``box`` > 0: minimum-image distances in the periodic box.
+    rlev: ``range_levels(tree)``; glo, ghi (ng, 3) group boxes, pad (ng,).
+    Returns (keys, counts, ovf, need, stat): ovf the dropped entries
+    (level, walk and list caps), need the largest per-group demand, stat
+    the (5, ng) int64 telemetry (``far_kernel.S_*``). drops: optional dict
+    that receives the walk's cap drops as 0-d tensors: ``open`` (cells past
+    ``open_cap`` and children past the frontier width, summed over the
+    levels), ``big_over`` (overfull deepest cells past ``big_cap``) and
+    ``big_drop`` (particles past ``big_chunks`` chunks of those cells; JAX's
+    walk counts them in ``ovf_big``, its list record does not).
+
+    On a CUDA tensor one launch of ``csrc/range_walk.cu`` walks every
+    level of every group (counted in ``far_level.range_launches``); its
+    frontiers stay in shared memory, each group's first ``shared_ids`` ids
+    a level (at most RANGE_SHARED_IDS; fewer send more of them through a
+    global scratch row, which tests use to force that path). On a CPU
+    tensor ``range_walk_plain`` runs, whose ``on_level`` observes each
+    level (the kernel has no levels to observe: a CUDA walk with
+    ``on_level`` raises)."""
+    if not glo.is_cuda:
+        return range_walk_plain(tree, rlev, glo, ghi, pad, seg_cap=seg_cap,
+                                lvl_cap=lvl_cap, cfg=cfg, box=box,
+                                on_level=on_level, drops=drops)
+    if on_level is not None:
+        raise ValueError("range_segments: on_level observes the plain walk "
+                         "(range_walk_plain) only")
+    from .._build import check_cuda, int_array, kernels_lib, launch_args
+    cfg = cfg or FusedConfig()
+    n = tree.pos_s.shape[0]
+    depth = tree.depth
+    ng = glo.shape[0]
+    dev = glo.device
+    if cfg.big_cap > BIG_MAX:
+        raise ValueError(f"range_segments: big_cap {cfg.big_cap} > "
+                         f"{BIG_MAX}")
+    if not 0 <= shared_ids <= RANGE_SHARED_IDS:
+        raise ValueError(f"range_segments: shared_ids {shared_ids} not in "
+                         f"[0, {RANGE_SHARED_IDS}]")
+    check_cuda("range_segments",
+               table=(rlev.table, torch.float32, (rlev.offs[-1], 8)),
+               extent=(tree.extent, torch.float32, ()),
+               glo=(glo, torch.float32, (ng, 3)),
+               ghi=(ghi, torch.float32, (ng, 3)),
+               pad=(pad, torch.float32, (ng,)))
+    ws = w_schedule(cfg, depth, n, 0.5, True)
+    w = [ws.get(l, 0) for l in range(depth + 1)]
+    sw = max([0] + w[START_LEVEL + 1:]) - shared_ids
+    i32 = dict(dtype=torch.int32, device=dev)
+    keys = torch.empty(ng, seg_cap, **i32)
+    nn = torch.empty(ng, **i32)
+    tele = torch.empty(N_TELE, ng, dtype=torch.long, device=dev)
+    tot = torch.empty(5, dtype=torch.long, device=dev)
+    scratch = torch.empty(2, ng, max(sw, 0), **i32)
+    err = kernels_lib().range_walk_launch(*launch_args(
+        rlev.table, int_array(rlev.offs[:depth + 1]),
+        int_array(tree.n_nodes[:depth + 1]), int_array(w), START_LEVEL,
+        depth, tree.extent, glo, ghi, pad, ng, float(box), float(LEAF_CAP),
+        int(cfg.open_cap), int(cfg.big_cap), int(cfg.big_chunks),
+        -1 if lvl_cap is None else int(lvl_cap), int(seg_cap), keys, nn,
+        tele, tot, scratch, max(sw, 0), int(shared_ids)))
+    if err:
+        raise RuntimeError(f"range_segments kernel launch failed: CUDA "
+                           f"error {err}")
+    far_level.range_launches += 1
+    if drops is not None:
+        drops.update(open=tot[R_OPEN], big_over=tot[R_BIG_OVER],
+                     big_drop=tot[R_BIG_DROP])
+    return keys, nn, tot[R_OVF], tot[R_NEED], tele[:S_OVF_N + 1]
 
 
 def segment_particles(keys, nn):
@@ -229,7 +326,7 @@ MAX_GROW = 5    # cap doublings of the walk's caps in sized_segments
 
 def sized_segments(tree: Octree, rlev, glo, ghi, pad, seg_cap: int, *,
                    cfg: Optional[FusedConfig] = None, box: float = 0.0,
-                   drops: Optional[dict] = None):
+                   drops: Optional[dict] = None, on_walk=None):
     """``range_segments`` with the segment lists and the walk's caps sized
     from the walk's own demand: when ``seg_cap`` was short, once more at
     the demand rounded up to 1024 (JAX walks without a segment cap); a
@@ -237,14 +334,18 @@ def sized_segments(tree: Octree, rlev, glo, ghi, pad, seg_cap: int, *,
     ``big_cap`` or ``big_chunks``) is walked again with the caps that
     dropped doubled, up to MAX_GROW times (JAX drops them silently); what
     still drops is left in ``drops``. Returns range_segments' five
-    outputs, the segment cap and the FusedConfig used."""
+    outputs, the segment cap and the FusedConfig used. on_walk: optional
+    observer ``on_walk(kw)`` of each ``range_segments`` call's
+    arguments."""
     cfg = cfg or FusedConfig()
     drops = {} if drops is None else drops
     grown = 0
     while True:
-        keys, nn, ovf, need, stat = range_segments(
-            tree, rlev, glo, ghi, pad, seg_cap=seg_cap, cfg=cfg, box=box,
-            drops=drops)
+        kw = dict(tree=tree, rlev=rlev, glo=glo, ghi=ghi, pad=pad,
+                  seg_cap=seg_cap, cfg=cfg, box=box)
+        if on_walk is not None:
+            on_walk(kw)
+        keys, nn, ovf, need, stat = range_segments(**kw, drops=drops)
         short, opened, over, big = (int(x) for x in torch.stack([
             torch.sum(stat[S_OVF_N]), drops["open"], drops["big_over"],
             drops["big_drop"]]).tolist())
@@ -538,7 +639,7 @@ def sidm_scatter_fused(p, pos_pred, tree: Octree, time, active, vmax, key,
                        params: SidmParams, cfg: Optional[FusedConfig] = None,
                        salt: int = 0, box: float = 0.0,
                        return_info: bool = False, seg_cap: int = 8192,
-                       on_near=None):
+                       on_walk=None, on_near=None):
     """One step's DSMC on the range walk (``sidm_scatter_fused``
     :462-593): the P_max pre-gate (``tree_sidm_prep``), Morton windows over
     the gated targets, their range walk with pad = the group's largest h
@@ -559,8 +660,9 @@ def sidm_scatter_fused(p, pos_pred, tree: Octree, time, active, vmax, key,
     drops, 0 after the resize) as 0-d tensors, ``n_gated``, ``ngb_total``,
     ``groups``, ``seg_cap`` and the sorted-order pass outputs. A drop is a
     scattering rate biased low: the caller reads and reports them.
-    on_near: optional observer ``on_near(kw)`` of ``sidm_near``'s
-    arguments."""
+    on_walk: optional observer of the range walk's arguments (see
+    ``sized_segments``); on_near: optional observer ``on_near(kw)`` of
+    ``sidm_near``'s arguments."""
     n = pos_pred.shape[0]
     rows, hs, dts, typs, sigma_co, scan, h_eff, p_max, u = tree_sidm_prep(
         p, pos_pred, tree.perm, time, active, vmax, key, params)
@@ -577,7 +679,7 @@ def sidm_scatter_fused(p, pos_pred, tree: Octree, time, active, vmax, key,
     if pidx.shape[0]:
         keys, nn, _, _, stat, seg_cap, cfg = sized_segments(
             tree, range_levels(tree), glo, ghi, pad, seg_cap, cfg=cfg,
-            box=box, drops=drops)
+            box=box, drops=drops, on_walk=on_walk)
     else:       # nothing gated (a dt = 0 step): no walk, no pass
         keys = torch.empty(0, 1, dtype=torch.int32, device=rows.device)
         nn = torch.empty(0, dtype=torch.int32, device=rows.device)

@@ -7,7 +7,7 @@ cadence (port of ``sidm_tpu/ops/list_range.py``: ``RangeListConfig`` :52,
 
 Once per tree rebuild every collisionless particle gets a candidate list:
 the particles within R_i = pad_fac h_i + skin, found by the range walk
-(``fused_range.range_segments``, the range mode of ``far_level``) and the
+(``fused_range.range_segments``: ``csrc/range_walk.cu``) and the
 candidate emission (``sidm_emit``): per group, each target tested against
 the particles of its group's segments (same type, not itself, r^2 < R_i^2)
 and the hits appended in the group's segment order, then particle order,
@@ -25,8 +25,8 @@ target's own live candidates, with no K padding.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``); the
 wrapper runs the plain version for CPU tensors and the kernel
-(``csrc/sidm_emit.cu``, ``csrc/sidm_gated.cu``) for CUDA tensors, and
-counts its launches.
+(``csrc/range_walk.cu``, ``csrc/sidm_emit.cu``, ``csrc/sidm_gated.cu``)
+for CUDA tensors, and counts its launches.
 
 With a periodic ``box`` > 0 every distance here (the range walk's, the
 emission's and the gated tile's) is the minimum image ``d - box*round(d/
@@ -203,16 +203,16 @@ def record_candidates(tree: Octree, rows_sorted, h_all_sorted, type_sorted,
                       valid_sorted, *, skin=0.0,
                       cfg: Optional[FusedConfig] = None,
                       rcfg: Optional[RangeListConfig] = None,
-                      box: float = 0.0, on_level=None,
+                      box: float = 0.0, on_walk=None,
                       on_emit=None) -> SidmCandidates:
     """Candidate lists for all valid collisionless particles of ``tree``.
 
     rows_sorted (n, 8) [pos3, vel3, mass, aux] in sorted order;
     h_all_sorted the per-particle h_eff in sorted order (ungated too);
     type_sorted the type (or -9 for non-collisionless); box > 0: the
-    periodic box (minimum-image distances). on_level: see
-    ``range_segments``; on_emit: optional observer ``on_emit(kw)`` of the
-    emission's arguments."""
+    periodic box (minimum-image distances). on_walk, on_emit: optional
+    observers ``on_walk(kw)``, ``on_emit(kw)`` of the range walk's
+    (``range_segments``) and the emission's arguments."""
     rcfg = rcfg or RangeListConfig()
     n = tree.pos_s.shape[0]
     dtype, dev = tree.pos_s.dtype, tree.pos_s.device
@@ -224,9 +224,12 @@ def record_candidates(tree: Octree, rows_sorted, h_all_sorted, type_sorted,
     gt, gr, gty, gidx, glo, ghi, gmax = group_targets(
         tree, pidx, gvalid, r_all, type_sorted, box=box)
     pad = (gmax + tree.drift).contiguous()
-    keys, nn, ovf_seg, need_seg, _ = range_segments(
-        tree, range_levels(tree), glo, ghi, pad, seg_cap=rcfg.seg_cap,
-        lvl_cap=rcfg.lvl_cap, cfg=cfg, box=box, on_level=on_level)
+    walk = dict(tree=tree, rlev=range_levels(tree), glo=glo, ghi=ghi,
+                pad=pad, seg_cap=rcfg.seg_cap, lvl_cap=rcfg.lvl_cap, cfg=cfg,
+                box=box)
+    if on_walk is not None:
+        on_walk(walk)
+    keys, nn, ovf_seg, need_seg, _ = range_segments(**walk)
     src = sidm_sources(rows_sorted[:, 0:3], rows_sorted[:, 7])
     K = rcfg.k_cap
     if on_emit is not None:
@@ -345,7 +348,9 @@ def sidm_gated(rows, cand, ncand, hs, dts, tid, salt: int, time, sigma_co,
     8) sorted [pos3 vel3 mass aux]; cand (n, K) with live counts ncand; hs
     the targets' search radii, dts their dt_h0; box > 0: minimum-image
     distances. Returns sorted-order (ptot, cnt, best key, best partner);
-    targets not in tid keep (0, 0, -inf, -1)."""
+    targets not in tid keep (0, 0, -inf, -1). On a CUDA tensor two
+    launches of ``csrc/sidm_gated.cu``: the (n,) outputs' fill, then the
+    tile (16 lanes a target)."""
     if not rows.is_cuda:
         return sidm_gated_plain(rows, cand, ncand, hs, dts, tid, salt, time,
                                 sigma_co, params, box)
@@ -358,10 +363,10 @@ def sidm_gated(rows, cand, ncand, hs, dts, tid, salt: int, time, sigma_co,
                hs=(hs, torch.float32, (n,)), dts=(dts, torch.float32, (n,)),
                tid=(tid, torch.int32, (T,)))
     dev = rows.device
-    ptot = torch.zeros(n, dtype=torch.float32, device=dev)
-    cnt = torch.zeros(n, dtype=torch.int32, device=dev)
-    bestk = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
-    bestj = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32,
+                                                          device=dev)
+    ptot, cnt = torch.empty(n, **f32), torch.empty(n, **i32)
+    bestk, bestj = torch.empty(n, **f32), torch.empty(n, **i32)
     sco, vc, vs, pl = _gated_consts(time, sigma_co, params)
     err = kernels_lib().sidm_gated_launch(*launch_args(
         rows, cand, n, K, ncand, hs, dts, tid, T, int(salt) & 0xFFFFFFFF,
@@ -457,7 +462,7 @@ def record_candidates_from_particles(p, pos_pred, tree: Octree, *, skin=0.0,
                                      params: SidmParams,
                                      cfg: Optional[FusedConfig] = None,
                                      rcfg: Optional[RangeListConfig] = None,
-                                     box: float = 0.0, on_level=None,
+                                     box: float = 0.0, on_walk=None,
                                      on_emit=None) -> SidmCandidates:
     """Pack the SIDM rows and record candidate lists for the current tree
     topology."""
@@ -470,4 +475,4 @@ def record_candidates_from_particles(p, pos_pred, tree: Octree, *, skin=0.0,
                                 torch.zeros_like(p.mass)) > 0)[tree.perm]
     return record_candidates(tree, rows, h_all, typ.to(torch.int32),
                              valid_sorted, skin=skin, cfg=cfg, rcfg=rcfg,
-                             box=box, on_level=on_level, on_emit=on_emit)
+                             box=box, on_walk=on_walk, on_emit=on_emit)

@@ -4,8 +4,8 @@
 JAX's ``sidm_scatter_wq`` is its ``sidm_scatter_fused`` on the work-queue
 schedule of the walk (items of equal size in place of per-block frontier
 loops, a TPU schedule): the same gated windows, range walk and pair sets.
-The port's range walk is already one block per group over its whole
-frontier (``far_level`` in range mode), so ``sidm_scatter_wq`` is
+The port's range walk is already one launch over every group's whole
+walk (``fused_range.range_segments``), so ``sidm_scatter_wq`` is
 ``fused_range.sidm_scatter_fused`` itself. The JAX Simulation picks this
 function for ``TreeWalkEngine wq`` (``simulation.py:1242-1248``), but on
 the JAX side it raises ``NameError`` (``wq_range.py:375`` calls

@@ -56,9 +56,10 @@ import time
 import numpy as np
 import torch
 
-KERNELS = ("far_level_kernel", "far_list_kernel", "near_level_kernel",
-           "gather_kernel", "node_rows_kernel", "sidm_emit_kernel",
-           "cover_count", "sidm_gated_kernel", "sidm_near_kernel")
+KERNELS = ("far_level_kernel", "range_walk_kernel", "far_list_kernel",
+           "near_level_kernel", "gather_kernel", "node_rows_kernel",
+           "sidm_emit_kernel", "cover_count", "sidm_gated_fill",
+           "sidm_gated_kernel", "sidm_near_kernel")
 
 
 def _device_us(evt) -> float:

@@ -1,7 +1,7 @@
 """The port's SIDM candidate lists and gated DSMC pass
-(``sidm_tpu_torch.ops.list_range``) and their kernels (the range mode of
-``far_level``, ``sidm_emit``, ``sidm_gated``) vs the JAX package
-(``sidm_tpu/ops/list_range.py``).
+(``sidm_tpu_torch.ops.list_range``) and their kernels (the range walk
+``fused_range.range_segments``, ``sidm_emit``, ``sidm_gated``) vs the JAX
+package (``sidm_tpu/ops/list_range.py``).
 
 The JAX side is frozen in tests/data/torch_sidm_golden.npz
 (tests/make_torch_golden.py ``sidm``): the n = 2500 NFW halo with the JAX
@@ -29,7 +29,7 @@ import torch
 
 from sidm_tpu_torch import rng
 from sidm_tpu_torch.ops import list_range as tlr
-from sidm_tpu_torch.ops.far_kernel import ListBuf, far_level, far_level_plain
+from sidm_tpu_torch.ops.far_kernel import far_level
 from sidm_tpu_torch.ops.fused_force import default_depth
 from sidm_tpu_torch.ops.sidm import SidmParams
 from sidm_tpu_torch.ops.sidm_tree import sidm_rows, tree_sidm_prep
@@ -66,11 +66,11 @@ def setup(golden):
                 rcfg=tlr.RangeListConfig(k_dense=sc["k_dense"]))
 
 
-def _record(setup, skin, rcfg=None, on_level=None):
+def _record(setup, skin, rcfg=None, on_walk=None):
     return tlr.record_candidates_from_particles(
         setup["p"], setup["p"].pos, setup["tree"], skin=skin,
         params=setup["params"], rcfg=rcfg or setup["rcfg"],
-        on_level=on_level)
+        on_walk=on_walk)
 
 
 @pytest.mark.parametrize("which", ["c0", "c1", "tiny"])
@@ -229,26 +229,37 @@ def _to(x, dev):
     return x.to(dev) if isinstance(x, torch.Tensor) else x
 
 
+def _tree_to(tree, dev):
+    return dataclasses.replace(tree, **{
+        f.name: getattr(tree, f.name).to(dev)
+        for f in dataclasses.fields(tree)
+        if isinstance(getattr(tree, f.name), torch.Tensor)})
+
+
 @pytest.mark.gpu
 def test_range_walk_kernel_matches_plain_on_card(setup, cuda):
-    """K1: every level of the record's range walk, from the same list
-    state: lists, counts, telemetry, next frontier bit-equal."""
-    captured = []
+    """K1: the record's whole range walk under tiny caps (drops on
+    several paths) in one launch, bit-equal to the plain walk on the same
+    inputs: keys, counts, ovf, need, telemetry and the drops."""
+    from sidm_tpu_torch.ops.fused_range import (range_levels,
+                                                range_segments,
+                                                range_walk_plain)
+    walks = []
     _record(setup, SIDM_SKINS[1], tlr.RangeListConfig(**SIDM_TINY),
-            on_level=lambda l, kw: captured.append(
-                dict(kw, lists=ListBuf(*(t.clone() for t in kw["lists"])))))
-    assert len(captured) > 3
-    for kw in captured:
-        kw = {k: _to(v, cuda) for k, v in kw.items()}
-        bufs = [ListBuf(*(_to(t, cuda) for t in kw["lists"]))
-                for _ in range(2)]
-        n0 = far_level.range_launches
-        k = far_level(**dict(kw, lists=bufs[0]))
-        assert far_level.range_launches == n0 + 1
-        p = far_level_plain(**dict(kw, lists=bufs[1]))
-        for a, b in zip(*bufs):
-            assert torch.equal(a, b)
-        assert torch.equal(k.cnt, p.cnt)
+            on_walk=walks.append)
+    kw = {k: _to(v, cuda) for k, v in walks[0].items()}
+    kw["tree"] = _tree_to(kw["tree"], cuda)
+    kw["rlev"] = range_levels(kw["tree"])
+    drops = [{}, {}]
+    n0 = far_level.range_launches
+    k = range_segments(**kw, drops=drops[0])
+    assert far_level.range_launches == n0 + 1
+    p = range_walk_plain(**kw, drops=drops[1])
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert {x: int(v) for x, v in drops[0].items()} == \
+        {x: int(v) for x, v in drops[1].items()}
+    assert int(p[2]) > 0
 
 
 @pytest.mark.gpu

@@ -31,8 +31,8 @@ holds the file to it.
   allows.
 * With the box: the tree's order exactly, ``tree_hsml_init_fused`` (counts
   exact, lengths rtol 1e-6), ``record_candidates_from_particles`` (the
-  range walk's plain range mode and the emission: lists, counts, caps'
-  telemetry exactly) and the gated tile (as in test_torch_sidm_lists.py).
+  plain range walk and the emission: lists, counts, caps' telemetry
+  exactly) and the gated tile (as in test_torch_sidm_lists.py).
 * On the card (``gpu``): the segment pass kernel against
   ``sidm_near_plain`` with and without the box, and the range walk, the
   emission and the gated tile against their plain versions with the box.
@@ -221,7 +221,7 @@ def _box_cands(golden, box_halo):
 
 
 def test_box_candidates_match_jax(golden, box_halo):
-    """The range walk's range mode and the emission with the box: the
+    """The range walk and the emission with the box: the
     candidate lists as ordered sequences, counts, radii, drops and demand
     exactly."""
     _, _, _, _, c = _box_cands(golden, box_halo)
@@ -305,14 +305,13 @@ def test_near_kernel_matches_plain_on_card(cuda, name):
 
 @pytest.mark.gpu
 def test_box_kernels_match_plain_on_card(golden, box_halo, cuda):
-    """With the box: K1 (every level of the record's range walk) and K2
-    (the emission and its count mode) bit-equal to their plain versions;
-    K3: counts equal, P_tot to rtol 1e-5, partners equal except at
-    near-ties."""
-    from sidm_tpu_torch.ops.far_kernel import (ListBuf, far_level,
-                                               far_level_plain)
+    """With the box: K1 (the record's whole range walk, one launch) and
+    K2 (the emission and its count mode) bit-equal to their plain
+    versions; K3: counts equal, P_tot to rtol 1e-5, partners equal except
+    at near-ties."""
+    from sidm_tpu_torch.ops.far_kernel import far_level
     b = WALK_B
-    captured, emits = [], []
+    walks, emits = [], []
     p, tree = box_halo
     p = dataclasses.replace(p, hsml_vd=torch.tensor(golden["b_hsml"]))
     params = SidmParams(b["sigma"], 0, 1.0, 1.0, 0.0, 30, 2, False, 0.1,
@@ -320,19 +319,22 @@ def test_box_kernels_match_plain_on_card(golden, box_halo, cuda):
     tlr.record_candidates_from_particles(
         p, p.pos, tree, skin=b["skin"], params=params, box=b["box"],
         rcfg=tlr.RangeListConfig(k_dense=48),
-        on_level=lambda l, kw: captured.append(
-            dict(kw, lists=ListBuf(*(t.clone() for t in kw["lists"])))),
-        on_emit=emits.append)
-    for kw in captured:
-        assert kw["box"] == b["box"]
-        kw = {k: _to(v, cuda) for k, v in kw.items()}
-        bufs = [ListBuf(*(_to(t, cuda) for t in kw["lists"]))
-                for _ in range(2)]
-        k = far_level(**dict(kw, lists=bufs[0]))
-        pl = far_level_plain(**dict(kw, lists=bufs[1]))
-        for x, y in zip(*bufs):
-            assert torch.equal(x, y)
-        assert torch.equal(k.cnt, pl.cnt)
+        on_walk=walks.append, on_emit=emits.append)
+    kw = {k: _to(v, cuda) for k, v in walks[0].items()}
+    assert kw["box"] == b["box"]
+    kw["tree"] = dataclasses.replace(kw["tree"], **{
+        f.name: _to(getattr(kw["tree"], f.name), cuda)
+        for f in dataclasses.fields(kw["tree"])})
+    kw["rlev"] = tfr.range_levels(kw["tree"])
+    drops = [{}, {}]
+    n0 = far_level.range_launches
+    k = tfr.range_segments(**kw, drops=drops[0])
+    assert far_level.range_launches == n0 + 1
+    pl = tfr.range_walk_plain(**kw, drops=drops[1])
+    for x, y in zip(k, pl):
+        assert torch.equal(x, y)
+    assert {x: int(v) for x, v in drops[0].items()} == \
+        {x: int(v) for x, v in drops[1].items()}
     kw = {k: _to(v, cuda) for k, v in emits[0].items()}
     base = [kw[k] for k in ("keys", "nn", "src", "gt", "gr", "gty", "gidx")]
     for K in (kw["K"], 16):
