@@ -125,12 +125,29 @@ Phases (each asserts; any failure exits non-zero):
      7, its logs appended, the next snapshot and ``sct_`` numbers taken;
      it prints particle-steps/s over the 6 steps and the walls of the IC
      write, prepare, energy_statistics, the snapshot, the restart write and
-     the resumed process.
+     the resumed process;
+ 12. the single-program step: small-halo (``flagship.small_config()``,
+     bench.py's halo and SIDM settings at N = 261888, ``mode=
+     "synchronized"``) through Simulation: prepare (the hash grid's
+     smoothing-length init, its cap grown to the demand), compute_potential,
+     4 steps, compute_potential: scatters > 0, no bucket read past the
+     grown cap and no clipped level, no walk overflow (the step redoes an
+     overflowing depth-10 walk at depth 13), |dE/E| < 1e-3, every step's
+     kicks conserving momentum, and launches of hash_knn (H1), hash_scan
+     (H2), far_level, far_list and near_level; then, on its end state, H1
+     on all N queries bit-equal to its plain version (h, counts, overflow,
+     need, clip, rows read), H2 on the next step's gated targets (partners
+     equal except near-ties, counted), H3 on 4096 random targets (p99.9
+     relative error < 1e-5 on acc and pot), each timed beside its bound and
+     ptxas's registers; the same run with ForceMethod direct (prepare, 2
+     steps, the same asserts, launches of H3); the hash engine's 64-pass
+     rate check on phase 10's box from setup_smoothing_lengths (printed,
+     not held to the bar).
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
 phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
-("dsmc_walk") and phase 11's ("cli") counts, each path's counters set to 0
-just before it and read just after; for far_list and near_level
+("dsmc_walk"), phase 11's ("cli") and phase 12's ("small", "small_direct")
+counts, each path's counters set to 0 just before it and read just after; for far_list and near_level
 ``full_ms`` and
 ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
@@ -599,7 +616,9 @@ def main():
                                        gather_nodes_work, gather_work,
                                        near_level_work)
     from sidm_tpu_torch.flagship import flagship_config, flagship_ics
-    from sidm_tpu_torch.ops.direct import direct_gravity
+    from sidm_tpu_torch.ops.direct import direct_gravity, direct_sum
+    from sidm_tpu_torch.ops.neighbors import knn_radius
+    from sidm_tpu_torch.ops.sidm import hash_scan
     from sidm_tpu_torch.ops.far_kernel import far_level
     from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
                                              far_split, far_units,
@@ -828,7 +847,10 @@ def main():
                 "far_list": (far_list, "launches"),
                 "gather_rows": (gather_rows, "launches"),
                 "gather_rowsum": (gather_rowsum, "launches"),
-                "gather_nodes": (gather_nodes, "launches")}
+                "gather_nodes": (gather_nodes, "launches"),
+                "hash_knn": (knn_radius, "launches"),
+                "hash_scan": (hash_scan, "launches"),
+                "direct": (direct_sum, "launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -1085,6 +1107,25 @@ def main():
     cli_launches = cli_path(pos, vel, mass, n, dev, card, dsmc_times,
                             zero_counts, read_counts)
 
+    # ---- the single-program step: small-halo, its kernels, direct ---------
+    from sidm_tpu_torch.flagship import small_config
+    zero_counts()
+    ssim, _ = small_run(small_config(), SMALL_STEPS, dev, card, "small-halo")
+    small_launches = read_counts()
+    for key in ("hash_knn", "hash_scan", "far_level", "far_list",
+                "near_level"):
+        assert small_launches[key] > 0, (key, small_launches)
+    small_kernels(res, ssim, dev, card)
+    del ssim
+    zero_counts()
+    dsim, _ = small_run(small_config(ForceMethod="direct"),
+                        SMALL_DIRECT_STEPS, dev, card, "small-halo direct")
+    direct_launches = read_counts()
+    for key in ("hash_knn", "hash_scan", "direct"):
+        assert direct_launches[key] > 0, (key, direct_launches)
+    del dsim
+    hash_rate(dev, card)
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -1115,6 +1156,13 @@ def main():
         # the DSMC kernels' schedule: JAX length-sorts the emission's groups
         "segment_totals": ("sidm_tpu_torch/csrc/work_items.cuh",
                            "sidm_tpu/ops/list_range.py:230"),
+        # the single-program step's kernels: plain XLA in JAX
+        "hash_knn": ("sidm_tpu_torch/csrc/hash_knn.cu",
+                     "sidm_tpu/ops/neighbors.py:203"),
+        "hash_scan": ("sidm_tpu_torch/csrc/hash_scan.cu",
+                      "sidm_tpu/ops/sidm.py:221"),
+        "direct": ("sidm_tpu_torch/csrc/direct.cu",
+                   "sidm_tpu/ops/direct.py:33"),
     }
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
@@ -1123,7 +1171,8 @@ def main():
         by_path = {"lists": list_launches[name],
                    "walk": walk_launches[name], "dsmc": launches[name],
                    "dsmc_walk": walk_dsmc_launches[name],
-                   "cli": cli_launches[name]}
+                   "cli": cli_launches[name], "small": small_launches[name],
+                   "small_direct": direct_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -2081,6 +2130,232 @@ def box_phase(res, dev, card):
               f"({'OK' if r['ok'] else 'FAIL'} at max(1 %, 3 sigma)), drops "
               f"{r['drops']}, {r['seconds']:.2f} s [{card}]", flush=True)
         assert r["ok"] and not any(r["drops"].values()), r
+
+
+SMALL_STEPS = 4         # phase 12's small-halo run, after prepare
+SMALL_DIRECT_STEPS = 2  # ... and with ForceMethod direct
+SMALL_TARGETS = 4096    # H3's random targets against the plain sum
+TIE = 1e-4              # H2: a uniform within this of a running sum
+
+
+def small_run(cfg, steps: int, dev, card, label):
+    """small-halo (``flagship.small_config``) at N = SMALL_N through
+    Simulation on the single-program step: prepare, compute_potential,
+    ``steps`` steps, compute_potential, with phase 12's asserts: scatters
+    > 0, no bucket read past the grown cap and no clipped level (the
+    smoothing-length init's included), |dE/E| < 1e-3, every step's kicks
+    conserving momentum, a finite state. Returns (Simulation, seconds of
+    the steps)."""
+    from sidm_tpu_torch.flagship import SMALL_N, flagship_ics
+    from sidm_tpu_torch.simulation import Simulation
+
+    pos, vel, mass = flagship_ics(SMALL_N, SEED)
+    sim = Simulation(cfg, mode="synchronized", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(SMALL_N, np.int32))
+    assert sim.particles.n_padded == SMALL_N and not sim._use_phased()
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    init = dict(sim.last_hsml_init)
+    sim.compute_potential()
+    e_start = sim_energy(sim)
+    scat, drops, walls = [], [], []
+    t0 = time.perf_counter()
+    for k in range(steps):
+        t1 = time.perf_counter()
+        _, _, n_scat = sim.step()
+        si = dict(sim.last_sidm_info)
+        walls.append(time.perf_counter() - t1)
+        m = sim.particles.mass[:, None].double()
+        kick = si["kick"].double()
+        mom = float(torch.linalg.norm(torch.sum(m * kick, 0)))
+        scale = float(torch.sum(m * torch.linalg.norm(kick, dim=1,
+                                                      keepdim=True)))
+        assert mom <= 1e-5 * scale, ("momentum", mom, scale)
+        assert si["engine"] == "hash", si["engine"]
+        scat.append(n_scat)
+        drops.append((si["ngb_ovf"], si["lvl_clip"]))
+        wi = sim.last_walk_info
+        wovf = (sum(int(wi[f]) for f in ("ovf_open", "ovf_big", "ovf_items"))
+                if wi is not None else 0)
+        assert wovf == 0, ("walk overflow", wovf)
+        print(f"{label} step {k + 1}: wall {walls[-1] * 1e3:.1f} ms ("
+              + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in
+                          sim.last_phase_wall.items())
+              + f"), scatters {n_scat} of {si['proposals']} proposals, gated "
+              f"{si['n_gated']}, cap {si['cap']} (need {si['need']}, passes "
+              f"{si['tries']}), buckets past cap {si['ngb_ovf']}, clipped "
+              f"levels {si['lvl_clip']}, |sum m dv| {mom:.3e} of sum m|dv| "
+              f"{scale:.3e} [{card}]", flush=True)
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    sim.compute_potential()
+    torch.cuda.synchronize()
+    de = abs(sim_energy(sim) - e_start) / abs(e_start)
+    finite = all(bool(torch.isfinite(getattr(sim.particles, f)).all())
+                 for f in ("pos", "vel", "hsml_vd", "dvel"))
+    print(f"{label} (small-halo, single-program step, ForceMethod "
+          f"{cfg.ForceMethod}, walk depth {sim._small_depth or 'default'}): "
+          f"N {SMALL_N}, prepare {t_prep:.3f} s (hsml "
+          f"init: cap {init['cap']}, need {init['need']}, buckets past cap "
+          f"{init['ngb_ovf']}, clipped {init['lvl_clip']}), {steps} steps "
+          f"{t_steps:.3f} s, {SMALL_N * steps / t_steps:.1f} "
+          f"particle-steps/s, step walls (ms) "
+          f"{[round(w * 1e3, 1) for w in walls]}, scatters {scat}, drops "
+          f"(buckets, clipped) {drops}, t = {sim.time:.6g}, |dE/E| "
+          f"{de:.3e}, finite {finite} [{card}]", flush=True)
+    assert finite and de < 1e-3, (finite, de)
+    assert sum(scat) > 0, scat
+    assert init["ngb_ovf"] == 0 and init["lvl_clip"] == 0, init
+    assert all(d == (0, 0) for d in drops), drops
+    return sim, t_steps
+
+
+def small_kernels(res, sim, dev, card):
+    """H1, H2 and H3 on small-halo's end state, against their plain
+    versions on the next step's inputs: H1 on all N queries (h, counts,
+    overflow, need, clip and rows read bit-equal), H2 on the gated targets
+    (partners and hits equal except near-ties, counted; need, clip
+    equal), H3 on SMALL_TARGETS random targets (p99.9 relative error <
+    1e-5 on acc and pot); each timed beside its bound and ptxas's
+    registers."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.bounds import (bound_ms, direct_work, knn_work,
+                                       scan_work)
+    from sidm_tpu_torch.ops.direct import direct_gravity, direct_sum
+    from sidm_tpu_torch.ops.neighbors import knn_radius, knn_radius_plain
+    from sidm_tpu_torch.ops.sidm import (hash_scan, hash_scan_plain,
+                                         sidm_scatter)
+    from sidm_tpu_torch.rng import step_key
+
+    p = sim.particles
+    cap = sim._hash_cap
+    t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, _ = integrate.predict_positions(p, t_next, sim.consts)
+    vmax = torch.tensor(sim.vmax, dtype=pos_pred.dtype, device=dev)
+    key = step_key(sim.root_key, sim.step_count)
+    params = sim._sidm_params()
+    q, _, info = sidm_scatter(p, pos_pred, t_next, active, vmax, key, params,
+                              cap=cap, return_info=True)
+    table, n = info["table"], pos_pred.shape[0]
+    # H1: the step's hsml refresh on all N queries
+    warm = torch.where(p.hsml_vd > 0, p.hsml_vd,
+                       2.0 * table.s0).contiguous()
+    kargs = (table, pos_pred, p.ptype, warm, params.des_num_ngb)
+    kk = knn_radius(*kargs, cap=cap, n_iter=3)
+    keys = []
+    t0 = time.perf_counter()
+    kp = knn_radius_plain(*kargs, cap=cap, n_iter=3, keys=keys)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for f in ("h", "cnt", "ovf", "need", "clip", "scanned"):
+        a, b = getattr(kk, f), getattr(kp, f)
+        assert torch.equal(a, b.to(a.dtype)), ("hash_knn", f)
+    ms = cuda_ms(lambda: knn_radius(*kargs, cap=cap, n_iter=3), 5)
+    ops, nb = knn_work(table, keys, kp.scanned, n, cap)
+    bms, by = bound_ms(ops, nb)
+    rows = kp.scanned.double() / 3.0
+    print(f"kernel hash_knn (H1, {n} queries, 3 iterations, cap {cap}, "
+          f"k {params.des_num_ngb}): h, counts, overflow, need, clip and "
+          f"rows read bit-equal to the plain version; rows read per query "
+          f"and iteration mean {float(rows.mean()):.1f}, max "
+          f"{float(rows.max()):.0f}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms (one call), bound {bms:.4f} ms ({by}), at "
+          f"{bms / ms:.1%} of the bound's speed; ptxas "
+          f"{usage_of('hash_knn_kernel')} [{card}]", flush=True)
+    res.add("hash_knn", 0.0, ms, plain_ms, ops, nb)
+    # H2: the step's scan on its gated targets
+    tid, si = info["tid"], info["scan_inputs"]
+    sargs = (table, pos_pred, q.vel.contiguous(), si["hs"].contiguous(),
+             q.ptype, si["rand"], si["dts"].contiguous(), tid, t_next,
+             si["sigma_co"], params, cap)
+    sk = hash_scan(*sargs)
+    keys = []
+    t0 = time.perf_counter()
+    sp = hash_scan_plain(*sargs, keys=keys)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t = tid.long()
+    diff = ((sk.partner != sp.partner) | (sk.hit != sp.hit))[t]
+    ties = diff & (sp.margin[t] < TIE)
+    assert int(diff.sum()) == int(ties.sum()), ("hash_scan", int(diff.sum()))
+    assert torch.equal(sk.need[t], sp.need[t].to(sk.need.dtype))
+    assert torch.equal(sk.clip[t], sp.clip[t])
+    assert torch.equal(sk.hit, info["scan"].hit)
+    ms = cuda_ms(lambda: hash_scan(*sargs), 10)
+    ops, nb = scan_work(table, keys, sp.scanned, sp.ok, tid, cap)
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel hash_scan (H2, {t.numel()} gated targets of {n}, cap "
+          f"{cap}): hits {int(sk.hit.sum())}, partners differing "
+          f"{int(diff.sum())} (near-ties {int(ties.sum())}), need and clip "
+          f"equal; rows read to the crossing {int(sp.scanned[t].sum())}, "
+          f"valid pairs {int(sp.ok[t].sum())}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms (one call), bound {bms:.5f} ms ({by}), at "
+          f"{bms / ms:.1%} of the bound's speed; ptxas "
+          f"{usage_of('hash_scan_kernel')} [{card}]", flush=True)
+    res.add("hash_scan", 0.0, ms, plain_ms, ops, nb)
+    res.rows["hash_scan"].update(near_ties=int(ties.sum()),
+                                 gated=int(t.numel()))
+    # H3: the direct sum, all N and SMALL_TARGETS random targets
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    tg = torch.randperm(int(p.valid.sum()), generator=g)[:SMALL_TARGETS].to(
+        dev)
+    acc_k, pot_k = direct_sum(pos_pred, mass, eps, targets=tg)
+    acc_p, pot_p = direct_gravity(pos_pred, mass, eps, targets=tg)
+    e = torch.linalg.norm(acc_k - acc_p, dim=1) / torch.clamp(
+        torch.linalg.norm(acc_p, dim=1), min=1e-30)
+    ep = torch.abs(pot_k - pot_p) / torch.clamp(torch.abs(pot_p), min=1e-30)
+    err = float(torch.max(torch.abs(acc_k - acc_p)))
+    ms_t = cuda_ms(lambda: direct_sum(pos_pred, mass, eps, targets=tg), 5)
+    plain_t_ms = cuda_ms(lambda: direct_gravity(pos_pred, mass, eps,
+                                                targets=tg), 1)
+    ms = cuda_ms(lambda: direct_sum(pos_pred, mass, eps,
+                                    with_potential=False), 2)
+    ms_pot = cuda_ms(lambda: direct_sum(pos_pred, mass, eps), 2)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    direct_gravity(pos_pred, mass, eps, with_potential=False)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)       # one call, all N targets
+    ops, nb = direct_work(n, n, False)
+    bms, by = bound_ms(ops, nb)
+    ops_t, nb_t = direct_work(n, SMALL_TARGETS, True)
+    print(f"kernel direct (H3, N {n}): {SMALL_TARGETS} random targets vs the "
+          f"plain sum: acc p99.9 rel err {q999(e):.3e} (max "
+          f"{float(e.max()):.3e}), pot p99.9 {q999(ep):.3e}; all N targets "
+          f"{ms:.3f} ms (with the potential {ms_pot:.3f} ms), bound "
+          f"{bms:.3f} ms ({by}), at {bms / ms:.1%} of the bound's speed; "
+          f"plain {plain_ms:.1f} ms (one call); {SMALL_TARGETS} targets "
+          f"kernel {ms_t:.3f} ms, plain {plain_t_ms:.3f} ms, bound "
+          f"{bound_ms(ops_t, nb_t)[0]:.4f} ms; "
+          f"ptxas {usage_of('direct_kernel')} [{card}]", flush=True)
+    assert q999(e) < 1e-5 and q999(ep) < 1e-5, (q999(e), q999(ep))
+    res.add("direct", err, ms, plain_ms, ops, nb)
+    res.rows["direct"].update(targets_ms=ms_t, targets_plain_ms=plain_t_ms,
+                              pot_ms=ms_pot,
+                              acc_p999=q999(e), pot_p999=q999(ep))
+
+
+def hash_rate(dev, card):
+    """The hash engine's short rate check on phase 10's box, from
+    setup_smoothing_lengths (hard sphere, RATE_PASSES passes): printed,
+    not held to the 1 % bar (JAX's hash engine reads 0.928 on a CPU,
+    BASELINE.md)."""
+    from sidm_tpu_torch import validate_rate as vr
+    p0, tree, _ = vr.make_box(BOX_N, dev, hsml="knn")
+    r = vr.run_type(p0, tree, 0, "hash", RATE_PASSES, BOX_N)
+    print(f"rate (hard sphere, N {BOX_N}, {RATE_PASSES} passes, hash, hsml "
+          f"knn): events {r['events']}, expected {r['expected']:.1f}, ratio "
+          f"{r['ratio']:.4f} +- {r['err']:.4f} "
+          f"({'within' if r['ok'] else 'outside'} max(1 %, 3 sigma); "
+          f"printed only), drops {r['drops']}, {r['seconds']:.2f} s "
+          f"[{card}]", flush=True)
 
 
 CLI_STEPS = 6           # phase 11's run(max_steps=...)

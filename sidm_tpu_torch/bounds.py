@@ -84,6 +84,26 @@ CAND_ROW_BYTES = 32      # one candidate's row [pos3 vel3 mass aux]
 # slot, segment particle) pair); per slot its position, velocity, h, dt,
 # type and id in and its four outputs
 NEAR_SLOT_BYTES = 56
+# the hash grid (csrc/hash_knn.cu, csrc/hash_scan.cu): one bucket's start
+# and count; per row the k-th-neighbour radius reads its position and aux
+# (the type), the scan the whole row and its particle id
+BUCKET_BYTES = 8
+KNN_ROW_BYTES = 16
+SCAN_ROW_BYTES = 36
+# ... H1 per row read in an iteration: the type (remainder 2, compare),
+# d 3, r^2 5, the k-list's threshold compare (the stencil's integer hashing
+# is not float work: not counted); per query its position, type and h in,
+# h, count, overflow, need, clip and rows read out
+KNN_ROW_OPS = 11
+KNN_QUERY_BYTES = 44
+# ... H2 per row up to the crossing: the type 3, d 3, r^2 5, sqrt, r < h,
+# self and pending 2; per valid pair the term: u, W(u) 7, / h^3, w 3,
+# v^2 5, sqrt, sigma v, P 4, the running sum and its compare; per target
+# its id, position, velocity, h, type, uniform and dt in, partner, hit,
+# need, clip and rows read out
+SCAN_ROW_OPS = 16
+SCAN_PAIR_OPS = 26
+SCAN_TARGET_BYTES = 64
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -367,3 +387,49 @@ def near_dsmc_work(keys, nn, gidx, gh, ncnt):
     nbytes = (4 * _n(torch.sum(torch.clamp(nn.long(), max=L)))
               + CAND_ROW_BYTES * distinct + NEAR_SLOT_BYTES * gidx.numel())
     return ops, nbytes
+
+
+def _bucket_rows(table, keys, cap: int):
+    """(distinct buckets, rows of those buckets up to cap) of the key
+    lists ``keys`` (each iteration's deduplicated bucket keys)."""
+    k = torch.unique(torch.cat([x.reshape(-1) for x in keys])) if keys \
+        else torch.zeros(0, dtype=torch.int64)
+    rows = torch.clamp(table.bucket_count[k.to(
+        table.bucket_count.device)].long(), max=cap)
+    return k.numel(), _n(torch.sum(rows))
+
+
+def knn_work(table, keys, scanned, n: int, cap: int):
+    """(ops, bytes) of one ``knn_radius`` call on n queries: KNN_ROW_OPS
+    per row read (``scanned``: rows read per query over the iterations,
+    as the kernel and the plain version count them); bytes: the distinct
+    buckets of ``keys`` (the plain version's key lists) and their rows up
+    to cap once each (KNN_ROW_BYTES a row), the queries' inputs and
+    outputs."""
+    nb, rows = _bucket_rows(table, keys, cap)
+    ops = KNN_ROW_OPS * _n(torch.sum(scanned.long()))
+    return ops, BUCKET_BYTES * nb + KNN_ROW_BYTES * rows + KNN_QUERY_BYTES * n
+
+
+def scan_work(table, keys, scanned, ok, tid, cap: int):
+    """(ops, bytes) of one ``hash_scan`` call on the targets ``tid``:
+    SCAN_ROW_OPS per row read up to each target's crossing (``scanned``)
+    and SCAN_PAIR_OPS per valid pair among them (``ok``, the plain
+    version's); bytes: the distinct buckets of ``keys`` once, their rows
+    up to cap (at most the rows read) once, SCAN_TARGET_BYTES a target."""
+    t = tid.long()
+    nb, rows = _bucket_rows(table, keys, cap)
+    read = _n(torch.sum(scanned[t].long()))
+    ops = SCAN_ROW_OPS * read + SCAN_PAIR_OPS * _n(torch.sum(ok[t].long()))
+    return ops, (BUCKET_BYTES * nb + SCAN_ROW_BYTES * min(rows, read)
+                 + SCAN_TARGET_BYTES * t.numel())
+
+
+def direct_work(n: int, T: int, need_pot: bool):
+    """(ops, bytes) of one ``direct_sum`` call: every (target, source) pair
+    of n sources and T targets at NEAR_PAIR_OPS (plus NEAR_PAIR_POT_OPS
+    with the potential; the same pair math as the near kernel's); bytes:
+    the sources' PART_BYTES, the target ids, the accelerations (and
+    potentials) written."""
+    ops = (NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if need_pot else 0)) * n * T
+    return ops, PART_BYTES * n + 4 * T + (16 if need_pot else 12) * T

@@ -9,6 +9,13 @@ the base), DSMC on the cached candidate lists, with the same two cuts.
 flagship-dsmc-walk: the same SIDM settings on the walk, bench.py's
 ``TreeRefreshSteps 16``, the DSMC pass on the range walk every step.
 
+``small_config()`` is small-halo: bench.py's halo and SIDM settings on
+the single-program step (``mode="synchronized"`` below
+``Simulation.PHASE_THRESHOLD``: the wq walk's force every step and the
+hash-grid DSMC engine), at its largest N, ``SMALL_N`` = 2^18 - 256
+(``make_particles`` pads to a multiple of 256). ``ListMode`` and
+``TreeRefreshSteps`` do not act on that step.
+
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
 ``SIDMOn 0`` and ``TreeWalkEngine wq``, on the cached interaction lists
@@ -60,6 +67,16 @@ DSMC = dict(SIDMOn=1, CrossSection=38.2614, ProbabilityTol=0.2,
 # flagship-dsmc-walk: bench.py's SIDM settings on the walk (the DSMC pass
 # on the range walk every step; TreeRefreshSteps 16, bench.py's)
 DSMC_WALK = dict(DSMC, ListMode=0)
+
+
+# small-halo: the single-program step's largest N (padded to 256)
+SMALL_N = (1 << 18) - 256
+
+
+def small_config(**changes) -> SimConfig:
+    """small-halo: bench.py's halo and SIDM settings on the single-program
+    step (run it with N <= SMALL_N and ``mode="synchronized"``)."""
+    return SimConfig(**{**FLAGSHIP, **DSMC, **changes})
 
 
 def flagship_config(**changes) -> SimConfig:

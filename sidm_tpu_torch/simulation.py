@@ -8,10 +8,24 @@
 :1421 with ``load_ic`` :113, ``_open_logs`` :1411,
 ``_write_scatter_log`` :1387, ``write_snapshot_file`` :1524,
 ``compute_potential`` :1550, ``energy_statistics`` :1576 and
-``write_restart_file``/``load_restart_file`` :1591-1615).
+``write_restart_file``/``load_restart_file`` :1591-1615; the
+single-program step ``_build_step`` :373-458 with ``_make_force_fn``
+:271-300, its prepare :1318-1322 and the choice of step ``_use_phased``
+:1344-1350).
 
-One step is the JAX package's phased step for a non-periodic tree run on
-the work-queue walk (``TreeWalkEngine wq``), in one of two cadences:
+Below PHASE_THRESHOLD padded particles (``mode="synchronized"``) and at
+any N (``mode="fused"``) a step is the JAX package's single-program step:
+predict, the force (the wq walk on a fresh tree, ``ForceMethod tree``, or
+the direct sum, ``direct``), the kick factors, the hash-grid DSMC pass
+(``ops/sidm.py`` ``sidm_scatter``, its rows per bucket grown to the
+step's demand where JAX drops the rest), then the finish below;
+``prepare`` sets the smoothing lengths by ``setup_smoothing_lengths``. A
+walk that drops cells on that step's tree (JAX's depth 10 below 2^18
+particles) is redone at depth 13 for the rest of the run.
+
+Otherwise one step is the JAX package's phased step for a non-periodic
+tree run on the work-queue walk (``TreeWalkEngine wq``), in one of two
+cadences:
 
 * ``ListMode 1`` (cached interaction lists, the flagship's): on a rebuild
   step the octree is built and the interaction lists recorded under a skin
@@ -82,6 +96,7 @@ from .diagnostics import (CpuLog, EnergyLog, InfoLog, Timer, TimingsLog,
 from .integrate import StepConsts
 from .io import checkpoint as ckpt
 from .io.gadget import GadgetHeader, Snapshot, read_snapshot, write_snapshot
+from .ops.direct import direct_sum
 from .ops.fused_force import default_depth
 from .ops.fused_range import cell_count_hsml_seed, tree_hsml_init_fused
 from .ops.list_force import (ListConfig, advance_tree, eval_lists,
@@ -89,7 +104,8 @@ from .ops.list_force import (ListConfig, advance_tree, eval_lists,
 from .ops.list_range import (RangeListConfig,
                              record_candidates_from_particles,
                              sidm_scatter_lists)
-from .ops.sidm import SidmParams
+from .ops.neighbors import setup_smoothing_lengths
+from .ops.sidm import SidmParams, make_sidm_step, sidm_params
 from .ops.tree import build_octree, refresh_octree
 from .ops.wq_force import wq_gravity, wq_gravity_tree
 from .ops.wq_range import sidm_scatter_wq
@@ -118,8 +134,10 @@ def _refuse(what: str, item: str):
 
 def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     """Raise NotImplementedError for anything outside the ported slice."""
-    if cfg.ForceMethod != "tree":
-        _refuse(f"ForceMethod {cfg.ForceMethod}", "A, item 9")
+    if cfg.ForceMethod not in ("tree", "direct"):
+        _refuse(f"ForceMethod {cfg.ForceMethod}", "A, item 15")
+    if cfg.ForceMethod == "direct" and mode == "phased":
+        _refuse_phased_direct()
     if cfg.TreeWalkEngine != "wq":
         _refuse(f"TreeWalkEngine {cfg.TreeWalkEngine}", "A, item 15")
     if cfg.PeriodicBoundariesOn or cfg.PMVacuum:
@@ -128,11 +146,19 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
         _refuse("comoving integration", "A, item 11")
     if cfg.VelDispOn:
         _refuse("VelDispOn (velocity dispersion)", "A, item 10")
-    if mode not in ("synchronized", "phased"):
+    if mode not in ("synchronized", "phased", "fused"):
         _refuse(f"mode={mode!r}", "A, item 10")
     if cfg.Precision == "f64" and device.type == "cuda":
         _refuse("Precision f64 on CUDA (the kernels are float32)",
                 "A, item 16")
+
+
+def _refuse_phased_direct():
+    # JAX's phased step runs ForceMethod direct through treeforce and
+    # sidm_scatter_tree, which are out of the port's scope
+    _refuse("ForceMethod direct on the phased step (mode='phased', or "
+            "N >= Simulation.PHASE_THRESHOLD with mode='synchronized')",
+            "A, item 15")
 
 
 class _PhaseClock:
@@ -183,6 +209,14 @@ class Simulation:
     # above it comes from rare targets whose h is far out of the neighbour
     # band; their lists truncate at K until their controllers shrink h
     SIDM_K_CEILING = 384
+    # the hash engine (single-program step): grow its rows per bucket to
+    # the step's demand (JAX keeps 96 and drops the rest: ROADMAP C.13);
+    # False keeps the JAX package's drops, for the parity tests
+    HASH_CAP_GROWTH = True
+    HASH_TRIES = 4
+    # the single-program step's walk: an overflowing tree of
+    # default_depth's is built again at this depth (JAX's above 2^18)
+    DEEP_DEPTH = 13
 
     def __init__(self, cfg: SimConfig, restart_flag: int = 0,
                  mode: str = "synchronized", device=None):
@@ -236,6 +270,10 @@ class Simulation:
         self.sidm_trunc_frac = 0.0
         self.sidm_trunc_targets = 0
         self.last_sidm_info = None
+        self.last_hsml_init = None
+        self._hash_cap = SidmParams._field_defaults["cap"]   # JAX's 96
+        self._small_depth = None
+        self._hash_step = None
         self._reset_cadence()
 
     def _reset_cadence(self):
@@ -328,9 +366,19 @@ class Simulation:
                                dtype=self.dtype, device=self.device)
 
     def _use_phased(self) -> bool:
+        """The JAX package's choice of step (simulation.py:1344-1350):
+        ``mode="phased"`` the phased step, ``"fused"`` the single-program
+        step at any N, ``"synchronized"`` the phased step from
+        PHASE_THRESHOLD particles (padded) on."""
         if self.mode == "phased":
-            return True
-        return self.particles.n_padded >= self.PHASE_THRESHOLD
+            phased = True
+        elif self.mode == "fused":
+            phased = False
+        else:
+            phased = self.particles.n_padded >= self.PHASE_THRESHOLD
+        if phased and self.cfg.ForceMethod == "direct":
+            _refuse_phased_direct()
+        return phased
 
     def _check_uniform_eps(self) -> bool:
         """One softening value across the particle types present: node
@@ -351,10 +399,81 @@ class Simulation:
         step's size, its active particles and its scatters."""
         if self.particles is None:
             raise RuntimeError("load particles first")
-        if not self._use_phased():
-            _refuse("the single-program small-N step (N < "
-                    f"{self.PHASE_THRESHOLD} with mode='synchronized'; use "
-                    "mode='phased')", "A, item 9")
+        if self._use_phased():
+            return self._step_phased(first)
+        return self._step_single(first)
+
+    def _step_single(self, first: bool):
+        """The single-program step (``_build_step``, simulation.py:373-458):
+        predict; the force (the wq walk, ``ForceMethod tree``, or the
+        direct sum, ``direct``); the kick factors; the hash engine's DSMC
+        pass (``SIDMOn 1``); advance, reflection and the synchronized
+        timesteps."""
+        cfg, consts = self.cfg, self.consts
+        params = self._timestep_params()
+        clock = _PhaseClock(self.device)
+        p = self.particles
+        vmax = torch.tensor(self.vmax, dtype=self.dtype, device=self.device)
+        t_next = torch.clamp(integrate.find_next_time(p), max=cfg.TimeMax)
+        active = integrate.active_mask(p, t_next)
+        pos_pred, vel_pred = integrate.predict_positions(p, t_next, consts)
+        raw_acc, pot, info = self._force(p, pos_pred,
+                                         params.softening_table, False)
+        accel, old_acc = integrate.apply_accel_postfactors(
+            raw_acc, pos_pred, vel_pred, t_next, consts)
+        p = dataclasses.replace(
+            p, accel=torch.where(active[:, None], accel, p.accel),
+            old_acc=torch.where(active, old_acc, p.old_acc),
+            pot=torch.where(active, pot, p.pot))
+        self.last_step_rebuilt = True
+        self.last_walk_info = info
+        self.last_list_info = None
+        clock.mark("force")
+        n_scat = 0
+        self.last_sidm_info = None
+        if cfg.SIDMOn and cfg.CrossSection > 0:
+            key = step_key(self.root_key,
+                           0x7FFFFFFF if first else self.step_count)
+            p, n_scat = self._sidm_hash(p, pos_pred, t_next, active, vmax,
+                                        key)
+            clock.mark("sidm")
+        return self._finish(p, t_next, active, vmax, params, first, clock,
+                            n_scat)
+
+    def _force(self, p, pos_pred, soft, need_pot: bool):
+        """The single-program step's force (``_make_force_fn``,
+        simulation.py:271-300): raw (acc, pot, walk info or None). The
+        direct sum always gives the potential (JAX's does); the walk only
+        with ``need_pot``."""
+        cfg = self.cfg
+        eps = soft[torch.clamp(p.ptype, 0, 5).long()]
+        mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+        if cfg.ForceMethod == "direct":
+            acc, pot = direct_sum(pos_pred, mass, eps)
+            return acc, pot, None
+        while True:
+            depth = self._small_depth or default_depth(p.n_padded)
+            acc, pot, info = wq_gravity(
+                pos_pred, mass, eps, p.old_acc, theta=cfg.ErrTolTheta,
+                opening=cfg.TypeOfOpeningCriterion,
+                err_tol_force_acc=cfg.ErrTolForceAcc, depth=depth,
+                need_pot=need_pot, return_info=True)
+            drops = [int(x) for x in torch.stack([
+                info[k] for k in ("ovf_open", "ovf_big",
+                                  "ovf_items")]).tolist()]
+            if not sum(drops) or depth >= self.DEEP_DEPTH:
+                return acc, pot, info
+            # the walk dropped cells (JAX's walk drops them silently,
+            # ROADMAP C.15): the force again on JAX's large-N tree depth,
+            # kept for the run
+            self._small_depth = self.DEEP_DEPTH
+            print(f"WARNING: the walk at tree depth {depth} dropped cells "
+                  f"(opened, big, items) {drops}: the force again at depth "
+                  f"{self.DEEP_DEPTH}, kept for the run.", file=sys.stderr,
+                  flush=True)
+
+    def _step_phased(self, first: bool):
+        """The phased step (see the module docstring)."""
         cfg, consts = self.cfg, self.consts
         if self._uniform_eps is None:
             self._uniform_eps = self._check_uniform_eps()
@@ -471,8 +590,15 @@ class Simulation:
                            0x7FFFFFFF if first else self.step_count)
             p, n_scat = self._sidm(p, pos_pred, tree, t_next, active, vmax,
                                    key, use_lists, clock)
+        return self._finish(p, t_next, active, vmax, params, first, clock,
+                            n_scat)
 
-        # finish phase (simulation.py:726-741)
+    def _finish(self, p, t_next, active, vmax, params, first: bool, clock,
+                n_scat: int):
+        """The finish phase (simulation.py:726-741): advance (which applies
+        the kicks), reflection, the synchronized timesteps, vmax; then the
+        Simulation's time, counters and scatter log."""
+        cfg, consts = self.cfg, self.consts
         p = integrate.advance(p, t_next, active, consts)
         if consts.reflection_radius > 0:
             p = integrate.reflect(p, consts.reflection_radius)
@@ -503,18 +629,7 @@ class Simulation:
     # ------------------------------------------------------------------- SIDM
 
     def _sidm_params(self) -> SidmParams:
-        cfg, u = self.cfg, self.units
-        return SidmParams(
-            cross_section_internal=u.CrossSectionInternal,
-            cross_section_type=cfg.CrossSectionType,
-            yukawa_velocity=cfg.YukawaVelocity,
-            cross_section_vel_scale=cfg.CrossSectionVelScale,
-            cross_section_pow_law=cfg.CrossSectionPowLaw,
-            des_num_ngb=cfg.DesNumNgb,
-            max_num_ngb_dev=cfg.MaxNumNgbDeviation,
-            comoving=bool(cfg.ComovingIntegrationOn),
-            hubble=u.Hubble, omega0=cfg.Omega0,
-            omega_lambda=cfg.OmegaLambda, log_events=bool(cfg.ScatterLog))
+        return sidm_params(self.cfg, self.units)
 
     def _event_info(self, info, n_scat: int) -> dict:
         """The scatter log's part of ``last_sidm_info``: the step's events
@@ -584,6 +699,50 @@ class Simulation:
         self.last_sidm_info = info
         clock.mark("sidm")
         return p, n_scat
+
+    def _grow_hash_cap(self, need: int, what: str) -> bool:
+        """Grow the hash engine's rows per bucket to ``need`` (rounded up to
+        32) when it is past the cap and growth is on; True if it grew."""
+        if not self.HASH_CAP_GROWTH or need <= self._hash_cap:
+            return False
+        old, self._hash_cap = self._hash_cap, self._round_cap(need, 32)
+        print(f"NOTE: the hash grid's {what} reached a bucket of {need} "
+              f"rows past cap {old}: cap -> {self._hash_cap}, pass redone.",
+              file=sys.stderr, flush=True)
+        return True
+
+    def _sidm_hash(self, p, pos_pred, t_next, active, vmax, key):
+        """The hash engine's DSMC pass (``sidm_scatter``) with its rows per
+        bucket grown to the step's demand: a pass that read a bucket past
+        the cap is redone with the cap grown (up to HASH_TRIES passes).
+        What still drops (``ngb_ovf``: queries and targets past the cap;
+        ``lvl_clip``: those whose level was clipped, so that their stencil
+        misses part of their ball) is a rate biased low: reported."""
+        if self._hash_step is None:
+            self._hash_step = make_sidm_step(self.cfg, self.units)
+        for tries in range(1, self.HASH_TRIES + 1):
+            q, n_scat, info = self._hash_step(p, pos_pred, t_next, active,
+                                              vmax, key, cap=self._hash_cap)
+            need, ovf, clip, n_scat, n_prop = (int(x) for x in torch.stack([
+                info["need"].long(), info["ngb_ovf"].long(),
+                info["lvl_clip"].long(), n_scat.long(),
+                torch.sum(info["proposal"] >= 0).long()]).tolist())
+            if tries == self.HASH_TRIES or not self._grow_hash_cap(
+                    need, "DSMC pass"):
+                break
+        if ovf or clip:
+            print(f"WARNING: the hash DSMC pass read {ovf} buckets past cap "
+                  f"{self._hash_cap} and clipped {clip} levels this step "
+                  f"(scattering rate biased low).", file=sys.stderr,
+                  flush=True)
+        self.last_sidm_info = dict(
+            record=False, engine="hash", n_scat=n_scat, cap=self._hash_cap,
+            need=need, ngb_ovf=ovf, lvl_clip=clip, tries=tries,
+            kick=info["kick"], rounds=info["rounds"], proposals=n_prop,
+            dropped=info["dropped"], n_gated=info["n_gated"],
+            knn=info["knn"], scan=info["scan"], tid=info["tid"],
+            **self._event_info(info, n_scat))
+        return q, n_scat
 
     def _sidm_walk(self, p, pos_pred, tree, t_next, active, vmax, key,
                    params, info, clock):
@@ -763,7 +922,23 @@ class Simulation:
         if self.particles is None:
             raise RuntimeError("load particles first")
         cfg, p = self.cfg, self.particles
-        if cfg.SIDMOn and cfg.CrossSection > 0:
+        if cfg.SIDMOn and cfg.CrossSection > 0 and not self._use_phased():
+            # setup_smoothinglengths_sidm (init.c:159) on the hash grid,
+            # simulation.py:1318-1322, its cap grown to the demand
+            for _ in range(self.HASH_TRIES):
+                q, knn = setup_smoothing_lengths(
+                    p, cfg.DesNumNgb, cfg.MaxNumNgbDeviation,
+                    cap=self._hash_cap, return_info=True)
+                need = int(torch.max(knn.need))
+                if not self._grow_hash_cap(need, "smoothing-length init"):
+                    break
+            col = p.is_collisionless
+            self.particles = q
+            self.last_hsml_init = dict(
+                cap=self._hash_cap, need=need,
+                ngb_ovf=int(torch.sum(col & (knn.need > self._hash_cap))),
+                lvl_clip=int(torch.sum(col & knn.clip)))
+        elif cfg.SIDMOn and cfg.CrossSection > 0:
             # setup_smoothinglengths_sidm (init.c:159)
             eps = self._softening()[torch.clamp(p.ptype, 0, 5).long()]
             tree = build_octree(p.pos, torch.where(p.valid, p.mass,
@@ -777,17 +952,13 @@ class Simulation:
 
     def compute_potential(self):
         """compute_potential (potential.c:18-195) at the current time, with
-        a fresh tree (the JAX package's force function for this engine)."""
+        the JAX package's force function for ``ForceMethod``
+        (simulation.py:1550-1575): a fresh tree's walk, or the direct
+        sum."""
         cfg, p = self.cfg, self.particles
         t = torch.tensor(self.time, dtype=self.dtype, device=self.device)
         pos_pred, _ = integrate.predict_positions(p, t, self.consts)
-        soft = self._softening()
-        eps = soft[torch.clamp(p.ptype, 0, 5).long()]
-        _, pot = wq_gravity(
-            pos_pred, torch.where(p.valid, p.mass, torch.zeros_like(p.mass)),
-            eps, p.old_acc, theta=cfg.ErrTolTheta,
-            opening=cfg.TypeOfOpeningCriterion,
-            err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=True)
+        _, pot, _ = self._force(p, pos_pred, self._softening(), True)
         H = self.units.Hubble
         pot = self.units.G * pot
         if cfg.OmegaLambda != 0:

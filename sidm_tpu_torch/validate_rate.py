@@ -17,29 +17,38 @@ Setup as in the JAX harness: BOX 1, S_VEL 0.5, VC 1, VSCALE 1.2, ALPHA
 -0.6, DesNumNgb 32, seed 2024, dt = 0.006 / (rho <sigma v>) (about 0.3 %
 of N events per pass, so that the one-scatter-per-particle conflict loss
 stays well under the bar), passes keyed ``step_key(run_key(7, t), i)``
-with salt i. Two engines:
+with salt i. Three engines:
 
 * ``walk``: ``sidm_scatter_fused(box=)``, the range walk and the segment
   pass (JAX's harness runs this engine);
 * ``lists``: the candidate lists recorded once at skin 0
   (``record_candidates_from_particles(box=)``) and ``sidm_scatter_lists
-  (box=)`` on every pass.
+  (box=)`` on every pass;
+* ``hash``: the hash-grid engine of the single-program step,
+  ``sidm_scatter(box=)`` (its hsml refresh, H1, and its scan, H2), with
+  its rows per bucket grown to the demand as ``Simulation`` grows them.
 
-One difference from the JAX harness: the smoothing lengths start from
-``tree_hsml_init_fused(box=)`` (the port's; JAX uses the hash engine's
-``setup_smoothing_lengths``, ROADMAP.md A, item 9), then both take three
-passes of the engine's own hsml controller (which gate every target: the
-list engine runs with gated and tail capacities that hold them all, as
-``Simulation`` grows its capacities after a drop). Per type and engine the
-harness also prints what the engine dropped, summed over the controller's
-and the measured passes: the walk's cells past its caps, overfull-cell
-particles and segment drops; the lists' segment drops, candidates
-truncated at K, and gated and tail target drops. A drop is a rate biased
-low.
+The smoothing lengths start from ``tree_hsml_init_fused(box=)`` (``--hsml
+tree``, the default) or from the hash engine's ``setup_smoothing_lengths
+(box=)``: at JAX's fixed 96 rows a bucket (``--hsml knn``, the JAX
+harness's start, which truncates the coarse levels' buckets) or with the
+rows grown to the demand as ``Simulation`` grows them (``--hsml
+knn-grown``). Then every engine takes
+three passes of its own hsml controller (which gate every target: the list
+engine runs with gated and tail capacities that hold them all, as
+``Simulation`` grows its capacities after a drop; the hash engine refreshes
+its lengths every pass). Per type and engine the harness also prints what
+the engine dropped, summed over the controller's and the measured passes:
+the walk's cells past its caps, overfull-cell particles and segment drops;
+the lists' segment drops, candidates truncated at K, and gated and tail
+target drops; the hash engine's buckets read past its cap (0 after its
+growth) and clipped levels. A drop is a rate biased low.
 
 Run:  python3 -m sidm_tpu_torch.validate_rate [N] [passes]
-          [--engine walk|lists|both] [--device cuda|cpu] [types...]
-Defaults N = 1e5, 256 passes, both engines, all five types, the card.
+          [--engine walk|lists|hash|both] [--hsml tree|knn|knn-grown]
+          [--device cuda|cpu] [types...]
+Defaults N = 1e5, 256 passes, the walk and list engines (``both``), the
+tree start, all five types, the card.
 """
 
 from __future__ import annotations
@@ -97,9 +106,12 @@ def rate_params(cs_type: int):
         comoving=False, hubble=1.0, omega0=0.0, omega_lambda=0.0)
 
 
-def make_box(n: int, device):
+def make_box(n: int, device, hsml: str = "tree"):
     """The uniform periodic box: (particles with initial smoothing
-    lengths, tree on the box, vmax)."""
+    lengths, by ``tree_hsml_init_fused`` or, ``hsml="knn"``,
+    ``setup_smoothing_lengths`` at JAX's cap of 96 rows a bucket
+    (``"knn-grown"``: the cap grown to the demand); tree on the box,
+    vmax)."""
     from .ops.fused_force import default_depth
     from .ops.fused_range import tree_hsml_init_fused
     from .ops.tree import build_octree
@@ -114,7 +126,19 @@ def make_box(n: int, device):
     mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
     tree = build_octree(p.pos, mass, torch.full_like(mass, 0.01), p.valid,
                         box=BOX, depth=default_depth(npad))
-    p = tree_hsml_init_fused(p, tree, DES_NGB, box=BOX)
+    if hsml.startswith("knn"):
+        from .ops.neighbors import setup_smoothing_lengths
+        cap = 96
+        while True:
+            q, r = setup_smoothing_lengths(p, DES_NGB, 2, box=BOX, cap=cap,
+                                           return_info=True)
+            need = int(torch.max(r.need))
+            if hsml == "knn" or need <= cap:
+                break
+            cap = -(-need // 32) * 32
+        p = q
+    else:
+        p = tree_hsml_init_fused(p, tree, DES_NGB, box=BOX)
     vmax = torch.sqrt(torch.max(torch.sum(p.vel ** 2, -1)))
     return p, tree, vmax
 
@@ -129,6 +153,8 @@ class _Engine:
         self.drops = [0, 0, 0]       # walk: cells, big, seg
         self.cand_ovf = [0, 0]       # lists: segments, K
         self.gated_ovf = [0, 0]      # lists: gated, tail targets
+        self.hash_ovf = [0, 0]       # hash: buckets past cap, clipped
+        self.cap = 96                # hash: rows per bucket, grown
         # gated and tail capacities that hold every target: the hsml
         # controller's passes gate them all (Simulation grows its
         # capacities to this after a drop)
@@ -151,6 +177,19 @@ class _Engine:
         t = torch.tensor(tm, dtype=p.pos.dtype, device=dev)
         active = p.valid.clone()
         vmax = torch.sqrt(torch.max(torch.sum(p.vel ** 2, -1)))
+        if self.name == "hash":
+            from .ops.sidm import sidm_scatter
+            while True:
+                q, ns, info = sidm_scatter(
+                    p, p.pos, t, active, vmax, key, self.params, box=BOX,
+                    cap=self.cap, return_info=True)
+                need, ovf, clip = (int(x) for x in torch.stack([
+                    info["need"], info["ngb_ovf"], info["lvl_clip"]]).tolist())
+                if need <= self.cap:
+                    break
+                self.cap = -(-need // 32) * 32
+            self.hash_ovf = [self.hash_ovf[0] + ovf, self.hash_ovf[1] + clip]
+            return q, int(ns)
         if self.name == "walk":
             q, ns, info = sidm_scatter_fused(
                 p, p.pos, self.tree, t, active, vmax, key, self.params,
@@ -194,32 +233,37 @@ def run_type(p0, tree, cs_type: int, engine: str, passes: int,
     if engine == "lists":
         eng.record(p)
     t0 = time.perf_counter()
-    tot = 0
+    per_pass = []
     for i in range(passes):
         _, ns = eng.run(p, step_key(run_key(7, cs_type), i), i, tm)
-        tot += ns
+        per_pass.append(ns)
+    tot = sum(per_pass)
     el = time.perf_counter() - t0
     expect = 0.5 * n * rho * sv0 * dt * passes
     ratio = tot / expect
     err = 1.0 / np.sqrt(max(tot, 1))
-    drops = (dict(cells=eng.drops[0], big=eng.drops[1], seg=eng.drops[2])
-             if engine == "walk" else
-             dict(seg=eng.cand_ovf[0], k_trunc=eng.cand_ovf[1],
-                  gated=eng.gated_ovf[0], tail=eng.gated_ovf[1]))
+    if engine == "walk":
+        drops = dict(cells=eng.drops[0], big=eng.drops[1], seg=eng.drops[2])
+    elif engine == "hash":
+        drops = dict(bucket=eng.hash_ovf[0], clip=eng.hash_ovf[1])
+    else:
+        drops = dict(seg=eng.cand_ovf[0], k_trunc=eng.cand_ovf[1],
+                     gated=eng.gated_ovf[0], tail=eng.gated_ovf[1])
     return dict(type=cs_type, engine=engine, events=tot, expected=expect,
-                ratio=ratio, err=err,
+                ratio=ratio, err=err, per_pass=per_pass,
                 ok=bool(abs(ratio - 1) < max(0.01, 3 * err)),
                 drops=drops, seconds=el, passes=passes, n=n)
 
 
 def run_rate(n: int, passes: int, types: List[int], engines: List[str],
-             device) -> List[dict]:
+             device, hsml: str = "tree") -> List[dict]:
     """Every (type, engine) on one box; prints a line per result."""
-    p0, tree, _ = make_box(n, device)
+    p0, tree, _ = make_box(n, device, hsml)
     out = []
     for t in types:
         for e in engines:
             r = run_type(p0, tree, t, e, passes, n)
+            r["hsml"] = hsml
             print(f"type {t} {e:5s}: events={r['events']} expected="
                   f"{r['expected']:.0f} ratio={r['ratio']:.4f} +- "
                   f"{r['err']:.4f} {'OK' if r['ok'] else 'FAIL'} drops "
@@ -243,8 +287,13 @@ def main(argv=None) -> int:
     ap.add_argument("n", nargs="?", type=float, default=1e5)
     ap.add_argument("passes", nargs="?", type=int, default=256)
     ap.add_argument("types", nargs="*", type=int, default=[0, 1, 2, 3, 4])
-    ap.add_argument("--engine", choices=("walk", "lists", "both"),
+    ap.add_argument("--engine", choices=("walk", "lists", "hash", "both"),
                     default="both")
+    ap.add_argument("--hsml", choices=("tree", "knn", "knn-grown"),
+                    default="tree",
+                    help="initial smoothing lengths: tree_hsml_init_fused, "
+                    "setup_smoothing_lengths at JAX's cap (JAX's harness) "
+                    "or with the cap grown")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_intermixed_args(argv)
@@ -258,10 +307,13 @@ def main(argv=None) -> int:
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"N={int(args.n)} passes={args.passes} types={args.types} "
-          f"engines={engines} device={kind}", flush=True)
-    res = run_rate(int(args.n), args.passes, args.types, engines, dev)
+          f"engines={engines} hsml={args.hsml} device={kind}", flush=True)
+    res = run_rate(int(args.n), args.passes, args.types, engines, dev,
+                   args.hsml)
     print(summary(res))
-    print(json.dumps({"rate": res, "device": kind}))
+    print(json.dumps({"rate": [{k: v for k, v in r.items()
+                                if k != "per_pass"} for r in res],
+                      "device": kind}))
     return 0
 
 

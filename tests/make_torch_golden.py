@@ -54,13 +54,28 @@ per-file budget of the test suite, so their outputs are committed:
   restart file in the same directory for 3 steps (``b_``); each output
   file's bytes after each run.
 
+* ``tests/data/torch_hash_golden.npz`` (tests/test_torch_neighbors.py,
+  tests/test_torch_sidm_hash.py, tests/test_torch_small_slice.py,
+  tests/test_torch_rate.py): the hash-grid engine on ``hash_inputs`` (an
+  NFW halo of 4000 particles, 50 of type 2, padded to 4096; ``o_``
+  open, ``b_`` wrapped into a periodic box): ``build_table`` (its
+  non-empty buckets and ``sorted_part``), ``level_for_radius``,
+  ``gather_candidates`` at cap 8, ``knn_radius`` at caps 96 and 8 and
+  ``setup_smoothing_lengths``; ``sidm_scatter`` on the open halo for
+  cross-section types 0-4 (``s{t}_``) with the partners and hits of its
+  scan; ``_resolve_conflicts`` on random proposals (``r{k}_``); the JAX
+  ``Simulation(mode="synchronized")`` of ``HASH_CONFIG`` at N = 2048 on
+  the single-program step, prepare + 4 steps, under ``ForceMethod tree``
+  (``t{k}_``) and ``direct`` (``d{k}_``); and the hash engine's events in
+  the rate harness's frozen box at N = 4096 (``rate_``).
+
 Each test file has a ``slow`` test that reruns its JAX outputs and holds the
 file to them. Rerun this script to regenerate the files (all, or the ones
 named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``,
-``sidm_walk``, ``run``):
+``sidm_walk``, ``run``, ``hash``):
 
     python -m tests.make_torch_golden [slice] [list_slice] [list] [sidm]
-        [sidm_slice] [sidm_walk] [run]
+        [sidm_slice] [sidm_walk] [run] [hash]
 """
 
 import os
@@ -770,13 +785,320 @@ def jax_run() -> dict:
     return out
 
 
+HASH_GOLDEN = os.path.join(_DATA, "torch_hash_golden.npz")
+# the hash engine's inputs: 4000 NFW particles (50 of type 2) padded to
+# 4096; the periodic variant wraps them into a box of HASH["box"]
+HASH = dict(n=4000, npad=4096, n_type2=50, box=300.0, k=30, levels=12,
+            small_cap=8, subset=512, seed=5)
+# sidm_scatter's pass: time, pending kicks, step key
+HASH_SCATTER = dict(sigma=1e4, time=0.05, step=3, n_pending=64)
+HASH_RESOLVE = (5, 17, 23)            # random proposal sets' seeds
+# the single-program step: flagship-dsmc's SIDM settings with CrossSection
+# raised as in SIDM_SLICE_CONFIG (N = 2048 scatters then)
+HASH_CONFIG = {**FLAGSHIP, **DSMC, "CrossSection": 3826.14}
+HASH_STEPS = 4
+# the rate harness's box (validate_rate.py): N, measured passes, type
+HASH_RATE = dict(n=4096, passes=8, cs_type=0)
+
+
+def hash_inputs(box: float):
+    """(pos (npad, 3) float32, ptype (npad,) int32) of the hash checks."""
+    pos, _, _ = flagship_ics(HASH["n"], SEED)
+    if box:
+        pos = np.mod(pos, box)
+    out = np.zeros((HASH["npad"], 3), np.float32)
+    out[:HASH["n"]] = pos
+    ptype = np.full(HASH["npad"], -1, np.int32)
+    ptype[:HASH["n"]] = 1
+    ptype[:HASH["n_type2"]] = 2
+    return out, ptype
+
+
+def hash_radii(n: int):
+    """Random query radii spanning the grid's levels."""
+    rng = np.random.default_rng(HASH["seed"])
+    return np.exp(rng.uniform(np.log(0.5), np.log(3000.0), n)).astype(
+        np.float32)
+
+
+def hash_particles(make_particles, n: int = HASH["n"]):
+    """The N-particle halo as a package's padded Particles (all type 1)."""
+    pos, vel, mass = flagship_ics(n, SEED)
+    return make_particles(pos, vel, mass, np.ones(n, np.int32))
+
+
+def hash_pending(n):
+    """Particles with a kick not yet applied (no partner, no target)."""
+    rng = np.random.default_rng(14)
+    dvel = np.zeros((n, 3), np.float32)
+    dvel[rng.choice(n, HASH_SCATTER["n_pending"], replace=False)] = 1.0
+    return dvel
+
+
+def hash_proposals(seed):
+    """Random proposals with collisions (self proposals removed, as JAX's
+    test_conflict_resolver_compact_equivalence draws them)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(64, 2048))
+    prop = np.full(n, -1, np.int32)
+    k = int(rng.integers(0, n // 2))
+    who = rng.choice(n, size=k, replace=False)
+    prop[who] = rng.integers(0, n, size=k)
+    prop[prop == np.arange(n)] = -1
+    return prop
+
+
+def _jax_hash_scan(p, pos_pred, time, active, vmax, key, params):
+    """The partners and hits of JAX's ``sidm_scatter`` scan (sidm.py:
+    140-256, transcribed with the JAX package's own functions): (partner,
+    hit, gate)."""
+    import jax.numpy as jnp
+    from sidm_tpu.constants import SCAT_KERNEL_FACTOR
+    from sidm_tpu.cosmo import drift_factor
+    from sidm_tpu.kernels import sph_kernel
+    from sidm_tpu.ops.neighbors import (build_table, gather_candidates,
+                                        make_payload, payload_flag)
+    from sidm_tpu.ops.sidm import update_hsml
+    from sidm_tpu.rng import particle_uniforms
+    from sidm_tpu.sidm_common import (cross_section_co, sidm_cmax,
+                                      sigma_v_product)
+
+    ext = (jnp.max(jnp.where(p.valid[:, None], pos_pred, -jnp.inf), axis=0)
+           - jnp.min(jnp.where(p.valid[:, None], pos_pred, jnp.inf), axis=0))
+    vol = jnp.prod(jnp.maximum(ext, 1e-10))
+    n_valid = jnp.maximum(jnp.sum(p.valid), 1)
+    r_k = (3.0 * params.des_num_ngb * vol
+           / (4.0 * jnp.pi * n_valid)) ** (1.0 / 3.0)
+    hpos = jnp.where(p.hsml_vd > 0, p.hsml_vd, jnp.inf)
+    hmin = jnp.min(jnp.where(p.is_collisionless, hpos, jnp.inf))
+    s0 = jnp.where(jnp.isfinite(hmin), jnp.maximum(hmin, 1e-12), r_k / 2.0)
+    has_pending = jnp.any(p.dvel != 0.0, axis=-1)
+    payload = make_payload(pos_pred, p.vel, p.mass, p.ptype, flag=has_pending)
+    table = build_table(pos_pred, p.ptype, p.valid, s0=s0,
+                        n_levels=params.n_levels, payload=payload)
+    p = update_hsml(p, pos_pred, table, active, params)
+    dt = 2.0 * (time - p.current_time)
+    s_inv = drift_factor(time, params.hubble, params.omega0,
+                         params.omega_lambda, params.comoving)
+    dt_h0 = jnp.where(active, dt, 0.0) * s_inv
+    sigma_co = cross_section_co(time, params.cross_section_internal,
+                                params.cross_section_type, params.comoving)
+    c_pmax = sidm_cmax(
+        time, vmax, params.cross_section_internal, params.cross_section_type,
+        params.yukawa_velocity, params.cross_section_vel_scale,
+        params.des_num_ngb, params.max_num_ngb_dev, params.hubble,
+        params.omega0, params.omega_lambda, params.comoving, per_dt_h0=True)
+    eligible = (active & p.is_collisionless & p.valid & (~has_pending)
+                & (dt_h0 > 0))
+    rand = particle_uniforms(key, p.pid, 3)[:, 0].astype(pos_pred.dtype)
+    h_scat = SCAT_KERNEL_FACTOR * p.hsml_vd
+    hinv3 = jnp.where(h_scat > 0, 1.0 / jnp.maximum(h_scat, 1e-30) ** 3, 0.0)
+    gate = eligible & (c_pmax * p.mass * hinv3 * dt_h0 >= rand)
+    idx_all = jnp.arange(pos_pred.shape[0], dtype=jnp.int32)
+    tq = np.nonzero(np.asarray(gate))[0]
+    idx, rows, mask, _ = gather_candidates(
+        table, pos_pred[tq], p.ptype[tq], h_scat[tq], cap=params.cap)
+    bpos, bh = pos_pred[tq], h_scat[tq]
+    d = rows[..., 0:3] - bpos[:, None, :]
+    r = jnp.sqrt(jnp.sum(d * d, axis=-1))
+    ok = (mask & (r < bh[:, None]) & (idx != idx_all[tq][:, None])
+          & (~payload_flag(rows)))
+    wk = sph_kernel(r / bh[:, None]) / (bh[:, None] ** 3)
+    rv_vec = p.vel[tq][:, None, :] - rows[..., 3:6]
+    rv = jnp.sqrt(jnp.sum(rv_vec * rv_vec, axis=-1))
+    sv = sigma_v_product(rv, time, sigma_co, params.cross_section_type,
+                         params.yukawa_velocity,
+                         params.cross_section_vel_scale,
+                         params.cross_section_pow_law, params.comoving)
+    prob = jnp.where(ok, 0.5 * rows[..., 6] * wk * sv * dt_h0[tq][:, None],
+                     0.0)
+    crossed = jnp.cumsum(prob, axis=1) >= rand[tq][:, None]
+    any_cross = np.asarray(jnp.any(crossed, axis=1))
+    first = jnp.argmax(crossed, axis=1)
+    pt = np.asarray(jnp.take_along_axis(idx, first[:, None], axis=1)[:, 0])
+    partner = np.full(pos_pred.shape[0], -1, np.int32)
+    hit = np.zeros(pos_pred.shape[0], bool)
+    partner[tq] = np.where(any_cross, pt, -1)
+    hit[tq] = any_cross
+    return partner, hit, np.asarray(gate)
+
+
+def jax_hash_ops() -> dict:
+    """The JAX hash engine's pieces (see the module note): tables, levels,
+    candidates, radii, sidm_scatter and the resolver."""
+    import dataclasses
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops import neighbors as jn
+    from sidm_tpu.ops import sidm as js
+    from sidm_tpu.rng import run_key, step_key
+    from sidm_tpu.state import make_particles
+
+    out = {}
+    npad, sub = HASH["npad"], HASH["subset"]
+    for tag, box in (("o", 0.0), ("b", HASH["box"])):
+        pos, ptype = hash_inputs(box)
+        valid = ptype >= 0
+        s0 = jn.default_cell_size(pos, valid, HASH["k"], box)
+        t = jn.build_table(jnp.asarray(pos), jnp.asarray(ptype),
+                           jnp.asarray(valid), s0=s0, box=box,
+                           n_levels=HASH["levels"])
+        cnt = np.asarray(t.bucket_count)
+        nz = np.nonzero(cnt)[0]
+        out[f"{tag}_s0"] = np.float64(s0)
+        out[f"{tag}_nzkey"] = nz.astype(np.int32)
+        out[f"{tag}_nzcount"] = cnt[nz]
+        out[f"{tag}_nzstart"] = np.asarray(t.bucket_start)[nz]
+        out[f"{tag}_sorted_part"] = np.asarray(t.sorted_part)
+        h = hash_radii(npad)
+        out[f"{tag}_lev"] = np.asarray(jn.level_for_radius(t, jnp.asarray(h)))
+        sel = np.linspace(0, npad - 1, sub).astype(np.int64)
+        idx, _, mask, ovf = jn.gather_candidates(
+            t, jnp.asarray(pos[sel]), jnp.asarray(ptype[sel]),
+            jnp.asarray(h[sel] / 20.0), cap=HASH["small_cap"])
+        out[f"{tag}_gidx"] = np.asarray(idx)
+        out[f"{tag}_gmask"] = np.asarray(mask)
+        out[f"{tag}_govf"] = np.asarray(ovf)
+        h0 = jnp.full((npad,), 2.0 * s0, jnp.float32)
+        for ctag, cap in (("k", 96), ("k8", HASH["small_cap"])):
+            kh, kc, ko = jn.knn_radius(t, jnp.asarray(pos), jnp.asarray(ptype),
+                                       h0, HASH["k"], cap=cap, n_iter=3)
+            out[f"{tag}_{ctag}h"] = np.asarray(kh)
+            out[f"{tag}_{ctag}cnt"] = np.asarray(kc)
+            out[f"{tag}_{ctag}ovf"] = np.asarray(ko)
+        p = make_particles(pos[:HASH["n"]], np.zeros((HASH["n"], 3)),
+                           np.ones(HASH["n"]), ptype[:HASH["n"]],
+                           pad_to_multiple=npad)
+        p = jn.setup_smoothing_lengths(p, HASH["k"], 2,
+                                       box=box if box else None)
+        out[f"{tag}_sh"] = np.asarray(p.hsml_vd)
+        out[f"{tag}_sn"] = np.asarray(p.ngb_vd)
+
+    # sidm_scatter for the five cross-section types on the open halo
+    sc = HASH_SCATTER
+    p = hash_particles(make_particles)
+    p = jn.setup_smoothing_lengths(p, HASH["k"], 2)
+    p = dataclasses.replace(p, dvel=jnp.asarray(hash_pending(
+        p.pos.shape[0])))
+    vmax = jnp.sqrt(jnp.max(jnp.sum(p.vel ** 2, -1)))
+    t_now = jnp.float32(sc["time"])
+    active = p.valid
+    key = step_key(run_key(55, 497527), sc["step"])
+    for cs in range(5):
+        params = js.SidmParams(sc["sigma"], cs, 300.0, 100.0, -1.5,
+                               HASH["k"], 2, False, 0.1, 0.0, 0.0)
+        q, ns = js.sidm_scatter(p, p.pos, t_now, active, vmax, key, params)
+        out[f"s{cs}_dvel"] = np.asarray(q.dvel)
+        out[f"s{cs}_hsml"] = np.asarray(q.hsml_vd)
+        out[f"s{cs}_ngb"] = np.asarray(q.ngb_vd)
+        out[f"s{cs}_nscat"] = np.int64(ns)
+        partner, hit, gate = _jax_hash_scan(p, p.pos, t_now, active, vmax,
+                                            key, params)
+        out[f"s{cs}_partner"] = partner
+        out[f"s{cs}_hit"] = hit
+        out[f"s{cs}_gate"] = gate
+    for k, seed in enumerate(HASH_RESOLVE):
+        prop = hash_proposals(seed)
+        out[f"r{k}_acc"] = np.asarray(js._resolve_conflicts(
+            jnp.asarray(prop), prop.shape[0]))
+    return out
+
+
+def jax_hash_trajectories() -> dict:
+    """The JAX Simulation of HASH_CONFIG on the single-program step
+    (``mode="synchronized"``, N = 2048 < PHASE_THRESHOLD), prepare +
+    HASH_STEPS steps under ForceMethod tree (``t{k}_``) and direct
+    (``d{k}_``), and the potential after them (``{f}p_pot``)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.diagnostics import compute_system_state
+    from sidm_tpu.simulation import Simulation
+
+    out = {}
+    pos, vel, mass = flagship_ics(N, SEED)
+    for tag, fm in (("t", "tree"), ("d", "direct")):
+        sim = Simulation(SimConfig(**{**HASH_CONFIG, "ForceMethod": fm}),
+                         mode="synchronized", quiet=True)
+        sim.set_particles_from_arrays(pos, vel, mass, np.ones(N, np.int32))
+        sim.prepare()
+
+        def state(k, n_scat):
+            prefix = f"{tag}{k}_"
+            snapshot(sim.particles, sim, compute_system_state(sim.particles),
+                     prefix, out)
+            for f in ("hsml_vd", "ngb_vd", "dvel"):
+                out[prefix + f] = np.asarray(getattr(sim.particles, f))
+            out[prefix + "n_scat"] = np.int64(n_scat)
+
+        state(0, 0)
+        for k in range(1, HASH_STEPS + 1):
+            _, _, n_scat = sim.step()
+            state(k, n_scat)
+        out[f"{tag}p_pot"] = np.asarray(sim.compute_potential())
+    return out
+
+
+def jax_hash_rate() -> dict:
+    """The hash engine in the rate harness's frozen box (JAX's
+    scripts/validate_rate.py setup, engine ``sidm_scatter``): the smoothing
+    lengths from ``setup_smoothing_lengths``, three converging passes, then
+    HASH_RATE["passes"] measured passes' events (``rate_events``)."""
+    import dataclasses
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops.neighbors import setup_smoothing_lengths
+    from sidm_tpu.ops.sidm import SidmParams, sidm_scatter
+    from sidm_tpu.rng import run_key, step_key
+    from sidm_tpu.state import make_particles
+    from sidm_tpu_torch import validate_rate as vr
+
+    n, cs = HASH_RATE["n"], HASH_RATE["cs_type"]
+    rng = np.random.default_rng(vr.SEED)
+    pos = rng.uniform(0, vr.BOX, (n, 3))
+    vel = rng.normal(0, vr.S_VEL, (n, 3))
+    p = make_particles(pos, vel, np.full(n, 1.0 / n), np.ones(n, np.int32),
+                       pad_to_multiple=4096)
+    p = setup_smoothing_lengths(p, vr.DES_NGB, 2, box=vr.BOX, chunk=2048)
+    params = SidmParams(
+        cross_section_internal=1.0, cross_section_type=cs,
+        yukawa_velocity=vr.VC, cross_section_vel_scale=vr.VSCALE,
+        cross_section_pow_law=vr.ALPHA, des_num_ngb=vr.DES_NGB,
+        max_num_ngb_dev=2, comoving=False, hubble=1.0, omega0=0.0,
+        omega_lambda=0.0)
+    vmax = jnp.sqrt(jnp.max(jnp.sum(p.vel ** 2, -1)))
+    active = p.valid
+    run = jax.jit(lambda p, key, tm: sidm_scatter(p, p.pos, tm, active, vmax,
+                                                  key, params, box=vr.BOX))
+    for i in range(3):
+        q, _ = run(p, run_key(1, i), jnp.float32(1.0))
+        p = dataclasses.replace(p, hsml_vd=q.hsml_vd, ngb_vd=q.ngb_vd)
+    out = {"rate_hsml": np.asarray(p.hsml_vd)}
+    dt = vr.EVENT_FRACTION / vr.analytic_sigma_v(cs, 1.0)
+    p = dataclasses.replace(p, current_time=jnp.full_like(p.current_time,
+                                                          1.0 - dt / 2))
+    ev = [int(run(p, step_key(run_key(7, cs), i), jnp.float32(1.0))[1])
+          for i in range(HASH_RATE["passes"])]
+    out["rate_events"] = np.asarray(ev, np.int64)
+    return out
+
+
+def jax_hash() -> dict:
+    return {**jax_hash_ops(), **jax_hash_trajectories(), **jax_hash_rate()}
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
            "sidm": (SIDM_GOLDEN, jax_sidm_ops),
            "sidm_slice": (SIDM_SLICE_GOLDEN, jax_sidm_trajectory),
            "sidm_walk": (SIDM_WALK_GOLDEN, jax_sidm_walk),
-           "run": (RUN_GOLDEN, jax_run)}
+           "run": (RUN_GOLDEN, jax_run),
+           "hash": (HASH_GOLDEN, jax_hash)}
 
 
 def main(names):

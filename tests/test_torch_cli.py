@@ -6,9 +6,10 @@ smallest that scatters in the window) with a short ``TimeMax``
 flag 1 resuming its restart file with a ``stop`` file present (one step,
 then the restart file), flag 2 from the first run's last snapshot (the
 time taken from its header) with a ``TimeLimitCPU`` that its first step
-passes 85 % of (the run stops and fires ``ResubmitCommand``). ``Simulation.PHASE_THRESHOLD`` is set to 0:
-the CLI's ``mode="synchronized"`` runs the phased step at every N (the
-small-N single-program step is not ported, ROADMAP.md A, item 9).
+passes 85 % of (the run stops and fires ``ResubmitCommand``).
+``Simulation.PHASE_THRESHOLD`` is set to 0, so that the CLI's
+``mode="synchronized"`` runs the phased step at this N
+(tests/test_torch_small_cli.py runs the CLI on the single-program step).
 """
 
 import os

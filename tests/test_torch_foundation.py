@@ -229,8 +229,11 @@ def test_unported_modes_and_inputs_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.set_particles_from_arrays(np.zeros((4, 3)), np.zeros((4, 3)),
                                       np.ones(4), np.array([0, 1, 1, 1]))
-    # the single-program small-N step of mode="synchronized"
-    sim = Simulation(cfg, mode="synchronized", device="cpu")
+    # ForceMethod direct on the phased step (the single-program step of
+    # mode="synchronized" below PHASE_THRESHOLD runs it)
+    sim = Simulation(cfg.replace(ForceMethod="direct"), mode="synchronized",
+                     device="cpu")
+    sim.PHASE_THRESHOLD = 64
     sim.set_particles_from_arrays(np.random.default_rng(0).normal(
         size=(64, 3)), np.zeros((64, 3)), np.ones(64), np.ones(64, int))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

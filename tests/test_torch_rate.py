@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from sidm_tpu_torch import validate_rate as vr
+from tests.make_torch_golden import HASH_GOLDEN, HASH_RATE
 
 torch.set_num_threads(2)
 
@@ -44,3 +45,21 @@ def test_rate_matches_analytic(box, engine):
     assert r["events"] > 500
     assert abs(r["ratio"] - 1.0) < 3.0 * r["err"], r
     assert r["ok"] and not any(r["drops"].values()), r
+
+
+def test_hash_engine_events_equal_jax():
+    """The hash engine (``--engine hash``) from ``setup_smoothing_lengths``
+    (``--hsml knn``, the JAX harness's start) on the same box: its three
+    converging passes and 8 measured hard-sphere passes give JAX's
+    ``sidm_scatter`` events pass by pass (tests/data/torch_hash_golden.npz,
+    ``rate_``), with no bucket read past the cap (JAX's 96 holds this box's
+    buckets) and no clipped level."""
+    g = np.load(HASH_GOLDEN)
+    n = HASH_RATE["n"]
+    p0, tree, _ = vr.make_box(n, torch.device("cpu"), hsml="knn")
+    r = vr.run_type(p0, tree, HASH_RATE["cs_type"], "hash",
+                    HASH_RATE["passes"], n)
+    print(f"hash: events per pass {r['per_pass']}, JAX "
+          f"{g['rate_events'].tolist()}, drops {r['drops']}")
+    assert r["per_pass"] == g["rate_events"].tolist()
+    assert r["drops"] == dict(bucket=0, clip=0) and sum(r["per_pass"]) > 0
