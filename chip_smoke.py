@@ -142,12 +142,32 @@ Phases (each asserts; any failure exits non-zero):
      ptxas's registers; the same run with ForceMethod direct (prepare, 2
      steps, the same asserts, launches of H3); the hash engine's 64-pass
      rate check on phase 10's box from setup_smoothing_lengths (printed,
-     not held to the bar).
+     not held to the bar);
+ 13. individual timesteps and the velocity-dispersion pass:
+     flagship-veldisp (``flagship_config(**VELDISP)``: the lists with
+     ``VelDispOn 1`` and timestep criterion 4) synchronized through
+     Simulation: prepare (its first pass from no smoothing length timed,
+     with its rows read a query), compute_potential, 4 steps,
+     compute_potential: no list or walk overflow, no bucket past the grown
+     cap and no clipped level in any pass, |dE/E| < 1e-3, and launches of
+     hash_knn (H1), veldisp (H4), near_level, far_list, far_level (both
+     modes) and gather_nodes; on its end state the next step's pass against
+     its plain version on 65536 random queries and the 8 that read the
+     most rows (hsml_vd and counts equal, dens_vd and vel_disp p99.9
+     relative error < 1e-5), H4 on all queries timed beside its bound and
+     its plain version; then ``mode="individual"``: flagship-veldisp (6
+     steps), flagship-dsmc and small-halo (4 steps each) after prepare,
+     each step's active particles printed (fewer than N), the inactive
+     particles' pos, vel, times and veldisp fields unchanged bit for bit,
+     the DSMC kicks conserving momentum with no drop, steps that gate no
+     target among them, |dE/E| < 1e-3 at the common predicted time.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
 phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
-("dsmc_walk"), phase 11's ("cli") and phase 12's ("small", "small_direct")
-counts, each path's counters set to 0 just before it and read just after; for far_list and near_level
+("dsmc_walk"), phase 11's ("cli"), phase 12's ("small", "small_direct")
+and phase 13's ("veldisp", "veldisp_individual", "dsmc_individual",
+"small_individual") counts, each path's counters set to 0 just before it
+and read just after; for far_list and near_level
 ``full_ms`` and
 ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
@@ -619,6 +639,7 @@ def main():
     from sidm_tpu_torch.ops.direct import direct_gravity, direct_sum
     from sidm_tpu_torch.ops.neighbors import knn_radius
     from sidm_tpu_torch.ops.sidm import hash_scan
+    from sidm_tpu_torch.ops.veldisp import veldisp_sums
     from sidm_tpu_torch.ops.far_kernel import far_level
     from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
                                              far_split, far_units,
@@ -850,7 +871,8 @@ def main():
                 "gather_nodes": (gather_nodes, "launches"),
                 "hash_knn": (knn_radius, "launches"),
                 "hash_scan": (hash_scan, "launches"),
-                "direct": (direct_sum, "launches")}
+                "direct": (direct_sum, "launches"),
+                "veldisp": (veldisp_sums, "launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -1126,6 +1148,37 @@ def main():
     del dsim
     hash_rate(dev, card)
 
+    # ---- individual timesteps and the velocity-dispersion pass -------------
+    from sidm_tpu_torch.flagship import DSMC, SMALL_N, VELDISP
+    zero_counts()
+    vsim = veldisp_path(pos, vel, mass, n, dev, card)
+    vd_launches = read_counts()
+    for key in ("hash_knn", "veldisp", "near_level", "far_list",
+                "far_level", "far_level_record", "gather_nodes"):
+        assert vd_launches[key] > 0, (key, vd_launches)
+    veldisp_kernels(res, vsim, dev, card)
+    del vsim
+    zero_counts()
+    individual_run(flagship_config(**VELDISP), pos, vel, mass, n, dev, card,
+                   "flagship-veldisp", VD_IND_STEPS)
+    vd_ind_launches = read_counts()
+    assert vd_ind_launches["veldisp"] > VD_IND_STEPS, vd_ind_launches
+    zero_counts()
+    drows = individual_run(flagship_config(**DSMC), pos, vel, mass, n, dev,
+                           card, "flagship-dsmc", IND_STEPS)
+    dsmc_ind_launches = read_counts()
+    spos, svel, smass = flagship_ics(SMALL_N, SEED)
+    zero_counts()
+    srows = individual_run(small_config(), spos, svel, smass, SMALL_N, dev,
+                           card, "small-halo", IND_STEPS, pad=256)
+    small_ind_launches = read_counts()
+    # steps that gate no DSMC target pass through the engines' early returns
+    gated = [r["n_gated"] for r in drows + srows]
+    print(f"individual DSMC steps: gated targets {gated}, launches "
+          f"flagship-dsmc {dsmc_ind_launches}, small-halo "
+          f"{small_ind_launches} [{card}]", flush=True)
+    assert 0 in gated, gated
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -1163,6 +1216,8 @@ def main():
                       "sidm_tpu/ops/sidm.py:221"),
         "direct": ("sidm_tpu_torch/csrc/direct.cu",
                    "sidm_tpu/ops/direct.py:33"),
+        "veldisp": ("sidm_tpu_torch/csrc/hash_veldisp.cu",
+                    "sidm_tpu/ops/veldisp.py:26"),
     }
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
@@ -1172,7 +1227,11 @@ def main():
                    "walk": walk_launches[name], "dsmc": launches[name],
                    "dsmc_walk": walk_dsmc_launches[name],
                    "cli": cli_launches[name], "small": small_launches[name],
-                   "small_direct": direct_launches[name]}
+                   "small_direct": direct_launches[name],
+                   "veldisp": vd_launches[name],
+                   "veldisp_individual": vd_ind_launches[name],
+                   "dsmc_individual": dsmc_ind_launches[name],
+                   "small_individual": small_ind_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -2542,6 +2601,278 @@ def cli_path(pos, vel, mass, n, dev, card, dsmc_times, zero_counts,
         return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+VD_STEPS = 4            # phase 13's flagship-veldisp run, after prepare
+VD_IND_STEPS = 6        # ... in mode="individual"
+IND_STEPS = 4           # flagship-dsmc and small-halo in mode="individual"
+VD_SUBSET = 65536       # H4's random queries against the plain pass
+
+
+def veldisp_path(pos, vel, mass, n, dev, card):
+    """flagship-veldisp (``flagship_config(**VELDISP)``) synchronized
+    through Simulation: prepare (its first velocity-dispersion pass from no
+    smoothing length, timed, with its rows read a query), compute_potential,
+    VD_STEPS steps, compute_potential: no list or walk overflow, no bucket
+    read past the grown cap and no clipped level in any pass, |dE/E| <
+    1e-3, a finite state. Returns the Simulation."""
+    from sidm_tpu_torch.flagship import VELDISP, flagship_config
+    from sidm_tpu_torch.simulation import Simulation
+
+    sim = Simulation(flagship_config(**VELDISP), mode="synchronized",
+                     device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32),
+                                  pad_to_multiple=4096)
+    assert sim._use_phased()
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    vds = [dict(sim.last_veldisp_info)]
+    prep_walls = dict(sim.last_phase_wall)
+    sim.compute_potential()
+    e_start = sim_energy(sim)
+    ovf, walls = 0, []
+    t0 = time.perf_counter()
+    for _ in range(VD_STEPS):
+        t1 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        li = dict(sim.last_list_info, wall=wall)
+        if li["ovf"] is not None:
+            ovf += sum(li["ovf"])
+        if sim.last_walk_info is not None:
+            ovf += sum(int(sim.last_walk_info[k]) for k in
+                       ("ovf_open", "ovf_big", "ovf_items"))
+        vds.append(dict(sim.last_veldisp_info))
+        walls.append((li, dict(sim.last_phase_wall)))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    sim.compute_potential()
+    torch.cuda.synchronize()
+    de = abs(sim_energy(sim) - e_start) / abs(e_start)
+    finite = all(bool(torch.isfinite(getattr(sim.particles, f)).all())
+                 for f in ("pos", "vel", "hsml_vd", "vel_disp", "dens_vd"))
+
+    def vd_line(v):
+        return (f"cap {v['cap']} (need {v['need']}), levels {v['levels']}, "
+                f"passes {v['tries']}, rows read a query mean "
+                f"{v['rows_mean']:.1f} max {v['rows_max']}, buckets past "
+                f"cap {v['ngb_ovf']}, clipped {v['lvl_clip']}")
+
+    print(f"flagship-veldisp prepare: {t_prep:.3f} s ("
+          + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in
+                      prep_walls.items())
+          + f"); its velocity-dispersion pass from no smoothing length: "
+          f"{vd_line(vds[0])} [{card}]", flush=True)
+    for k, (li, w) in enumerate(walls):
+        print(f"veldisp step {k + 1} ({li['kind']}): wall "
+              f"{li['wall'] * 1e3:.1f} ms ("
+              + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in w.items())
+              + ")"
+              + f"; {vd_line(vds[k + 1])} [{card}]", flush=True)
+    p = sim.particles
+    v = p.valid
+    print(f"veldisp path (flagship-veldisp, ListMode 1, VelDispOn 1, "
+          f"criterion 4): N {n}, {VD_STEPS} steps {t_steps:.3f} s, "
+          f"{n * VD_STEPS / t_steps:.1f} particle-steps/s, t = "
+          f"{sim.time:.6g}, vel_disp median "
+          f"{float(torch.median(p.vel_disp[v])):.4g}, dens_vd median "
+          f"{float(torch.median(p.dens_vd[v])):.4g}, ngb_vd min/max "
+          f"{int(p.ngb_vd[v].min())}/{int(p.ngb_vd[v].max())}, |dE/E| "
+          f"{de:.3e}, force overflow {ovf}, finite {finite} [{card}]",
+          flush=True)
+    assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
+    assert all(x["ngb_ovf"] == 0 and x["lvl_clip"] == 0 for x in vds), vds
+    return sim
+
+
+def veldisp_kernels(res, sim, dev, card):
+    """H4 on flagship-veldisp's end state, the next step's pass: the whole
+    pass (H1 and H4) against its plain version (``veldisp_plain``) on
+    VD_SUBSET random queries and the 8 that read the most rows (hsml_vd
+    and the counts equal, dens_vd and vel_disp p99.9 relative error <
+    1e-5); H4 on all the pass's queries timed beside its bound and its
+    plain version (one call), with ptxas's registers."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.bounds import bound_ms, veldisp_work
+    from sidm_tpu_torch.ops.neighbors import candidate_blocks
+    from sidm_tpu_torch.ops.veldisp import (veldisp, veldisp_plain,
+                                            veldisp_sums, veldisp_sums_plain)
+
+    p = sim.particles
+    cap, levels = sim._hash_cap, sim._vd_levels
+    t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, vel_pred = integrate.predict_positions(p, t_next, sim.consts)
+    kw = dict(des_num_ngb=sim.cfg.DesNumNgb, cap=cap, n_levels=levels)
+    q, info = veldisp(p, pos_pred, vel_pred, active, **kw)
+    assert int(info["ngb_ovf"]) == 0 and int(info["lvl_clip"]) == 0
+    sel, rows = info["sel"], info["rows"]
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    pick = torch.randperm(sel.numel(), generator=g)[:VD_SUBSET].to(dev)
+    pick = torch.unique(torch.cat([pick, torch.topk(rows, LONGEST).indices]))
+    sub = torch.zeros_like(active)
+    sub[sel[pick]] = True
+    qp, _ = veldisp_plain(p, pos_pred, vel_pred, sub, **kw)
+    assert torch.equal(q.hsml_vd[sub], qp.hsml_vd[sub]), "hsml_vd"
+    assert torch.equal(q.ngb_vd[sub], qp.ngb_vd[sub]), "ngb_vd"
+    errs = {}
+    for f in ("dens_vd", "vel_disp"):
+        a, b = getattr(q, f)[sub].double(), getattr(qp, f)[sub].double()
+        errs[f] = (q999(torch.abs(a - b) / torch.clamp(torch.abs(b),
+                                                       min=1e-30)),
+                   float(torch.max(torch.abs(a - b))))
+    # H4 on all the pass's queries
+    args = (info["table"], pos_pred[sel].contiguous(),
+            p.ptype[sel].contiguous(), info["knn"].h.contiguous())
+    sums = info["sums"]
+    ms = cuda_ms(lambda: veldisp_sums(*args, cap=cap), 5)
+    t0 = time.perf_counter()
+    sp = veldisp_sums_plain(*args, cap=cap)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for f in ("cnt", "need", "scanned"):
+        assert torch.equal(getattr(sums, f), getattr(sp, f).to(
+            getattr(sums, f).dtype)), f
+    keys = []
+    candidate_blocks(info["table"], *args[1:], cap=cap, keys=keys)
+    ops, nb = veldisp_work(info["table"], keys, sums.scanned, sums.cnt,
+                           sel.numel(), cap)
+    bms, by = bound_ms(ops, nb)
+    knn_rows = info["knn"].scanned.double() / 3.0
+    print(f"kernel veldisp (H4, {sel.numel()} queries, cap {cap}, {levels} "
+          f"levels): the pass against its plain version on {int(sub.sum())} "
+          f"queries (the 8 reading the most rows among them, up to "
+          f"{int(rows.max())}): hsml_vd and counts equal, dens_vd p99.9 rel "
+          f"err {errs['dens_vd'][0]:.3e}, vel_disp {errs['vel_disp'][0]:.3e};"
+          f" all queries: counts, need and rows read equal to the plain sums, "
+          f"rows read a query {float(sums.scanned.double().mean()):.1f} (H1 "
+          f"a query and iteration {float(knn_rows.mean()):.1f}), neighbours "
+          f"a query {float(sums.cnt.double().mean()):.1f}; kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.1f} ms (one call), bound {bms:.4f} ms "
+          f"({by}), at {bms / ms:.1%} of the bound's speed; ptxas "
+          f"{usage_of('hash_veldisp_kernel')} [{card}]", flush=True)
+    assert errs["dens_vd"][0] < 1e-5 and errs["vel_disp"][0] < 1e-5, errs
+    res.add("veldisp", max(e[1] for e in errs.values()), ms, plain_ms, ops,
+            nb)
+    res.rows["veldisp"].update(queries=int(sel.numel()),
+                               checked=int(sub.sum()),
+                               dens_p999=errs["dens_vd"][0],
+                               disp_p999=errs["vel_disp"][0])
+
+
+def predicted_energy(sim) -> float:
+    """The energy at the Simulation's time with every particle predicted to
+    it (the common time of individual steps): the potential at the
+    predicted positions (``compute_potential``) and the predicted
+    velocities' kinetic energy, in float64."""
+    from sidm_tpu_torch import integrate
+    pot = sim.compute_potential()
+    p = sim.particles
+    t = torch.tensor(sim.time, dtype=p.pos.dtype, device=p.pos.device)
+    _, vel_pred = integrate.predict_positions(p, t, sim.consts)
+    m = torch.where(p.valid, p.mass, torch.zeros_like(p.mass)).double()
+    return float(0.5 * torch.sum(m * torch.sum(vel_pred.double() ** 2, 1))
+                 + 0.5 * torch.sum(m * pot.double()))
+
+
+def individual_run(cfg, pos, vel, mass, n, dev, card, label, steps,
+                   pad=4096):
+    """``cfg`` in ``mode="individual"`` through Simulation: prepare, then
+    ``steps`` steps, each printed with its active particles; asserts that
+    after the first step fewer than N are active, that every step leaves
+    the inactive particles' pos, vel, current_time, max_pred_time (and
+    with VelDispOn the veldisp fields) unchanged bit for bit, that the
+    DSMC kicks (if any) conserve momentum with no drop, that |dE/E| at the
+    common predicted time stays < 1e-3 and the state finite. Returns the
+    per-step rows."""
+    from sidm_tpu_torch.simulation import Simulation
+
+    sim = Simulation(cfg, mode="individual", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32),
+                                  pad_to_multiple=pad)
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    e_start = predicted_energy(sim)
+    # the DSMC list cadence clamps every particle's stale smoothing length
+    # on its rebuild steps (JAX's simulation.py:1036-1047): hsml_vd is held
+    # only with the velocity-dispersion pass
+    kept = ("pos", "vel", "current_time", "max_pred_time") + (
+        ("hsml_vd", "ngb_vd", "vel_disp", "dens_vd") if cfg.VelDispOn
+        else ())
+    rows = []
+    for k in range(steps):
+        p0 = sim.particles
+        before = {f: getattr(p0, f).clone() for f in kept}
+        t_next = float(torch.min(torch.where(
+            p0.valid, p0.max_pred_time,
+            torch.full_like(p0.max_pred_time, 1e37))))
+        t1 = time.perf_counter()
+        _, n_act, n_scat = sim.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        p = sim.particles
+        inactive = p.valid & (before["max_pred_time"] > t_next)
+        assert int(inactive.sum()) == int(p.valid.sum()) - n_act
+        # activation is an equality test: count the inactive particles a
+        # last-bit difference in their kick time would have activated
+        ties = int(torch.sum(inactive & (before["max_pred_time"] - t_next
+                                         <= 1e-6 * abs(t_next))))
+        changed = [f for f in kept if not torch.equal(
+            getattr(p, f)[inactive], before[f][inactive])]
+        assert not changed, (label, k, "inactive particles changed", changed)
+        row = dict(n_active=n_act, wall=wall, walls=dict(sim.last_phase_wall),
+                   kind=(sim.last_list_info or {}).get("kind", "single"),
+                   ties=ties)
+        si = sim.last_sidm_info
+        if si is not None:
+            m = p.mass[:, None].double()
+            kick = si["kick"].double()
+            mom = float(torch.linalg.norm(torch.sum(m * kick, 0)))
+            scale = float(torch.sum(m * torch.linalg.norm(kick, dim=1,
+                                                          keepdim=True)))
+            assert mom <= 1e-5 * scale, ("momentum", mom, scale)
+            # the hash engine's buckets past the cap and clipped levels,
+            # the lists' gated/tail and candidate segment drops, the walk's
+            drops = [si.get("ngb_ovf", 0), si.get("lvl_clip", 0),
+                     *si.get("ovf_g", []), *si.get("cand_ovf", [0])[:1],
+                     *si.get("walk_ovf", [])]
+            assert not any(drops), (label, k, drops)
+            row.update(engine=si["engine"], n_gated=si["n_gated"],
+                       n_scat=n_scat, mom=mom, scale=scale)
+        if sim.last_veldisp_info is not None:
+            vi = sim.last_veldisp_info
+            assert vi["ngb_ovf"] == 0 and vi["lvl_clip"] == 0, vi
+            assert vi["queries"] == n_act, vi
+            row.update(vd_queries=vi["queries"])
+        rows.append(row)
+        print(f"{label} individual step {k + 1} ({row['kind']}): "
+              f"t = {sim.time:.9g}, active {n_act} of {n} (inactive within "
+              f"1e-6 of the kick time: {ties}), wall "
+              f"{wall * 1e3:.1f} ms ("
+              + ", ".join(f"{ph} {s * 1e3:.1f} ms" for ph, s in
+                          row["walls"].items()) + ")"
+              + (f", gated {row['n_gated']}, scatters {row['n_scat']}, "
+                 f"|sum m dv| {row['mom']:.3e} of {row['scale']:.3e}"
+                 if "engine" in row else "")
+              + f" [{card}]", flush=True)
+    de = abs(predicted_energy(sim) - e_start) / abs(e_start)
+    finite = all(bool(torch.isfinite(getattr(sim.particles, f)).all())
+                 for f in ("pos", "vel", "hsml_vd"))
+    nact = [r["n_active"] for r in rows]
+    print(f"{label} in mode individual: N {n}, prepare {t_prep:.3f} s, "
+          f"{steps} steps, active per step {nact}, the list cadence's skin "
+          f"{sim._skin_now:.4g} from the last dt {sim._last_dt:.4g}, |dE/E| "
+          f"at the common predicted time {de:.3e}, finite {finite} "
+          f"[{card}]", flush=True)
+    assert finite and de < 1e-3, (finite, de)
+    assert max(nact) < n, nact
+    del sim
+    return rows
 
 
 def sim_energy(sim) -> float:

@@ -11,12 +11,13 @@ interface, loaded with ``ctypes``:
 ``<h>`` hashes the source's own flags, the source and every header, so an
 edited file builds anew and an unchanged one is reused. ``-fmad=false`` is
 given to ``far_kernel.cu``, ``range_walk.cu``, ``sidm_emit.cu``,
-``sidm_gated.cu``, ``sidm_near.cu``, ``hash_knn.cu`` and ``hash_scan.cu``:
-it keeps every product and sum rounded as in the plain PyTorch version
-(beside explicit ``__fmul_rn``/``__fadd_rn``), so that the walks'
-classifications, the candidate tests, the DSMC keys and the hash grid's
-cells, levels, distances and pair terms, and hence every emitted id, key,
-radius, count and chosen partner, match the plain version's exactly.
+``sidm_gated.cu``, ``sidm_near.cu``, ``hash_knn.cu``, ``hash_scan.cu`` and
+``hash_veldisp.cu``: it keeps every product and sum rounded as in the
+plain PyTorch version (beside explicit ``__fmul_rn``/``__fadd_rn``), so
+that the walks' classifications, the candidate tests, the DSMC keys and the
+hash grid's cells, levels, distances and pair terms, and hence every
+emitted id, key, radius, count and chosen partner, match the plain
+version's exactly.
 The other sources are built with FMA: the peak of 67 TFLOP/s that ``bounds.py``
 divides by counts an FMA as two operations, so a kernel without FMA can
 reach at most half of its bound. Each C entry point
@@ -46,7 +47,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _SOURCE_FLAGS = {"far_kernel": ["-fmad=false"], "range_walk": ["-fmad=false"],
                  "sidm_emit": ["-fmad=false"], "sidm_gated": ["-fmad=false"],
                  "sidm_near": ["-fmad=false"], "hash_knn": ["-fmad=false"],
-                 "hash_scan": ["-fmad=false"]}
+                 "hash_scan": ["-fmad=false"],
+                 "hash_veldisp": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -84,6 +86,9 @@ _SIGNATURES = {
     "hash_scan_launch": ("hash_scan", [
         _P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _I,
         _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P]),
+    "hash_veldisp_launch": ("hash_veldisp", [
+        _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P]),
     "direct_launch": ("direct", [_P, _P, _P, _I, _P, _I, _P, _P, _P]),
 }
 

@@ -104,6 +104,16 @@ KNN_QUERY_BYTES = 44
 SCAN_ROW_OPS = 16
 SCAN_PAIR_OPS = 26
 SCAN_TARGET_BYTES = 64
+# ... H4 (csrc/hash_veldisp.cu) reads the whole row; per row read the
+# type 3, d 3, r^2 5, sqrt, r < h; per neighbour in float32 u, W(u) 7,
+# / h^3, m W, and in float64 the sums of m W, v (3) and |v|^2 (3 products,
+# 3 adds), each counted twice (the H100's float64 rate outside the tensor
+# cores, 34 TFLOP/s, is half the float32 one); per query its position,
+# type and h in, count, need, clip, rows read and the float64 rho, sum v
+# (3) and sum |v|^2 out
+VD_ROW_OPS = 13
+VD_NGB_OPS = 10 + 2 * 10
+VD_QUERY_BYTES = 76
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -423,6 +433,18 @@ def scan_work(table, keys, scanned, ok, tid, cap: int):
     ops = SCAN_ROW_OPS * read + SCAN_PAIR_OPS * _n(torch.sum(ok[t].long()))
     return ops, (BUCKET_BYTES * nb + SCAN_ROW_BYTES * min(rows, read)
                  + SCAN_TARGET_BYTES * t.numel())
+
+
+def veldisp_work(table, keys, scanned, cnt, n: int, cap: int):
+    """(ops, bytes) of one ``veldisp_sums`` call on n queries: VD_ROW_OPS
+    per row read (``scanned``) and VD_NGB_OPS per neighbour (``cnt``);
+    bytes: the distinct buckets of ``keys`` (the plain version's key list)
+    and their rows up to cap once each (CAND_ROW_BYTES a row), the queries'
+    inputs and outputs."""
+    nb, rows = _bucket_rows(table, keys, cap)
+    ops = (VD_ROW_OPS * _n(torch.sum(scanned.long()))
+           + VD_NGB_OPS * _n(torch.sum(cnt.long())))
+    return ops, BUCKET_BYTES * nb + CAND_ROW_BYTES * rows + VD_QUERY_BYTES * n
 
 
 def direct_work(n: int, T: int, need_pot: bool):

@@ -9,6 +9,12 @@ the base), DSMC on the cached candidate lists, with the same two cuts.
 flagship-dsmc-walk: the same SIDM settings on the walk, bench.py's
 ``TreeRefreshSteps 16``, the DSMC pass on the range walk every step.
 
+``flagship_config(**VELDISP)`` is flagship-veldisp: the lists'
+configuration with ``VelDispOn 1`` and ``TypeOfTimestepCriterion 4``
+(the velocity-dispersion pass after every force, the timesteps from the
+local dispersion and density), gravity only, since ``VelDispOn`` excludes
+``SIDMOn``.
+
 ``small_config()`` is small-halo: bench.py's halo and SIDM settings on
 the single-program step (``mode="synchronized"`` below
 ``Simulation.PHASE_THRESHOLD``: the wq walk's force every step and the
@@ -67,6 +73,12 @@ DSMC = dict(SIDMOn=1, CrossSection=38.2614, ProbabilityTol=0.2,
 # flagship-dsmc-walk: bench.py's SIDM settings on the walk (the DSMC pass
 # on the range walk every step; TreeRefreshSteps 16, bench.py's)
 DSMC_WALK = dict(DSMC, ListMode=0)
+
+
+# flagship-veldisp: flagship_config(**VELDISP), the lists' configuration
+# with the velocity-dispersion pass and timestep criterion 4 (gravity only:
+# config.py refuses SIDMOn with VelDispOn)
+VELDISP = dict(VelDispOn=1, TypeOfTimestepCriterion=4)
 
 
 # small-halo: the single-program step's largest N (padded to 256)

@@ -254,6 +254,11 @@ def hash_scan(table: NeighborTable, pos, vel, hs, ptype, rand, dts, tid,
     from .._build import check_cuda, kernels_lib, launch_args
     from .list_range import _gated_consts
     n, T = pos.shape[0], tid.shape[0]
+    i32 = dict(dtype=torch.int32, device=pos.device)
+    partner = torch.full((n,), -1, **i32)
+    hit, need, clip, scanned = (torch.zeros(n, **i32) for _ in range(4))
+    if T == 0:      # no gated target: nothing to launch
+        return HashScan(partner, hit.bool(), need, clip.bool(), scanned)
     LN, H, L = table.sorted_part.shape[0], table.n_hash, table.n_levels
     tid = tid.to(torch.int32).contiguous()
     check_cuda("hash_scan", rows=(table.rows, torch.float32, (LN, 8)),
@@ -265,9 +270,6 @@ def hash_scan(table: NeighborTable, pos, vel, hs, ptype, rand, dts, tid,
                hs=(hs, torch.float32, (n,)), ptype=(ptype, torch.int32, (n,)),
                rand=(rand, torch.float32, (n,)),
                dts=(dts, torch.float32, (n,)), tid=(tid, torch.int32, (T,)))
-    i32 = dict(dtype=torch.int32, device=pos.device)
-    partner = torch.full((n,), -1, **i32)
-    hit, need, clip, scanned = (torch.zeros(n, **i32) for _ in range(4))
     sco, vc, vs, pl = _gated_consts(time, sigma_co, params)
     err = kernels_lib().hash_scan_launch(*launch_args(
         table.rows, table.sorted_part, LN, table.bucket_start,
@@ -330,7 +332,13 @@ def update_hsml(p, pos_pred, table: NeighborTable, active,
 
 
 def hash_base_cell(p, pos_pred, params: SidmParams, box: float = 0.0):
-    """The table's base cell size: the smallest current smoothing length
+    """The hash engine's table's base cell size (``base_cell`` at
+    ``params.des_num_ngb``)."""
+    return base_cell(p, pos_pred, params.des_num_ngb, box)
+
+
+def base_cell(p, pos_pred, des_num_ngb: int, box: float = 0.0):
+    """A hash table's base cell size: the smallest current smoothing length
     (floored at 1e-12), or at a cold start (no length set) half the
     k-neighbour radius of a uniform distribution at the mean density. A
     0-d tensor, computed on the device."""
@@ -345,7 +353,7 @@ def hash_base_cell(p, pos_pred, params: SidmParams, box: float = 0.0):
                            0).values)
         vol = torch.prod(torch.clamp(ext, min=1e-10))
     n_valid = torch.clamp(torch.sum(valid), min=1)
-    r_k = (3.0 * params.des_num_ngb * vol
+    r_k = (3.0 * des_num_ngb * vol
            / (4.0 * torch.pi * n_valid)) ** (1.0 / 3.0)
     hpos = torch.where(p.hsml_vd > 0, p.hsml_vd,
                        torch.full_like(p.hsml_vd, float("inf")))

@@ -11,14 +11,24 @@
 ``write_restart_file``/``load_restart_file`` :1591-1615; the
 single-program step ``_build_step`` :373-458 with ``_make_force_fn``
 :271-300, its prepare :1318-1322 and the choice of step ``_use_phased``
-:1344-1350).
+:1344-1350; the velocity-dispersion pass :401-404 and ``phase_veldisp``
+:665-673, :1009-1011).
+
+``mode="individual"`` (JAX's ``sync = False``, :378, :471) keeps every
+particle's own next kick time: a step advances only the particles due at
+the earliest of them (``max_pred_time`` equal to it) and leaves the others
+as they were. The other modes give every particle the global minimum
+timestep after each step (synchronized steps). ``individual`` picks its
+step by N as ``synchronized`` does.
 
 Below PHASE_THRESHOLD padded particles (``mode="synchronized"``) and at
 any N (``mode="fused"``) a step is the JAX package's single-program step:
 predict, the force (the wq walk on a fresh tree, ``ForceMethod tree``, or
 the direct sum, ``direct``), the kick factors, the hash-grid DSMC pass
 (``ops/sidm.py`` ``sidm_scatter``, its rows per bucket grown to the
-step's demand where JAX drops the rest), then the finish below;
+step's demand where JAX drops the rest), the velocity-dispersion pass
+(``VelDispOn 1``, ``ops/veldisp.py``; its rows per bucket and grid levels
+grown to the demand likewise), then the finish below;
 ``prepare`` sets the smoothing lengths by ``setup_smoothing_lengths``. A
 walk that drops cells on that step's tree (JAX's depth 10 below 2^18
 particles) is redone at depth 13 for the rest of the run.
@@ -55,10 +65,14 @@ given up, the step runs the DSMC pass on the range walk instead
 drops are reported in ``last_sidm_info`` and on stderr. ``prepare`` sets
 the initial smoothing lengths by ``tree_hsml_init_fused``.
 
+With ``VelDispOn 1`` the velocity-dispersion pass follows the force on
+both steps (JAX runs it right after the force phase).
+
 Then: kick factors -> DKD advance (which applies the scattering kicks) ->
-reflection -> new synchronized timesteps. Tensors live on the device given at construction and are never
-moved; with no device given it is the CUDA card, and without one the
-constructor raises.
+reflection -> new timesteps (the global minimum unless
+``mode="individual"``). Tensors live on the device given at construction
+and are never moved; with no device given it is the CUDA card, and
+without one the constructor raises.
 
 ``run`` is the main loop of run.c with the JAX package's cadences: energy
 statistics every ``TimeBetStatistics``, snapshots from
@@ -88,8 +102,8 @@ import numpy as np
 import torch
 
 from . import integrate, timestep
-from .config import SimConfig, Units, parse_parameter_file, set_units, \
-    write_parameters_out
+from .config import ParameterError, SimConfig, Units, \
+    parse_parameter_file, set_units, write_parameters_out
 from .constants import MAX_REAL_NUMBER
 from .diagnostics import (CpuLog, EnergyLog, InfoLog, Timer, TimingsLog,
                           compute_system_state, system_state_to_host)
@@ -107,6 +121,7 @@ from .ops.list_range import (RangeListConfig,
 from .ops.neighbors import setup_smoothing_lengths
 from .ops.sidm import SidmParams, make_sidm_step, sidm_params
 from .ops.tree import build_octree, refresh_octree
+from .ops.veldisp import veldisp
 from .ops.wq_force import wq_gravity, wq_gravity_tree
 from .ops.wq_range import sidm_scatter_wq
 from .rng import run_key, step_key
@@ -132,8 +147,15 @@ def _refuse(what: str, item: str):
         f"{what} is not ported to sidm_tpu_torch yet (ROADMAP.md {item})")
 
 
+MODES = ("synchronized", "phased", "fused", "individual")
+VD_LEVELS = 10      # the velocity-dispersion grid's levels, JAX's
+MAX_VD_LEVELS = 24
+
+
 def check_supported(cfg: SimConfig, mode: str, device: torch.device):
-    """Raise NotImplementedError for anything outside the ported slice."""
+    """Raise NotImplementedError for anything outside the ported slice,
+    ValueError for an unknown mode and for scattering SIDM with
+    VelDispOn."""
     if cfg.ForceMethod not in ("tree", "direct"):
         _refuse(f"ForceMethod {cfg.ForceMethod}", "A, item 15")
     if cfg.ForceMethod == "direct" and mode == "phased":
@@ -144,10 +166,14 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
         _refuse("periodic boxes and TreePM", "A, item 11")
     if cfg.ComovingIntegrationOn:
         _refuse("comoving integration", "A, item 11")
-    if cfg.VelDispOn:
-        _refuse("VelDispOn (velocity dispersion)", "A, item 10")
-    if mode not in ("synchronized", "phased", "fused"):
-        _refuse(f"mode={mode!r}", "A, item 10")
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}: not one of {MODES}")
+    if cfg.SIDMOn and cfg.CrossSection > 0 and cfg.VelDispOn:
+        # the parameter file's rule (config.py) for configurations built in
+        # code, where SIDMOn with CrossSection 0 (the default) scatters
+        # nothing
+        raise ParameterError("VELDISP cannot be used with SIDM "
+                             "(sidm.c:14-16)")
     if cfg.Precision == "f64" and device.type == "cuda":
         _refuse("Precision f64 on CUDA (the kernels are float32)",
                 "A, item 16")
@@ -272,6 +298,8 @@ class Simulation:
         self.last_sidm_info = None
         self.last_hsml_init = None
         self._hash_cap = SidmParams._field_defaults["cap"]   # JAX's 96
+        self._vd_levels = VD_LEVELS
+        self.last_veldisp_info = None
         self._small_depth = None
         self._hash_step = None
         self._reset_cadence()
@@ -368,8 +396,8 @@ class Simulation:
     def _use_phased(self) -> bool:
         """The JAX package's choice of step (simulation.py:1344-1350):
         ``mode="phased"`` the phased step, ``"fused"`` the single-program
-        step at any N, ``"synchronized"`` the phased step from
-        PHASE_THRESHOLD particles (padded) on."""
+        step at any N, ``"synchronized"`` and ``"individual"`` the phased
+        step from PHASE_THRESHOLD particles (padded) on."""
         if self.mode == "phased":
             phased = True
         elif self.mode == "fused":
@@ -395,8 +423,9 @@ class Simulation:
     # ------------------------------------------------------------------- step
 
     def step(self, first: bool = False):
-        """One synchronized step; returns (dt, n_active, n_scatter): the
-        step's size, its active particles and its scatters."""
+        """One step to the earliest next kick time; returns (dt, n_active,
+        n_scatter): the step's size, its active particles (all of them
+        unless ``mode="individual"``) and its scatters."""
         if self.particles is None:
             raise RuntimeError("load particles first")
         if self._use_phased():
@@ -406,9 +435,9 @@ class Simulation:
     def _step_single(self, first: bool):
         """The single-program step (``_build_step``, simulation.py:373-458):
         predict; the force (the wq walk, ``ForceMethod tree``, or the
-        direct sum, ``direct``); the kick factors; the hash engine's DSMC
-        pass (``SIDMOn 1``); advance, reflection and the synchronized
-        timesteps."""
+        direct sum, ``direct``); the kick factors; the velocity-dispersion
+        pass (``VelDispOn 1``); the hash engine's DSMC pass (``SIDMOn 1``);
+        advance, reflection and the timesteps."""
         cfg, consts = self.cfg, self.consts
         params = self._timestep_params()
         clock = _PhaseClock(self.device)
@@ -429,6 +458,7 @@ class Simulation:
         self.last_walk_info = info
         self.last_list_info = None
         clock.mark("force")
+        p = self._veldisp(p, pos_pred, vel_pred, active, clock)
         n_scat = 0
         self.last_sidm_info = None
         if cfg.SIDMOn and cfg.CrossSection > 0:
@@ -582,6 +612,7 @@ class Simulation:
             # base, from which advance_tree is absolute
             self._tree_cache = tree
         clock.mark("force")
+        p = self._veldisp(p, pos_pred, vel_pred, active, clock)
 
         n_scat = 0
         self.last_sidm_info = None
@@ -596,17 +627,19 @@ class Simulation:
     def _finish(self, p, t_next, active, vmax, params, first: bool, clock,
                 n_scat: int):
         """The finish phase (simulation.py:726-741): advance (which applies
-        the kicks), reflection, the synchronized timesteps, vmax; then the
-        Simulation's time, counters and scatter log."""
+        the kicks), reflection, the active particles' new timesteps (all
+        particles given the global minimum unless ``mode="individual"``),
+        vmax; then the Simulation's time, counters and scatter log."""
         cfg, consts = self.cfg, self.consts
         p = integrate.advance(p, t_next, active, consts)
         if consts.reflection_radius > 0:
             p = integrate.reflect(p, consts.reflection_radius)
         new_mpt = timestep.find_timesteps(p, t_next, active, vmax, params,
                                           first=first)
-        mpt_min = torch.min(torch.where(
-            p.valid, new_mpt, torch.full_like(new_mpt, MAX_REAL_NUMBER)))
-        new_mpt = torch.where(p.valid, mpt_min, new_mpt)
+        if self.mode != "individual":
+            mpt_min = torch.min(torch.where(
+                p.valid, new_mpt, torch.full_like(new_mpt, MAX_REAL_NUMBER)))
+            new_mpt = torch.where(p.valid, mpt_min, new_mpt)
         p = dataclasses.replace(p, max_pred_time=new_mpt)
         vmax_new = timestep.get_vmax(p)
         n_active = torch.sum(active.to(torch.int32))
@@ -743,6 +776,61 @@ class Simulation:
             knn=info["knn"], scan=info["scan"], tid=info["tid"],
             **self._event_info(info, n_scat))
         return q, n_scat
+
+    def _veldisp(self, p, pos_pred, vel_pred, active, clock):
+        """The velocity-dispersion pass (``VelDispOn 1``; JAX's
+        ``veldisp`` right after the force) with its rows per bucket and its
+        grid's levels grown to the pass's demand: a pass that read a bucket
+        past the cap, or clipped a query's level (its stencil then misses
+        part of its ball), is redone with the cap grown (``_grow_hash_cap``,
+        shared with the hash DSMC engine, which VelDispOn excludes) and the
+        levels grown to cover the largest radius, up to HASH_TRIES passes.
+        What still drops is reported. Returns the particles; the pass's
+        numbers in ``last_veldisp_info``."""
+        cfg = self.cfg
+        if not cfg.VelDispOn:
+            self.last_veldisp_info = None
+            return p
+        box = cfg.BoxSize if cfg.PeriodicBoundariesOn else 0.0
+        for tries in range(1, self.HASH_TRIES + 1):
+            q, info = veldisp(p, pos_pred, vel_pred, active,
+                              des_num_ngb=cfg.DesNumNgb, box=box,
+                              cap=self._hash_cap, n_levels=self._vd_levels)
+            rows = info["rows"].double()
+            need, ovf, clip, ratio, rows_mean, rows_max = torch.stack([
+                info["need"].double(), info["ngb_ovf"].double(),
+                info["lvl_clip"].double(),
+                info["h_max"].double() / info["table"].s0.double(),
+                torch.mean(rows), torch.max(rows)]).tolist()
+            need, ovf, clip = int(need), int(ovf), int(clip)
+            grew = self._grow_hash_cap(need, "velocity-dispersion pass")
+            if clip and self.HASH_CAP_GROWTH:
+                # the last level's cells s0 2^(L-1) must reach the largest
+                # radius, with one level to spare for the redone pass
+                want = min(max(self._vd_levels + 1,
+                               int(np.ceil(np.log2(max(ratio, 1.0)))) + 2),
+                           MAX_VD_LEVELS)
+                if want > self._vd_levels:
+                    print(f"NOTE: the velocity-dispersion pass clipped "
+                          f"{clip} queries' levels at {self._vd_levels} "
+                          f"levels: levels -> {want}, pass redone.",
+                          file=sys.stderr, flush=True)
+                    self._vd_levels = want
+                    grew = True
+            if tries == self.HASH_TRIES or not grew:
+                break
+        if ovf or clip:
+            print(f"WARNING: the velocity-dispersion pass read {ovf} buckets "
+                  f"past cap {self._hash_cap} and clipped {clip} levels this "
+                  f"step (truncated neighbour sums).", file=sys.stderr,
+                  flush=True)
+        self.last_veldisp_info = dict(
+            cap=self._hash_cap, levels=self._vd_levels, need=need,
+            ngb_ovf=ovf, lvl_clip=clip, tries=tries,
+            queries=info["queries"], rows_mean=rows_mean,
+            rows_max=int(rows_max))
+        clock.mark("veldisp")
+        return q
 
     def _sidm_walk(self, p, pos_pred, tree, t_next, active, vmax, key,
                    params, info, clock):
@@ -1055,7 +1143,8 @@ class Simulation:
             # (run.c:250-285 FdCPU analog)
             ph = self.last_phase_wall
             self.cpu_log.add("Gravity", ph.get("force", 0.0))
-            self.cpu_log.add("Sidm", ph.get("sidm", 0.0))
+            self.cpu_log.add("Sidm", ph.get("sidm", 0.0)
+                             + ph.get("veldisp", 0.0))
             self.cpu_log.add("EnsureNgb", ph.get("sidmrec", 0.0))
             self.cpu_log.add("TimeLine", ph.get("finish", 0.0))
             self.cpu_log.add("Predict", max(step_wall - sum(ph.values()),

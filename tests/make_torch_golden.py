@@ -69,13 +69,27 @@ per-file budget of the test suite, so their outputs are committed:
   (``t{k}_``) and ``direct`` (``d{k}_``); and the hash engine's events in
   the rate harness's frozen box at N = 4096 (``rate_``).
 
+* ``tests/data/torch_veldisp_golden.npz`` (tests/test_torch_veldisp.py,
+  tests/test_torch_individual.py, tests/test_torch_individual_phased.py):
+  ``veldisp`` at cap 96 on ``veldisp_inputs`` (``o``: the NFW halo of 4096,
+  64 of type 2; ``b``: a uniform periodic box), a cold pass with every
+  particle active (``{tag}1_``) and a warm pass from its lengths with half
+  of them active (``{tag}2_``); and the JAX ``Simulation`` on the inputs of
+  its own tests: ``test_individual_timestep_mode_conserves_energy``
+  (``ind``: the state before each of the first IND["steps"] steps and the
+  free run's active counts and energies), ``test_veldisp_and_criterion_4``
+  (``vd4``), ``test_phased_veldisp_matches_synchronized`` (``pvd``, with
+  ``TreeWalkEngine wq``), flagship-veldisp in ``mode="individual"`` on the
+  phased step at N = 4096 (``pind``) and a Plummer sphere with the hash
+  DSMC engine in ``mode="individual"`` (``hind``, with its scatter log).
+
 Each test file has a ``slow`` test that reruns its JAX outputs and holds the
 file to them. Rerun this script to regenerate the files (all, or the ones
 named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``,
-``sidm_walk``, ``run``, ``hash``):
+``sidm_walk``, ``run``, ``hash``, ``veldisp``):
 
     python -m tests.make_torch_golden [slice] [list_slice] [list] [sidm]
-        [sidm_slice] [sidm_walk] [run] [hash]
+        [sidm_slice] [sidm_walk] [run] [hash] [veldisp]
 """
 
 import os
@@ -84,7 +98,8 @@ import tempfile
 
 import numpy as np
 
-from sidm_tpu_torch.flagship import DSMC, FLAGSHIP, LISTS, flagship_ics
+from sidm_tpu_torch.flagship import (DSMC, FLAGSHIP, LISTS, VELDISP,
+                                     flagship_ics)
 
 N = 2048
 STEPS = 3
@@ -1091,6 +1106,198 @@ def jax_hash() -> dict:
     return {**jax_hash_ops(), **jax_hash_trajectories(), **jax_hash_rate()}
 
 
+VELDISP_GOLDEN = os.path.join(_DATA, "torch_veldisp_golden.npz")
+# the velocity-dispersion op's inputs: 4096 particles (the first 64 of type
+# 2), DesNumNgb 30; the second pass drifts the positions by drift x vel and
+# adds dv-scaled noise to the velocities, half of the particles active
+VD = dict(n=4096, n_type2=64, k=30, box=10.0, drift=0.002, dv=0.05, seed=21)
+VD_TAGS = {"o": 0.0, "b": VD["box"]}
+VD_FIELDS = ("hsml_vd", "ngb_vd", "dens_vd", "vel_disp")
+# JAX's tests/test_simulation_features.py:_halo_cfg, on the wq walk (the
+# port's only one; the direct sum ignores it)
+HALO_CONFIG = dict(
+    GravityConstantInternal=1.0, ForceMethod="direct",
+    TypeOfTimestepCriterion=1, ErrTolVelScale=0.05, MaxSizeTimestep=0.05,
+    TimeBegin=0.0, TimeMax=1.0, SofteningHalo=0.05,
+    SofteningHaloMaxPhys=0.05, UnitLength_in_cm=1.0, UnitMass_in_g=1.0,
+    UnitVelocity_in_cm_per_s=1.0, SIDMOn=0, DesNumNgb=16,
+    MaxNumNgbDeviation=2, TreeWalkEngine="wq")
+# test_individual_timestep_mode_conserves_energy: its loop runs until
+# t_end or max_steps; the state before each of the first ``steps`` steps
+IND_CONFIG = {**HALO_CONFIG, "TimeMax": 1.5, "ErrTolVelScale": 0.04}
+IND = dict(n=192, seed=11, pad=64, steps=40, max_steps=200, t_end=1.0)
+IND_FIELDS = ("pos", "vel", "accel", "old_acc", "current_time",
+              "max_pred_time")
+# test_veldisp_and_criterion_4
+VD4_CONFIG = {**HALO_CONFIG, "VelDispOn": 1, "TypeOfTimestepCriterion": 4,
+              "ErrTolIntAccuracy": 0.2, "TimeMax": 0.5}
+VD4 = dict(n=256, seed=23, pad=256, steps=3)
+TRAJ_FIELDS = ("pos", "vel", "max_pred_time", "hsml_vd", "ngb_vd",
+               "dens_vd", "vel_disp")
+# test_phased_veldisp_matches_synchronized
+PVD_CONFIG = dict(
+    GravityConstantInternal=1.0, UnitLength_in_cm=1.0, UnitMass_in_g=1.0,
+    UnitVelocity_in_cm_per_s=1.0, ForceMethod="tree", VelDispOn=1,
+    TypeOfTimestepCriterion=2, ErrTolDynamicalAccuracy=0.02,
+    ErrTolVelScale=10.0, MaxSizeTimestep=0.01, TimeBegin=0.0, TimeMax=0.03,
+    SofteningHalo=0.05, SofteningHaloMaxPhys=0.05, DesNumNgb=16,
+    MaxNumNgbDeviation=2, TreeWalkEngine="wq")
+PVD = dict(n=1024, seed=3, pad=256, steps=3)
+PVD_MODES = {"s": "synchronized", "p": "phased"}
+# flagship-veldisp in mode "individual" on the phased step
+PIND_CONFIG = {**FLAGSHIP, **LISTS, **VELDISP}
+PIND = dict(n=4096, steps=6)
+# the hash DSMC engine in mode "individual": a Plummer sphere whose
+# particles mostly reach MaxSizeTimestep, so that from step 12 on one
+# particle and the other 511 take turns (the 511 scatter)
+HIND_CONFIG = {**HALO_CONFIG, "SIDMOn": 1, "CrossSection": 30.0,
+               "ProbabilityTol": 0.2, "MaxSizeTimestep": 0.0065,
+               "ScatterLog": 1, "RandomSeed1": 7, "RandomSeed2": 77}
+HIND = dict(n=512, seed=13, steps=24)
+HIND_FIELDS = ("pos", "vel", "dvel", "hsml_vd", "max_pred_time")
+
+
+def veldisp_inputs(make_particles, box: float):
+    """(particles, (pos, vel) of the second pass, its active mask as numpy)
+    of the velocity-dispersion op: the NFW halo, or with a box uniform
+    positions in it, both with the halo's velocities."""
+    n = VD["n"]
+    pos, vel, mass = flagship_ics(n, SEED)
+    rng = np.random.default_rng(VD["seed"])
+    if box:
+        pos = rng.uniform(0.0, box, (n, 3))
+        mass = np.full(n, 1.0 / n)
+    ptype = np.ones(n, np.int32)
+    ptype[:VD["n_type2"]] = 2
+    p = make_particles(pos, vel, mass, ptype, pad_to_multiple=n)
+    pos2 = (pos + VD["drift"] * vel).astype(np.float32)
+    vel2 = (vel * (1.0 + VD["dv"] * rng.standard_normal((n, 3)))).astype(
+        np.float32)
+    active = rng.random(n) < 0.5
+    return p, pos2, vel2, active
+
+
+def plummer(ics, n: int, seed: int):
+    """(pos, vel, mass, ptype) of JAX's tests' Plummer spheres."""
+    pos, vel, mass = ics.plummer(n, seed=seed)
+    return pos, vel, mass, np.ones(n, np.int32)
+
+
+def jax_veldisp_ops() -> dict:
+    """JAX's ``veldisp`` on veldisp_inputs: a cold pass, all active
+    (``{tag}1_``), then from its particles a warm pass at the drifted
+    positions with half active (``{tag}2_``)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops.veldisp import veldisp
+    from sidm_tpu.state import make_particles
+
+    out = {}
+    for tag, box in VD_TAGS.items():
+        p, pos2, vel2, active = veldisp_inputs(make_particles, box)
+        q = veldisp(p, p.pos, p.vel, p.valid, des_num_ngb=VD["k"], box=box)
+        q2 = veldisp(q, jnp.asarray(pos2), jnp.asarray(vel2),
+                     jnp.asarray(active) & q.valid, des_num_ngb=VD["k"],
+                     box=box)
+        for stage, r in ((1, q), (2, q2)):
+            for f in VD_FIELDS:
+                out[f"{tag}{stage}_{f}"] = np.asarray(getattr(r, f))
+    return out
+
+
+def jax_individual_runs() -> dict:
+    """The JAX Simulation on the inputs of its own tests and on
+    flagship-veldisp (see the module note)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.diagnostics import compute_system_state
+    from sidm_tpu.io import ics
+    from sidm_tpu.simulation import Simulation
+
+    def energy(sim):
+        s = compute_system_state(sim.particles)
+        return float(s.energy_kin + s.energy_pot)
+
+    def fields(sim, prefix, names):
+        for f in names:
+            out[prefix + f] = np.asarray(getattr(sim.particles, f))
+        out[prefix + "time"] = np.float64(sim.time)
+
+    out = {}
+    # ind: test_individual_timestep_mode_conserves_energy
+    sim = Simulation(SimConfig(**IND_CONFIG), mode="individual", quiet=True)
+    sim.set_particles_from_arrays(*plummer(ics, IND["n"], IND["seed"]),
+                                  pad_to_multiple=IND["pad"])
+    sim.prepare()
+    sim.compute_potential()
+    out["ind_e0"] = np.float64(energy(sim))
+    nact = []
+    for k in range(IND["max_steps"]):
+        if sim.time >= IND["t_end"]:
+            break
+        if k <= IND["steps"]:
+            fields(sim, f"ind{k}_", IND_FIELDS)
+        nact.append(sim.step()[1])
+    sim.compute_potential()
+    out["ind_e1"] = np.float64(energy(sim))
+    out["ind_nact"] = np.asarray(nact, np.int64)
+    out["ind_time"] = np.float64(sim.time)
+    # vd4: test_veldisp_and_criterion_4
+    sim = Simulation(SimConfig(**VD4_CONFIG), mode="synchronized",
+                     quiet=True)
+    sim.set_particles_from_arrays(*plummer(ics, VD4["n"], VD4["seed"]),
+                                  pad_to_multiple=VD4["pad"])
+    sim.prepare()
+    fields(sim, "vd4_0_", TRAJ_FIELDS)
+    for k in range(1, VD4["steps"] + 1):
+        sim.step()
+        fields(sim, f"vd4_{k}_", TRAJ_FIELDS)
+    # pvd: test_phased_veldisp_matches_synchronized
+    for tag, mode in PVD_MODES.items():
+        sim = Simulation(SimConfig(**PVD_CONFIG), mode=mode, quiet=True)
+        sim.set_particles_from_arrays(*plummer(ics, PVD["n"], PVD["seed"]),
+                                      pad_to_multiple=PVD["pad"])
+        sim.prepare()
+        for k in range(PVD["steps"]):
+            sim.step()
+        fields(sim, f"pvd_{tag}_", TRAJ_FIELDS)
+    # pind: flagship-veldisp, individual steps on the phased step
+    pos, vel, mass = flagship_ics(PIND["n"], SEED)
+    sim = Simulation(SimConfig(**PIND_CONFIG), mode="individual", quiet=True)
+    sim.PHASE_THRESHOLD = 0
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(PIND["n"],
+                                                          np.int32))
+    sim.prepare()
+    out["pind0_max_pred_time"] = np.asarray(sim.particles.max_pred_time)
+    for k in range(1, PIND["steps"] + 1):
+        out[f"pind{k}_nact"] = np.int64(sim.step()[1])
+        out[f"pind{k}_max_pred_time"] = np.asarray(
+            sim.particles.max_pred_time)
+        out[f"pind{k}_time"] = np.float64(sim.time)
+    fields(sim, "pind_", TRAJ_FIELDS + ("current_time",))
+    # hind: the hash DSMC engine, individual steps, with the scatter log
+    with tempfile.TemporaryDirectory() as d:
+        sim = Simulation(SimConfig(**HIND_CONFIG, OutputDir=d),
+                         mode="individual", quiet=True)
+        sim.set_particles_from_arrays(*plummer(ics, HIND["n"], HIND["seed"]),
+                                      pad_to_multiple=HIND["n"])
+        sim.prepare()
+        for k in range(1, HIND["steps"] + 1):
+            _, n_act, n_scat = sim.step()
+            out[f"hind{k}_nact"] = np.int64(n_act)
+            out[f"hind{k}_n_scat"] = np.int64(n_scat)
+            fields(sim, f"hind{k}_", HIND_FIELDS)
+        out["hind_sct"] = np.fromfile(os.path.join(d, "sct_000.0"),
+                                      np.float32).reshape(-1, 20)
+    return out
+
+
+def jax_veldisp() -> dict:
+    return {**jax_veldisp_ops(), **jax_individual_runs()}
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
@@ -1098,7 +1305,8 @@ GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "sidm_slice": (SIDM_SLICE_GOLDEN, jax_sidm_trajectory),
            "sidm_walk": (SIDM_WALK_GOLDEN, jax_sidm_walk),
            "run": (RUN_GOLDEN, jax_run),
-           "hash": (HASH_GOLDEN, jax_hash)}
+           "hash": (HASH_GOLDEN, jax_hash),
+           "veldisp": (VELDISP_GOLDEN, jax_veldisp)}
 
 
 def main(names):

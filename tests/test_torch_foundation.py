@@ -213,15 +213,20 @@ _BASE = dict(SIDMOn=0, TreeWalkEngine="wq", ListMode=0)
     dict(ForceMethod="direct"), dict(ComovingIntegrationOn=1),
     dict(VelDispOn=1)])
 def test_unported_configs_refused(change):
+    """Each configuration outside the port raises, naming its ROADMAP
+    item; VelDispOn is ported (A, item 10): those construct."""
     cfg = tcfg.SimConfig(**{**_BASE, **change})
+    if change.get("VelDispOn"):
+        assert Simulation(cfg, mode="phased", device="cpu").cfg.VelDispOn
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(cfg, mode="phased")
 
 
 def test_unported_modes_and_inputs_refused():
     cfg = tcfg.SimConfig(**_BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(cfg, mode="individual")
+    with pytest.raises(ValueError, match="mode"):
+        Simulation(cfg, mode="adaptive")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(cfg.replace(Precision="f64"), mode="phased",
                    device=torch.device("cuda"))

@@ -158,8 +158,8 @@ def test_step_choice_and_refusals():
         Simulation(SimConfig(**{**HASH_CONFIG,
                                 "ForceMethod": "tree_legacy"}),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Simulation(cfg, mode="individual", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        Simulation(cfg, mode="adaptive", device="cpu")
     from sidm_tpu_torch.ops.direct import direct_sum
     with pytest.raises(NotImplementedError, match="item 11"):
         direct_sum(torch.zeros(4, 3), torch.ones(4), torch.ones(4), box=1.0)
