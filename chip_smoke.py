@@ -160,16 +160,41 @@ Phases (each asserts; any failure exits non-zero):
      each step's active particles printed (fewer than N), the inactive
      particles' pos, vel, times and veldisp fields unchanged bit for bit,
      the DSMC kicks conserving momentum with no drop, steps that gate no
-     target among them, |dE/E| < 1e-3 at the common predicted time.
+     target among them, |dE/E| < 1e-3 at the common predicted time;
+ 14. periodic boxes, TreePM and comoving runs: cosmo-box
+     (``flagship.cosmo_config()``: the clustered periodic box of
+     scripts/profile_treepm.py at N = 2^20, mesh 256, comoving from
+     a = 0.1) through Simulation on the phased step: prepare and 5 steps
+     (refreshes and a rebuild), each step's phase walls and a, a advancing,
+     positions in [0, box), no walk overflow, and launches of the periodic
+     modes of far_level, far_list and near_level; the mesh solve timed by
+     part (deposits, FFTs, gathers); TreePM (walk + mesh, the run's
+     opening, geometric theta 0.5; the run's relative criterion printed
+     beside it) against H3's periodic Ewald direct sum on 4096 random
+     targets at that test's bars (acc p99 < 2.5e-3, max < 6e-3, pot p99 <
+     8e-3, each against max(|a|, median |a|), potential energy within
+     5e-3); every periodic
+     kernel call of one walk of the end state against its plain version
+     (far_level's lists equal as sets and its counts equal; far_list and
+     near_level p99.9 < 2e-5 on acc and pot), timed per walk beside its
+     bound and plain time; H3 periodic against the plain periodic direct
+     sum on 1024 targets (p99.9 < 1e-5 on acc and pot against max(|plain|,
+     median |plain|)), timed on 4096;
+     a periodic box of 4096 particles with ForceMethod direct on the
+     single-program step (4 steps, |dE| < 0.2 E_kin); JAX's comoving
+     lattice at 64^3 particles on the phased step, static to < 2e-3 box.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
 phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
-("dsmc_walk"), phase 11's ("cli"), phase 12's ("small", "small_direct")
-and phase 13's ("veldisp", "veldisp_individual", "dsmc_individual",
-"small_individual") counts, each path's counters set to 0 just before it
-and read just after; for far_list and near_level
-``full_ms`` and
-``full_bound_ms`` on all groups of the lists, for near_level and far_list
+("dsmc_walk"), phase 11's ("cli"), phase 12's ("small", "small_direct"),
+phase 13's ("veldisp", "veldisp_individual", "dsmc_individual",
+"small_individual") and phase 14's ("cosmo", "periodic_direct",
+"lattice") counts, each path's counters set to 0 just before it and read
+just after; the periodic modes as rows of their own,
+``far_level_periodic``, ``far_list_periodic``, ``near_level_periodic``
+and ``direct_periodic``, with the JAX function each ports in ``ports``
+and the cosmo-box mesh solve's parts in ``cosmo_pm``; for far_list and
+near_level ``full_ms`` and ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
 ``witness``, for far_level (walk and record modes) ``ms`` per walk on all
 groups with ``dense_bound_ms``) and the card's name and power limit; the
@@ -177,6 +202,7 @@ last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -872,7 +898,11 @@ def main():
                 "hash_knn": (knn_radius, "launches"),
                 "hash_scan": (hash_scan, "launches"),
                 "direct": (direct_sum, "launches"),
-                "veldisp": (veldisp_sums, "launches")}
+                "veldisp": (veldisp_sums, "launches"),
+                "far_level_periodic": (far_level, "periodic_launches"),
+                "far_list_periodic": (far_list, "periodic_launches"),
+                "near_level_periodic": (near_level, "periodic_launches"),
+                "direct_periodic": (direct_sum, "periodic_launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -1179,6 +1209,31 @@ def main():
           f"{small_ind_launches} [{card}]", flush=True)
     assert 0 in gated, gated
 
+    # ---- periodic boxes, TreePM and comoving runs: cosmo-box ----------------
+    zero_counts()
+    csim = cosmo_path(dev, card)
+    cosmo_launches = read_counts()
+    print(f"cosmo-box launches {cosmo_launches} [{card}]", flush=True)
+    for key in ("far_level_periodic", "far_list_periodic",
+                "near_level_periodic"):
+        assert cosmo_launches[key] > 0, (key, cosmo_launches)
+    pm_times = pm_breakdown(csim, card)
+    oracle_in = cosmo_oracle(csim, dev, card)
+    pm_times["oracle"] = oracle_in[-1]
+    cosmo_kernels(res, csim, oracle_in, dev, card)
+    del csim, oracle_in
+    torch.cuda.empty_cache()
+    zero_counts()
+    periodic_direct_run(dev, card)
+    pdirect_launches = read_counts()
+    assert pdirect_launches["direct_periodic"] > 0, pdirect_launches
+    zero_counts()
+    lattice_run(dev, card)
+    lattice_launches = read_counts()
+    for key in ("far_level_periodic", "far_list_periodic",
+                "near_level_periodic"):
+        assert lattice_launches[key] > 0, (key, lattice_launches)
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -1218,7 +1273,21 @@ def main():
                    "sidm_tpu/ops/direct.py:33"),
         "veldisp": ("sidm_tpu_torch/csrc/hash_veldisp.cu",
                     "sidm_tpu/ops/veldisp.py:26"),
+        # the periodic modes (slice 12): the TPU kernels they extend; JAX's
+        # periodic walk runs these functions in XLA (``ports``)
+        "far_level_periodic": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                               "sidm_tpu/ops/pallas_far.py:55"),
+        "far_list_periodic": ("sidm_tpu_torch/csrc/far_list.cu",
+                              "scripts/pallasfar.py:57"),
+        "near_level_periodic": ("sidm_tpu_torch/csrc/near_kernel.cu",
+                                "sidm_tpu/ops/pallas_near.py:30"),
+        "direct_periodic": ("sidm_tpu_torch/csrc/direct.cu",
+                            "sidm_tpu/ops/direct.py:33"),
     }
+    ports = {"far_level_periodic": "sidm_tpu/ops/fused_force.py:427",
+             "far_list_periodic": "sidm_tpu/ops/fused_force.py:488",
+             "near_level_periodic": "sidm_tpu/ops/fused_force.py:350",
+             "direct_periodic": "sidm_tpu/ops/direct.py:28,82,99"}
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
         r = res.rows[name]
@@ -1231,7 +1300,10 @@ def main():
                    "veldisp": vd_launches[name],
                    "veldisp_individual": vd_ind_launches[name],
                    "dsmc_individual": dsmc_ind_launches[name],
-                   "small_individual": small_ind_launches[name]}
+                   "small_individual": small_ind_launches[name],
+                   "cosmo": cosmo_launches[name],
+                   "periodic_direct": pdirect_launches[name],
+                   "lattice": lattice_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -1243,7 +1315,10 @@ def main():
                 "max_abs_err", "ms", "plain_ms", "ops", "bytes",
                 "library_ms")},
             **({"device_time_notes": res.notes[name]}
-               if name in res.notes else {})})
+               if name in res.notes else {}),
+            **({"ports": ports[name]} if name in ports else {}),
+            **({"cosmo_pm": pm_times} if name == "far_level_periodic"
+               else {})})
     print(json.dumps({"kernels": kernels_json}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2879,6 +2954,396 @@ def sim_energy(sim) -> float:
     from sidm_tpu_torch.diagnostics import compute_system_state
     s = compute_system_state(sim.particles)
     return float(s.energy_kin + s.energy_pot)
+
+
+# ---- phase 14: periodic boxes, TreePM and comoving runs (cosmo-box) --------
+
+COSMO_STEPS = 5        # cosmo-box's phased steps after prepare (a rebuild
+                       # at the 4th: TreeRefreshSteps 4)
+COSMO_PLAIN_TARGETS = 1024   # H3 periodic against its plain version
+PDIRECT_N = 4096       # the small periodic box of ForceMethod direct
+PDIRECT_STEPS = 4
+LATTICE_M = 64         # JAX's comoving lattice, 64^3 particles
+LATTICE_STEPS = 4
+COSMO_SIZE = None      # (N, mesh) in place of cosmo-box's (a rehearsal's)
+
+
+def cosmo_path(dev, card):
+    """cosmo-box (``flagship.cosmo_config()``, N = 2^20, mesh 256) through
+    Simulation on the phased step: prepare, COSMO_STEPS steps (refreshes and
+    a rebuild), with the walls of each step's phases, a, the walk's
+    overflow and the positions kept in [0, box). Returns the Simulation."""
+    from sidm_tpu_torch.flagship import COSMO_N, cosmo_config, cosmo_ics
+    from sidm_tpu_torch.simulation import Simulation
+
+    n, mesh = COSMO_SIZE or (COSMO_N, None)
+    cfg = cosmo_config(n, **({"PMGrid": mesh} if mesh else {}))
+    pos, vel, mass = cosmo_ics(n, SEED)
+    sim = Simulation(cfg, mode="phased", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32))
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    a0 = sim.time
+    ovf, walls, kinds = 0, [], []
+    t0 = time.perf_counter()
+    for k in range(COSMO_STEPS):
+        t1 = time.perf_counter()
+        dt, _, _ = sim.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        wi = sim.last_walk_info
+        o = [int(wi[f]) for f in ("ovf_open", "ovf_big", "ovf_items")]
+        ovf += sum(o)
+        kinds.append("rebuild" if sim.last_step_rebuilt else "refresh")
+        print(f"cosmo-box step {k + 1} ({kinds[-1]}): wall "
+              f"{walls[-1] * 1e3:.1f} ms ("
+              + ", ".join(f"{ph} {v * 1e3:.1f} ms" for ph, v in
+                          sim.last_phase_wall.items())
+              + f"), a = {sim.time:.7g} (da {dt:.4g}), walk overflow {o}, "
+              f"segments {int(wi['n_segs'])} [{card}]", flush=True)
+    t_steps = time.perf_counter() - t0
+    p = sim.particles
+    pv = p.pos[p.valid]
+    lo, hi = float(pv.min()), float(pv.max())
+    finite = bool(torch.isfinite(p.pos).all() and torch.isfinite(p.vel).all())
+    print(f"cosmo-box (periodic comoving TreePM, phased step): N {n}, "
+          f"mesh {cfg.PMGrid}, rcut {sim._pm_kernel().rcut:.1f} kpc/h, "
+          f"prepare {t_prep:.3f} s, {COSMO_STEPS} steps {t_steps:.3f} s "
+          f"({n * COSMO_STEPS / t_steps:.1f} particle-steps/s), kinds "
+          f"{kinds}, a {a0:.7g} -> {sim.time:.7g}, positions in "
+          f"[{lo:.4f}, {hi:.4f}] of box {cfg.BoxSize}, overflow {ovf}, "
+          f"finite {finite} [{card}]", flush=True)
+    assert finite and ovf == 0, (finite, ovf)
+    assert sim.time > a0, (a0, sim.time)
+    assert lo >= 0.0 and hi < cfg.BoxSize, (lo, hi)
+    assert "rebuild" in kinds and "refresh" in kinds, kinds
+    return sim
+
+
+def pm_breakdown(sim, card):
+    """The mesh solve of one cosmo-box step on its end state, by part
+    (CUDA events): the two deposits, the two forward FFTs, the six inverse
+    FFTs and the two gathers, beside the whole ``pm_accel``."""
+    from sidm_tpu_torch.ops import pm
+
+    kern = sim._pm_kernel()
+    p = sim.particles
+    box, n = kern.box, kern.n
+    h = box / n
+    pos = torch.remainder(p.pos, box)
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    pos2 = torch.remainder(pos + 0.5 * h, box)
+    dep = cuda_ms(lambda: (pm.cic_deposit(pos, mass, box, n),
+                           pm.cic_deposit(pos2, mass, box, n)), 5)
+    rho = pm.cic_deposit(pos, mass, box, n)
+    fwd = cuda_ms(lambda: (torch.fft.rfftn(rho), torch.fft.rfftn(rho)), 5)
+    spec = torch.fft.rfftn(rho)
+    inv = cuda_ms(lambda: [torch.fft.irfftn(spec, s=(n, n, n), norm="forward")
+                           for _ in range(6)], 5)
+    f4 = torch.zeros(n ** 3, 4, device=pos.device)
+    gat = cuda_ms(lambda: (pm.cic_gather(f4, pos, box, n),
+                           pm.cic_gather(f4, pos2, box, n)), 5)
+    whole = cuda_ms(lambda: pm.pm_accel(kern, p.pos, mass), 5)
+    print(f"cosmo-box mesh solve (mesh {n}, N {pos.shape[0]}): pm_accel "
+          f"{whole:.3f} ms; deposits {dep:.3f} ms, forward FFTs {fwd:.3f} "
+          f"ms, inverse FFTs {inv:.3f} ms, gathers {gat:.3f} ms [{card}]",
+          flush=True)
+    return dict(pm_ms=whole, deposit_ms=dep, fft_ms=fwd + inv, gather_ms=gat)
+
+
+def scaled_err(a, ref):
+    """Per-row |a - ref| / max(|ref|, median |ref|) (rows of vectors or
+    scalars): tests/test_pm.py's normalisation, which keeps near-zero
+    periodic forces and potentials from dividing by ~0."""
+    a, ref = a.double(), ref.double()
+    if ref.dim() == 1:
+        a, ref = a[:, None], ref[:, None]
+    n = torch.linalg.norm(ref, dim=1)
+    return torch.linalg.norm(a - ref, dim=1) / torch.clamp(
+        n, min=float(torch.quantile(n, 0.5)))
+
+
+def cosmo_oracle(sim, dev, card):
+    """TreePM (the walk's periodic mode on a fresh tree plus the mesh)
+    against H3's periodic direct sum with the Ewald tables on
+    ORACLE_TARGETS random targets, at tests/test_pm.py's bars with that
+    test's opening (geometric, theta 0.5); the run's own criterion
+    (relative, ErrTolForceAcc 0.005, with the run's old accelerations) is
+    printed beside it. Returns the H3 call's inputs."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.ops.direct import direct_sum
+
+    p, cfg = sim.particles, sim.cfg
+    t = torch.tensor(sim.time, dtype=sim.dtype, device=dev)
+    pos, _ = integrate.predict_positions(p, t, sim.consts)
+    soft = sim._softening()
+    eps = soft[torch.clamp(p.ptype, 0, 5).long()]
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    g = torch.Generator().manual_seed(SEED)
+    nv = int(p.valid.sum())
+    tg = torch.randperm(nv, generator=g)[:ORACLE_TARGETS].to(dev)
+    ew = sim._ewald_table()
+    t0 = time.perf_counter()
+    acc_r, pot_r = direct_sum(pos, mass, eps, targets=tg, box=cfg.BoxSize,
+                              ewald=ew)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    outs = {}
+    for label, opening in (("theta 0.5 (tests/test_pm.py)", 0),
+                           ("the run's relative criterion", 1)):
+        sim.cfg = dataclasses.replace(cfg, TypeOfOpeningCriterion=opening,
+                                      ErrTolTheta=0.5)
+        acc, pot, _ = sim._force(p, pos, soft, True)
+        sim.cfg = cfg
+        rel = scaled_err(acc[tg], acc_r)
+        perr = scaled_err(pot[tg], pot_r)
+        m = mass[tg].double()
+        e_ref = float(0.5 * torch.sum(m * pot_r.double()))
+        e_err = abs(float(0.5 * torch.sum(m * pot[tg].double())) - e_ref) \
+            / abs(e_ref)
+        out = dict(acc_p99=float(torch.quantile(rel, 0.99)),
+                   acc_max=float(rel.max()),
+                   pot_p99=float(torch.quantile(perr, 0.99)), energy=e_err)
+        outs[label] = out
+        print(f"cosmo-box oracle, {label}: TreePM (walk + mesh "
+              f"{sim._pm_kernel().n}) vs H3's periodic Ewald direct sum on "
+              f"{tg.numel()} targets (H3 call {t_ref:.3f} s): acc p99 "
+              f"{out['acc_p99']:.3e} (bar 2.5e-3), max {out['acc_max']:.3e} "
+              f"(6e-3), pot p99 {out['pot_p99']:.3e} (8e-3), potential "
+              f"energy {out['energy']:.3e} (5e-3) [{card}]", flush=True)
+    out = outs["theta 0.5 (tests/test_pm.py)"]
+    assert out["acc_p99"] < 2.5e-3 and out["acc_max"] < 6e-3, out
+    assert out["pot_p99"] < 8e-3 and out["energy"] < 5e-3, out
+    return pos, mass, eps, tg, ew, outs
+
+
+def same_as_sets(k, p) -> bool:
+    """far_level's periodic outputs equal as sets per group (each live
+    prefix sorted) and its counts equal."""
+    if not torch.equal(k.cnt, p.cnt):
+        return False
+    for f, row in (("far", 0), ("seg", 1), ("fids", 2), ("bkey", 6)):
+        pv = getattr(p, f)
+        if pv is None:
+            continue
+        kv = getattr(k, f)
+        live = (torch.arange(pv.shape[1], device=pv.device)[None, :]
+                < p.cnt[row][:, None])
+        big = torch.iinfo(pv.dtype).max
+        if not torch.equal(torch.sort(torch.where(live, kv, big), 1).values,
+                           torch.sort(torch.where(live, pv, big), 1).values):
+            return False
+    return True
+
+
+def cosmo_kernels(res, sim, oracle_in, dev, card):
+    """Each periodic kernel mode against its plain version at cosmo-box's
+    shapes: every far_level, far_list and near_level call of one periodic
+    walk of the end state (a fresh tree, the run's opening criterion),
+    all groups: far_level's lists equal as sets and its counts equal,
+    far_list and near_level p99.9 < 2e-5 on acc and pot (with and without
+    the potential); each mode's time per walk (CUDA events) beside its
+    bound and its plain version's; H3 periodic on COSMO_PLAIN_TARGETS
+    targets against the plain periodic direct sum, p99.9 < 1e-5 on acc and
+    pot, and its time on ORACLE_TARGETS targets beside its bound."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.bounds import (bound_ms, direct_work, far_level_work,
+                                       far_list_work, near_level_work)
+    from sidm_tpu_torch.ops.direct import direct_gravity, direct_sum
+    from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
+    from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
+
+    cfg, p = sim.cfg, sim.particles
+    pos, mass, eps, tg, ew, _ = oracle_in
+    tree = build_octree(pos, mass, eps, p.valid, box=cfg.BoxSize,
+                        depth=default_depth(p.n_padded),
+                        uniform_eps=sim._check_uniform_eps())
+    calls = []
+    wq_gravity_tree(tree, mass, eps, p.old_acc, theta=cfg.ErrTolTheta,
+                    opening=cfg.TypeOfOpeningCriterion,
+                    err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=False,
+                    pbc=sim._pbc(),
+                    on_level=lambda name, level, kw: calls.append(
+                        (name, level, dict(kw))))
+    t = {k: dict(ms=0.0, plain_ms=0.0, ops=0.0, bytes=0.0, err=0.0,
+                 max_abs=0.0, calls=0)
+         for k in ("far_level_periodic", "far_list_periodic",
+                   "near_level_periodic")}
+    nvalid = None
+    for name, level, kw in calls:
+        key = name + "_periodic"
+        r = t[key]
+        r["calls"] += 1
+        if name == "far_level":
+            k, pl = far_level(**kw), far_level_plain(**kw)
+            assert same_as_sets(k, pl), ("far_level periodic", level)
+            work = far_level_work(kw, pl.cnt)
+            fn, plain = far_level, far_level_plain
+        else:
+            valid = kw["te"] != 1.0
+            nvalid = torch.sum(valid, 1)
+            fn, plain = ((far_list, far_list_plain) if name == "far_list"
+                         else (near_level, near_level_plain))
+            for pot in (False, True):
+                pkw = dict(kw, need_pot=pot)
+                a, b = fn(**pkw), plain(**pkw)
+                assert bool(torch.isfinite(a).all()), (key, level)
+                e, ep = rel_err(a, b, valid)
+                errs = [q999(e)] + ([q999(ep)] if pot else [])
+                r["err"] = max(r["err"], *errs)
+                r["max_abs"] = max(r["max_abs"], float(
+                    torch.max(torch.abs(a - b)[valid])) if valid.any()
+                    else 0.0)
+                assert max(errs) < 2e-5, (key, level, pot, errs)
+            work = (far_list_work(kw["tbl"], kw["nf"], nvalid,
+                                  kw["need_pot"], periodic=True)
+                    if name == "far_list" else near_level_work(kw, nvalid))
+        r["ms"] += cuda_ms(lambda: fn(**kw), 3)
+        r["plain_ms"] += cuda_ms(lambda: plain(**kw), 1)
+        r["ops"] += work[0]
+        r["bytes"] += work[1]
+    for key, r in t.items():
+        bms, by = bound_ms(r["ops"], r["bytes"])
+        print(f"kernel {key} (one cosmo-box walk, all groups, {r['calls']} "
+              f"calls): "
+              + ("lists equal as sets, counts equal" if key.startswith(
+                  "far_level") else
+                 f"p99.9 err {r['err']:.3e} (acc and pot, with and without "
+                 f"the potential), max abs {r['max_abs']:.3e}")
+              + f"; {r['ms']:.3f} ms per walk (CUDA events), plain "
+              f"{r['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}), at "
+              f"{bms / max(r['ms'], 1e-9):.1%} of the bound's speed "
+              f"[{card}]", flush=True)
+        res.add(key, r["max_abs"], r["ms"], r["plain_ms"], r["ops"],
+                r["bytes"])
+        res.rows[key].update(p999_err=r["err"])
+
+    # H3 periodic: kernel vs plain on a subset, timed on ORACLE_TARGETS
+    box = cfg.BoxSize
+    sub = tg[:COSMO_PLAIN_TARGETS]
+    errs = []
+    for pot in (False, True):
+        ak, pk = direct_sum(pos, mass, eps, targets=sub, with_potential=pot,
+                            box=box, ewald=ew)
+        ap, pp = direct_gravity(pos, mass, eps, targets=sub,
+                                with_potential=pot, box=box, ewald=ew)
+        errs.append(q999(scaled_err(ak, ap)))
+        if pot:
+            errs.append(q999(scaled_err(pk, pp)))
+        mx = float(torch.max(torch.abs(ak - ap)))
+    assert max(errs) < 1e-5, ("direct periodic", errs)
+    ms = cuda_ms(lambda: direct_sum(pos, mass, eps, targets=tg, box=box,
+                                    ewald=ew), 3)
+    plain_ms = cuda_ms(lambda: direct_gravity(pos, mass, eps, targets=sub,
+                                              box=box, ewald=ew), 1)
+    work = direct_work(int(p.n_padded), tg.numel(), True, en=ew.en)
+    bms, by = bound_ms(*work)
+    print(f"kernel direct_periodic (H3 periodic, {tg.numel()} targets x "
+          f"{p.n_padded} sources, Ewald EN {ew.en}): p99.9 err vs plain on "
+          f"{sub.numel()} targets {max(errs):.3e} (acc; acc and pot with the "
+          f"potential; each against max(|plain|, median |plain|)), max abs "
+          f"{mx:.3e}; {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms on {sub.numel()} targets, bound {bms:.3f} ms "
+          f"({by}), at {bms / ms:.1%} of the bound's speed [{card}]",
+          flush=True)
+    res.add("direct_periodic", mx, ms, plain_ms, *work)
+    res.rows["direct_periodic"].update(p999_err=max(errs),
+                                       plain_targets=sub.numel())
+
+
+def periodic_direct_run(dev, card):
+    """A small periodic box with ForceMethod direct on the single-program
+    step (tests/test_periodic_comoving.py:90-119's run at N = PDIRECT_N):
+    prepare, compute_potential, PDIRECT_STEPS steps, compute_potential;
+    the energy drift bounded by 0.2 of the kinetic energy (that test's
+    bar), positions in [0, box)."""
+    from sidm_tpu_torch.config import SimConfig
+    from sidm_tpu_torch.diagnostics import compute_system_state
+    from sidm_tpu_torch.simulation import Simulation
+
+    rng = np.random.default_rng(6)
+    n, box = PDIRECT_N, 10.0
+    cfg = SimConfig(
+        PeriodicBoundariesOn=1, BoxSize=box, GravityConstantInternal=1.0,
+        ForceMethod="direct", TreeWalkEngine="wq", SIDMOn=0,
+        TypeOfTimestepCriterion=1, ErrTolVelScale=0.1, MaxSizeTimestep=0.25,
+        TimeMax=20.0, SofteningHalo=0.2, SofteningHaloMaxPhys=0.2,
+        UnitLength_in_cm=1.0, UnitMass_in_g=1.0, UnitVelocity_in_cm_per_s=1.0)
+    sim = Simulation(cfg, mode="synchronized", device=dev)
+    sim.set_particles_from_arrays(rng.uniform(0, box, (n, 3)),
+                                  rng.normal(0, 0.02, (n, 3)),
+                                  np.full(n, 1.0 / n), np.ones(n, np.int32),
+                                  pad_to_multiple=n)
+    sim.prepare()
+    sim.compute_potential()
+    s0 = compute_system_state(sim.particles)
+    e0, k0 = float(s0.energy_kin + s0.energy_pot), float(s0.energy_kin)
+    walls = []
+    for _ in range(PDIRECT_STEPS):
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    sim.compute_potential()
+    s1 = compute_system_state(sim.particles)
+    e1 = float(s1.energy_kin + s1.energy_pot)
+    pv = sim.particles.pos
+    print(f"periodic box, ForceMethod direct (single-program step): N {n}, "
+          f"{PDIRECT_STEPS} steps, walls (ms) "
+          f"{[round(w * 1e3, 2) for w in walls]}, t = {sim.time:.5g}, "
+          f"|dE| {abs(e1 - e0):.3e} of E_kin {k0:.3e}, positions in "
+          f"[{float(pv.min()):.4f}, {float(pv.max()):.4f}] [{card}]",
+          flush=True)
+    assert abs(e1 - e0) < 0.2 * k0, (e0, e1, k0)
+    assert float(pv.min()) >= 0.0 and float(pv.max()) < box
+
+
+def lattice_run(dev, card):
+    """JAX's comoving lattice (tests/test_periodic_comoving.py:56-87) at
+    LATTICE_M^3 particles on the phased step (TreePM, the wq walk): a
+    advances and every particle stays within 2e-3 box of its site."""
+    from sidm_tpu_torch.config import SimConfig
+    from sidm_tpu_torch.simulation import Simulation
+
+    m, box = LATTICE_M, 10.0
+    n = m ** 3
+    g = (np.arange(m) + 0.5) / m * box
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    pos = np.stack([x, y, z], -1).reshape(-1, 3)
+    cfg = SimConfig(
+        ComovingIntegrationOn=1, PeriodicBoundariesOn=1, BoxSize=box,
+        Omega0=1.0, OmegaLambda=0.0, HubbleParam=1.0, TimeBegin=0.02,
+        TimeMax=0.05, ForceMethod="tree", TreeWalkEngine="wq", ListMode=0,
+        SIDMOn=0, TypeOfTimestepCriterion=0, ErrTolIntAccuracy=0.05,
+        MaxSizeTimestep=0.002, SofteningHalo=0.1 * 8 / m,
+        SofteningHaloMaxPhys=0.1 * 8 / m, UnitLength_in_cm=3.085678e24,
+        UnitMass_in_g=1.989e43, UnitVelocity_in_cm_per_s=1e5)
+    sim = Simulation(cfg, mode="phased", device=dev)
+    G, H = sim.units.G, sim.units.Hubble
+    mass = np.full(n, 3 * H * H / (8 * np.pi * G) * box ** 3 / n)
+    sim.set_particles_from_arrays(pos, np.zeros((n, 3)), mass,
+                                  np.ones(n, np.int32), pad_to_multiple=n)
+    sim.prepare()
+    t0 = time.perf_counter()
+    for _ in range(LATTICE_STEPS):
+        sim.step()
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    d = torch.abs(sim.particles.pos[:n].double()
+                  - torch.tensor(pos, device=dev))
+    drift = float(torch.minimum(d, box - d).max())
+    print(f"comoving lattice (phased step, TreePM mesh "
+          f"{sim._pm_kernel().n}): {n} particles, {LATTICE_STEPS} steps "
+          f"{t_steps:.3f} s, a 0.02 -> {sim.time:.6g}, largest drift "
+          f"{drift:.3e} ({drift / box:.3e} box, bar 2e-3) [{card}]",
+          flush=True)
+    assert sim.time > 0.02 and drift < 2e-3 * box, (sim.time, drift)
 
 
 if __name__ == "__main__":

@@ -57,15 +57,18 @@ _IP = ctypes.POINTER(ctypes.c_int)     # a host int array (``int_array``)
 _SIGNATURES = {
     "far_level_launch": ("far_kernel", [
         _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I,
-        _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]),
+        _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F, _F, _I,
+        _P]),
     "range_walk_launch": ("range_walk", [
         _P, _IP, _IP, _IP, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I,
         _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "near_level_launch": ("near_kernel", [
-        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P]),
+        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _F, _F,
+        _F, _I, _P]),
     "near_split_launch": ("near_kernel", [_P, _P, _I, _I, _P, _I, _P]),
     "far_list_launch": ("far_list", [
-        _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P]),
+        _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _F, _F,
+        _F, _I, _P]),
     "far_split_launch": ("far_list", [_P, _I, _I, _P, _I, _P]),
     "gather_launch": ("gather", [_P, _I, _P, _L, _P, _P]),
     "rowsum_launch": ("gather", [_P, _I, _P, _L, _P, _P, _P]),
@@ -89,7 +92,8 @@ _SIGNATURES = {
     "hash_veldisp_launch": ("hash_veldisp", [
         _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
         _P, _P, _P]),
-    "direct_launch": ("direct", [_P, _P, _P, _I, _P, _I, _P, _P, _P]),
+    "direct_launch": ("direct", [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+                                 _F, _I, _I, _P]),
 }
 
 _lib = None

@@ -116,6 +116,39 @@ VD_NGB_OPS = 10 + 2 * 10
 VD_QUERY_BYTES = 76
 
 
+# The periodic modes (the TreePM split's short range, the Ewald direct
+# sum). erf, erfc, exp, rint and each division and square root count as
+# one operation each. The minimum image of one pair vector: 3 x (division,
+# rint, multiply, subtract) over the plain difference.
+MIN_IMAGE_OPS = 12
+# far_level's periodic classification: the minimum-image gap 3 x (centre
+# difference, division, rint, multiply, subtract, abs, half-width
+# subtract) in place of the box gap's 3 x (2 differences, max), and the
+# rcut reach test (2 square roots, add, compare, and)
+CLASSIFY_PBC_OPS = CLASSIFY_OPS + 12 + 5
+# near pair, periodic (csrc/near_kernel.cu pbc_pair), no potential: d 3,
+# the minimum image, r 6, cut, h, x = a r, x^2, g (erf, exp, 2/sqrt(pi) x
+# e^-x^2 3, difference, x^3 2, division, series select), a^3 g, 1/r^3 3,
+# difference, m fac, the sums of fac d 6
+NEAR_PBC_PAIR_OPS = 3 + MIN_IMAGE_OPS + 6 + 1 + 1 + 2 + 9 + 1 + 3 + 1 + 1 + 6
+NEAR_PBC_POT_OPS = 6    # ... the potential: erf / r 2, -1/r, add, m, sum
+# far pair, periodic (csrc/far_list.cu pbc_pair), no potential: d 3, the
+# minimum image, r 6, cut, h, x and x^2 2, S (erfc, exp, 3), m/r^3 S 5, the
+# sums of fac d 6; the Newtonian-range screened quadrupole: r >= h, m > 0,
+# 1/r, r^-2, r^-5 2, E (exp, 3), cA 10, cB 5, Q d 15, d.Q.d 5, tA 6, the
+# sums 12 (per (target, node) pair: no per-node expansion in this mode)
+FAR_PBC_PAIR_OPS = (3 + MIN_IMAGE_OPS + 6 + 1 + 1 + 2 + 5 + 5 + 6
+                    + 4 + 2 + 4 + 10 + 5 + 15 + 5 + 6 + 12)
+FAR_PBC_POT_OPS = 16    # ... the potential: erf / r or its series 3, -1/r,
+                        # add, m, sum; the quadrupole's 10
+# direct pair, periodic (csrc/direct.cu): the non-periodic pair, the
+# minimum image, the Ewald cell of each axis 3 x (abs, scale, convert, 2
+# clamps, difference), three trilinear lookups (8 weights of 2 products,
+# 3 complements, 8 multiply-adds: 27 each), -sign(d) m F 3 x 3
+DIRECT_PBC_PAIR_OPS = NEAR_PAIR_OPS + MIN_IMAGE_OPS + 18 + 3 * 27 + 9
+DIRECT_PBC_POT_OPS = NEAR_PAIR_POT_OPS + 27 + 2   # ... and psi's lookup
+
+
 def bound_ms(ops: float, nbytes: float):
     """(least milliseconds, "operations" or "bytes": which one bounds)."""
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
@@ -147,7 +180,8 @@ def far_level_work(kw: dict, cnt):
     c = cnt.long()
     written = _n(torch.sum(c[C_FAR]) + torch.sum(c[C_SEG])
                  + torch.sum(c[C_NEXT]) + torch.sum(c[C_BK]))
-    ops = CLASSIFY_OPS * live
+    ops = (CLASSIFY_PBC_OPS if kw.get("pbc") is not None
+           else CLASSIFY_OPS) * live
     nbytes = (4 * (live + ng) + 28 * ng
               + CLASS_ROW_BYTES * min(tbl.shape[0], live) + 4 * written
               + 4 * N_CNT * ng)
@@ -200,14 +234,18 @@ def far_level_dense_work(kw: dict):
 
 
 def near_level_work(kw: dict, nvalid):
-    """(ops, bytes) of one ``near_level`` call; nvalid (ng,) valid
-    targets per group."""
+    """(ops, bytes) of one ``near_level`` call (its periodic mode with
+    ``kw["pbc"]``); nvalid (ng,) valid targets per group."""
     keys, n_seg, pos_s = kw["keys"], kw["n_seg"], kw["pos_s"]
     ng, K = keys.shape
     live = torch.arange(K, device=keys.device)[None, :] < n_seg[:, None]
     cnt = torch.where(live, keys & 31, torch.zeros_like(keys)).long()
     per_group = torch.sum(cnt, dim=1)
-    per = NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if kw["need_pot"] else 0)
+    if kw.get("pbc") is not None:
+        per = NEAR_PBC_PAIR_OPS + (NEAR_PBC_POT_OPS if kw["need_pot"]
+                                   else 0)
+    else:
+        per = NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if kw["need_pot"] else 0)
     ops = per * _n(torch.sum(per_group * nvalid.long()))
     covered = min(pos_s.shape[0], _n(torch.sum(per_group)))
     nbytes = (4 * (_n(torch.sum(n_seg)) + ng) + PART_BYTES * covered
@@ -215,15 +253,23 @@ def near_level_work(kw: dict, nvalid):
     return ops, nbytes
 
 
-def far_list_work(tbl, nf, nvalid, need_pot: bool):
+def far_list_work(tbl, nf, nvalid, need_pot: bool, periodic: bool = False):
     """(ops, bytes) of one ``far_list`` call: every listed node on every
-    valid target of its group."""
+    valid target of its group (``periodic``: the periodic mode, which also
+    reads each row's trace and has no per-entry expansion)."""
     ng = nf.shape[0]
-    per = FAR_PAIR_OPS + (FAR_PAIR_POT_OPS if need_pot else 0)
-    ops = (per * _n(torch.sum(nf.long() * nvalid.long()))
-           + FAR_ENTRY_OPS * _n(torch.sum(nf.long() * (nvalid > 0))))
+    pairs = _n(torch.sum(nf.long() * nvalid.long()))
     entries = _n(torch.sum(nf.long()))
-    nbytes = (4 * (entries + ng) + ROW_BYTES * min(tbl.shape[0], entries)
+    rows = min(tbl.shape[0], entries)
+    if periodic:
+        ops = (FAR_PBC_PAIR_OPS + (FAR_PBC_POT_OPS if need_pot else 0)) \
+            * pairs
+        return ops, (4 * (entries + ng) + (ROW_BYTES + 4) * rows
+                     + 16 * ng * 64 * 2)
+    per = FAR_PAIR_OPS + (FAR_PAIR_POT_OPS if need_pot else 0)
+    ops = (per * pairs
+           + FAR_ENTRY_OPS * _n(torch.sum(nf.long() * (nvalid > 0))))
+    nbytes = (4 * (entries + ng) + ROW_BYTES * rows
               + 12 * ng + 16 * ng * 64 * 2)
     return ops, nbytes
 
@@ -447,11 +493,18 @@ def veldisp_work(table, keys, scanned, cnt, n: int, cap: int):
     return ops, BUCKET_BYTES * nb + CAND_ROW_BYTES * rows + VD_QUERY_BYTES * n
 
 
-def direct_work(n: int, T: int, need_pot: bool):
+def direct_work(n: int, T: int, need_pot: bool, en: int = 0):
     """(ops, bytes) of one ``direct_sum`` call: every (target, source) pair
     of n sources and T targets at NEAR_PAIR_OPS (plus NEAR_PAIR_POT_OPS
     with the potential; the same pair math as the near kernel's); bytes:
     the sources' PART_BYTES, the target ids, the accelerations (and
-    potentials) written."""
-    ops = (NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if need_pot else 0)) * n * T
-    return ops, PART_BYTES * n + 4 * T + (16 if need_pot else 12) * T
+    potentials) written. ``en`` > 0: the periodic mode with Ewald tables of
+    grid EN (DIRECT_PBC_* per pair; the four tables read once)."""
+    if en:
+        per = DIRECT_PBC_PAIR_OPS + (DIRECT_PBC_POT_OPS if need_pot else 0)
+        tables = 4 * 4 * (en // 2 + 1) ** 3
+    else:
+        per = NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if need_pot else 0)
+        tables = 0
+    return per * n * T, (PART_BYTES * n + 4 * T + (16 if need_pot else 12) * T
+                         + tables)

@@ -28,6 +28,17 @@
 // counts and its telemetry (demand, drops), all integer, one block per
 // group: no atomics. What bounds it on the H100: the bytes of the live
 // frontier (ids and node rows) and of the compacted outputs.
+//
+// Periodic walk mode (periodic = 1, box, rcut: the TreePM split's short
+// range; port of sidm_tpu/ops/fused_force.py:_classify's pbc branch
+// :426-486, which JAX's periodic walk runs in XLA, not in its Pallas
+// kernel): the bbox-to-COM distance is the minimum image of com - gc about
+// the group box's centre gc, |delta| - half-width clamped at 0, delta -
+// box * rint(delta / box) (rint rounds half to even, as torch.round and
+// jnp.round do; roundf would not); and a cell with sqrt(r2b) > rcut +
+// bmax is dropped (neither opened nor accepted: its force is all on the
+// mesh). The same explicit roundings as the plain version's, so the
+// decisions stay bit-equal. Walk mode only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,6 +77,8 @@ struct Args {
     int* nn;
     int* stat;                  // record: (5, ng) telemetry, added to
     int ng;
+    float box, rcut;            // periodic walk mode
+    int periodic;
 };
 
 struct Node {
@@ -95,14 +108,31 @@ __device__ __forceinline__ Row load_row(const Args& a, int id) {
 // A row classified against the group box: explicit round-to-nearest
 // products and sums, in the order of fused_force.classify (no FMA
 // contraction, exact decisions).
+// The periodic distance along one axis: |min image of c - gc| - hw,
+// clamped at 0.
+__device__ __forceinline__ float pbc_dx(float c, float gc, float hw,
+                                        float box) {
+    const float d = __fsub_rn(c, gc);
+    const float q = __fmul_rn(rintf(__fdiv_rn(d, box)), box);
+    return fmaxf(__fsub_rn(fabsf(__fsub_rn(d, q)), hw), 0.0f);
+}
+
 __device__ __forceinline__ Node classify(const Args& a, const Row& row,
                                          float s2, float s4, float lo0,
                                          float lo1, float lo2, float hi0,
                                          float hi1, float hi2, float oac) {
     const float4 r0 = row.r0, r1 = row.r1;
-    const float dx0 = fmaxf(fmaxf(lo0 - r0.x, r0.x - hi0), 0.0f);
-    const float dx1 = fmaxf(fmaxf(lo1 - r0.y, r0.y - hi1), 0.0f);
-    const float dx2 = fmaxf(fmaxf(lo2 - r0.z, r0.z - hi2), 0.0f);
+    float dx0, dx1, dx2;
+    if (a.periodic) {
+        // lo = group centre, hi = half-width in this mode (the caller's)
+        dx0 = pbc_dx(r0.x, lo0, hi0, a.box);
+        dx1 = pbc_dx(r0.y, lo1, hi1, a.box);
+        dx2 = pbc_dx(r0.z, lo2, hi2, a.box);
+    } else {
+        dx0 = fmaxf(fmaxf(lo0 - r0.x, r0.x - hi0), 0.0f);
+        dx1 = fmaxf(fmaxf(lo1 - r0.y, r0.y - hi1), 0.0f);
+        dx2 = fmaxf(fmaxf(lo2 - r0.z, r0.z - hi2), 0.0f);
+    }
     const float r2b = __fadd_rn(__fadd_rn(__fmul_rn(dx0, dx0),
                                           __fmul_rn(dx1, dx1)),
                                 __fmul_rn(dx2, dx2));
@@ -111,7 +141,9 @@ __device__ __forceinline__ Node classify(const Args& a, const Row& row,
         mac_open = __fmul_rn(r0.w, s4) >
                    __fmul_rn(__fmul_rn(__fmul_rn(oac, r2b), r2b), r2b);
     mac_open = mac_open || (r2b <= row.bmax2);
-    const bool live = r1.x > 0.0f;
+    bool live = r1.x > 0.0f;
+    if (a.periodic)
+        live = live && (sqrtf(r2b) <= __fadd_rn(a.rcut, sqrtf(row.bmax2)));
     const bool is_leaf = r1.x <= a.leaf_cap;
     const bool deep = live && mac_open && !is_leaf;
     return Node{live && !mac_open, live && mac_open && is_leaf,
@@ -130,10 +162,22 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const unsigned below = (1u << lane) - 1u;
-    const float lo0 = a.glo[g * 3 + 0], lo1 = a.glo[g * 3 + 1],
-                lo2 = a.glo[g * 3 + 2];
-    const float hi0 = a.ghi[g * 3 + 0], hi1 = a.ghi[g * 3 + 1],
-                hi2 = a.ghi[g * 3 + 2];
+    float lo0 = a.glo[g * 3 + 0], lo1 = a.glo[g * 3 + 1],
+          lo2 = a.glo[g * 3 + 2];
+    float hi0 = a.ghi[g * 3 + 0], hi1 = a.ghi[g * 3 + 1],
+          hi2 = a.ghi[g * 3 + 2];
+    if (a.periodic) {
+        // the box's centre and half-width, as the plain version rounds them
+        const float c0 = __fmul_rn(0.5f, __fadd_rn(lo0, hi0));
+        const float c1 = __fmul_rn(0.5f, __fadd_rn(lo1, hi1));
+        const float c2 = __fmul_rn(0.5f, __fadd_rn(lo2, hi2));
+        hi0 = __fmul_rn(0.5f, __fsub_rn(hi0, lo0));
+        hi1 = __fmul_rn(0.5f, __fsub_rn(hi1, lo1));
+        hi2 = __fmul_rn(0.5f, __fsub_rn(hi2, lo2));
+        lo0 = c0;
+        lo1 = c1;
+        lo2 = c2;
+    }
     const float s_l = *a.s_l;
     const float oac = a.oac[g];
     const float s2 = __fmul_rn(s_l, s_l);
@@ -278,7 +322,7 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
 
 // Walk mode: nf, nn and stat are null; far and seg are (ng, W) buffers
 // (far_w = seg_w = W, LC = W, lvl_base = 0) and bkey the last level's
-// chunk keys. Record mode: far and seg are the group lists (ng, LF) and
+// chunk keys; periodic = 1 its periodic mode (box, rcut). Record mode: far and seg are the group lists (ng, LF) and
 // (ng, LN), appended at nf and nn; bkey is null.
 extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 const int* fids, const int* n_live, int ng,
@@ -290,13 +334,16 @@ extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 int LC, int* far, int far_w, int* seg,
                                 int seg_w, int* fids_next, int* bkey,
                                 int* cnt, int* nf, int* nn, int* stat,
+                                float box, float rcut, int periodic,
                                 void* stream) {
     if (ng <= 0) return 0;
     if (big_cap > kBigMax) return (int)cudaErrorInvalidValue;
+    if (periodic && nf) return (int)cudaErrorInvalidValue;   // walk mode
     const Args a{reinterpret_cast<const float4*>(tbl), nl_real, fids,
                  n_live, W, s_l, glo, ghi, oac, theta2, leaf_cap, mode, last,
                  O, Wn, big_cap, big_chunks, lvl_base, LC, far, far_w, seg,
-                 seg_w, fids_next, bkey, cnt, nf, nn, stat, ng};
+                 seg_w, fids_next, bkey, cnt, nf, nn, stat, ng, box, rcut,
+                 periodic};
     far_level_kernel<<<ng, kT, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

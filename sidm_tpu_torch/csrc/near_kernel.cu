@@ -41,6 +41,21 @@
 //   * items_fold (items::ItemsSum) adds each group's item slots in item
 //     order: no float atomics, the same result from run to run, every
 //     group written.
+//
+// Periodic mode (PBC, the TreePM split's short range; port of
+// sidm_tpu/ops/fused_force.py:_near_tile's pbc branch :350-420, which
+// JAX's periodic walk runs in XLA): the pair vector is the minimum image,
+// d - box rint(d / box) (half to even, as torch.round); a pair beyond
+// rcut adds nothing; the force factor is pm.short_range_fac: inside the
+// softening softened_inv_r3(r, h) - g(r) with g = a^3 (erf(x) -
+// (2/sqrt(pi)) x e^-x^2) / x^3 (x = a r) and its series below x = 0.2,
+// beyond it S(r) / r^3 (S = erfc(x) + (2/sqrt(pi)) x e^-x^2: the
+// difference form cancels near rcut); the potential pm.short_range_pot,
+// softened_potential(r, h) + erf(x) / r and its series below x = 0.1
+// inside, -erfc(x) / r beyond; IEEE division and sqrt (softening.cuh's
+// softened_inv_r3 / softened_potential): most near pairs of a clustered
+// box lie inside the softening, where both the spline and the screen act.
+// The staged slots keep h = 2.8 eps instead of its reciprocal.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -177,7 +192,56 @@ __device__ __forceinline__ void stage_tile(NearSmem& sm, int buf, int a,
     }
 }
 
+struct Pbc {
+    float box, alpha, rcut;
+};
+
+// One periodic pair (see the note at the top): the source q (xyz, m)
+// with h = 2.8 max(eps_t, eps_j) against the target x.
 template <bool POT>
+__device__ __forceinline__ void pbc_pair(const float4& q, float h, float x0,
+                                         float x1, float x2, const Pbc& pb,
+                                         float* ax, float* ay, float* az,
+                                         float* pot) {
+    constexpr float kTwoOverSqrtPi = 1.1283791670955126f;
+    const float d0 = (q.x - x0) - pb.box * rintf((q.x - x0) / pb.box);
+    const float d1 = (q.y - x1) - pb.box * rintf((q.y - x1) / pb.box);
+    const float d2 = (q.z - x2) - pb.box * rintf((q.z - x2) / pb.box);
+    const float r = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
+    if (!(r <= pb.rcut)) return;
+    const float x = pb.alpha * r;
+    const float xx = x * x;
+    float fac, ph;
+    if (r >= h) {
+        // S(r) / r^3 and -erfc(a r) / r (no cancellation near rcut)
+        const float ec = erfcf(x);
+        const float ir = 1.0f / fmaxf(r, 1e-30f);
+        fac = (ec + kTwoOverSqrtPi * x * expf(-xx)) * (ir * ir * ir);
+        ph = -ec * ir;
+    } else {
+        const float xs = fmaxf(x, 1e-12f);
+        float g;
+        if (x < 0.2f)
+            g = (4.0f / (3.0f * 1.7724538509055159f))
+                * (1.0f - 0.6f * xx + (3.0f / 14.0f) * xx * xx);
+        else
+            g = (erff(xs) - kTwoOverSqrtPi * xs * expf(-xx))
+                / (xs * xs * xs);
+        fac = softened_inv_r3(r, h) - pb.alpha * pb.alpha * pb.alpha * g;
+        ph = 0.0f;
+        if (POT)
+            ph = softened_potential(r, h)
+                 + (x < 0.1f ? pb.alpha * kTwoOverSqrtPi * (1.0f - xx / 3.0f)
+                             : erff(xs) / fmaxf(r, 1e-30f));
+    }
+    fac *= q.w;
+    *ax = fmaf(fac, d0, *ax);
+    *ay = fmaf(fac, d1, *ay);
+    *az = fmaf(fac, d2, *az);
+    if (POT) *pot = fmaf(q.w, ph, *pot);
+}
+
+template <bool POT, bool PBC>
 __global__ void __launch_bounds__(kThreads)
 near_level_kernel(const int* __restrict__ keys, int K,
                   const int* __restrict__ item_g,
@@ -188,7 +252,7 @@ near_level_kernel(const int* __restrict__ keys, int K,
                   const float* __restrict__ mass_s,
                   const float* __restrict__ eps_s, int n,
                   const float* __restrict__ xr, const float* __restrict__ te,
-                  float* __restrict__ part) {
+                  float* __restrict__ part, const Pbc pb) {
     __shared__ NearSmem sm;
     const int tid = threadIdx.x;
     const int t = tid & (kG - 1);
@@ -240,12 +304,21 @@ near_level_kernel(const int* __restrict__ keys, int K,
         for (int s = tid; s < C; s += kThreads) {
             const float h = 2.8f * sm.hi[buf][s];
             sm.h2[buf][s] = h * h;
-            sm.hi[buf][s] = 1.0f / h;
+            sm.hi[buf][s] = PBC ? h : 1.0f / h;
         }
         __syncthreads();
         const float4* pm = sm.pm[buf];
         const float* hs = sm.hi[buf];
         const float* h2s = sm.h2[buf];
+        if (PBC) {
+            for (int j = slice; j < C; j += kSlices)
+                pbc_pair<POT>(pm[j], fmaxf(ht, hs[j]), x0, x1, x2, pb, &ax,
+                              &ay, &az, &pot);
+            __syncthreads();     // buffer buf is refilled next
+            if (!next) break;
+            buf ^= 1;
+            continue;
+        }
 #pragma unroll 4
         for (int j = slice; j < C; j += kSlices) {
             const float4 q = pm[j];
@@ -308,21 +381,28 @@ extern "C" int near_split_launch(const int* keys, const int* n_seg, int ng,
                  (cudaStream_t)stream);
 }
 
+// periodic = 1: the periodic mode (box, alpha, rcut the TreePM split).
 extern "C" int near_level_launch(const int* keys, const int* n_seg, int ng,
                                  int K, const float* pos_s,
                                  const float* mass_s, const float* eps_s,
                                  int n, const float* xr, const float* te,
                                  int need_pot, float* acc, int* ws, int icap,
-                                 float* part, void* stream) {
+                                 float* part, float box, float alpha,
+                                 float rcut, int periodic, void* stream) {
     if (ng <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     const items::Ws w = items::ws_of(ws, ng, icap, true);
     int err = split(keys, n_seg, ng, K, w, icap, st);
     if (err) return err;
-    auto kern = need_pot ? near_level_kernel<true> : near_level_kernel<false>;
+    auto kern = periodic
+        ? (need_pot ? near_level_kernel<true, true>
+                    : near_level_kernel<false, true>)
+        : (need_pot ? near_level_kernel<true, false>
+                    : near_level_kernel<false, false>);
+    const Pbc pb{box, alpha, rcut};
     kern<<<icap, kThreads, 0, st>>>(keys, K, w.item_g, w.k0, w.k1,
                                     w.off + ng, pos_s, mass_s, eps_s, n, xr,
-                                    te, part);
+                                    te, part, pb);
     if ((err = (int)cudaGetLastError())) return err;
     items::items_fold<<<ng, 256, 0, st>>>(w.off, items::ItemsSum{part, acc});
     return (int)cudaGetLastError();

@@ -22,6 +22,19 @@ hash-grid DSMC engine), at its largest N, ``SMALL_N`` = 2^18 - 256
 (``make_particles`` pads to a multiple of 256). ``ListMode`` and
 ``TreeRefreshSteps`` do not act on that step.
 
+``cosmo_config()`` is cosmo-box, the periodic comoving box of the TreePM
+path: ``cosmo_ics(COSMO_N)``, ``scripts/profile_treepm.py:48-60``'s
+clustered periodic field (64 Gaussian clumps of sigma 0.01 box holding 70 %
+of the particles, the rest uniform) at N = 2^20 in ``BoxSize 50000`` kpc/h,
+equal masses that make Omega0 = 0.3 of the critical density (so that
+``check_omega`` passes), zero peculiar velocities; ``PMGrid 256`` with the
+default split (``PMAsmth 2``, ``PMRcutFac 6``, interlaced), Omega0 0.3,
+OmegaLambda 0.7, h 0.7 from ``TimeBegin 0.1``; a comoving softening of
+1/40 of the mean separation, capped at half of it in physical units from
+a = 0.5 on (``SofteningHaloMaxPhys``); the walk every step
+(``ListMode 0``: the lists take no box yet) with ``TreeRefreshSteps 4``
+and the flagship's relative opening criterion (``ErrTolForceAcc 0.005``).
+
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
 ``SIDMOn 0`` and ``TreeWalkEngine wq``, on the cached interaction lists
@@ -95,6 +108,59 @@ def flagship_config(**changes) -> SimConfig:
     """The lists' configuration; with ``ListMode=0`` the first slice's."""
     base = {**FLAGSHIP, **LISTS} if changes.get("ListMode", 1) else FLAGSHIP
     return SimConfig(**{**base, **changes})
+
+
+# cosmo-box: the periodic comoving TreePM box (cosmo_config, cosmo_ics)
+COSMO_N = 1 << 20
+COSMO_BOX = 50000.0        # kpc/h
+COSMO = dict(
+    PeriodicBoundariesOn=1, ComovingIntegrationOn=1, BoxSize=COSMO_BOX,
+    Omega0=0.3, OmegaLambda=0.7, OmegaBaryon=0.0, HubbleParam=0.7,
+    TimeBegin=0.1, TimeMax=1.0, PMGrid=256, PMAsmth=2.0, PMRcutFac=6.0,
+    PMInterlace=1, ForceMethod="tree", TreeWalkEngine="wq", ListMode=0,
+    TreeRefreshSteps=4, ErrTolTheta=0.5, TypeOfOpeningCriterion=1,
+    ErrTolForceAcc=0.005, TypeOfTimestepCriterion=0, ErrTolIntAccuracy=0.025,
+    MaxSizeTimestep=0.03, SIDMOn=0,
+    UnitLength_in_cm=3.085678e21, UnitMass_in_g=1.989e43,
+    UnitVelocity_in_cm_per_s=1e5)
+
+
+def cosmo_softening(n: int, box: float = COSMO_BOX):
+    """(comoving softening, its physical cap): 1/40 of the mean particle
+    separation, capped at half of it in physical units (from a = 0.5)."""
+    eps = box / n ** (1.0 / 3.0) / 40.0
+    return eps, 0.5 * eps
+
+
+def cosmo_config(n: int = COSMO_N, **changes) -> SimConfig:
+    """cosmo-box for N particles (the softening follows N's mean
+    separation)."""
+    eps, cap = cosmo_softening(n, changes.get("BoxSize", COSMO_BOX))
+    return SimConfig(**{**COSMO, "SofteningHalo": eps,
+                        "SofteningHaloMaxPhys": cap, **changes})
+
+
+def cosmo_ics(n: int, seed: int = 12345, box: float = COSMO_BOX,
+              omega0: float = 0.3, hubble: float = 0.1,
+              G: float = 43007.1):
+    """(pos, vel, mass) numpy float64: scripts/profile_treepm.py:48-60's
+    clustered periodic field (64 Gaussian clumps of sigma 0.01 box holding
+    70 % of the particles, the rest uniform) with zero peculiar velocities
+    and equal masses that make the box's mean density omega0 times the
+    critical density 3 H0^2 / (8 pi G) (H0 = 0.1 km/s per kpc/h, G in
+    kpc/h, 1e10 Msun/h, km/s)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nh = 64
+    centers = rng.uniform(0, box, (nh, 3))
+    nc = int(n * 0.7) // nh
+    parts = [rng.uniform(0, box, (n - nh * nc, 3))]
+    for c in centers:
+        parts.append((c + rng.standard_normal((nc, 3)) * 0.01 * box) % box)
+    pos = np.concatenate(parts)
+    rho_crit = 3.0 * hubble * hubble / (8.0 * np.pi * G)
+    mass = np.full(n, omega0 * rho_crit * box ** 3 / n)
+    return pos, np.zeros((n, 3)), mass
 
 
 def flagship_ics(n: int, seed: int = 12345):

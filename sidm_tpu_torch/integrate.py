@@ -1,5 +1,5 @@
-"""Time integration: prediction, DKD advance, reflection
-(port of ``sidm_tpu/integrate.py:26-150``).
+"""Time integration: prediction, DKD advance, reflection, the periodic
+wrap (port of ``sidm_tpu/integrate.py:26-150``).
 
 Same drift-kick-drift scheme as the reference's ``advance()``
 (nbody/predict.c:245-385), as tensor ops under an ``active`` mask. Each
@@ -103,6 +103,15 @@ def reflect(p: Particles, radius: float) -> Particles:
     vel = torch.where(outside[:, None],
                       p.vel - 2.0 * (vr / r2_safe)[:, None] * p.pos, p.vel)
     return dataclasses.replace(p, vel=vel)
+
+
+def box_wrap(p: Particles, box: float) -> Particles:
+    """Positions onto [0, box) (predict.c do_box_wrapping:395-416). A
+    coordinate just below 0 whose wrap rounds to box itself is set to 0
+    (the JAX package leaves it at box)."""
+    pos = p.pos - box * torch.floor(p.pos / box)
+    return dataclasses.replace(
+        p, pos=torch.where(pos >= box, torch.zeros_like(pos), pos))
 
 
 def find_next_time(p: Particles, big: float = 1e37):

@@ -22,6 +22,16 @@ its caller already compacted, in frontier order (``Level``):
   caps, and the list counts and the telemetry (uncapped demand, drops) are
   updated in place; the next frontier and the counts are returned.
 
+Periodic walk mode (``pbc`` = (box, alpha, rcut), the TreePM split's
+short range; ``_classify``'s pbc branch, sidm_tpu/ops/fused_force.py
+:426-486, which JAX's periodic walk runs in XLA instead of its Pallas
+kernel): the bbox-to-COM distance is taken by the minimum image about the
+group box's centre, and a cell whose bounding sphere cannot reach within
+``rcut`` of the group (sqrt(r2b) > rcut + bmax) is dropped, neither opened
+nor accepted (its force is all on the mesh). Dead groups are parked with an
+inverted huge box, so nothing reaches them. The record mode takes no box
+(``ListMode 1`` with a periodic box is not ported).
+
 ``far_level_plain`` also runs the range test (``range_walk``, record mode
 on the range rows of ``ops/fused_range.range_levels``, the SIDM candidate
 record's walk, ``sidm_tpu/ops/list_range.py:_record_segments`` :94-202):
@@ -127,13 +137,14 @@ def list_buf(ng: int, LF: int, LN: int, device) -> ListBuf:
 
 def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                  theta2: float, use_relative: bool, leaf_cap: int,
-                 last: bool, range_walk: bool = False, box: float = 0.0):
+                 last: bool, range_walk: bool = False, box: float = 0.0,
+                 pbc=None):
     """The TPU kernel's classification in plain PyTorch: the dense
     (ng, W) int32 planes of far (level-local id), segment, open
     (``cstart*16+ccnt``) and big (id) keys, IMAX elsewhere. Live (group,
     chunk) items run in batches of ITEM_BLOCK. ``range_walk``: the range
     test on range rows, oac the pad (no far keys), minimum-image with a
-    periodic ``box`` > 0."""
+    periodic ``box`` > 0; ``pbc``: the walk's periodic classification."""
     ng, W = fids.shape
     wc = min(WC, W)
     maxc = W // wc
@@ -159,7 +170,7 @@ def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         else:
             far, seg, opn, big = classify(rows, glo[g], ghi[g], oac[g], s_l,
                                           theta2, use_relative, leaf_cap,
-                                          last)
+                                          last, pbc)
         ri = rows.to(torch.int32)
         imax = torch.full_like(ri[..., 0], IMAX)
         keys[0, g, c] = torch.where(far, ids.to(torch.int32), imax)
@@ -248,7 +259,8 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                     open_cap: int, big_cap: int, big_chunks: int,
                     lists: Optional[ListBuf] = None, lvl_base: int = 0,
                     lvl_cap: Optional[int] = None,
-                    range_walk: bool = False, box: float = 0.0) -> Level:
+                    range_walk: bool = False, box: float = 0.0,
+                    pbc=None) -> Level:
     """Plain PyTorch version of ``far_level``: ``level_planes`` compacted
     and appended step by step, as the JAX package does."""
     ng, W = fids.shape
@@ -256,7 +268,7 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
     fark, segk, openk, bigk = level_planes(
         fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
         use_relative=use_relative, leaf_cap=leaf_cap, last=last,
-        range_walk=range_walk, box=box)
+        range_walk=range_walk, box=box, pbc=pbc)
     zeros = torch.zeros(ng, dtype=torch.int32, device=dev)
     far, n_far = compact_plane(fark)
     seg, n_seg = compact_plane(segk)
@@ -307,7 +319,7 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
               Wn: int, open_cap: int,
               big_cap: int, big_chunks: int,
               lists: Optional[ListBuf] = None, lvl_base: int = 0,
-              lvl_cap: Optional[int] = None) -> Level:
+              lvl_cap: Optional[int] = None, pbc=None) -> Level:
     """One level of the walk for every group.
 
     fids (ng, W) int32 level-local node ids, live prefix n_live (ng,)
@@ -319,16 +331,22 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 
     With ``lists`` (record mode) lvl_base is the level's flat node offset
     and lvl_cap the level cap (None: none); the lists are updated in
-    place.
+    place. ``pbc`` (box, alpha, rcut): the periodic walk mode (walk mode
+    only).
 
     Returns a ``Level``."""
+    if pbc is not None and lists is not None:
+        raise NotImplementedError(
+            "far_level: the record mode with a periodic box (ListMode 1 with "
+            "PeriodicBoundariesOn) is not ported to sidm_tpu_torch yet "
+            "(ROADMAP.md A, item 11)")
     if not fids.is_cuda:
         return far_level_plain(
             fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
             use_relative=use_relative, leaf_cap=leaf_cap, last=last, Wn=Wn,
             open_cap=open_cap,
             big_cap=big_cap, big_chunks=big_chunks, lists=lists,
-            lvl_base=lvl_base, lvl_cap=lvl_cap)
+            lvl_base=lvl_base, lvl_cap=lvl_cap, pbc=pbc)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, W = fids.shape
@@ -368,18 +386,23 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         float(theta2), int(bool(use_relative)), float(leaf_cap), int(last),
         min(W, int(open_cap)), int(Wn) if not last else 0, int(big_cap),
         int(big_chunks), int(lvl_base), LC, *dst[:4], fids_n, dst[4], cnt,
-        *dst[5:]))
+        *dst[5:], float(pbc[0]) if pbc else 0.0,
+        float(pbc[2]) if pbc else 0.0, int(pbc is not None)))
     if err:
         raise RuntimeError(f"far_level kernel launch failed: CUDA error "
                            f"{err}")
     if not walk:
         far_level.record_launches += 1
         return Level(far=None, seg=None, fids=fids_n, bkey=None, cnt=cnt)
-    far_level.launches += 1
+    if pbc is not None:
+        far_level.periodic_launches += 1
+    else:
+        far_level.launches += 1
     return Level(far=far, seg=seg, fids=fids_n, bkey=bkey, cnt=cnt)
 
 
 far_level.launches = 0          # launches of the walk mode
+far_level.periodic_launches = 0  # ... of its periodic mode (pbc)
 far_level.record_launches = 0   # launches of the record mode
 far_level.range_launches = 0    # launches of the whole range walk
                                 # (fused_range.range_segments, one a walk)

@@ -14,6 +14,15 @@ group-centred monopole + Newtonian-range quadrupole ``[ax ay az pot]``
 interface (32-pair units of raw rows against one 64-target row each) with
 the same kernel; ``k3_reference`` is that script's ``xla_ref`` in PyTorch.
 
+Periodic mode (``pbc`` = (box, alpha, rcut) with the table's raw
+quadrupole traces ``trq``, the walk's far field in a TreePM box:
+``sidm_tpu/ops/fused_force.py:_far_tile_pbc`` :488-578, which JAX's
+periodic walk runs in XLA): ``xc`` holds the raw target positions and
+``gc`` is not read; each pair vector is the minimum image of node COM
+minus target, and the pair takes the screened monopole cut at ``rcut``,
+the exact screened quadrupole and the screened potential
+(``fused_force.far_tile_pbc``).
+
 On a CUDA tensor ``far_list`` launches ``csrc/far_list.cu``; on a CPU
 tensor it runs ``far_list_plain``. There is no fallback between the two.
 
@@ -40,7 +49,7 @@ from __future__ import annotations
 
 import torch
 
-from .fused_force import G, far_tile
+from .fused_force import G, far_tile, far_tile_pbc
 from .work_items import (far_items, far_split_plain, item_buffers,
                          kernel_split)
 
@@ -48,9 +57,11 @@ FC = 512            # plain version: list entries per (group, chunk) item
 PLAIN_PAIRS = 1 << 21   # plain version: (target, entry) pairs per batch
 
 
-def far_list_plain(tbl, ids, nf, xc, te, gc, *, need_pot: bool):
+def far_list_plain(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
+                   trq=None):
     """Plain PyTorch version of ``far_list``: live (group, FC-entry chunk)
-    items through ``far_tile`` in batches, summed per group."""
+    items through ``far_tile`` (``far_tile_pbc`` with ``pbc``) in batches,
+    summed per group."""
     ng, LF = ids.shape
     dev, dtype = tbl.device, tbl.dtype
     acc = torch.zeros(ng, G, 4, dtype=dtype, device=dev)
@@ -69,23 +80,34 @@ def far_list_plain(tbl, ids, nf, xc, te, gc, *, need_pot: bool):
         live = (cols < n[g, None]) & (idx >= 0) & (idx < nrows)
         rows = tbl[torch.clamp(idx, 0, nrows - 1)]
         rows = torch.where(live[..., None], rows, torch.zeros_like(rows))
-        da, dp = far_tile(rows, xc[g], te[g], gc[g], need_pot)
+        if pbc is not None:
+            tr = torch.where(live, trq[torch.clamp(idx, 0, nrows - 1)],
+                             torch.zeros_like(rows[..., 0]))
+            da, dp = far_tile_pbc(rows, tr, xc[g], te[g], pbc, need_pot)
+        else:
+            da, dp = far_tile(rows, xc[g], te[g], gc[g], need_pot)
         acc.index_add_(0, g, torch.cat([da, dp[..., None]], dim=-1))
     if not need_pot:
         acc[..., 3] = 0.0
     return acc
 
 
-def far_list(tbl, ids, nf, xc, te, gc, *, need_pot: bool):
+def far_list(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
+             trq=None):
     """Far field of every group's recorded nodes.
 
     tbl (U+1, 16) float32 compact node rows (``pack_tree`` layout; ids
     outside [0, U+1) and rows of zero mass add nothing); ids (ng, LF)
     int32 row ids, live prefix nf (ng,) int32; xc (ng, 64, 3) group-centred
     targets; te (ng, 64) target softenings; gc (ng, 3) group centres.
+    ``pbc`` (box, alpha, rcut) with trq (U+1,) float32 the rows' raw
+    quadrupole traces: the periodic mode (xc the raw targets, gc unread).
     Returns (ng, 64, 4) float32 [ax ay az pot] (pot 0 unless need_pot)."""
+    if pbc is not None and trq is None:
+        raise ValueError("far_list: the periodic mode needs trq")
     if not tbl.is_cuda:
-        return far_list_plain(tbl, ids, nf, xc, te, gc, need_pot=need_pot)
+        return far_list_plain(tbl, ids, nf, xc, te, gc, need_pot=need_pot,
+                              pbc=pbc, trq=trq)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, LF = ids.shape
@@ -95,14 +117,21 @@ def far_list(tbl, ids, nf, xc, te, gc, *, need_pot: bool):
                xc=(xc, torch.float32, (ng, G, 3)),
                te=(te, torch.float32, (ng, G)),
                gc=(gc, torch.float32, (ng, 3)))
+    if pbc is not None:
+        check_cuda("far_list", tbl=(tbl, torch.float32, (tbl.shape[0], 16)),
+                   trq=(trq, torch.float32, (tbl.shape[0],)))
     icap, ws, part = item_buffers(ng, tbl.device, near=False)
     acc = torch.empty(ng, G, 4, dtype=torch.float32, device=tbl.device)
+    box, alpha, rcut = (float(v) for v in pbc) if pbc else (0.0, 0.0, 0.0)
     err = kernels_lib().far_list_launch(*launch_args(
         tbl, int(tbl.shape[0]), ids, nf, ng, LF, xc, te, gc, int(need_pot),
-        acc, ws, icap, part))
+        acc, ws, icap, part, trq, box, alpha, rcut, int(pbc is not None)))
     if err:
         raise RuntimeError(f"far_list kernel launch failed: CUDA error {err}")
-    far_list.launches += 1
+    if pbc is not None:
+        far_list.periodic_launches += 1
+    else:
+        far_list.launches += 1
     return acc
 
 
@@ -121,6 +150,7 @@ def far_split(nf, LF: int) -> dict:
 
 
 far_list.launches = 0
+far_list.periodic_launches = 0   # launches of the periodic mode (pbc)
 
 
 def units_to_lists(rows, tgt):

@@ -2,8 +2,15 @@
 (port of ``sidm_tpu/ops/fused_force.py``: ``FusedConfig`` :79,
 ``compact_plane`` :135, ``pack_tree`` :173, ``_w_schedule`` :249,
 ``_far_tile`` :280, ``_near_tile`` :350, ``_classify`` :427,
-``default_depth`` :890, ``make_windows`` :897; non-periodic forms only,
-but for the SIDM range test's minimum image, ``min_image``).
+``default_depth`` :890, ``make_windows`` :897; the TreePM periodic forms
+``_classify(pbc)`` :426-486, ``_far_tile_pbc`` :488-578 and
+``_near_tile(pbc)`` :350-420 as ``classify(pbc=)``, ``far_tile_pbc`` and
+``near_tile(pbc=)``; ``min_image`` for them and the SIDM range test).
+
+``pbc`` = (box, alpha, rcut) is the TreePM split of ``ops/pm.py``: pair
+vectors by the minimum image (``box`` > 0), the pair force screened by
+S(r) and cut at ``rcut``, and the walk drops a cell that cannot reach
+within ``rcut`` of a group (its force is all on the mesh).
 
 Semantics are the JAX package's (reference: force_treeevaluate,
 forcetree.c:786-1377): targets are 64-wide Morton windows restarted at
@@ -27,6 +34,8 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from ..kernels import softened_inv_r3, softened_potential
+from .pm import (SQRT_PI, short_range_fac, short_range_pot,
+                 short_range_screen)
 from .tree import Octree, level_offsets
 
 IMAX = 2147483647
@@ -58,6 +67,8 @@ class FusedConfig(NamedTuple):
 class FusedTree(NamedTuple):
     levels: Tuple[torch.Tensor, ...]  # per level (cap_l, 16) f32 node rows
     n_levels: List[int]               # per level real node count
+    levels_tr: Tuple[torch.Tensor, ...] = ()  # per level (cap_l,) raw
+                                      # quadrupole trace (far_tile_pbc)
 
 
 # packed node row layout (pack_tree)
@@ -88,7 +99,8 @@ def compact_plane(keys):
 def pack_tree(tree: Octree) -> FusedTree:
     """Per-level 16-wide node rows [com xyz, mass, count, node_start,
     level-local child_start, child_count, quad(6), eps_max, bmax^2];
-    integer fields as exact f32 (N <= 2^24)."""
+    integer fields as exact f32 (N <= 2^24); and per level the raw
+    quadrupole traces (the tree's ``trq``, for the periodic far field)."""
     n = tree.pos_s.shape[0]
     depth = tree.depth
     offs = level_offsets(n, depth)
@@ -110,7 +122,10 @@ def pack_tree(tree: Octree) -> FusedTree:
             torch.clamp(child_local, min=0)[:, None].to(dtype),
             tree.child_count[sl, None].to(dtype),
             quad[:, 0:6], quad[:, 6:7], bmax * bmax], dim=1).contiguous())
-    return FusedTree(levels=tuple(levels), n_levels=list(tree.n_nodes))
+    levels_tr = () if tree.trq is None else tuple(
+        tree.trq[offs[l]:offs[l + 1]].contiguous() for l in range(depth + 1))
+    return FusedTree(levels=tuple(levels), n_levels=list(tree.n_nodes),
+                     levels_tr=levels_tr)
 
 
 def flat_tables(ftree: FusedTree):
@@ -148,17 +163,26 @@ def w_schedule(cfg: FusedConfig, depth: int, n: int, theta: float,
 
 
 def classify(rows, glo, ghi, oac, s_l, theta2, use_relative, leaf_cap,
-             last_level):
-    """Opening decision per (group, slot) (``_classify``, non-periodic).
-    rows (B, WC, 16); glo/ghi (B, 3); oac (B,). Returns far, seg, opn, big
-    boolean (B, WC) planes. The arithmetic order is the Pallas kernel's
-    (so thresholds round identically)."""
+             last_level, pbc=None):
+    """Opening decision per (group, slot) (``_classify``). rows (B, WC,
+    16); glo/ghi (B, 3); oac (B,). Returns far, seg, opn, big boolean
+    (B, WC) planes. The arithmetic order is the CUDA kernel's (so
+    thresholds round identically). ``pbc`` (box, alpha, rcut): the
+    bbox-to-COM distance by the minimum image about the group box's centre
+    (box > 0), and a cell whose bounding sphere (bmax) cannot reach within
+    rcut of the group box is dropped: neither opened nor accepted."""
     com = rows[..., R_COM]
     m = rows[..., R_MASS]
     cnt = rows[..., R_CNT]
     zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
-    dx = torch.maximum(torch.maximum(glo[:, None, :] - com,
-                                     com - ghi[:, None, :]), zero)
+    if pbc is not None and pbc[0] > 0:
+        gc = 0.5 * (glo + ghi)[:, None, :]
+        hw = 0.5 * (ghi - glo)[:, None, :]
+        delta = min_image(com - gc, pbc[0])
+        dx = torch.maximum(torch.abs(delta) - hw, zero)
+    else:
+        dx = torch.maximum(torch.maximum(glo[:, None, :] - com,
+                                         com - ghi[:, None, :]), zero)
     r2b = (dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1]
            + dx[..., 2] * dx[..., 2])
     s2 = s_l * s_l
@@ -170,6 +194,11 @@ def classify(rows, glo, ghi, oac, s_l, theta2, use_relative, leaf_cap,
         mac_open = geo
     mac_open = mac_open | (r2b <= rows[..., R_BMAX2])
     live = cnt > 0
+    if pbc is not None:
+        # the short range's cut: no pair of the cell is nearer than
+        # sqrt(r2b) - bmax
+        rcut = torch.tensor(pbc[2], dtype=rows.dtype)
+        live = live & (torch.sqrt(r2b) <= rcut + torch.sqrt(rows[..., R_BMAX2]))
     is_leaf = cnt <= float(leaf_cap)
     far = live & ~mac_open
     seg = live & mac_open & is_leaf
@@ -282,13 +311,15 @@ def far_tile(rows, xc, te, gc, need_pot=True):
     return torch.stack(da, dim=-1), dpot
 
 
-def near_tile(ent, pos_s, mass_s, eps_s, xr, te, need_pot=True):
+def near_tile(ent, pos_s, mass_s, eps_s, xr, te, need_pot=True, pbc=None):
     """Leaf-segment particles against one group each (``_near_tile``).
 
     ent (B, SC) int32 keys start*32+cnt (IMAX = dead); xr (B, G, 3) raw
     target positions; te (B, G). Raw-coordinate per-pair differencing: the
-    group-centred expansion loses > 1e-2 on tight pairs. Returns (dacc
-    (B,G,3), dpot (B,G))."""
+    group-centred expansion loses > 1e-2 on tight pairs. ``pbc`` (box,
+    alpha, rcut): the minimum image (box > 0) and the screened pair force
+    and potential (``short_range_fac``/``_pot``) cut at rcut. Returns
+    (dacc (B,G,3), dpot (B,G))."""
     B, SC = ent.shape
     n = pos_s.shape[0]
     live = ent != IMAX
@@ -303,16 +334,87 @@ def near_tile(ent, pos_s, mass_s, eps_s, xr, te, need_pot=True):
     ym = torch.where(ok, mass_s[pidx], torch.zeros_like(mass_s[pidx]))
     yeps = eps_s[pidx]
     d = [xr[:, :, None, k] - y[:, None, :, k] for k in range(3)]
+    if pbc is not None and pbc[0] > 0:
+        d = [min_image(dk, pbc[0]) for dk in d]
     r = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     h = 2.8 * torch.maximum(te[:, :, None], yeps[:, None, :])
-    fac = ym[:, None, :] * softened_inv_r3(r, h)
+    if pbc is not None:
+        cut = r <= pbc[2]
+        fac = ym[:, None, :] * short_range_fac(r, h, pbc[1]) * cut
+    else:
+        fac = ym[:, None, :] * softened_inv_r3(r, h)
     dacc = torch.stack([-(fac * d[k]).sum(-1) for k in range(3)], dim=-1)
-    if need_pot:
+    if need_pot and pbc is not None:
+        dpot = (ym[:, None, :] * short_range_pot(r, h, pbc[1])
+                * cut).sum(-1)
+    elif need_pot:
         dpot = (ym[:, None, :] * softened_potential(r, h)).sum(-1)
     else:
         dpot = torch.zeros(dacc.shape[:2], dtype=dacc.dtype,
                            device=dacc.device)
     return dacc, dpot
+
+
+def far_tile_pbc(rows, trq, xr, te, pbc, need_pot=True):
+    """Periodic screened multipole of node rows against one group each
+    (``_far_tile_pbc``): per-pair minimum-image vectors d = com - x from
+    the raw target positions (no group-centred expansion: the wrap is per
+    pair), the screened monopole, and the exact multipole expansion of the
+    screened kernel psi(R) = erfc(aR)/R. With E = (2a/sqrt(pi))
+    exp(-a^2 R^2) and S the screen, masked to the Newtonian range, live
+    nodes and R <= rcut:
+      a_q = -cA (dQd + tr R^2) d - cB (Q d) - 2.5 cB tr d,
+      cA = -(2/3) a^4 E ir^2 - (5/3) a^2 E ir^4 - 2.5 S ir^7,
+      cB = (2/3) a^2 E ir^2 + S ir^5,
+    Q the traceless quadrupole, tr its raw trace (the Gaussian term
+    dominates near rcut: S times the Newtonian quadrupole loses ~2e-2
+    there).
+
+    rows (B, WC, 16) with mass zeroed on non-accepted slots; trq (B, WC);
+    xr (B, G, 3) raw targets; te (B, G). Returns (dacc, dpot)."""
+    box, alpha, rcut = pbc[0], pbc[1], pbc[2]
+    m = rows[:, None, :, R_MASS]
+    epsn = rows[:, None, :, R_EPS]
+    q = [rows[:, None, :, 8 + j] for j in range(6)]
+    d = [rows[:, None, :, k] - xr[:, :, k:k + 1] for k in range(3)]
+    if box > 0:
+        d = [min_image(dk, box) for dk in d]
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    r = torch.sqrt(r2)
+    h = 2.8 * torch.maximum(te[:, :, None], epsn)
+    cut = r <= rcut
+    scr = short_range_screen(r, alpha) * cut
+    fac = m * softened_inv_r3(r, h) * scr
+    da = [(fac * d[k]).sum(-1) for k in range(3)]
+    if need_pot:
+        dpot = (m * short_range_pot(r, h, alpha) * cut).sum(-1)
+    else:
+        dpot = torch.zeros_like(da[0])
+    zero = torch.zeros_like(r)
+    mask = (r >= h) & (m > 0) & cut
+    ir = torch.where(mask, 1.0 / torch.clamp(r, min=1e-30), zero)
+    ir2 = ir * ir
+    a2 = alpha * alpha
+    em = torch.where(mask, (2.0 * alpha / SQRT_PI) * torch.exp(-a2 * r2),
+                     zero)
+    sm = torch.where(mask, short_range_screen(r, alpha), zero)
+    ca = (-(2.0 / 3.0) * a2 * a2 * em * ir2
+          - (5.0 / 3.0) * a2 * em * ir2 * ir2
+          - 2.5 * sm * ir2 * ir2 * ir2 * ir)
+    cb = (2.0 / 3.0) * a2 * em * ir2 + sm * ir2 * ir2 * ir
+    u = [q[0] * d[0] + q[3] * d[1] + q[4] * d[2],
+         q[3] * d[0] + q[1] * d[1] + q[5] * d[2],
+         q[4] * d[0] + q[5] * d[1] + q[2] * d[2]]
+    dqd = d[0] * u[0] + d[1] * u[1] + d[2] * u[2]
+    trr = trq[:, None, :]
+    ta = -ca * (dqd + trr * r2) - 2.5 * cb * trr
+    da = [da[k] + (ta * d[k] - cb * u[k]).sum(-1) for k in range(3)]
+    if need_pot:
+        dpot = dpot + (0.5 * trr * sm * ir2 * ir
+                       - (dqd + trr * r2) * ((1.0 / 3.0) * a2 * em * ir2
+                                             + 0.5 * sm * ir2 * ir2 * ir)
+                       ).sum(-1)
+    return torch.stack(da, dim=-1), dpot
 
 
 def default_depth(n: int) -> int:

@@ -9,6 +9,14 @@ particles ``start .. start+cnt-1`` of every key on the group's 64 targets.
 A target's own segment is included: its self pair has zero force, and its
 self potential is removed by the caller (potential.c:136).
 
+Periodic mode (``pbc`` = (box, alpha, rcut), the TreePM split's short
+range; ``_near_tile``'s pbc branch, sidm_tpu/ops/fused_force.py:350-420,
+which JAX's periodic walk runs in XLA): the pair vector by the minimum
+image, the screened force factor ``pm.short_range_fac`` and potential
+``short_range_pot`` (their series below alpha r = 0.2 and 0.1), cut at
+``rcut``. The self pair adds 2 alpha / sqrt(pi) m to the potential; the
+caller removes it with the spline self term.
+
 On a CUDA tensor it launches ``csrc/near_kernel.cu``; on a CPU tensor it
 runs ``near_level_plain``. There is no fallback between the two.
 
@@ -37,7 +45,7 @@ ITEM_BLOCK = 256   # plain version: (group, key chunk) items per batch
 
 
 def near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
-                     need_pot: bool):
+                     need_pot: bool, pbc=None):
     """Plain PyTorch version of ``near_level``: live (group, 16-key chunk)
     items in batches of ITEM_BLOCK, summed per group."""
     ng, K = keys.shape
@@ -57,23 +65,24 @@ def near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
         # IMAX)
         ent = torch.where(c[:, None] * sc + col < n_seg[g, None].long(),
                           keys_c[g, c], IMAX)
-        da, dp = near_tile(ent, pos_s, mass_s, eps_s, xr[g], te[g], need_pot)
+        da, dp = near_tile(ent, pos_s, mass_s, eps_s, xr[g], te[g], need_pot,
+                           pbc)
         acc.index_add_(0, g, torch.cat([da, dp[..., None]], dim=-1))
     return acc
 
 
 def near_level(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
-               need_pot: bool):
+               need_pot: bool, pbc=None):
     """Near field of compacted segment keys for every group.
 
     keys (ng, K) int32 compacted keys, live prefix n_seg (ng,) int32 (the
     entries past it are not read); pos_s (N, 3), mass_s (N,), eps_s (N,)
     float32 sorted particles; xr (ng, 64, 3) raw target positions; te
-    (ng, 64) target softenings. Returns acc (ng, 64, 4) float32
-    [ax ay az pot]."""
+    (ng, 64) target softenings; ``pbc`` (box, alpha, rcut) the periodic
+    mode. Returns acc (ng, 64, 4) float32 [ax ay az pot]."""
     if not keys.is_cuda:
         return near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te,
-                                need_pot=need_pot)
+                                need_pot=need_pot, pbc=pbc)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, K = keys.shape
@@ -87,17 +96,22 @@ def near_level(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
                te=(te, torch.float32, (ng, G)))
     icap, ws, part = item_buffers(ng, keys.device, near=True)
     acc = torch.empty(ng, G, 4, dtype=torch.float32, device=keys.device)
+    box, alpha, rcut = (float(v) for v in pbc) if pbc else (0.0, 0.0, 0.0)
     err = kernels_lib().near_level_launch(*launch_args(
         keys, n_seg, ng, K, pos_s, mass_s, eps_s, n, xr, te, int(need_pot),
-        acc, ws, icap, part))
+        acc, ws, icap, part, box, alpha, rcut, int(pbc is not None)))
     if err:
         raise RuntimeError(f"near_level kernel launch failed: CUDA error "
                            f"{err}")
-    near_level.launches += 1
+    if pbc is not None:
+        near_level.periodic_launches += 1
+    else:
+        near_level.launches += 1
     return acc
 
 
 near_level.launches = 0
+near_level.periodic_launches = 0   # launches of the periodic mode (pbc)
 
 
 def near_split(keys, n_seg) -> dict:

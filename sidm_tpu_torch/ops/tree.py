@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -58,6 +58,9 @@ class Octree:
     drift: torch.Tensor        # () max displacement since the build
     level_offsets: tuple       # flat offset of each level
     depth: int
+    trq: Optional[torch.Tensor] = None  # (M,) raw second-moment trace
+                               # tr(Q~) about the COM (the periodic far
+                               # field's exact screened quadrupole)
 
 
 def _level_caps(n: int, depth: int) -> List[int]:
@@ -83,8 +86,8 @@ def _moment_products(pos_s, m64, count=None):
 
 
 def _moments(sums):
-    """Segment sums -> (mass, com (cap,3), traceless quadrupole (cap,6)),
-    all float64."""
+    """Segment sums -> (mass, com (cap,3), traceless quadrupole (cap,6),
+    raw trace (cap,)), all float64."""
     sm = sums[:, 0]
     com = sums[:, 1:4] / torch.clamp(sm, min=1e-30)[:, None]
     sxx = sums[:, 4] - sm * com[:, 0] * com[:, 0]
@@ -96,7 +99,7 @@ def _moments(sums):
     tr = sxx + syy + szz
     quad = torch.stack([3 * sxx - tr, 3 * syy - tr, 3 * szz - tr,
                         3 * sxy, 3 * sxz, 3 * syz], dim=1)
-    return sm, com, quad
+    return sm, com, quad, tr
 
 
 def _segment_sums(seg, vals, cap):
@@ -165,6 +168,7 @@ def build_octree(pos, mass, eps, valid, *, box: float = 0.0,
     nreal = (torch.stack([s[last_valid] for _, s in segs]) + 1).tolist()
 
     mac_parts, quad_parts, start_parts, cnt_parts = [], [], [], []
+    trq_parts = []
     startc_l, n_nodes, seg_of = [], [], []
     for l in range(depth + 1):
         boundary, seg = segs[l]
@@ -182,7 +186,8 @@ def build_octree(pos, mass, eps, valid, *, box: float = 0.0,
         seg_of.append(seg_c)
 
         sums = _segment_sums(seg_c, prods, cap)
-        sm, com, quad = _moments(sums)
+        sm, com, quad, tr = _moments(sums)
+        trq_parts.append(tr.to(dtype))
         cnt = torch.round(sums[:, 10]).long()
         live = cnt > 0
         start = torch.where(live, start, torch.zeros_like(start))
@@ -238,7 +243,8 @@ def build_octree(pos, mass, eps, valid, *, box: float = 0.0,
         child_count=child_count.to(torch.int32),
         seg_of=torch.stack(seg_of), n_nodes=n_nodes, origin=origin,
         extent=extent, drift=torch.zeros((), dtype=dtype, device=dev),
-        level_offsets=tuple(offs[:-1]), depth=depth)
+        level_offsets=tuple(offs[:-1]), depth=depth,
+        trq=torch.cat(trq_parts))
 
 
 def refresh_octree(tree: Octree, pos, mass, eps, valid,
@@ -270,11 +276,13 @@ def refresh_octree(tree: Octree, pos, mass, eps, valid,
     caps = _level_caps(n, tree.depth)
     offs = level_offsets(n, tree.depth)
     prods = _moment_products(pos_s, mass_s.double())
-    mac_parts, quad_parts = [], []
+    mac_parts, quad_parts, trq_parts = [], [], []
     for l in range(tree.depth + 1):
         cap = caps[l]
         sl = slice(offs[l], offs[l] + cap)
-        sm, com, quad = _moments(_segment_sums(tree.seg_of[l], prods, cap))
+        sm, com, quad, tr = _moments(_segment_sums(tree.seg_of[l], prods,
+                                                   cap))
+        trq_parts.append(tr.to(dtype))
         old_mac = tree.mac_rows[sl]
         center = old_mac[:, 4:7]
         com = torch.where((sm > 0)[:, None], com.to(dtype), center)
@@ -285,4 +293,4 @@ def refresh_octree(tree: Octree, pos, mass, eps, valid,
     return dataclasses.replace(
         tree, pos_s=pos_s, mass_s=mass_s, eps_s=eps_s,
         mac_rows=torch.cat(mac_parts), quad_rows=torch.cat(quad_parts),
-        drift=drift)
+        trq=torch.cat(trq_parts), drift=drift)

@@ -1,6 +1,16 @@
 """Work-queue Barnes-Hut gravity (port of ``sidm_tpu/ops/wq_force.py``:
 ``wq_gravity_tree`` :547, ``wq_gravity`` :610, the level loop of
-``_wq_eval`` :401-544; ``_expand_open_wq`` :357 is in ``far_kernel``).
+``_wq_eval`` :401-544 with its ``pbc`` plumbing :102-212, :280-340;
+``_expand_open_wq`` :357 is in ``far_kernel``).
+
+``pbc`` = (box, alpha, rcut) gives the TreePM split's short range in a
+periodic box (``ops/pm.py`` the long range): the tree is built on the box
+as its root cube, dead groups are parked with an inverted huge box, and the
+three kernels run their periodic modes (the minimum image; the walk drops
+what lies beyond ``rcut``; the screened far field from the raw targets
+with the exact screened quadrupole; the screened near pairs). The
+potential loses the near pass's self term 2 alpha/sqrt(pi) m (JAX
+:601-602).
 
 Same walk and the same accepted pair sets as the JAX engine: for every
 64-target group a per-level frontier of node ids is classified against the
@@ -37,6 +47,7 @@ from .fused_force import (LEAF_CAP, SC, START_LEVEL, WC, FusedConfig,
                           FusedTree, default_depth, make_windows, pack_tree,
                           w_schedule)
 from .near_kernel import near_level
+from .pm import SQRT_PI
 from .tree import build_octree
 
 
@@ -46,7 +57,7 @@ def _near_items(n_seg, width: int):
 
 def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
              theta: float, use_relative: bool, cfg: FusedConfig,
-             need_pot: bool, on_level=None):
+             need_pot: bool, on_level=None, pbc=None):
     """The walk + evaluation over all levels. Returns per-group
     acc (ng, G, 3), pot (ng, G) and the info dict (0-dim tensors).
 
@@ -59,10 +70,15 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
     depth = tree.depth
     n = tree.pos_s.shape[0]
     theta2 = theta * theta
-    gc = 0.5 * (glo + ghi)
-    xc = torch.where(gvalid[..., None], gtargets - gc[:, None, :],
-                     torch.zeros_like(gtargets)).contiguous()
     gtargets = gtargets.contiguous()
+    if pbc is not None:
+        # the periodic far field differences raw targets per pair
+        gc = torch.zeros_like(glo)
+        xc = gtargets
+    else:
+        gc = 0.5 * (glo + ghi)
+        xc = torch.where(gvalid[..., None], gtargets - gc[:, None, :],
+                         torch.zeros_like(gtargets)).contiguous()
     ws = w_schedule(cfg, depth, n, theta, use_relative)
     l0 = START_LEVEL
 
@@ -85,7 +101,7 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
         nonlocal acc, pot, max_near
         a = call(near_level, level, keys=keys.contiguous(), n_seg=n_seg,
                  pos_s=tree.pos_s, mass_s=tree.mass_s, eps_s=tree.eps_s,
-                 xr=gtargets, te=geps, need_pot=need_pot)
+                 xr=gtargets, te=geps, need_pot=need_pot, pbc=pbc)
         acc = acc + a[..., :3]
         if need_pot:
             pot = pot + a[..., 3]
@@ -100,10 +116,11 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
             nl_real=ftree.n_levels[l], s_l=s_l, glo=glo, ghi=ghi, oac=oac,
             theta2=theta2, use_relative=use_relative, leaf_cap=LEAF_CAP,
             last=last, Wn=0 if last else ws[l + 1], open_cap=cfg.open_cap,
-            big_cap=cfg.big_cap, big_chunks=cfg.big_chunks)
+            big_cap=cfg.big_cap, big_chunks=cfg.big_chunks, pbc=pbc)
         a = call(far_list, l, tbl=ftree.levels[l], ids=out.far,
                  nf=out.cnt[C_FAR], xc=xc, te=geps, gc=gc,
-                 need_pot=need_pot)
+                 need_pot=need_pot, pbc=pbc,
+                 trq=ftree.levels_tr[l] if pbc is not None else None)
         acc = acc + a[..., :3]
         if need_pot:
             pot = pot + a[..., 3]
@@ -134,19 +151,25 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
     return acc, pot, info
 
 
-def group_boxes(tree, gtargets, gvalid, goac, skin=0.0):
+def group_boxes(tree, gtargets, gvalid, goac, skin=0.0, periodic=False):
     """Per group: the bounding box of its valid targets grown by ``skin``
-    (dead groups: parked far outside the tree, so nothing opens) and the
-    smallest positive relative-criterion threshold (0 if none)."""
+    (dead groups: parked far outside the tree, so nothing opens; with
+    ``periodic`` an inverted huge box, since the minimum image would bring
+    a parked box back into the periodic one) and the smallest positive
+    relative-criterion threshold (0 if none)."""
     big = torch.full((), 1e30, dtype=gtargets.dtype, device=gtargets.device)
     glo = torch.min(torch.where(gvalid[..., None], gtargets, big),
                     dim=1).values - skin
     ghi = torch.max(torch.where(gvalid[..., None], gtargets, -big),
                     dim=1).values + skin
     any_v = torch.any(gvalid, dim=1)
-    far_here = tree.origin + 4.0 * tree.extent
-    glo = torch.where(any_v[:, None], glo, far_here).contiguous()
-    ghi = torch.where(any_v[:, None], ghi, far_here).contiguous()
+    if periodic:
+        glo = torch.where(any_v[:, None], glo, 1e18).contiguous()
+        ghi = torch.where(any_v[:, None], ghi, -1e18).contiguous()
+    else:
+        far_here = tree.origin + 4.0 * tree.extent
+        glo = torch.where(any_v[:, None], glo, far_here).contiguous()
+        ghi = torch.where(any_v[:, None], ghi, far_here).contiguous()
     pos_oac = gvalid & (goac > 0)
     oac = torch.min(torch.where(pos_oac, goac, big), dim=1).values
     oac = torch.where(torch.any(pos_oac, dim=1), oac,
@@ -158,11 +181,12 @@ def wq_gravity_tree(tree, mass, eps, old_acc, *, theta=0.5, opening=1,
                     err_tol_force_acc=0.005,
                     config: Optional[FusedConfig] = None,
                     return_info: bool = False, need_pot: bool = True,
-                    on_level=None):
+                    on_level=None, pbc=None):
     """Work-queue walk/eval on a prebuilt octree. mass/eps/old_acc are in
     original particle order; returns raw (acc, pot[, info]) in original
     order (no G factor; the spline self potential removed). on_level: see
-    ``_wq_eval``."""
+    ``_wq_eval``; ``pbc`` (box, alpha, rcut): the TreePM short range in a
+    periodic box (the tree built with ``box``)."""
     cfg = config or FusedConfig()
     n = tree.pos_s.shape[0]
     dtype = tree.pos_s.dtype
@@ -175,15 +199,21 @@ def wq_gravity_tree(tree, mass, eps, old_acc, *, theta=0.5, opening=1,
     geps = torch.where(gvalid, tree.eps_s[pidx],
                        torch.ones((), dtype=dtype, device=pidx.device))
     goac = torch.where(gvalid, toac[pidx], torch.zeros_like(toac[pidx]))
-    glo, ghi, oac = group_boxes(tree, gtargets, gvalid, goac)
+    glo, ghi, oac = group_boxes(tree, gtargets, gvalid, goac,
+                                periodic=pbc is not None)
+    if pbc is not None:
+        pbc = tuple(float(v) for v in pbc)
 
     acc_g, pot_g, info = _wq_eval(ftree, tree, gtargets, geps.contiguous(),
                                   glo, ghi, oac, gvalid, float(theta),
                                   bool(opening == 1), cfg, bool(need_pot),
-                                  on_level)
+                                  on_level, pbc)
 
     acc, pot = ungroup(acc_g, pot_g, pidx, gvalid, tree.perm, mass, eps,
                        need_pot)
+    if need_pot and pbc is not None:
+        pot = pot - torch.where(mass > 0, mass, torch.zeros_like(mass)) \
+            * (2.0 * pbc[1] / SQRT_PI)
     if return_info:
         return acc, pot, info
     return acc, pot
@@ -216,17 +246,19 @@ def ungroup(acc_g, pot_g, pidx, gvalid, perm, mass, eps, need_pot: bool):
 def wq_gravity(pos, mass, eps, old_acc, *, theta=0.5, opening=1,
                err_tol_force_acc=0.005, depth: Optional[int] = None,
                config: Optional[FusedConfig] = None,
-               return_info: bool = False, need_pot: bool = True):
+               return_info: bool = False, need_pot: bool = True,
+               pbc=None):
     """Raw acceleration/potential for all particles (wq engine): builds the
-    octree, then ``wq_gravity_tree``."""
+    octree (on the periodic box with ``pbc``), then ``wq_gravity_tree``."""
     n = pos.shape[0]
     if depth is None:
         depth = default_depth(n)
     if n > (1 << 24):
         raise ValueError("wq engine packs indices as exact f32; "
                          "N must be <= 2^24")
-    tree = build_octree(pos, mass, eps, mass > 0, depth=depth)
+    tree = build_octree(pos, mass, eps, mass > 0, depth=depth,
+                        box=float(pbc[0]) if pbc is not None else 0.0)
     return wq_gravity_tree(
         tree, mass, eps, old_acc, theta=theta, opening=opening,
         err_tol_force_acc=err_tol_force_acc, config=config,
-        return_info=return_info, need_pot=need_pot)
+        return_info=return_info, need_pot=need_pot, pbc=pbc)

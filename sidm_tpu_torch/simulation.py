@@ -12,7 +12,26 @@
 single-program step ``_build_step`` :373-458 with ``_make_force_fn``
 :271-300, its prepare :1318-1322 and the choice of step ``_use_phased``
 :1344-1350; the velocity-dispersion pass :401-404 and ``phase_veldisp``
-:665-673, :1009-1011).
+:665-673, :1009-1011; periodic boxes and comoving runs: ``check_omega``
+:147-160, ``_ewald_table`` :198-207, ``_use_treepm`` :209-214,
+``_pm_kernel`` :254-270, the periodic direct sum and TreePM of
+``_make_force_fn`` :276-283, :303-331 and of the phased step :481-526,
+``box_wrap`` in both finishes :439-443, :730-731, and ``compute_potential``'s
+comoving and periodic terms :1550-1575).
+
+A periodic box (``PeriodicBoundariesOn 1``) runs TreePM on ``ForceMethod
+tree`` (``PMGrid`` >= 0, 0 choosing the mesh by N): the walk's periodic
+mode gives the short range (the minimum image, the screened pair force cut
+at ``rcut``, ``ops/wq_force.py``) and ``ops/pm.py``'s mesh the long range;
+``ForceMethod direct`` is the minimum-image direct sum with the Ewald
+correction (``ops/ewald.py``). Positions are wrapped onto the box after
+every step. Comoving runs (``ComovingIntegrationOn 1``) take the scale
+factor as their time (in the logs, snapshots and restarts), the comoving
+drift and kick factors and timestep criteria, the softenings of the current
+scale factor every step (``softening_table``: comoving, capped by
+``MaxPhys`` in physical units), and ``check_omega`` at prepare in a
+periodic box; on the lists they keep the moments refresh between rebuilds
+instead of the node drift.
 
 ``mode="individual"`` (JAX's ``sync = False``, :378, :471) keeps every
 particle's own next kick time: a step advances only the particles due at
@@ -111,6 +130,7 @@ from .integrate import StepConsts
 from .io import checkpoint as ckpt
 from .io.gadget import GadgetHeader, Snapshot, read_snapshot, write_snapshot
 from .ops.direct import direct_sum
+from .ops.ewald import PSI0, build_ewald_table
 from .ops.fused_force import default_depth
 from .ops.fused_range import cell_count_hsml_seed, tree_hsml_init_fused
 from .ops.list_force import (ListConfig, advance_tree, eval_lists,
@@ -119,6 +139,7 @@ from .ops.list_range import (RangeListConfig,
                              record_candidates_from_particles,
                              sidm_scatter_lists)
 from .ops.neighbors import setup_smoothing_lengths
+from .ops.pm import build_pm_kernel, pm_accel
 from .ops.sidm import SidmParams, make_sidm_step, sidm_params
 from .ops.tree import build_octree, refresh_octree
 from .ops.veldisp import veldisp
@@ -162,10 +183,22 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
         _refuse_phased_direct()
     if cfg.TreeWalkEngine != "wq":
         _refuse(f"TreeWalkEngine {cfg.TreeWalkEngine}", "A, item 15")
-    if cfg.PeriodicBoundariesOn or cfg.PMVacuum:
-        _refuse("periodic boxes and TreePM", "A, item 11")
-    if cfg.ComovingIntegrationOn:
-        _refuse("comoving integration", "A, item 11")
+    if cfg.PMVacuum and not cfg.PeriodicBoundariesOn \
+            and cfg.ForceMethod == "tree":
+        _refuse("PMVacuum (the free-space TreePM mesh)", "A, item 11.2")
+    if cfg.PeriodicBoundariesOn:
+        if cfg.ForceMethod == "tree" and cfg.PMGrid < 0:
+            _refuse("PMGrid -1 (the per-pair Ewald walk)", "A, item 11.3")
+        if mode == "phased" and cfg.ForceMethod == "tree" and cfg.ListMode:
+            _refuse_periodic_lists()
+        if cfg.SIDMOn and cfg.CrossSection > 0:
+            _refuse("DSMC (SIDMOn) in a periodic box", "A, item 11.4")
+        if cfg.VelDispOn:
+            _refuse("VelDispOn in a periodic box", "A, item 11.4")
+    if cfg.ComovingIntegrationOn and (
+            (cfg.SIDMOn and cfg.CrossSection > 0) or cfg.VelDispOn):
+        _refuse("DSMC (SIDMOn) and VelDispOn in comoving runs",
+                "A, item 11.4")
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}: not one of {MODES}")
     if cfg.SIDMOn and cfg.CrossSection > 0 and cfg.VelDispOn:
@@ -177,6 +210,12 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     if cfg.Precision == "f64" and device.type == "cuda":
         _refuse("Precision f64 on CUDA (the kernels are float32)",
                 "A, item 16")
+
+
+def _refuse_periodic_lists():
+    # JAX's list engine takes pbc (list_force.py:162-189, :631-636)
+    _refuse("ListMode 1 (the cached interaction lists) with a periodic box "
+            "on the phased step", "A, item 11.1")
 
 
 def _refuse_phased_direct():
@@ -302,6 +341,8 @@ class Simulation:
         self.last_veldisp_info = None
         self._small_depth = None
         self._hash_step = None
+        self._ewald = None
+        self._pm = None
         self._reset_cadence()
 
     def _reset_cadence(self):
@@ -358,6 +399,65 @@ class Simulation:
             self.time = float(snap.header.time)
         self.set_particles_from_arrays(snap.pos, snap.vel, snap.mass,
                                        snap.ptype, pid=snap.pid)
+
+    def check_omega(self):
+        """init.c:201-225: the box's mass must account for Omega0 (comoving
+        periodic runs); raises ValueError when |Omega - Omega0| > 1e-3."""
+        cfg, u = self.cfg, self.units
+        p = self.particles
+        masstot = float(torch.sum(torch.where(p.valid, p.mass,
+                                              torch.zeros_like(p.mass))))
+        rho_crit = 3.0 * u.Hubble * u.Hubble / (8.0 * np.pi * u.G)
+        omega = masstot / cfg.BoxSize ** 3 / rho_crit
+        if abs(omega - cfg.Omega0) > 1.0e-3:
+            raise ValueError(
+                f"check_omega: the IC mass content accounts for "
+                f"Omega={omega:g}, but the parameter file specifies "
+                f"Omega0={cfg.Omega0:g}")
+
+    def _ewald_table(self):
+        """The Ewald correction tables of the periodic direct sum
+        (ewald_init, ewald.c:35-127), cached in OutputDir."""
+        if self._ewald is None:
+            self._ewald = build_ewald_table(
+                self.cfg.BoxSize, en=self.cfg.EwaldGridSize,
+                cache_dir=self.cfg.OutputDir or ".", device=self.device)
+        return self._ewald
+
+    def _use_treepm(self) -> bool:
+        """Periodic tree runs take the TreePM split (PMGrid >= 0)."""
+        return bool(self.cfg.PeriodicBoundariesOn
+                    and self.cfg.ForceMethod == "tree")
+
+    def _pm_kernel(self):
+        """The TreePM mesh operator (cached): PMGrid cells a side, or with
+        PMGrid 0 the power of two from 64 up to 512 that reaches 2 N^(1/3)
+        (N padded)."""
+        if self._pm is None:
+            cfg = self.cfg
+            n_mesh = int(cfg.PMGrid)
+            if n_mesh == 0:
+                npart = (self.particles.pos.shape[0]
+                         if self.particles is not None else 1 << 20)
+                n_mesh = 64
+                while n_mesh < 2.0 * npart ** (1.0 / 3.0) and n_mesh < 512:
+                    n_mesh *= 2
+            self._pm = build_pm_kernel(
+                float(cfg.BoxSize), n=n_mesh, asmth=float(cfg.PMAsmth),
+                rcut_fac=float(cfg.PMRcutFac),
+                interlace=bool(cfg.PMInterlace), device=self.device)
+        return self._pm
+
+    def _pbc(self):
+        """(box, alpha, rcut) of the TreePM split, or None."""
+        if not self._use_treepm():
+            return None
+        kern = self._pm_kernel()
+        return (float(self.cfg.BoxSize), kern.alpha, kern.rcut)
+
+    def _box(self) -> float:
+        return float(self.cfg.BoxSize) if self.cfg.PeriodicBoundariesOn \
+            else 0.0
 
     def _init_particle_times(self, p: Particles) -> Particles:
         t0 = torch.full_like(p.current_time, self.time)
@@ -479,19 +579,25 @@ class Simulation:
         eps = soft[torch.clamp(p.ptype, 0, 5).long()]
         mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
         if cfg.ForceMethod == "direct":
-            acc, pot = direct_sum(pos_pred, mass, eps)
+            box = self._box()
+            acc, pot = direct_sum(pos_pred, mass, eps, box=box or None,
+                                  ewald=self._ewald_table() if box else None)
             return acc, pot, None
+        pbc = self._pbc()
         while True:
             depth = self._small_depth or default_depth(p.n_padded)
             acc, pot, info = wq_gravity(
                 pos_pred, mass, eps, p.old_acc, theta=cfg.ErrTolTheta,
                 opening=cfg.TypeOfOpeningCriterion,
                 err_tol_force_acc=cfg.ErrTolForceAcc, depth=depth,
-                need_pot=need_pot, return_info=True)
+                need_pot=need_pot, return_info=True, pbc=pbc)
             drops = [int(x) for x in torch.stack([
                 info[k] for k in ("ovf_open", "ovf_big",
                                   "ovf_items")]).tolist()]
             if not sum(drops) or depth >= self.DEEP_DEPTH:
+                if pbc is not None:
+                    acc, pot = self._add_mesh(acc, pot, pos_pred, mass,
+                                              p.valid, need_pot)
                 return acc, pot, info
             # the walk dropped cells (JAX's walk drops them silently,
             # ROADMAP C.15): the force again on JAX's large-N tree depth,
@@ -502,11 +608,34 @@ class Simulation:
                   f"{self.DEEP_DEPTH}, kept for the run.", file=sys.stderr,
                   flush=True)
 
+    def _add_mesh(self, acc, pot, pos_pred, mass, valid, need_pot: bool):
+        """TreePM: the mesh's long range added to the walk's short range;
+        the potential (need_pot) also gets psi(0) = 2.8372975/box, loses
+        the mesh's self term (JAX simulation.py:318-328) and gets the mean
+        of the short-range kernel, pi M / (alpha^2 V): the screened pair
+        potential -erfc(alpha r)/r integrates to -pi/alpha^2 over the box,
+        which the Ewald potential's convention (ewald_psi's pi/alpha^2,
+        ewald.c:291-327) cancels and the mesh's k = 0 mode does not. JAX
+        leaves it out (ROADMAP C.18): its TreePM potentials sit that far
+        below the Ewald sum's, 1.0 at cosmo-box's N = 8192 and mesh 32."""
+        kern = self._pm_kernel()
+        acc_l, pot_l = pm_accel(kern, pos_pred, mass,
+                                with_potential=need_pot)
+        acc = acc + acc_l
+        if need_pot:
+            box = float(self.cfg.BoxSize)
+            mean = np.pi * torch.sum(mass) / (kern.alpha ** 2 * box ** 3)
+            pot = pot + pot_l + mass * (PSI0 / box - kern.pot_self) + mean
+            pot = torch.where(valid, pot, torch.zeros_like(pot))
+        return acc, pot
+
     def _step_phased(self, first: bool):
         """The phased step (see the module docstring)."""
         cfg, consts = self.cfg, self.consts
         if self._uniform_eps is None:
             self._uniform_eps = self._check_uniform_eps()
+        if cfg.PeriodicBoundariesOn and cfg.ListMode:
+            _refuse_periodic_lists()
         params = self._timestep_params()
         clock = _PhaseClock(self.device)
         p = self.particles
@@ -527,10 +656,18 @@ class Simulation:
                  and (not use_lists or self._lists_cache is not None))
         info, kind, md = None, "walk", None
         ovf = need = None
+        box = self._box()
+        drift_mode = use_lists and not cfg.ComovingIntegrationOn
         if reuse and use_lists:
-            # cached lists on the advanced rebuild-time tree
+            # cached lists on the advanced rebuild-time tree (comoving runs:
+            # on a moments refresh, JAX simulation.py:520-526)
             lists = self._lists_cache
-            tree = advance_tree(self._tree_cache, lists, pos_pred, t_next)
+            if drift_mode:
+                tree = advance_tree(self._tree_cache, lists, pos_pred,
+                                    t_next)
+            else:
+                tree = refresh_octree(self._tree_cache, pos_pred, mass, eps,
+                                      p.valid)
             raw_acc, pot = eval_lists(tree, lists, mass, eps,
                                       need_pot=False)
             kind = "list"
@@ -546,12 +683,12 @@ class Simulation:
                 self._refresh_left = 0
         elif reuse:
             tree = refresh_octree(self._tree_cache, pos_pred, mass, eps,
-                                  p.valid)
+                                  p.valid, box=box)
             self._refresh_left -= 1
             raw_acc, pot, info = self._walk(tree, mass, eps, p.old_acc)
         else:
             self._tree_cache = self._lists_cache = None
-            tree = build_octree(pos_pred, mass, eps, p.valid,
+            tree = build_octree(pos_pred, mass, eps, p.valid, box=box,
                                 depth=default_depth(p.n_padded),
                                 uniform_eps=self._uniform_eps)
             if use_lists:
@@ -590,6 +727,11 @@ class Simulation:
                 raw_acc, pot, info = self._walk(tree, mass, eps, p.old_acc)
             self._refresh_left = refresh_steps - 1
             self._t_rebuild = float(t_next)
+        if self._use_treepm():
+            clock.mark("force")
+            raw_acc, pot = self._add_mesh(raw_acc, pot, pos_pred, mass,
+                                          p.valid, False)
+            clock.mark("pm")
         accel, old_acc = integrate.apply_accel_postfactors(
             raw_acc, pos_pred, vel_pred, t_next, consts)
         p = dataclasses.replace(
@@ -607,9 +749,9 @@ class Simulation:
             s_deep = float(tree.extent) / (1 << tree.depth)
             if float(tree.drift) > 0.25 * s_deep:
                 self._refresh_left = 0
-        if kind != "list":
-            # a list step's tree is the advanced copy: keep the rebuild-time
-            # base, from which advance_tree is absolute
+        if kind != "list" or not drift_mode:
+            # a drift-mode list step's tree is the advanced copy: keep the
+            # rebuild-time base, from which advance_tree is absolute
             self._tree_cache = tree
         clock.mark("force")
         p = self._veldisp(p, pos_pred, vel_pred, active, clock)
@@ -634,6 +776,8 @@ class Simulation:
         p = integrate.advance(p, t_next, active, consts)
         if consts.reflection_radius > 0:
             p = integrate.reflect(p, consts.reflection_radius)
+        if consts.periodic:
+            p = integrate.box_wrap(p, consts.box_size)
         new_mpt = timestep.find_timesteps(p, t_next, active, vmax, params,
                                           first=first)
         if self.mode != "individual":
@@ -962,7 +1106,7 @@ class Simulation:
             tree, mass, eps, old_acc, theta=cfg.ErrTolTheta,
             opening=cfg.TypeOfOpeningCriterion,
             err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=False,
-            return_info=True)
+            return_info=True, pbc=self._pbc())
 
     @staticmethod
     def _round_cap(v, mult=128):
@@ -1010,6 +1154,8 @@ class Simulation:
         if self.particles is None:
             raise RuntimeError("load particles first")
         cfg, p = self.cfg, self.particles
+        if cfg.ComovingIntegrationOn and cfg.PeriodicBoundariesOn:
+            self.check_omega()
         if cfg.SIDMOn and cfg.CrossSection > 0 and not self._use_phased():
             # setup_smoothinglengths_sidm (init.c:159) on the hash grid,
             # simulation.py:1318-1322, its cap grown to the demand
@@ -1041,17 +1187,20 @@ class Simulation:
     def compute_potential(self):
         """compute_potential (potential.c:18-195) at the current time, with
         the JAX package's force function for ``ForceMethod``
-        (simulation.py:1550-1575): a fresh tree's walk, or the direct
-        sum."""
+        (simulation.py:1550-1575): a fresh tree's walk (TreePM in a periodic
+        box), or the direct sum; comoving runs without a box lose
+        Omega0 H0^2 r^2 / 2, physical ones OmegaLambda H0^2 r^2 / 2."""
         cfg, p = self.cfg, self.particles
         t = torch.tensor(self.time, dtype=self.dtype, device=self.device)
         pos_pred, _ = integrate.predict_positions(p, t, self.consts)
         _, pot, _ = self._force(p, pos_pred, self._softening(), True)
         H = self.units.Hubble
         pot = self.units.G * pot
-        if cfg.OmegaLambda != 0:
+        omega = (0.0 if cfg.PeriodicBoundariesOn else cfg.Omega0) \
+            if cfg.ComovingIntegrationOn else cfg.OmegaLambda
+        if omega != 0:
             r2 = torch.sum(pos_pred * pos_pred, dim=-1)
-            pot = pot - 0.5 * cfg.OmegaLambda * H * H * r2
+            pot = pot - 0.5 * omega * H * H * r2
         self.particles = dataclasses.replace(p, pot=pot)
         return pot
 
@@ -1129,6 +1278,9 @@ class Simulation:
                     nxt = [t for t in cfg.OutputListTimes if t > self.time]
                     self.time_of_first_snapshot = (nxt[0] if nxt
                                                    else MAX_REAL_NUMBER)
+                elif cfg.ComovingIntegrationOn:
+                    # comoving: snapshots at scale factors a ratio apart
+                    self.time_of_first_snapshot *= cfg.TimeBetSnapshot
                 else:
                     self.time_of_first_snapshot += cfg.TimeBetSnapshot
 
@@ -1142,7 +1294,8 @@ class Simulation:
             # per-phase buckets from the step's CUDA-event clock
             # (run.c:250-285 FdCPU analog)
             ph = self.last_phase_wall
-            self.cpu_log.add("Gravity", ph.get("force", 0.0))
+            self.cpu_log.add("Gravity", ph.get("force", 0.0)
+                             + ph.get("pm", 0.0))
             self.cpu_log.add("Sidm", ph.get("sidm", 0.0)
                              + ph.get("veldisp", 0.0))
             self.cpu_log.add("EnsureNgb", ph.get("sidmrec", 0.0))
@@ -1184,10 +1337,14 @@ class Simulation:
     # ------------------------------------------------------------- I/O pieces
 
     def _predicted_host_state(self):
-        """(pos, vel) predicted to the current time, as numpy arrays."""
+        """(pos, vel) predicted to the current time (positions wrapped onto
+        a periodic box), as numpy arrays."""
         t = torch.tensor(self.time, dtype=self.dtype, device=self.device)
         pos, vel = integrate.predict_positions(self.particles, t,
                                                self.consts)
+        if self.cfg.PeriodicBoundariesOn:
+            box = self.cfg.BoxSize
+            pos = pos - box * torch.floor(pos / box)
         return pos.cpu().numpy(), vel.cpu().numpy()
 
     def write_snapshot_file(self, count: int):
@@ -1196,7 +1353,10 @@ class Simulation:
         p = self.particles
         valid = p.valid.cpu().numpy()
         pos, vel = self._predicted_host_state()
-        hdr = GadgetHeader(time=self.time, redshift=0.0,
+        hdr = GadgetHeader(time=self.time,
+                           redshift=(1.0 / self.time - 1.0
+                                     if self.cfg.ComovingIntegrationOn
+                                     else 0.0),
                            box_size=self.cfg.BoxSize, omega0=self.cfg.Omega0,
                            omega_lambda=self.cfg.OmegaLambda,
                            hubble_param=self.cfg.HubbleParam)

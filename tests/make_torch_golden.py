@@ -83,13 +83,30 @@ per-file budget of the test suite, so their outputs are committed:
   phased step at N = 4096 (``pind``) and a Plummer sphere with the hash
   DSMC engine in ``mode="individual"`` (``hind``, with its scatter log).
 
+* ``tests/data/torch_periodic_golden.npz`` (tests/test_torch_ewald.py,
+  tests/test_torch_pm.py, tests/test_torch_periodic_walk.py,
+  tests/test_torch_cosmo_slice.py): periodic boxes and TreePM. ``ew_``:
+  the unit box's Ewald tables (EN = 64) and lookups in a box of 100;
+  ``sr_``: ``short_range_screen``/``_fac``/``_pot``; ``pm_``: on
+  tests/test_pm.py's 2048-particle cloud, ``cic_deposit``, ``pm_accel``
+  and ``pot_self`` (mesh 64, asmth 2, interlaced; ``pm2_`` mesh 32, asmth
+  1.25, not interlaced), the periodic direct sum with the Ewald table
+  (``pd_``) and ``wq_gravity(pbc=)`` with geometric and relative opening
+  (``tp0_``, ``tp1_``); ``cl_``, ``ft_``, ``nt_``: ``_classify(pbc)``,
+  ``_far_tile_pbc`` and ``_near_tile(pbc)`` on random inputs; ``cs{k}_``
+  and ``cp{k}_``: the JAX ``Simulation`` of cosmo-box
+  (``flagship.COSMO``) at N = 2048 with ``PMGrid 64`` on the
+  single-program and the phased step, prepare + PERIODIC["steps"] steps;
+  ``lat_``: tests/test_periodic_comoving.py's comoving lattice on
+  ``TreeWalkEngine wq``.
+
 Each test file has a ``slow`` test that reruns its JAX outputs and holds the
 file to them. Rerun this script to regenerate the files (all, or the ones
 named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``,
-``sidm_walk``, ``run``, ``hash``, ``veldisp``):
+``sidm_walk``, ``run``, ``hash``, ``veldisp``, ``periodic``):
 
     python -m tests.make_torch_golden [slice] [list_slice] [list] [sidm]
-        [sidm_slice] [sidm_walk] [run] [hash] [veldisp]
+        [sidm_slice] [sidm_walk] [run] [hash] [veldisp] [periodic]
 """
 
 import os
@@ -98,7 +115,8 @@ import tempfile
 
 import numpy as np
 
-from sidm_tpu_torch.flagship import (DSMC, FLAGSHIP, LISTS, VELDISP,
+from sidm_tpu_torch.flagship import (COSMO, DSMC, FLAGSHIP, LISTS, VELDISP,
+                                     cosmo_ics, cosmo_softening,
                                      flagship_ics)
 
 N = 2048
@@ -1298,6 +1316,255 @@ def jax_veldisp() -> dict:
     return {**jax_veldisp_ops(), **jax_individual_runs()}
 
 
+PERIODIC_GOLDEN = os.path.join(_DATA, "torch_periodic_golden.npz")
+# tests/test_pm.py's cloud and split
+PM_CLOUD = dict(n=2048, box=100.0, eps=0.15, seed=7, mesh=64, asmth=2.0,
+                rcut_fac=6.0)
+PM2 = dict(mesh=32, asmth=1.25, rcut_fac=4.5, interlace=False)
+SR = dict(alpha=0.32, h=2.8 * 0.15, n=400)
+# cosmo-box at N = 2048 (flagship.cosmo_config), mesh 64
+PERIODIC = dict(n=2048, seed=3, mesh=64, steps=4)
+TILE = dict(seed=11, groups=8, wc=128, g=64, sc=16, npart=600, box=50.0,
+            alpha=0.08, rcut=30.0)
+
+
+def pm_cloud():
+    """tests/test_pm.py's clustered cloud: (pos, mass, eps) float32."""
+    c = PM_CLOUD
+    rng = np.random.default_rng(c["seed"])
+    n, box = c["n"], c["box"]
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    pos[:n // 2] = (50.0 + rng.standard_normal((n // 2, 3)) * 4.0) % box
+    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    return pos, mass, np.full(n, c["eps"], np.float32)
+
+
+def periodic_config(**changes) -> dict:
+    """cosmo-box's parameters at PERIODIC["n"] with mesh PERIODIC["mesh"]
+    (as ``flagship.cosmo_config``)."""
+    eps, cap = cosmo_softening(PERIODIC["n"])
+    return {**COSMO, "SofteningHalo": eps, "SofteningHaloMaxPhys": cap,
+            "PMGrid": PERIODIC["mesh"], **changes}
+
+
+def tile_inputs():
+    """Random inputs of the periodic tiles (numpy): node rows in the
+    pack_tree layout (com, mass, count, node_start, child_start,
+    child_count, quadrupole, eps, bmax^2), their raw traces, group boxes
+    (the last group dead, parked as the walk parks it), targets, and
+    segment keys over a particle set with its planar-by-16 pack."""
+    t = TILE
+    rng = np.random.default_rng(t["seed"])
+    B, WC, G, box = t["groups"], t["wc"], t["g"], t["box"]
+    rows = np.zeros((B, WC, 16), np.float32)
+    rows[..., 0:3] = rng.uniform(0, box, (B, WC, 3))
+    rows[..., 3] = rng.uniform(0.5, 2.0, (B, WC))
+    rows[..., 4] = rng.integers(0, 40, (B, WC))
+    rows[..., 5] = rng.integers(0, 1000, (B, WC))
+    rows[..., 6] = rng.integers(0, 500, (B, WC))
+    rows[..., 7] = rng.integers(1, 9, (B, WC))
+    rows[..., 8:14] = rng.normal(0, 0.3, (B, WC, 6))
+    rows[..., 14] = rng.uniform(0.05, 0.3, (B, WC))
+    rows[..., 15] = rng.uniform(0.0, 6.0, (B, WC)) ** 2
+    trq = rng.uniform(0.0, 1.0, (B, WC)).astype(np.float32)
+    ctr = rng.uniform(0, box, (B, 3))
+    half = rng.uniform(0.5, 4.0, (B, 3))
+    glo = (ctr - half).astype(np.float32)
+    ghi = (ctr + half).astype(np.float32)
+    glo[-1], ghi[-1] = 1e18, -1e18
+    oac = rng.uniform(0.0, 2e-3, B).astype(np.float32)
+    oac[::3] = 0.0
+    xr = (ctr[:, None, :] + rng.uniform(-1, 1, (B, G, 3))
+          * half[:, None, :]).astype(np.float32) % box
+    te = rng.uniform(0.05, 0.3, (B, G)).astype(np.float32)
+    n = t["npart"]
+    ppos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    ppos[: n // 2] = (ctr[0] + rng.normal(0, 1.0, (n // 2, 3))) % box
+    pmass = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    peps = rng.uniform(0.05, 0.3, n).astype(np.float32)
+    # keys as the walk makes them: a leaf or a chunk of at most 16
+    start = rng.integers(0, n - 16, (B, t["sc"]))
+    cnt = rng.integers(1, 17, (B, t["sc"]))
+    ent = (start * 32 + cnt).astype(np.int32)
+    ent[:, -3:] = 2147483647
+    return dict(rows=rows, trq=trq, glo=glo, ghi=ghi, oac=oac, xr=xr, te=te,
+                ppos=ppos, pmass=pmass, peps=peps, ent=ent,
+                s_l=np.float32(8.0))
+
+
+def part16(pos, mass, eps):
+    """JAX's planar-by-16 particle rows (fused_force.pack_part16)."""
+    n = pos.shape[0]
+    np16 = -(-n // 16)
+
+    def plane(v):
+        return np.concatenate([v, np.zeros(np16 * 16 - n, np.float32)]) \
+            .reshape(np16, 16)
+    return np.concatenate([plane(pos[:, 0]), plane(pos[:, 1]),
+                           plane(pos[:, 2]), plane(mass), plane(eps),
+                           np.zeros((np16, 48), np.float32)], axis=1)
+
+
+def jax_periodic() -> dict:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.diagnostics import compute_system_state
+    from sidm_tpu.ops import pm
+    from sidm_tpu.ops.direct import direct_gravity
+    from sidm_tpu.ops.ewald import build_ewald_table
+    from sidm_tpu.ops.fused_force import (_classify, _far_tile_pbc,
+                                          _near_tile)
+    from sidm_tpu.ops.wq_force import wq_gravity
+    from sidm_tpu.simulation import Simulation
+
+    out = {}
+    c = PM_CLOUD
+    with tempfile.TemporaryDirectory() as d:
+        unit = build_ewald_table(1.0, en=64, cache_dir=d)
+        tab = build_ewald_table(c["box"], en=64, cache_dir=d)
+    out["ew_fcorr"] = np.asarray(unit.fcorr)
+    out["ew_potcorr"] = np.asarray(unit.potcorr)
+    rng = np.random.default_rng(5)
+    dd = rng.uniform(-0.5, 0.5, (500, 3)).astype(np.float32) * c["box"]
+    dd[:3] = 0.0
+    dd[3, :] = [0.5 * c["box"], 0.0, -0.0]
+    out["ew_d"] = dd
+    out["ew_fc"] = np.asarray(tab.force_correction(jnp.asarray(dd)))
+    out["ew_pc"] = np.asarray(tab.pot_correction(jnp.asarray(dd)))
+
+    r = np.linspace(1e-4, 2.0, SR["n"]).astype(np.float32) / SR["alpha"]
+    rj, hj = jnp.asarray(r), jnp.asarray(SR["h"], jnp.float32)
+    out["sr_r"] = r
+    out["sr_screen"] = np.asarray(pm.short_range_screen(rj, SR["alpha"]))
+    out["sr_fac"] = np.asarray(pm.short_range_fac(rj, hj, SR["alpha"]))
+    out["sr_pot"] = np.asarray(pm.short_range_pot(rj, hj, SR["alpha"]))
+
+    pos, mass, eps = pm_cloud()
+    pj, mj, ej = jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(eps)
+    out["pm_rho"] = np.asarray(pm.cic_deposit(pj, mj, c["box"], c["mesh"]))
+    kern = pm.build_pm_kernel(c["box"], n=c["mesh"], asmth=c["asmth"],
+                              rcut_fac=c["rcut_fac"])
+    a, p = pm.pm_accel(kern, pj, mj, with_potential=True)
+    out.update(pm_acc=np.asarray(a), pm_pot=np.asarray(p),
+               pm_pot_self=np.float64(kern.pot_self),
+               pm_alpha=np.float64(kern.alpha), pm_rcut=np.float64(kern.rcut))
+    kern2 = pm.build_pm_kernel(c["box"], n=PM2["mesh"], asmth=PM2["asmth"],
+                               rcut_fac=PM2["rcut_fac"],
+                               interlace=PM2["interlace"])
+    a, p = pm.pm_accel(kern2, pj, mj, with_potential=True)
+    out.update(pm2_acc=np.asarray(a), pm2_pot=np.asarray(p),
+               pm2_pot_self=np.float64(kern2.pot_self))
+    a, p = direct_gravity(pj, mj, ej, box=c["box"], ewald=tab)
+    out.update(pd_acc=np.asarray(a), pd_pot=np.asarray(p))
+    pbc = (c["box"], kern.alpha, kern.rcut)
+    oa = np.random.default_rng(8).uniform(0.5, 2.0, c["n"]).astype(
+        np.float32)
+    for opening in (0, 1):
+        old = oa if opening else np.zeros(c["n"], np.float32)
+        a, p, info = wq_gravity(pj, mj, ej, jnp.asarray(old), theta=0.5,
+                                opening=opening, pbc=pbc, return_info=True)
+        out[f"tp{opening}_acc"] = np.asarray(a)
+        out[f"tp{opening}_pot"] = np.asarray(p)
+        out[f"tp{opening}_old"] = old
+        for k in ("n_segs", "ovf_open", "ovf_big"):
+            out[f"tp{opening}_{k}"] = np.int64(info[k])
+
+    t = tile_inputs()
+    tpbc = (TILE["box"], TILE["alpha"], TILE["rcut"])
+    for last in (False, True):
+        for rel in (False, True):
+            planes = _classify(jnp.asarray(t["rows"]), jnp.asarray(t["glo"]),
+                               jnp.asarray(t["ghi"]), jnp.asarray(t["oac"]),
+                               jnp.asarray(t["s_l"]), 0.25, rel, 16, last,
+                               tpbc)
+            for name, pl in zip(("far", "seg", "opn", "big"), planes):
+                out[f"cl{int(last)}{int(rel)}_{name}"] = np.asarray(pl)
+    far = np.asarray(_classify(jnp.asarray(t["rows"]), jnp.asarray(t["glo"]),
+                               jnp.asarray(t["ghi"]), jnp.asarray(t["oac"]),
+                               jnp.asarray(t["s_l"]), 0.25, False, 16, False,
+                               tpbc)[0])
+    rows_far = t["rows"].copy()
+    rows_far[..., 3] = np.where(far, rows_far[..., 3], 0.0)
+    trr = np.where(far, t["trq"], 0.0).astype(np.float32)
+    for pot in (False, True):
+        da, dp = _far_tile_pbc(jnp.asarray(rows_far), jnp.asarray(trr),
+                               jnp.asarray(t["xr"]), jnp.asarray(t["te"]),
+                               tpbc, pot)
+        out[f"ft{int(pot)}_acc"] = np.asarray(da)
+        out[f"ft{int(pot)}_pot"] = np.asarray(dp)
+    out["ft_far"] = far
+    p16 = jnp.asarray(part16(t["ppos"], t["pmass"], t["peps"]))
+    for pot in (False, True):
+        da, dp = _near_tile(jnp.asarray(t["ent"]), p16, jnp.asarray(t["xr"]),
+                            jnp.asarray(t["te"]), pot, tpbc)
+        out[f"nt{int(pot)}_acc"] = np.asarray(da)
+        out[f"nt{int(pot)}_pot"] = np.asarray(dp)
+
+    cpos, cvel, cmass = cosmo_ics(PERIODIC["n"], PERIODIC["seed"])
+    for tag, mode in (("cs", "synchronized"), ("cp", "phased")):
+        with tempfile.TemporaryDirectory() as d:
+            sim = Simulation(SimConfig(**periodic_config(OutputDir=d)),
+                             mode=mode, quiet=True)
+            sim.set_particles_from_arrays(cpos, cvel, cmass,
+                                          np.ones(PERIODIC["n"], np.int32))
+            sim.prepare()
+            snapshot(sim.particles, sim,
+                     compute_system_state(sim.particles), f"{tag}0_", out)
+            for k in range(1, PERIODIC["steps"] + 1):
+                sim.step()
+                snapshot(sim.particles, sim,
+                         compute_system_state(sim.particles), f"{tag}{k}_",
+                         out)
+            sim.compute_potential()
+            snapshot(sim.particles, sim, compute_system_state(sim.particles),
+                     f"{tag}p_", out)
+
+    lat = LATTICE
+    with tempfile.TemporaryDirectory() as d:
+        sim = Simulation(SimConfig(**lattice_config(OutputDir=d)),
+                         mode="synchronized", quiet=True)
+        pos, mass = lattice_ics(sim.units.G, sim.units.Hubble)
+        sim.set_particles_from_arrays(pos, np.zeros_like(pos), mass,
+                                      np.ones(len(pos), np.int32),
+                                      pad_to_multiple=len(pos))
+        sim.prepare()
+        for _ in range(lat["steps"]):
+            sim.step()
+        out["lat_pos"] = np.asarray(sim.particles.pos)
+        out["lat_vel"] = np.asarray(sim.particles.vel)
+        out["lat_time"] = np.float64(sim.time)
+    return out
+
+
+# tests/test_periodic_comoving.py:56-87, on the wq walk
+LATTICE = dict(m=8, box=10.0, steps=10)
+
+
+def lattice_config(**changes) -> dict:
+    return dict(
+        ComovingIntegrationOn=1, PeriodicBoundariesOn=1,
+        BoxSize=LATTICE["box"], Omega0=1.0, OmegaLambda=0.0,
+        HubbleParam=1.0, TimeBegin=0.02, TimeMax=0.05, ForceMethod="tree",
+        TreeWalkEngine="wq", ListMode=0, SIDMOn=0,
+        TypeOfTimestepCriterion=0, ErrTolIntAccuracy=0.05,
+        MaxSizeTimestep=0.002, SofteningHalo=0.1, SofteningHaloMaxPhys=0.1,
+        UnitLength_in_cm=3.085678e24, UnitMass_in_g=1.989e43,
+        UnitVelocity_in_cm_per_s=1e5, **changes)
+
+
+def lattice_ics(G: float, H: float):
+    """The m^3 cubic lattice of the box and the masses that make
+    Omega0 = 1."""
+    m, box = LATTICE["m"], LATTICE["box"]
+    g = (np.arange(m) + 0.5) / m * box
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    pos = np.stack([x, y, z], -1).reshape(-1, 3)
+    rho_crit = 3 * H * H / (8 * np.pi * G)
+    return pos, np.full(len(pos), rho_crit * box ** 3 / len(pos))
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
@@ -1306,7 +1573,8 @@ GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "sidm_walk": (SIDM_WALK_GOLDEN, jax_sidm_walk),
            "run": (RUN_GOLDEN, jax_run),
            "hash": (HASH_GOLDEN, jax_hash),
-           "veldisp": (VELDISP_GOLDEN, jax_veldisp)}
+           "veldisp": (VELDISP_GOLDEN, jax_veldisp),
+           "periodic": (PERIODIC_GOLDEN, jax_periodic)}
 
 
 def main(names):

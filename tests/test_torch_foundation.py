@@ -214,10 +214,16 @@ _BASE = dict(SIDMOn=0, TreeWalkEngine="wq", ListMode=0)
     dict(VelDispOn=1)])
 def test_unported_configs_refused(change):
     """Each configuration outside the port raises, naming its ROADMAP
-    item; VelDispOn is ported (A, item 10): those construct."""
+    item; VelDispOn (A, item 10), periodic boxes and comoving runs (A,
+    item 11's core) are ported: those construct."""
     cfg = tcfg.SimConfig(**{**_BASE, **change})
     if change.get("VelDispOn"):
         assert Simulation(cfg, mode="phased", device="cpu").cfg.VelDispOn
+        return
+    if change.get("PeriodicBoundariesOn") or change.get(
+            "ComovingIntegrationOn"):
+        sim = Simulation(cfg, mode="phased", device="cpu")
+        assert sim.cfg.PeriodicBoundariesOn or sim.cfg.ComovingIntegrationOn
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(cfg, mode="phased")

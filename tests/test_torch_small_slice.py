@@ -161,7 +161,8 @@ def test_step_choice_and_refusals():
     with pytest.raises(ValueError, match="mode"):
         Simulation(cfg, mode="adaptive", device="cpu")
     from sidm_tpu_torch.ops.direct import direct_sum
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the periodic direct sum is ported (A, item 11): it needs its table
+    with pytest.raises(ValueError, match="Ewald table"):
         direct_sum(torch.zeros(4, 3), torch.ones(4), torch.ones(4), box=1.0)
 
 
