@@ -182,18 +182,43 @@ Phases (each asserts; any failure exits non-zero):
      median |plain|)), timed on 4096;
      a periodic box of 4096 particles with ForceMethod direct on the
      single-program step (4 steps, |dE| < 0.2 E_kin); JAX's comoving
-     lattice at 64^3 particles on the phased step, static to < 2e-3 box.
+     lattice at 64^3 particles on the phased step, static to < 2e-3 box;
+ 15. DSMC and the velocity-dispersion pass in periodic comoving boxes
+     (``flagship.COSMO_SIDM`` and its kin on cosmo-box's field with
+     virialised clumps): cosmo-sidm (N = 2^20, mesh 256, the cached lists
+     in the box, DSMC on them) prepare and 5 steps, records and list steps
+     among them, every step gating targets and scattering, with each
+     step's phase walls, gated targets, scatters and the records the
+     list-validity monitor ended only because of a particle wrapped onto
+     the box; on its end state far_level's periodic record mode against
+     its plain version on every level of a recording walk at N = 2^20
+     (lists, counts and telemetry bit-equal), timed per record walk beside
+     its bound; K1 (bit-equal), K2 (bit-equal on a subset, timed on all
+     groups) and K3 (counts equal, P_tot p99.9 <= 1e-6) with the box;
+     TreePM on the cached lists in the box (theta 0.5) against H3's
+     periodic Ewald sum on 4096 targets at tests/test_pm.py's bars;
+     cosmo-sidm-walk (the DSMC pass on the range walk in the box) 3
+     steps and K4 against its plain version (P_tot p99.9 <= 1e-6);
+     cosmo-veldisp (the lists with VelDispOn and criterion 4) 3 steps and
+     H4 with the box against its plain version (counts equal, dens_vd
+     p99.9 <= 1e-6); cosmo-small (N = 2^17 on the single-program step, the
+     hash engine in the box) 3 steps and H1 and H2 with the box against
+     their plain versions.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
 phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
 ("dsmc_walk"), phase 11's ("cli"), phase 12's ("small", "small_direct"),
 phase 13's ("veldisp", "veldisp_individual", "dsmc_individual",
-"small_individual") and phase 14's ("cosmo", "periodic_direct",
-"lattice") counts, each path's counters set to 0 just before it and read
-just after; the periodic modes as rows of their own,
-``far_level_periodic``, ``far_list_periodic``, ``near_level_periodic``
-and ``direct_periodic``, with the JAX function each ports in ``ports``
-and the cosmo-box mesh solve's parts in ``cosmo_pm``; for far_list and
+"small_individual"), phase 14's ("cosmo", "periodic_direct",
+"lattice") and phase 15's ("cosmo_sidm", "cosmo_sidm_walk",
+"cosmo_veldisp", "cosmo_small") counts, each path's counters set to 0
+just before it and read just after; the periodic modes as rows of their
+own, ``far_level_periodic``, ``far_list_periodic``, ``near_level_periodic``,
+``direct_periodic`` and ``far_level_record_periodic`` (with the lists'
+TreePM oracle in ``cosmo_lists_oracle``), with the JAX function each
+ports in ``ports`` and the cosmo-box mesh solve's parts in ``cosmo_pm``;
+the DSMC and hash kernels' times on phase 15's runs in their rows'
+``cosmo_*`` and ``cosmo_small_*`` keys; for far_list and
 near_level ``full_ms`` and ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
 ``witness``, for far_level (walk and record modes) ``ms`` per walk on all
@@ -610,13 +635,13 @@ class FarLevelCheck:
                    timed(far_level_plain, bufs[1], 1),
                    far_level_work(kw, p.cnt), far_level_dense_work(kw))
 
-    def report(self, mode, res):
+    def report(self, mode, res, name=None):
         from sidm_tpu_torch.bounds import bound_ms
         t = self.t[mode]
         bms, by = bound_ms(t["ops"], t["bytes"])
         walk = {"record": "record walk"}.get(mode, "walk")
-        name = {"walk": "far_level", "record": "far_level_record",
-                "far_list": "far_list"}[mode]
+        name = name or {"walk": "far_level", "record": "far_level_record",
+                        "far_list": "far_list"}[mode]
         what = {"walk": "outputs, counts and info equal to the plain "
                         "version's",
                 "record": "outputs, counts, lists and telemetry equal to "
@@ -902,7 +927,9 @@ def main():
                 "far_level_periodic": (far_level, "periodic_launches"),
                 "far_list_periodic": (far_list, "periodic_launches"),
                 "near_level_periodic": (near_level, "periodic_launches"),
-                "direct_periodic": (direct_sum, "periodic_launches")}
+                "direct_periodic": (direct_sum, "periodic_launches"),
+                "far_level_record_periodic": (far_level,
+                                              "periodic_record_launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -1234,6 +1261,62 @@ def main():
                 "near_level_periodic"):
         assert lattice_launches[key] > 0, (key, lattice_launches)
 
+    # ---- DSMC and the velocity-dispersion pass in periodic comoving boxes --
+    from sidm_tpu_torch.flagship import (COSMO_FIELD_SIGMA, COSMO_SIDM,
+                                         COSMO_SIDM_WALK, COSMO_VELDISP)
+    zero_counts()
+    ssim, srows = cosmo_sidm_run(COSMO_SIDM, COSMO_SIDM_STEPS, "cosmo-sidm",
+                                 dev, card)
+    cs_launches = read_counts()
+    print(f"cosmo-sidm launches {cs_launches} [{card}]", flush=True)
+    kinds = [r["kind"] for r in srows]
+    assert "record" in kinds and "list" in kinds, kinds
+    assert all(r["engine"] == "lists" and r["n_gated"] > 0
+               and r["n_scat"] > 0 for r in srows), srows
+    for key in ("far_level_record_periodic", "far_list_periodic",
+                "near_level_periodic", "gather_nodes", "range_walk",
+                "sidm_emit", "sidm_gated"):
+        assert cs_launches[key] > 0, (key, cs_launches)
+    cosmo_sidm_kernels(res, ssim, dev, card)
+    lists_oracle = cosmo_lists_oracle(ssim, dev, card)
+    del ssim
+    torch.cuda.empty_cache()
+    zero_counts()
+    wsim, wrows = cosmo_sidm_run(COSMO_SIDM_WALK, COSMO_WALK_STEPS,
+                                 "cosmo-sidm-walk", dev, card)
+    cw_launches = read_counts()
+    print(f"cosmo-sidm-walk launches {cw_launches} [{card}]", flush=True)
+    assert all(r["engine"] == "walk" and r["n_gated"] > 0 for r in wrows)
+    assert sum(r["n_scat"] for r in wrows) > 0, wrows
+    for key in ("far_level_periodic", "sidm_near", "range_walk"):
+        assert cw_launches[key] > 0, (key, cw_launches)
+    cosmo_walk_kernels(res, wsim, dev, card)
+    del wsim
+    torch.cuda.empty_cache()
+    zero_counts()
+    vdsim, _ = cosmo_sidm_run(COSMO_VELDISP, COSMO_VD_STEPS, "cosmo-veldisp",
+                              dev, card, field_sigma=COSMO_FIELD_SIGMA)
+    cv_launches = read_counts()
+    print(f"cosmo-veldisp launches {cv_launches} [{card}]", flush=True)
+    for key in ("veldisp", "hash_knn", "far_level_record_periodic",
+                "far_list_periodic"):
+        assert cv_launches[key] > 0, (key, cv_launches)
+    veldisp_kernels(res, vdsim, dev, card, tag="cosmo", bar=1e-6)
+    del vdsim
+    torch.cuda.empty_cache()
+    zero_counts()
+    smsim, smrows = cosmo_sidm_run(COSMO_SIDM, COSMO_SMALL_STEPS,
+                                   "cosmo-small", dev, card, small=True)
+    csm_launches = read_counts()
+    print(f"cosmo-small launches {csm_launches} [{card}]", flush=True)
+    assert all(r["engine"] == "hash" for r in smrows), smrows
+    assert sum(r["n_scat"] for r in smrows) > 0, smrows
+    for key in ("hash_knn", "hash_scan", "far_level_periodic"):
+        assert csm_launches[key] > 0, (key, csm_launches)
+    small_kernels(res, smsim, dev, card, tag="cosmo_small")
+    del smsim
+    torch.cuda.empty_cache()
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -1283,11 +1366,17 @@ def main():
                                 "sidm_tpu/ops/pallas_near.py:30"),
         "direct_periodic": ("sidm_tpu_torch/csrc/direct.cu",
                             "sidm_tpu/ops/direct.py:33"),
+        # the record mode's periodic classification
+        "far_level_record_periodic": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                                      "sidm_tpu/ops/pallas_far.py:55"),
     }
     ports = {"far_level_periodic": "sidm_tpu/ops/fused_force.py:427",
              "far_list_periodic": "sidm_tpu/ops/fused_force.py:488",
              "near_level_periodic": "sidm_tpu/ops/fused_force.py:350",
-             "direct_periodic": "sidm_tpu/ops/direct.py:28,82,99"}
+             "direct_periodic": "sidm_tpu/ops/direct.py:28,82,99",
+             "far_level_record_periodic":
+                 "sidm_tpu/ops/list_force.py:160 (_classify(pbc), "
+                 "sidm_tpu/ops/fused_force.py:427)"}
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
         r = res.rows[name]
@@ -1303,7 +1392,11 @@ def main():
                    "small_individual": small_ind_launches[name],
                    "cosmo": cosmo_launches[name],
                    "periodic_direct": pdirect_launches[name],
-                   "lattice": lattice_launches[name]}
+                   "lattice": lattice_launches[name],
+                   "cosmo_sidm": cs_launches[name],
+                   "cosmo_sidm_walk": cw_launches[name],
+                   "cosmo_veldisp": cv_launches[name],
+                   "cosmo_small": csm_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -1318,7 +1411,9 @@ def main():
                if name in res.notes else {}),
             **({"ports": ports[name]} if name in ports else {}),
             **({"cosmo_pm": pm_times} if name == "far_level_periodic"
-               else {})})
+               else {}),
+            **({"cosmo_lists_oracle": lists_oracle}
+               if name == "far_level_record_periodic" else {})})
     print(json.dumps({"kernels": kernels_json}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1886,10 +1981,12 @@ def gated_times(res, label, gargs, tid, cands, cnt):
 
 
 def gated_line(t, parent):
+    par = "" if parent is None else (
+        f"; parent design, this script on the tree before the redesign: "
+        f"one call {parent:.4f} ms")
     return (f"one call {t['ms']:.4f} ms by CUDA events (device: fill "
-            f"{fmt_ms(t['fill_ms'])}, tile {fmt_ms(t['tile_ms'])}; parent "
-            f"design, this script on the tree before the redesign, PR 8's "
-            f"run: one call {parent:.4f} ms), plain {t['plain_ms']:.3f} ms, "
+            f"{fmt_ms(t['fill_ms'])}, tile {fmt_ms(t['tile_ms'])}{par}), "
+            f"plain {t['plain_ms']:.3f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['by']}), at "
             f"{t['bound_ms'] / t['ms']:.1%} of the bound's speed; ptxas "
             f"{usage_of('sidm_gated')}")
@@ -1920,7 +2017,8 @@ def one_and_all_live(near, g):
     return one, every
 
 
-def near_check(res, near, sub, card, label, box=False):
+def near_check(res, near, sub, card, label, box=False, tag="box",
+               bar=1e-5):
     """K4 (``sidm_near``) against ``sidm_near_plain`` on the groups
     ``sub`` of one call's arguments ``near``, the LONGEST longest groups
     and two made from the longest: one with a single live slot and one with
@@ -1928,7 +2026,8 @@ def near_check(res, near, sub, card, label, box=False):
     equal except at near-ties (best keys within 4 float32 ULPs); the kernel
     timed on all groups against its bound (the plain version on the
     subset), with the workload it staged. The times of a ``box`` call go
-    into the JSON row's ``box_*`` keys."""
+    into the JSON row's ``{tag}_*`` keys; ``bar`` bounds the P_tot
+    p99.9."""
     from sidm_tpu_torch.bounds import bound_ms, near_dsmc_work
     from sidm_tpu_torch.ops.fused_range import (IMAX, NEAR_PIECE,
                                                 live_slots, near_pairs,
@@ -1968,7 +2067,7 @@ def near_check(res, near, sub, card, label, box=False):
            f"err {p999:.3e}, max abs {max_abs:.3e}, partners differing "
            f"{n_diff} (near-ties {n_tie}) of "
            f"{int(torch.sum(pl[3][live] >= 0))}")
-    assert p999 < 1e-5 and n_diff == n_tie, (label, p999, n_diff, n_tie)
+    assert p999 < bar and n_diff == n_tie, (label, p999, n_diff, n_tie)
     ms = cuda_ms(lambda: sidm_near(**near), 10)
     sub_ms = cuda_ms(lambda: sidm_near(**skw), 10)
     plain_ms = cuda_ms(lambda: sidm_near_plain(**skw), 1)
@@ -1976,7 +2075,9 @@ def near_check(res, near, sub, card, label, box=False):
     ops, nb = near_dsmc_work(near["keys"], near["nn"], near["gidx"],
                              near["gh"], full[1])
     bms, by = bound_ms(ops, nb)
-    parent = PARENT_MS["sidm_near_box" if box else "sidm_near"]
+    parent = ("" if tag != "box" else
+              f" (parent {PARENT_MS['sidm_near_box' if box else 'sidm_near']}"
+              f" ms)")
     work = dict(keys_sum=int(torch.sum(torch.clamp(
                     near["nn"], min=0, max=near["keys"].shape[1]))),
                 staged_sum=int(tot.sum()), staged_max=int(tot.max()),
@@ -1992,8 +2093,8 @@ def near_check(res, near, sub, card, label, box=False):
                                       near["gidx"], near["gh"]), IMAX,
                            item_cap(ng), NEAR_PIECE)
     n_it = off[1:] - off[:-1]
-    print(msg + f"; all groups: kernel {ms:.4f} ms (parent {parent:.4f} "
-          f"ms), bound {bms:.4f} ms ({by}), at {bms / ms:.1%} of the "
+    print(msg + f"; all groups: kernel {ms:.4f} ms{parent}, "
+          f"bound {bms:.4f} ms ({by}), at {bms / ms:.1%} of the "
           f"bound's speed; segment keys {work['keys_sum']}, staged "
           f"particles per group sum {work['staged_sum']} max "
           f"{work['staged_max']}, live slots sum "
@@ -2008,9 +2109,10 @@ def near_check(res, near, sub, card, label, box=False):
           f"[{card}]", flush=True)
     if box:
         res.add("sidm_near", max_abs, 0.0, 0.0, 0.0, 0.0)
-        side_row(res, "sidm_near", box_ms=ms, box_bound_ms=bms,
-                box_plain_ms=plain_ms, box_subset_ms=sub_ms,
-                box_p999_rel_err=p999)
+        side_row(res, "sidm_near", **{
+            f"{tag}_{k}": v for k, v in (
+                ("ms", ms), ("bound_ms", bms), ("plain_ms", plain_ms),
+                ("subset_ms", sub_ms), ("p999_rel_err", p999))})
         return
     res.add("sidm_near", max_abs, ms, plain_ms, ops, nb)
     res.rows["sidm_near"].update(p999_rel_err=p999,
@@ -2346,14 +2448,16 @@ def small_run(cfg, steps: int, dev, card, label):
     return sim, t_steps
 
 
-def small_kernels(res, sim, dev, card):
+def small_kernels(res, sim, dev, card, tag=None):
     """H1, H2 and H3 on small-halo's end state, against their plain
     versions on the next step's inputs: H1 on all N queries (h, counts,
     overflow, need, clip and rows read bit-equal), H2 on the gated targets
     (partners and hits equal except near-ties, counted; need, clip
     equal), H3 on SMALL_TARGETS random targets (p99.9 relative error <
     1e-5 on acc and pot); each timed beside its bound and ptxas's
-    registers."""
+    registers. In the run's periodic box where it has one; ``tag``:
+    another run's (H1 and H2 only), their times into the JSON rows'
+    ``{tag}_*`` keys."""
     from sidm_tpu_torch import integrate
     from sidm_tpu_torch.bounds import (bound_ms, direct_work, knn_work,
                                        scan_work)
@@ -2372,7 +2476,7 @@ def small_kernels(res, sim, dev, card):
     key = step_key(sim.root_key, sim.step_count)
     params = sim._sidm_params()
     q, _, info = sidm_scatter(p, pos_pred, t_next, active, vmax, key, params,
-                              cap=cap, return_info=True)
+                              box=sim._box(), cap=cap, return_info=True)
     table, n = info["table"], pos_pred.shape[0]
     # H1: the step's hsml refresh on all N queries
     warm = torch.where(p.hsml_vd > 0, p.hsml_vd,
@@ -2399,7 +2503,12 @@ def small_kernels(res, sim, dev, card):
           f"{plain_ms:.1f} ms (one call), bound {bms:.4f} ms ({by}), at "
           f"{bms / ms:.1%} of the bound's speed; ptxas "
           f"{usage_of('hash_knn_kernel')} [{card}]", flush=True)
-    res.add("hash_knn", 0.0, ms, plain_ms, ops, nb)
+    if tag:
+        side_row(res, "hash_knn", **{f"{tag}_ms": ms,
+                                     f"{tag}_bound_ms": bms,
+                                     f"{tag}_plain_ms": plain_ms})
+    else:
+        res.add("hash_knn", 0.0, ms, plain_ms, ops, nb)
     # H2: the step's scan on its gated targets
     tid, si = info["tid"], info["scan_inputs"]
     sargs = (table, pos_pred, q.vel.contiguous(), si["hs"].contiguous(),
@@ -2429,6 +2538,12 @@ def small_kernels(res, sim, dev, card):
           f"{plain_ms:.1f} ms (one call), bound {bms:.5f} ms ({by}), at "
           f"{bms / ms:.1%} of the bound's speed; ptxas "
           f"{usage_of('hash_scan_kernel')} [{card}]", flush=True)
+    if tag:
+        side_row(res, "hash_scan", **{f"{tag}_ms": ms,
+                                      f"{tag}_bound_ms": bms,
+                                      f"{tag}_plain_ms": plain_ms,
+                                      f"{tag}_gated": int(t.numel())})
+        return
     res.add("hash_scan", 0.0, ms, plain_ms, ops, nb)
     res.rows["hash_scan"].update(near_ties=int(ties.sum()),
                                  gated=int(t.numel()))
@@ -2763,13 +2878,15 @@ def veldisp_path(pos, vel, mass, n, dev, card):
     return sim
 
 
-def veldisp_kernels(res, sim, dev, card):
+def veldisp_kernels(res, sim, dev, card, tag=None, bar=1e-5):
     """H4 on flagship-veldisp's end state, the next step's pass: the whole
     pass (H1 and H4) against its plain version (``veldisp_plain``) on
     VD_SUBSET random queries and the 8 that read the most rows (hsml_vd
     and the counts equal, dens_vd and vel_disp p99.9 relative error <
-    1e-5); H4 on all the pass's queries timed beside its bound and its
-    plain version (one call), with ptxas's registers."""
+    ``bar``); H4 on all the pass's queries timed beside its bound and its
+    plain version (one call), with ptxas's registers. In the run's
+    periodic box where it has one; ``tag``: another run's, its times into
+    the JSON row's ``{tag}_*`` keys."""
     from sidm_tpu_torch import integrate
     from sidm_tpu_torch.bounds import bound_ms, veldisp_work
     from sidm_tpu_torch.ops.neighbors import candidate_blocks
@@ -2781,7 +2898,8 @@ def veldisp_kernels(res, sim, dev, card):
     t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
     active = integrate.active_mask(p, t_next)
     pos_pred, vel_pred = integrate.predict_positions(p, t_next, sim.consts)
-    kw = dict(des_num_ngb=sim.cfg.DesNumNgb, cap=cap, n_levels=levels)
+    kw = dict(des_num_ngb=sim.cfg.DesNumNgb, cap=cap, n_levels=levels,
+              box=sim._box())
     q, info = veldisp(p, pos_pred, vel_pred, active, **kw)
     assert int(info["ngb_ovf"]) == 0 and int(info["lvl_clip"]) == 0
     sel, rows = info["sel"], info["rows"]
@@ -2817,8 +2935,9 @@ def veldisp_kernels(res, sim, dev, card):
                            sel.numel(), cap)
     bms, by = bound_ms(ops, nb)
     knn_rows = info["knn"].scanned.double() / 3.0
-    print(f"kernel veldisp (H4, {sel.numel()} queries, cap {cap}, {levels} "
-          f"levels): the pass against its plain version on {int(sub.sum())} "
+    print(f"kernel veldisp (H4{', ' + tag if tag else ''}, {sel.numel()} "
+          f"queries, cap {cap}, {levels} levels, box {sim._box()}): the pass "
+          f"against its plain version on {int(sub.sum())} "
           f"queries (the 8 reading the most rows among them, up to "
           f"{int(rows.max())}): hsml_vd and counts equal, dens_vd p99.9 rel "
           f"err {errs['dens_vd'][0]:.3e}, vel_disp {errs['vel_disp'][0]:.3e};"
@@ -2829,7 +2948,16 @@ def veldisp_kernels(res, sim, dev, card):
           f"ms, plain {plain_ms:.1f} ms (one call), bound {bms:.4f} ms "
           f"({by}), at {bms / ms:.1%} of the bound's speed; ptxas "
           f"{usage_of('hash_veldisp_kernel')} [{card}]", flush=True)
-    assert errs["dens_vd"][0] < 1e-5 and errs["vel_disp"][0] < 1e-5, errs
+    assert errs["dens_vd"][0] <= bar and errs["vel_disp"][0] <= bar, errs
+    if tag:
+        res.add("veldisp", max(e[1] for e in errs.values()), 0.0, 0.0, 0.0,
+                0.0)
+        side_row(res, "veldisp", **{
+            f"{tag}_{k}": v for k, v in (
+                ("ms", ms), ("bound_ms", bms), ("plain_ms", plain_ms),
+                ("queries", int(sel.numel())),
+                ("dens_p999", errs["dens_vd"][0]))})
+        return
     res.add("veldisp", max(e[1] for e in errs.values()), ms, plain_ms, ops,
             nb)
     res.rows["veldisp"].update(queries=int(sel.numel()),
@@ -3344,6 +3472,314 @@ def lattice_run(dev, card):
           f"{drift:.3e} ({drift / box:.3e} box, bar 2e-3) [{card}]",
           flush=True)
     assert sim.time > 0.02 and drift < 2e-3 * box, (sim.time, drift)
+
+
+COSMO_SIDM_STEPS = 5   # cosmo-sidm's phased steps after prepare (list
+                       # steps and records; TreeRefreshSteps 4)
+COSMO_WALK_STEPS = 3   # cosmo-sidm-walk, after prepare
+COSMO_VD_STEPS = 3     # cosmo-veldisp, after prepare
+COSMO_SMALL_STEPS = 3  # cosmo-small, after prepare
+COSMO_SIDM_SIZE = None  # (N, cosmo-small's N, mesh) in place of the
+                        # configurations' own (a rehearsal's)
+
+
+def cosmo_sidm_run(changes, steps, label, dev, card, small=False,
+                   field_sigma=0.0):
+    """A configuration of phase 15 (``flagship.cosmo_config(**changes)``
+    on ``cosmo_ics(n, a_vel=0.1)``: cosmo-sidm, cosmo-sidm-walk,
+    cosmo-veldisp, or cosmo-small with ``small``) through Simulation:
+    prepare and ``steps`` steps, each step's kind, the DSMC pass's gated
+    targets and scatters, the list steps whose validity monitor fired only
+    because a particle was wrapped onto the box (``wrap_records``), the
+    velocity-dispersion pass's queries, the walls of its phases; a
+    advancing, finite, positions in [0, box), no walk or list overflow.
+    Returns (the Simulation, the per-step rows)."""
+    from sidm_tpu_torch.flagship import (COSMO_N, COSMO_SMALL_N,
+                                         cosmo_config, cosmo_ics)
+    from sidm_tpu_torch.simulation import Simulation
+
+    n_big, n_small, mesh = COSMO_SIDM_SIZE or (COSMO_N, COSMO_SMALL_N, None)
+    n = n_small if small else n_big
+    cfg = cosmo_config(n, **changes, **({"PMGrid": mesh} if mesh else {}))
+    pos, vel, mass = cosmo_ics(n, SEED, a_vel=cfg.TimeBegin,
+                               field_sigma=field_sigma)
+    sim = Simulation(cfg, mode="synchronized", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32))
+    assert sim._use_phased() != small, (label, sim._use_phased())
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    a0, rows, ovf = sim.time, [], 0
+    t0 = time.perf_counter()
+    for k in range(steps):
+        w0 = sim.wrap_records
+        t1 = time.perf_counter()
+        dt, _, n_scat = sim.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        li = sim.last_list_info or {}
+        si = sim.last_sidm_info or {}
+        vi = sim.last_veldisp_info or {}
+        wi = sim.last_walk_info
+        if li.get("ovf") is not None:
+            ovf += sum(li["ovf"])
+        if wi is not None:
+            ovf += sum(int(wi[f]) for f in ("ovf_open", "ovf_big",
+                                            "ovf_items"))
+        kind = li.get("kind") or ("rebuild" if sim.last_step_rebuilt
+                                  else "refresh")
+        row = dict(kind=kind, n_gated=int(si.get("n_gated", 0)),
+                   n_scat=int(n_scat), wrap=sim.wrap_records - w0, wall=wall,
+                   engine=si.get("engine"), walk_ovf=si.get("walk_ovf"),
+                   ovf_g=si.get("ovf_g"), queries=vi.get("queries"))
+        rows.append(row)
+        md = li.get("md")
+        print(f"{label} step {k + 1} ({kind}): wall {wall * 1e3:.1f} ms ("
+              + ", ".join(f"{ph} {v * 1e3:.1f} ms" for ph, v in
+                          sim.last_phase_wall.items())
+              + f"), a = {sim.time:.7g} (da {dt:.4g}), skin "
+              f"{li.get('skin', 0.0):.4g}, md "
+              f"{'-' if md is None else f'{md:.4g}'}, records forced by "
+              f"wraps {row['wrap']}"
+              + (f", DSMC ({row['engine']}) gated {row['n_gated']} scatters "
+                 f"{row['n_scat']} walk drops {row['walk_ovf']} gated/tail "
+                 f"drops {row['ovf_g']}" if si else "")
+              + (f", veldisp queries {int(vi['queries'])} rows a query "
+                 f"{vi['rows_mean']:.1f} cap {vi['cap']} levels "
+                 f"{vi['levels']} drops {vi['ngb_ovf']}/{vi['lvl_clip']}"
+                 if vi else "") + f" [{card}]", flush=True)
+    t_steps = time.perf_counter() - t0
+    p = sim.particles
+    pv = p.pos[p.valid]
+    lo, hi = float(pv.min()), float(pv.max())
+    finite = bool(torch.isfinite(p.pos).all() and torch.isfinite(p.vel).all())
+    print(f"{label} ({'single-program' if small else 'phased'} step): N {n}, "
+          f"mesh {sim._pm_kernel().n}, prepare {t_prep:.3f} s, {steps} steps "
+          f"{t_steps:.3f} s ({n * steps / t_steps:.1f} particle-steps/s), "
+          f"kinds {[r['kind'] for r in rows]}, a {a0:.7g} -> "
+          f"{sim.time:.7g}, scatters {[r['n_scat'] for r in rows]}, gated "
+          f"{[r['n_gated'] for r in rows]}, records forced by wraps "
+          f"{sim.wrap_records}, positions in [{lo:.4f}, {hi:.4f}] of box "
+          f"{cfg.BoxSize}, overflow {ovf}, finite {finite} [{card}]",
+          flush=True)
+    assert finite and ovf == 0, (label, finite, ovf)
+    assert sim.time > a0 and lo >= 0.0 and hi < cfg.BoxSize, (label, lo, hi)
+    for r in rows:
+        assert not r["walk_ovf"] or sum(r["walk_ovf"]) == 0, (label, r)
+    return sim, rows
+
+
+def cosmo_sidm_kernels(res, sim, dev, card):
+    """On cosmo-sidm's end state (the box's tree, the run's opening
+    criterion, skin and DSMC parameters): far_level's periodic record mode
+    against its plain version on every level of a recording walk, all
+    groups (lists, counts and telemetry bit-equal), timed per record walk
+    beside its bound and its plain version's; K1 (one launch) bit-equal to
+    the plain range walk of the candidate record, K2 bit-equal on
+    EMIT_GROUPS groups (the LONGEST longest among them) at the run's K and
+    EMIT_TINY_K and in count mode, timed on all groups; K3 on the next
+    step's gated targets (counts equal, P_tot p99.9 <= 1e-6, partners
+    equal except near-ties). The DSMC kernels' times go into their JSON
+    rows' ``cosmo_*`` keys."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.bounds import bound_ms, emit_work
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.fused_range import segment_totals
+    from sidm_tpu_torch.ops.list_force import record_lists
+    from sidm_tpu_torch.ops.list_range import (
+        count_neighbours, gated_targets, record_candidates_from_particles,
+        sidm_emit, sidm_emit_plain, sidm_gated, sidm_gated_plain,
+        sidm_scatter_lists)
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.rng import step_key
+
+    cfg, p = sim.cfg, sim.particles
+    box, n = cfg.BoxSize, p.n_padded
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    tree = build_octree(p.pos, mass, eps, p.valid, box=box,
+                        depth=default_depth(n),
+                        uniform_eps=sim._check_uniform_eps())
+    fl = FarLevelCheck(card)
+    lists = record_lists(
+        tree, p.old_acc[tree.perm], p.valid[tree.perm],
+        theta=cfg.ErrTolTheta, use_relative=cfg.TypeOfOpeningCriterion == 1,
+        err_tol_force_acc=cfg.ErrTolForceAcc, lcfg=sim._lfc,
+        skin=sim._skin_now, pbc=sim._pbc(), on_level=fl.record_level)
+    torch.cuda.synchronize()
+    print(f"cosmo-sidm's record (skin {sim._skin_now:.4g}, the run's "
+          f"criterion): ovf {lists.ovf.tolist()}, need {lists.need.tolist()}"
+          f", far entries {int(lists.nf.sum())}, near entries "
+          f"{int(lists.nn.sum())} [{card}]", flush=True)
+    assert sum(lists.ovf.tolist()) == 0, lists.ovf
+    fl.report("record", res, name="far_level_record_periodic")
+    res.rows["far_level_record_periodic"].update(
+        ptxas=usage_of("far_level_kernel"))
+    del lists, fl
+
+    # K1 and K2 with the box on the candidate record
+    params = sim._sidm_params()
+    emit, walks = {}, []
+    cands = record_candidates_from_particles(
+        p, p.pos, tree, skin=sim._skin_now, params=params,
+        rcfg=sim._sidm_rcfg, box=box, on_walk=walks.append,
+        on_emit=emit.update)
+    torch.cuda.synchronize()
+    t, _, _ = range_walk_check(res, card, walks[0],
+                               "cosmo-sidm's record, periodic")
+    side_row(res, "range_walk", cosmo_ms=t["ms"], cosmo_call_ms=t["call_ms"],
+             cosmo_bound_ms=t["bound_ms"], cosmo_plain_ms=t["plain_ms"])
+    del walks
+    ng = emit["keys"].shape[0]
+    sub = with_longest(subset(ng, EMIT_GROUPS, dev),
+                       segment_totals(emit["keys"], emit["nn"]))
+    base = [emit[k][sub].contiguous() if k != "src" else emit[k]
+            for k in ("keys", "nn", "src", "gt", "gr", "gty", "gidx")]
+    for K in (emit["K"], EMIT_TINY_K):
+        a = sidm_emit(*base, n, K, box=box)
+        b = sidm_emit_plain(*base, n, K, box=box)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), ("emit", K)
+    assert torch.equal(count_neighbours(*base, n, box=box),
+                       sidm_emit_plain(*base, n, 0, count_mode=True,
+                                       box=box)), "count mode, box"
+    full = [emit[k] for k in ("keys", "nn", "src", "gt", "gr", "gty",
+                              "gidx")]
+    ms = cuda_ms(lambda: sidm_emit(*full, n, emit["K"], box=box), 3)
+    plain_ms = cuda_ms(lambda: sidm_emit_plain(*base, n, emit["K"],
+                                               box=box), 1)
+    ops, nb = emit_work(*full[:5], full[6], n, emit["K"], box=box)
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel sidm_emit with the box (cosmo-sidm's record, K "
+          f"{emit['K']} and {EMIT_TINY_K}, count mode; {len(sub)} of {ng} "
+          f"groups, the {LONGEST} longest among them): bit-equal to the "
+          f"plain version; all groups {ms:.3f} ms, bound {bms:.4f} ms "
+          f"({by}), at {bms / ms:.1%} of the bound's speed; plain on "
+          f"{len(sub)} groups {plain_ms:.3f} ms [{card}]", flush=True)
+    side_row(res, "sidm_emit", cosmo_ms=ms, cosmo_bound_ms=bms,
+             cosmo_plain_ms=plain_ms)
+    del emit, base, full
+
+    # K3 on the next step's gated targets
+    t_next = torch.clamp(integrate.find_next_time(p), max=cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, _ = integrate.predict_positions(p, t_next, sim.consts)
+    vmax = torch.tensor(sim.vmax, dtype=pos_pred.dtype, device=dev)
+    key = step_key(sim.root_key, sim.step_count)
+    _, n_scat, _, ovf_g, info = sidm_scatter_lists(
+        p, pos_pred, tree, cands, t_next, active, vmax, key, params,
+        rcfg=sim._sidm_rcfg, salt=sim.step_count, box=box)
+    tid, drops = gated_targets(info["hs"], cands.ncand, cands.cand.shape[1],
+                               info["ngc"], info["ntail"], info["kd"])
+    gargs = (info["rows"], cands.cand, cands.ncand, info["hs"], info["dts"],
+             tid, sim.step_count, t_next, info["sigma_co"], params, box)
+    k3, p3 = sidm_gated(*gargs), sidm_gated_plain(*gargs)
+    sel = tid[tid >= 0].long()
+    assert sel.numel() > 0, "no gated target"
+    assert torch.equal(k3[1], p3[1]), "sidm_gated counts, box"
+    rel = (torch.abs(k3[0] - p3[0])
+           / torch.clamp(torch.abs(p3[0]), min=1e-30))[sel]
+    d3 = (k3[3] != p3[3])[sel]
+    t3 = d3 & (torch.abs(k3[2] - p3[2])[sel]
+               <= 4 * torch.finfo(torch.float32).eps
+               * torch.clamp(torch.abs(p3[2][sel]), min=1.0))
+    gt3 = gated_times(res, "cosmo-sidm", gargs, tid, cands, k3[1])
+    print(f"kernel sidm_gated with the box (cosmo-sidm's next step: "
+          f"{sel.numel()} gated targets, drops {drops.tolist()}, scatters "
+          f"{int(n_scat)}; candidates per target {ncand_line(cands, sel)}): "
+          f"counts equal, P_tot p99.9 rel err {q999(rel):.3e} (bar 1e-6), "
+          f"partners differing {int(d3.sum())} (near-ties "
+          f"{int(t3.sum())}); {gated_line(gt3, None)} [{card}]", flush=True)
+    assert q999(rel) <= 1e-6 and int(d3.sum()) == int(t3.sum())
+    side_row(res, "sidm_gated", cosmo_ms=gt3["ms"],
+             cosmo_fill_ms=gt3["fill_ms"], cosmo_tile_ms=gt3["tile_ms"],
+             cosmo_bound_ms=gt3["bound_ms"], cosmo_plain_ms=gt3["plain_ms"],
+             cosmo_p999_rel_err=q999(rel))
+
+
+def cosmo_walk_kernels(res, sim, dev, card):
+    """K4 with the box on cosmo-sidm-walk's next step (the walk engine's
+    segment pass, ``near_check``: counts equal, P_tot p99.9 <= 1e-6,
+    partners equal except near-ties, timed on all groups), its times into
+    sidm_near's JSON row's ``cosmo_*`` keys."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.fused_range import sidm_scatter_fused
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.rng import step_key
+
+    cfg, p = sim.cfg, sim.particles
+    t_next = torch.clamp(integrate.find_next_time(p), max=cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, _ = integrate.predict_positions(p, t_next, sim.consts)
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    tree = build_octree(pos_pred, mass, eps, p.valid, box=cfg.BoxSize,
+                        depth=default_depth(p.n_padded))
+    vmax = torch.tensor(sim.vmax, dtype=pos_pred.dtype, device=dev)
+    near = {}
+    _, _, w = sidm_scatter_fused(
+        p, pos_pred, tree, t_next, active, vmax,
+        step_key(sim.root_key, sim.step_count), sim._sidm_params(),
+        cfg=sim._walk_fcfg, salt=sim.step_count, box=cfg.BoxSize,
+        return_info=True, seg_cap=sim._walk_seg_cap, on_near=near.update)
+    assert [int(w[k]) for k in ("ovf_walk", "ovf_big", "ovf_seg")] \
+        == [0, 0, 0]
+    near_check(res, near, subset(near["keys"].shape[0], SUBSET_GROUPS, dev),
+               card, "cosmo-sidm-walk's next step, periodic", box=True,
+               tag="cosmo", bar=1e-6)
+
+
+def cosmo_lists_oracle(sim, dev, card):
+    """TreePM on the cached lists in the box (lists recorded on a fresh
+    tree of cosmo-sidm's end state at skin 0 with tests/test_pm.py's
+    opening, geometric theta 0.5, evaluated in their periodic modes, plus
+    the mesh) against H3's periodic Ewald direct sum on ORACLE_TARGETS
+    random targets, at that test's bars (acc p99 < 2.5e-3, max < 6e-3, pot
+    p99 < 8e-3 against max(|a|, median |a|), potential energy within
+    5e-3)."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.ops.direct import direct_sum
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.list_force import eval_lists, record_lists
+    from sidm_tpu_torch.ops.tree import build_octree
+
+    p, cfg = sim.particles, sim.cfg
+    t = torch.tensor(sim.time, dtype=sim.dtype, device=dev)
+    pos, _ = integrate.predict_positions(p, t, sim.consts)
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    g = torch.Generator().manual_seed(SEED)
+    tg = torch.randperm(int(p.valid.sum()), generator=g)[:ORACLE_TARGETS].to(
+        dev)
+    acc_r, pot_r = direct_sum(pos, mass, eps, targets=tg, box=cfg.BoxSize,
+                              ewald=sim._ewald_table())
+    tree = build_octree(pos, mass, eps, p.valid, box=cfg.BoxSize,
+                        depth=default_depth(p.n_padded))
+    pbc = sim._pbc()
+    lists = record_lists(tree, torch.zeros_like(mass), p.valid[tree.perm],
+                         theta=0.5, use_relative=False, lcfg=sim._lfc,
+                         skin=0.0, pbc=pbc)
+    assert sum(lists.ovf.tolist()) == 0, lists.ovf
+    acc, pot = eval_lists(tree, lists, mass, eps, need_pot=True, pbc=pbc)
+    acc, pot = sim._add_mesh(acc, pot, pos, mass, p.valid, True)
+    rel, perr = scaled_err(acc[tg], acc_r), scaled_err(pot[tg], pot_r)
+    m = mass[tg].double()
+    e_ref = float(0.5 * torch.sum(m * pot_r.double()))
+    e_err = abs(float(0.5 * torch.sum(m * pot[tg].double())) - e_ref) \
+        / abs(e_ref)
+    out = dict(acc_p99=float(torch.quantile(rel, 0.99)),
+               acc_max=float(rel.max()),
+               pot_p99=float(torch.quantile(perr, 0.99)), energy=e_err)
+    print(f"cosmo-sidm oracle, the cached lists at theta 0.5 "
+          f"(tests/test_pm.py): TreePM (lists + mesh {sim._pm_kernel().n}) "
+          f"vs H3's periodic Ewald direct sum on {tg.numel()} targets: acc "
+          f"p99 {out['acc_p99']:.3e} (bar 2.5e-3), max {out['acc_max']:.3e} "
+          f"(6e-3), pot p99 {out['pot_p99']:.3e} (8e-3), potential energy "
+          f"{out['energy']:.3e} (5e-3) [{card}]", flush=True)
+    assert out["acc_p99"] < 2.5e-3 and out["acc_max"] < 6e-3, out
+    assert out["pot_p99"] < 8e-3 and out["energy"] < 5e-3, out
+    return out
 
 
 if __name__ == "__main__":

@@ -170,7 +170,8 @@ def far_level_work(kw: dict, cnt):
     rows), the group boxes and thresholds, the compacted outputs written
     (far ids, segment keys, next frontier, chunk keys) and the counts; in
     record mode the list counts and telemetry read and written.
-    Operations: CLASSIFY_OPS per classified node. The walk's far field is
+    Operations: CLASSIFY_OPS per classified node (CLASSIFY_PBC_OPS with
+    ``pbc``, in either mode). The walk's far field is
     ``far_list``'s call (``far_list_work``)."""
     from .ops.far_kernel import C_BK, C_FAR, C_NEXT, C_SEG, N_CNT
 

@@ -29,7 +29,7 @@
 // group: no atomics. What bounds it on the H100: the bytes of the live
 // frontier (ids and node rows) and of the compacted outputs.
 //
-// Periodic walk mode (periodic = 1, box, rcut: the TreePM split's short
+// Periodic mode (periodic = 1, box, rcut: the TreePM split's short
 // range; port of sidm_tpu/ops/fused_force.py:_classify's pbc branch
 // :426-486, which JAX's periodic walk runs in XLA, not in its Pallas
 // kernel): the bbox-to-COM distance is the minimum image of com - gc about
@@ -38,7 +38,11 @@
 // jnp.round do; roundf would not); and a cell with sqrt(r2b) > rcut +
 // bmax is dropped (neither opened nor accepted: its force is all on the
 // mesh). The same explicit roundings as the plain version's, so the
-// decisions stay bit-equal. Walk mode only.
+// decisions stay bit-equal. The record mode takes it too (the cached
+// lists in a TreePM box, sidm_tpu/ops/list_force.py:_walk_level_keys
+// :160-189 with pbc): the same classification, the accepted flat ids and
+// segment keys appended to the group's lists; the group boxes are the
+// skin-grown ones the caller passes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,7 +81,7 @@ struct Args {
     int* nn;
     int* stat;                  // record: (5, ng) telemetry, added to
     int ng;
-    float box, rcut;            // periodic walk mode
+    float box, rcut;            // periodic mode
     int periodic;
 };
 
@@ -322,8 +326,9 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
 
 // Walk mode: nf, nn and stat are null; far and seg are (ng, W) buffers
 // (far_w = seg_w = W, LC = W, lvl_base = 0) and bkey the last level's
-// chunk keys; periodic = 1 its periodic mode (box, rcut). Record mode: far and seg are the group lists (ng, LF) and
-// (ng, LN), appended at nf and nn; bkey is null.
+// chunk keys. Record mode: far and seg are the group lists (ng, LF) and
+// (ng, LN), appended at nf and nn; bkey is null. Either mode: periodic = 1
+// with box > 0 and rcut the periodic classification.
 extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 const int* fids, const int* n_live, int ng,
                                 int W, const float* s_l, const float* glo,
@@ -338,7 +343,7 @@ extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 void* stream) {
     if (ng <= 0) return 0;
     if (big_cap > kBigMax) return (int)cudaErrorInvalidValue;
-    if (periodic && nf) return (int)cudaErrorInvalidValue;   // walk mode
+    if (periodic && !(box > 0.0f)) return (int)cudaErrorInvalidValue;
     const Args a{reinterpret_cast<const float4*>(tbl), nl_real, fids,
                  n_live, W, s_l, glo, ghi, oac, theta2, leaf_cap, mode, last,
                  O, Wn, big_cap, big_chunks, lvl_base, LC, far, far_w, seg,

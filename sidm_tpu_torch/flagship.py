@@ -35,6 +35,32 @@ a = 0.5 on (``SofteningHaloMaxPhys``); the walk every step
 (``ListMode 0``: the lists take no box yet) with ``TreeRefreshSteps 4``
 and the flagship's relative opening criterion (``ErrTolForceAcc 0.005``).
 
+``cosmo_config(**COSMO_SIDM)`` is cosmo-sidm: cosmo-box on the cached
+interaction lists (``ListMode 1``, the lists' ``ListNearCap 8192``; the
+recording walk and both list passes in their periodic modes) with DSMC:
+sigma/m = 1 cm^2/g, hard spheres (``CrossSectionType 0``), the SIDM1
+model of Rocha et al. 2013, MNRAS 430, 81. The code's units are kpc/h and
+1e10 Msun/h, so the internal cross section per mass, ``CrossSection`` x
+UnitMass / UnitLength^2 (config.py:366, begrun.c:156), equals the
+physical one when ``CrossSection`` = h x 1 cm^2/g = 0.7 (``HubbleParam
+0.7``). ``ProbabilityTol 0.2``, ``RandomSeed1/2 55/497527`` and
+``DesNumNgb 30``, ``MaxNumNgbDeviation 2`` are bench.py's. Its field is
+``cosmo_ics(n, a_vel=0.1)``: cosmo-box's positions and masses with
+virialised clumps (below), so that the DSMC pass gates and scatters from
+the first step. ``cosmo_config(**COSMO_SIDM_WALK)`` (cosmo-sidm-walk) is
+the same on the walk (``ListMode 0``: the DSMC pass on the range walk in
+the box every step). ``cosmo_config(**COSMO_VELDISP)`` (cosmo-veldisp)
+is cosmo-box on the lists with ``VelDispOn 1`` and
+``TypeOfTimestepCriterion 4``, gravity only (``VelDispOn`` excludes
+SIDM), on cosmo-sidm's field with the uniform part moving too,
+``cosmo_ics(n, a_vel=0.1, field_sigma=COSMO_FIELD_SIGMA)``: criterion 4's
+dispersion timestep ErrTolIntAccuracy sigma_v / |a| is 0 where the
+neighbours are all at rest, and the run would not advance.
+``cosmo_config(COSMO_SMALL_N, **COSMO_SIDM)`` on
+``cosmo_ics(COSMO_SMALL_N, a_vel=0.1)`` is cosmo-small: cosmo-sidm at
+N = 2^17 on the single-program step (the wq walk's TreePM every step and
+the hash DSMC engine in the box).
+
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
 ``SIDMOn 0`` and ``TreeWalkEngine wq``, on the cached interaction lists
@@ -140,15 +166,41 @@ def cosmo_config(n: int = COSMO_N, **changes) -> SimConfig:
                         "SofteningHaloMaxPhys": cap, **changes})
 
 
+# cosmo-sidm, cosmo-sidm-walk, cosmo-veldisp, cosmo-small: cosmo_config's
+# changes (run on cosmo_ics(n, a_vel=COSMO["TimeBegin"]))
+COSMO_SIDM = dict(ListMode=1, ListNearCap=8192, SIDMOn=1, CrossSection=0.7,
+                  CrossSectionType=0, ProbabilityTol=0.2, RandomSeed1=55,
+                  RandomSeed2=497527, DesNumNgb=30, MaxNumNgbDeviation=2)
+COSMO_SIDM_WALK = dict(COSMO_SIDM, ListMode=0)
+COSMO_VELDISP = dict(ListMode=1, ListNearCap=8192, VelDispOn=1,
+                     TypeOfTimestepCriterion=4)
+COSMO_SMALL_N = 1 << 17
+# cosmo-veldisp: the uniform part's peculiar dispersion per axis (km/s), a
+# tenth of the clumps' virial one
+COSMO_FIELD_SIGMA = 100.0
+
+
 def cosmo_ics(n: int, seed: int = 12345, box: float = COSMO_BOX,
               omega0: float = 0.3, hubble: float = 0.1,
-              G: float = 43007.1):
+              G: float = 43007.1, a_vel=None, field_sigma: float = 0.0):
     """(pos, vel, mass) numpy float64: scripts/profile_treepm.py:48-60's
-    clustered periodic field (64 Gaussian clumps of sigma 0.01 box holding
-    70 % of the particles, the rest uniform) with zero peculiar velocities
-    and equal masses that make the box's mean density omega0 times the
-    critical density 3 H0^2 / (8 pi G) (H0 = 0.1 km/s per kpc/h, G in
-    kpc/h, 1e10 Msun/h, km/s)."""
+    clustered periodic field (64 Gaussian clumps of sigma s = 0.01 box
+    holding 70 % of the particles, the rest uniform) with equal masses that
+    make the box's mean density omega0 times the critical density
+    3 H0^2 / (8 pi G) (H0 = 0.1 km/s per kpc/h, G in kpc/h, 1e10 Msun/h,
+    km/s); zero peculiar velocities.
+
+    With ``a_vel`` (a scale factor) each clump's particles get an
+    isotropic Gaussian peculiar velocity at the clump's virial dispersion
+    at that scale factor, and the uniform part stays at rest: a Gaussian
+    sphere of mass M and physical dispersion a s per axis has the binding
+    energy G M^2 / (2 sqrt(pi) a s), so 2K = |W| gives the one-dimensional
+    dispersion sigma^2 = G M / (6 sqrt(pi) a s) (about 960 km/s for a
+    cosmo-box clump at a = 0.1). The velocities are the code's comoving
+    ones, a times the peculiar (the drift factor integrates dt / a^2).
+    ``field_sigma`` > 0 (km/s) gives the uniform part an isotropic Gaussian
+    peculiar velocity of that dispersion per axis too. The positions and
+    masses are those without ``a_vel``."""
     import numpy as np
     rng = np.random.default_rng(seed)
     nh = 64
@@ -160,7 +212,16 @@ def cosmo_ics(n: int, seed: int = 12345, box: float = COSMO_BOX,
     pos = np.concatenate(parts)
     rho_crit = 3.0 * hubble * hubble / (8.0 * np.pi * G)
     mass = np.full(n, omega0 * rho_crit * box ** 3 / n)
-    return pos, np.zeros((n, 3)), mass
+    vel = np.zeros((n, 3))
+    if a_vel is not None:
+        a = float(a_vel)
+        sigma = np.sqrt(G * nc * mass[0] / (6.0 * np.sqrt(np.pi) * a
+                                            * 0.01 * box))
+        vel[n - nh * nc:] = a * sigma * rng.standard_normal((nh * nc, 3))
+        if field_sigma > 0:
+            vel[:n - nh * nc] = a * field_sigma * rng.standard_normal(
+                (n - nh * nc, 3))
+    return pos, vel, mass
 
 
 def flagship_ics(n: int, seed: int = 12345):

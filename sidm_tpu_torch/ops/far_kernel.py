@@ -22,15 +22,17 @@ its caller already compacted, in frontier order (``Level``):
   caps, and the list counts and the telemetry (uncapped demand, drops) are
   updated in place; the next frontier and the counts are returned.
 
-Periodic walk mode (``pbc`` = (box, alpha, rcut), the TreePM split's
-short range; ``_classify``'s pbc branch, sidm_tpu/ops/fused_force.py
-:426-486, which JAX's periodic walk runs in XLA instead of its Pallas
-kernel): the bbox-to-COM distance is taken by the minimum image about the
-group box's centre, and a cell whose bounding sphere cannot reach within
-``rcut`` of the group (sqrt(r2b) > rcut + bmax) is dropped, neither opened
-nor accepted (its force is all on the mesh). Dead groups are parked with an
-inverted huge box, so nothing reaches them. The record mode takes no box
-(``ListMode 1`` with a periodic box is not ported).
+Periodic mode (``pbc`` = (box, alpha, rcut), the TreePM split's short
+range; ``_classify``'s pbc branch, sidm_tpu/ops/fused_force.py
+:426-486, which JAX's periodic walk and its recording walk
+(``list_force.py:_walk_level_keys`` :160-189) run in XLA instead of its
+Pallas kernel): the bbox-to-COM distance is taken by the minimum image
+about the group box's centre, and a cell whose bounding sphere cannot
+reach within ``rcut`` of the group (sqrt(r2b) > rcut + bmax) is dropped,
+neither opened nor accepted (its force is all on the mesh). Dead groups
+are parked with an inverted huge box, so nothing reaches them. Both modes
+take it: the walk's, and the record mode's (the cached lists in a TreePM
+box, their group boxes grown by the skin).
 
 ``far_level_plain`` also runs the range test (``range_walk``, record mode
 on the range rows of ``ops/fused_range.range_levels``, the SIDM candidate
@@ -331,15 +333,14 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 
     With ``lists`` (record mode) lvl_base is the level's flat node offset
     and lvl_cap the level cap (None: none); the lists are updated in
-    place. ``pbc`` (box, alpha, rcut): the periodic walk mode (walk mode
-    only).
+    place. ``pbc`` (box, alpha, rcut), box > 0: the periodic
+    classification, in either mode.
 
     Returns a ``Level``."""
-    if pbc is not None and lists is not None:
+    if pbc is not None and not float(pbc[0]) > 0:
         raise NotImplementedError(
-            "far_level: the record mode with a periodic box (ListMode 1 with "
-            "PeriodicBoundariesOn) is not ported to sidm_tpu_torch yet "
-            "(ROADMAP.md A, item 11)")
+            "far_level: the free-space screened mode (pbc box 0, PMVacuum) "
+            "is not ported to sidm_tpu_torch yet (ROADMAP.md A, item 11.2)")
     if not fids.is_cuda:
         return far_level_plain(
             fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
@@ -392,7 +393,10 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         raise RuntimeError(f"far_level kernel launch failed: CUDA error "
                            f"{err}")
     if not walk:
-        far_level.record_launches += 1
+        if pbc is not None:
+            far_level.periodic_record_launches += 1
+        else:
+            far_level.record_launches += 1
         return Level(far=None, seg=None, fids=fids_n, bkey=None, cnt=cnt)
     if pbc is not None:
         far_level.periodic_launches += 1
@@ -404,5 +408,6 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 far_level.launches = 0          # launches of the walk mode
 far_level.periodic_launches = 0  # ... of its periodic mode (pbc)
 far_level.record_launches = 0   # launches of the record mode
+far_level.periodic_record_launches = 0   # ... of its periodic mode (pbc)
 far_level.range_launches = 0    # launches of the whole range walk
                                 # (fused_range.range_segments, one a walk)

@@ -23,9 +23,12 @@ renumbered into a compact table of the used nodes (``src``, ``used_cap``).
 ``eval_lists`` is the per-step force: the compact node table is gathered
 from the current tree's node arrays (``gather_nodes``), the far pass is
 ``far_list`` and the near pass the walk's ``near_level`` on the recorded
-keys. Between rebuilds ``advance_tree`` drifts the node centres of mass by
-the node velocities recorded at the rebuild (``vcom``), as the reference
-predicts nodes within a tree-update period (forcetree.c:941-948).
+keys. With ``pbc`` (a TreePM box, JAX's ``pbc`` arguments :162-189,
+:631-636, :746-747) the recording walk and both passes take their
+periodic modes. Between rebuilds ``advance_tree`` drifts the node centres
+of mass by the node velocities recorded at the rebuild (``vcom``), as the
+reference predicts nodes within a tree-update period
+(forcetree.c:941-948).
 
 Not ported: ``ListConfig.materialize``/``matf``, a TPU workaround that
 streams the far rows recorded item by item instead of gathering them (ROADMAP
@@ -49,6 +52,7 @@ from .fused_force import (LEAF_CAP, START_LEVEL, FusedConfig, FusedTree,
                           make_windows, pack_tree, w_schedule)
 from .gather import gather_nodes
 from .near_kernel import near_level
+from .pm import SQRT_PI
 from .tree import Octree, level_offsets
 from .wq_force import group_boxes, ungroup
 
@@ -89,12 +93,13 @@ class InteractionLists(NamedTuple):
 
 def _record(ftree: FusedTree, glo, ghi, oac, extent, drift, *, theta: float,
             use_relative: bool, cfg: FusedConfig, lcfg: ListConfig,
-            depth: int, n: int, on_level=None):
+            depth: int, n: int, on_level=None, pbc=None):
     """The recording walk (``_record``): every level's accepted nodes and
     segment keys (and the last level's big-cell chunks) are appended to the
-    per-group lists by ``far_level`` in record mode. Returns (far flat ids,
-    near keys, nf, nn, ovf (3,), need (2,)). on_level: optional observer
-    called as ``on_level(level, kw)`` before every ``far_level`` call."""
+    per-group lists by ``far_level`` in record mode (its periodic mode with
+    ``pbc``). Returns (far flat ids, near keys, nf, nn, ovf (3,), need
+    (2,)). on_level: optional observer called as ``on_level(level, kw)``
+    before every ``far_level`` call."""
     ng = glo.shape[0]
     dev = glo.device
     ws = w_schedule(cfg, depth, n, theta, use_relative)
@@ -115,7 +120,7 @@ def _record(ftree: FusedTree, glo, ghi, oac, extent, drift, *, theta: float,
                   Wn=0 if last else ws[l + 1],
                   open_cap=cfg.open_cap, big_cap=cfg.big_cap,
                   big_chunks=cfg.big_chunks, lists=buf, lvl_base=offs[l],
-                  lvl_cap=lcfg.lvl_cap)
+                  lvl_cap=lcfg.lvl_cap, pbc=pbc)
         if on_level is not None:
             on_level(l, kw)
         out = far_level(**kw)
@@ -131,14 +136,19 @@ def record_lists(tree: Octree, old_acc_sorted, valid_sorted, *, theta=0.5,
                  use_relative=True, err_tol_force_acc=0.005,
                  cfg: Optional[FusedConfig] = None,
                  lcfg: Optional[ListConfig] = None, skin=0.0, vel=None,
-                 t_now=0.0, on_level=None) -> InteractionLists:
+                 t_now=0.0, on_level=None, pbc=None) -> InteractionLists:
     """Interaction lists for every target group of a fresh ``tree``.
 
     old_acc_sorted: |a_old| in sorted order (relative criterion input);
     valid_sorted: particle validity in sorted order; vel: velocities in
     original order (for ``vcom``; zeros if None). The groups are the
     walk's Morton windows, so at skin 0 on a fresh tree the lists hold the
-    walk's pair partition exactly. on_level: see ``_record``."""
+    walk's pair partition exactly. ``pbc`` (box, alpha, rcut): the TreePM
+    short range in a periodic box (the tree built on the box; JAX
+    list_force.py:392-405 with pbc): the skin-grown group boxes are
+    classified by the minimum image about their centres, cells beyond
+    rcut + bmax are dropped, and dead groups are parked with an inverted
+    huge box. on_level: see ``_record``."""
     cfg = cfg or FusedConfig()
     lcfg = lcfg or ListConfig()
     n = tree.pos_s.shape[0]
@@ -150,12 +160,15 @@ def record_lists(tree: Octree, old_acc_sorted, valid_sorted, *, theta=0.5,
     toac = (old_acc_sorted * err_tol_force_acc).to(dtype)
     goac = torch.where(gvalid, toac[pidx], torch.zeros_like(toac[pidx]))
     skin = torch.as_tensor(skin, dtype=dtype, device=dev)
-    glo, ghi, oac = group_boxes(tree, gtargets, gvalid, goac, skin)
+    glo, ghi, oac = group_boxes(tree, gtargets, gvalid, goac, skin,
+                                periodic=pbc is not None)
+    if pbc is not None:
+        pbc = tuple(float(v) for v in pbc)
 
     far, near, nf, nn, ovf, need = _record(
         ftree, glo, ghi, oac, tree.extent, tree.drift, theta=float(theta),
         use_relative=bool(use_relative), cfg=cfg, lcfg=lcfg, depth=depth,
-        n=n, on_level=on_level)
+        n=n, on_level=on_level, pbc=pbc)
 
     # used-row compaction (list_force.py:421-437): far ids become ranks in
     # a table of the used nodes; dead entries point at row U (zeros)
@@ -186,9 +199,15 @@ def record_lists(tree: Octree, old_acc_sorted, valid_sorted, *, theta=0.5,
         src=src[:U].contiguous(), need=need)
 
 
-def max_displacement(lists: InteractionLists, pos_sorted):
-    """Max |pos - pos_ref| since record time (validity: <= skin/2)."""
+def max_displacement(lists: InteractionLists, pos_sorted,
+                     box: float = 0.0):
+    """Max |pos - pos_ref| since record time (validity: <= skin/2), the
+    JAX package's plain difference; ``box`` > 0: the minimum image of each
+    displacement instead (what a particle wrapped onto the box since the
+    record really moved)."""
     d = pos_sorted - lists.pos_ref
+    if box:
+        d = d - box * torch.round(d / box)
     return torch.sqrt(torch.max(torch.sum(d * d, dim=-1)))
 
 
@@ -250,18 +269,43 @@ def eval_inputs(tree: Octree, lists: InteractionLists):
     return ctbl, gtargets.contiguous(), xc, te, gc
 
 
+def compact_traces(tree: Octree, lists: InteractionLists):
+    """The compact table's raw quadrupole traces (the tree's ``trq`` of
+    each used row, 0 for the zero row): the periodic far field's
+    (``flat_tables``' ``tr_all[src]``, JAX list_force.py:722-723)."""
+    zero = torch.zeros(1, dtype=tree.trq.dtype, device=tree.trq.device)
+    return torch.cat([tree.trq[lists.src.long()], zero]).contiguous()
+
+
 def eval_lists(tree: Octree, lists: InteractionLists, mass, eps, *,
-               need_pot: bool = True):
+               need_pot: bool = True, pbc=None):
     """Force and potential of every particle from recorded lists against
     the current node moments (``tree`` = the recording tree, refreshed or
     advanced). mass/eps in original order; returns (acc, pot) in original
-    order, post-processed as the walk's are."""
+    order, post-processed as the walk's are. ``pbc`` (box, alpha, rcut):
+    the TreePM short range in a periodic box (JAX ``_eval`` :631-636,
+    eval_lists :746-747): the far pass takes the raw targets and the
+    compact table's traces (``far_list``'s periodic mode: a minimum image
+    per pair, so a group straddling a face after a wrap still reads its
+    nodes right), the near pass ``near_level``'s periodic mode, and the
+    potential loses the near pass's self term 2 alpha/sqrt(pi) m."""
     ctbl, gtargets, xc, te, gc = eval_inputs(tree, lists)
-    a = far_list(ctbl, lists.far, lists.nf, xc, te, gc, need_pot=need_pot)
+    if pbc is not None:
+        pbc = tuple(float(v) for v in pbc)
+        a = far_list(ctbl, lists.far, lists.nf, gtargets,
+                     te, torch.zeros_like(gc), need_pot=need_pot, pbc=pbc,
+                     trq=compact_traces(tree, lists))
+    else:
+        a = far_list(ctbl, lists.far, lists.nf, xc, te, gc,
+                     need_pot=need_pot)
     a = a + near_level(lists.near, lists.nn, tree.pos_s, tree.mass_s,
-                       tree.eps_s, gtargets, te, need_pot=need_pot)
-    return ungroup(a[..., :3], a[..., 3], lists.pidx, lists.gvalid,
-                   tree.perm, mass, eps, need_pot)
+                       tree.eps_s, gtargets, te, need_pot=need_pot, pbc=pbc)
+    acc, pot = ungroup(a[..., :3], a[..., 3], lists.pidx, lists.gvalid,
+                       tree.perm, mass, eps, need_pot)
+    if need_pot and pbc is not None:
+        pot = pot - torch.where(mass > 0, mass, torch.zeros_like(mass)) \
+            * (2.0 * pbc[1] / SQRT_PI)
+    return acc, pot
 
 
 _LIST_FIELDS = InteractionLists._fields

@@ -31,7 +31,17 @@ drift and kick factors and timestep criteria, the softenings of the current
 scale factor every step (``softening_table``: comoving, capped by
 ``MaxPhys`` in physical units), and ``check_omega`` at prepare in a
 periodic box; on the lists they keep the moments refresh between rebuilds
-instead of the node drift.
+instead of the node drift. In a box the cached lists are recorded and
+evaluated in the kernels' periodic modes (``record_lists(pbc=)``,
+``eval_lists(pbc=)``), and the DSMC engines, the smoothing-length inits
+and the velocity-dispersion pass take the box (minimum-image distances,
+the tree and the hash grid built on it); their comoving factors (the
+cross section's, the Yukawa velocity's, the drift factor of the DSMC dt)
+are taken at each step's time. In a box the list-validity monitors take
+the minimum image of each displacement (``LIST_MONITOR_IMAGE``, ROADMAP
+C.20; JAX's plain difference ends a cycle whenever a particle was wrapped
+onto the box since the record); the list steps where JAX's rule would
+have ended the cycle are counted in ``wrap_records``.
 
 ``mode="individual"`` (JAX's ``sync = False``, :378, :471) keeps every
 particle's own next kick time: a step advances only the particles due at
@@ -52,9 +62,8 @@ grown to the demand likewise), then the finish below;
 walk that drops cells on that step's tree (JAX's depth 10 below 2^18
 particles) is redone at depth 13 for the rest of the run.
 
-Otherwise one step is the JAX package's phased step for a non-periodic
-tree run on the work-queue walk (``TreeWalkEngine wq``), in one of two
-cadences:
+Otherwise one step is the JAX package's phased step for a tree run on the
+work-queue walk (``TreeWalkEngine wq``), in one of two cadences:
 
 * ``ListMode 1`` (cached interaction lists, the flagship's): on a rebuild
   step the octree is built and the interaction lists recorded under a skin
@@ -189,16 +198,6 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     if cfg.PeriodicBoundariesOn:
         if cfg.ForceMethod == "tree" and cfg.PMGrid < 0:
             _refuse("PMGrid -1 (the per-pair Ewald walk)", "A, item 11.3")
-        if mode == "phased" and cfg.ForceMethod == "tree" and cfg.ListMode:
-            _refuse_periodic_lists()
-        if cfg.SIDMOn and cfg.CrossSection > 0:
-            _refuse("DSMC (SIDMOn) in a periodic box", "A, item 11.4")
-        if cfg.VelDispOn:
-            _refuse("VelDispOn in a periodic box", "A, item 11.4")
-    if cfg.ComovingIntegrationOn and (
-            (cfg.SIDMOn and cfg.CrossSection > 0) or cfg.VelDispOn):
-        _refuse("DSMC (SIDMOn) and VelDispOn in comoving runs",
-                "A, item 11.4")
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}: not one of {MODES}")
     if cfg.SIDMOn and cfg.CrossSection > 0 and cfg.VelDispOn:
@@ -210,12 +209,6 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
     if cfg.Precision == "f64" and device.type == "cuda":
         _refuse("Precision f64 on CUDA (the kernels are float32)",
                 "A, item 16")
-
-
-def _refuse_periodic_lists():
-    # JAX's list engine takes pbc (list_force.py:162-189, :631-636)
-    _refuse("ListMode 1 (the cached interaction lists) with a periodic box "
-            "on the phased step", "A, item 11.1")
 
 
 def _refuse_phased_direct():
@@ -282,6 +275,13 @@ class Simulation:
     # the single-program step's walk: an overflowing tree of
     # default_depth's is built again at this depth (JAX's above 2^18)
     DEEP_DEPTH = 13
+    # in a periodic box the list-validity monitors (the force lists' and
+    # the candidate lists') take the minimum image of each displacement
+    # (ROADMAP C.20): JAX's plain difference reads ~BoxSize for a particle
+    # wrapped onto the box since the record, ends the cycle and learns a
+    # skin of box lengths from it; False keeps JAX's rule, for the parity
+    # tests
+    LIST_MONITOR_IMAGE = True
 
     def __init__(self, cfg: SimConfig, restart_flag: int = 0,
                  mode: str = "synchronized", device=None):
@@ -343,6 +343,9 @@ class Simulation:
         self._hash_step = None
         self._ewald = None
         self._pm = None
+        # list steps whose validity monitor ended the cycle only because a
+        # particle was wrapped onto the box since the record
+        self.wrap_records = 0
         self._reset_cadence()
 
     def _reset_cadence(self):
@@ -634,8 +637,6 @@ class Simulation:
         cfg, consts = self.cfg, self.consts
         if self._uniform_eps is None:
             self._uniform_eps = self._check_uniform_eps()
-        if cfg.PeriodicBoundariesOn and cfg.ListMode:
-            _refuse_periodic_lists()
         params = self._timestep_params()
         clock = _PhaseClock(self.device)
         p = self.particles
@@ -657,23 +658,41 @@ class Simulation:
         info, kind, md = None, "walk", None
         ovf = need = None
         box = self._box()
+        pbc = self._pbc()
         drift_mode = use_lists and not cfg.ComovingIntegrationOn
         if reuse and use_lists:
             # cached lists on the advanced rebuild-time tree (comoving runs:
-            # on a moments refresh, JAX simulation.py:520-526)
+            # on a moments refresh, JAX simulation.py:520-526; in a box it
+            # keeps the positions in the build's wrap image)
             lists = self._lists_cache
             if drift_mode:
                 tree = advance_tree(self._tree_cache, lists, pos_pred,
                                     t_next)
             else:
                 tree = refresh_octree(self._tree_cache, pos_pred, mass, eps,
-                                      p.valid)
+                                      p.valid, box=box)
             raw_acc, pot = eval_lists(tree, lists, mass, eps,
-                                      need_pot=False)
+                                      need_pot=False, pbc=pbc)
             kind = "list"
             self._refresh_left -= 1
             self._steps_since_build += 1
-            md = float(max_displacement(lists, tree.pos_s))
+            md = max_displacement(lists, tree.pos_s)
+            if box:
+                # JAX's monitor takes the plain difference: a particle
+                # wrapped onto the box since the record reads ~BoxSize
+                # (positions are wrapped every step; the moments refresh
+                # keeps them in the build's image, the node drift does
+                # not). The steps where that alone ends the cycle are
+                # counted; the minimum image (LIST_MONITOR_IMAGE) keeps
+                # the cycle, whose lists stay valid: both passes take the
+                # minimum image per pair from the raw targets.
+                md, md_image = torch.stack([
+                    md, max_displacement(lists, tree.pos_s, box)]).tolist()
+                if md > 0.5 * self._skin_now >= md_image:
+                    self.wrap_records += 1
+                if self.LIST_MONITOR_IMAGE:
+                    md = md_image
+            md = float(md)
             # displacement rate per unit simulation time
             t_elapsed = float(t_next) - self._t_rebuild
             if t_elapsed > 0:
@@ -704,7 +723,7 @@ class Simulation:
                     theta=cfg.ErrTolTheta,
                     use_relative=cfg.TypeOfOpeningCriterion == 1,
                     err_tol_force_acc=cfg.ErrTolForceAcc, lcfg=self._lfc,
-                    skin=self._skin_now, vel=p.vel, t_now=t_next)
+                    skin=self._skin_now, vel=p.vel, t_now=t_next, pbc=pbc)
                 ovf, need = lists.ovf.tolist(), lists.need.tolist()
                 # any dropped entry is a force with missing pairs, the
                 # walk caps' drops (ovf[0]) included (ROADMAP C.8): the
@@ -715,7 +734,7 @@ class Simulation:
                                                     p.old_acc)
                 else:
                     raw_acc, pot = eval_lists(tree, lists, mass, eps,
-                                              need_pot=False)
+                                              need_pot=False, pbc=pbc)
                     kind = "record"
                     self._lists_cache = lists
                     # DIAG interaction counters (gravtree.c:356-393)
@@ -850,9 +869,13 @@ class Simulation:
         cands = self._sidm_cands
         p, n_scat, viol, ovf_g, sinfo = sidm_scatter_lists(
             p, pos_pred, tree, cands, t_next, active, vmax, key, params,
-            rcfg=self._sidm_rcfg, salt=self.step_count & 0xFFFFFFFF)
+            rcfg=self._sidm_rcfg, salt=self.step_count & 0xFFFFFFFF,
+            box=self._box())
         # mid-cycle re-record trigger: displacement only (2 md > skin)
         d = tree.pos_s - cands.pos_ref
+        box = self._box()
+        if box and self.LIST_MONITOR_IMAGE:
+            d = d - box * torch.round(d / box)
         md_s = torch.sqrt(torch.max(torch.sum(d * d, dim=-1)))
         # the step's host reads, at once
         md_s, viol, n_scat, n_gated, n_prop, *ints = torch.cat([
@@ -935,10 +958,9 @@ class Simulation:
         if not cfg.VelDispOn:
             self.last_veldisp_info = None
             return p
-        box = cfg.BoxSize if cfg.PeriodicBoundariesOn else 0.0
         for tries in range(1, self.HASH_TRIES + 1):
             q, info = veldisp(p, pos_pred, vel_pred, active,
-                              des_num_ngb=cfg.DesNumNgb, box=box,
+                              des_num_ngb=cfg.DesNumNgb, box=self._box(),
                               cap=self._hash_cap, n_levels=self._vd_levels)
             rows = info["rows"].double()
             need, ovf, clip, ratio, rows_mean, rows_max = torch.stack([
@@ -986,7 +1008,7 @@ class Simulation:
         p, n_scat, w = sidm_scatter_wq(
             p, pos_pred, tree, t_next, active, vmax, key, params,
             cfg=self._walk_fcfg, salt=self.step_count & 0xFFFFFFFF,
-            return_info=True, seg_cap=self._walk_seg_cap)
+            return_info=True, seg_cap=self._walk_seg_cap, box=self._box())
         self._walk_seg_cap = max(self._walk_seg_cap, int(w["seg_cap"]))
         self._walk_fcfg = w["cfg"]
         n_scat, n_gated, n_prop, *drops = (int(x) for x in torch.stack([
@@ -1018,7 +1040,7 @@ class Simulation:
         for _ in range(4):
             cands = record_candidates_from_particles(
                 p, pos_pred, tree, skin=self._skin_now, params=params,
-                rcfg=self._sidm_rcfg)
+                rcfg=self._sidm_rcfg, box=self._box())
             covf = cands.ovf.tolist()
             if not (covf[0] or covf[1]):
                 break
@@ -1162,7 +1184,8 @@ class Simulation:
             for _ in range(self.HASH_TRIES):
                 q, knn = setup_smoothing_lengths(
                     p, cfg.DesNumNgb, cfg.MaxNumNgbDeviation,
-                    cap=self._hash_cap, return_info=True)
+                    box=self._box() or None, cap=self._hash_cap,
+                    return_info=True)
                 need = int(torch.max(knn.need))
                 if not self._grow_hash_cap(need, "smoothing-length init"):
                     break
@@ -1173,12 +1196,15 @@ class Simulation:
                 ngb_ovf=int(torch.sum(col & (knn.need > self._hash_cap))),
                 lvl_clip=int(torch.sum(col & knn.clip)))
         elif cfg.SIDMOn and cfg.CrossSection > 0:
-            # setup_smoothinglengths_sidm (init.c:159)
+            # setup_smoothinglengths_sidm (init.c:159), simulation.py:
+            # 1303-1312: the tree on the box in a periodic run
             eps = self._softening()[torch.clamp(p.ptype, 0, 5).long()]
             tree = build_octree(p.pos, torch.where(p.valid, p.mass,
                                                    torch.zeros_like(p.mass)),
-                                eps, p.valid, depth=default_depth(p.n_padded))
-            self.particles = tree_hsml_init_fused(p, tree, cfg.DesNumNgb)
+                                eps, p.valid, box=self._box(),
+                                depth=default_depth(p.n_padded))
+            self.particles = tree_hsml_init_fused(p, tree, cfg.DesNumNgb,
+                                                  box=self._box())
             del tree
         self.vmax = float(timestep.get_vmax(self.particles))
         self.step(first=True)

@@ -100,13 +100,64 @@ per-file budget of the test suite, so their outputs are committed:
   ``lat_``: tests/test_periodic_comoving.py's comoving lattice on
   ``TreeWalkEngine wq``.
 
+* ``tests/data/torch_cosmo_sidm_golden.npz`` (tests/test_torch_cosmo_lists.py,
+  tests/test_torch_cosmo_dsmc.py, tests/test_torch_cosmo_veldisp.py): the
+  cached lists, DSMC and the velocity-dispersion pass in periodic and
+  comoving runs, on cosmo-sidm's field at N = 512 with mesh 32
+  (``csidm_field``; the list checks' at N = 1024, ``csidm_list_inputs``).
+  ``rl{g,r}_``: ``record_lists(pbc=)`` on the box's
+  tree (geometric opening at skin 0; relative at skin CSIDM["skin"]) and
+  ``eval_lists(pbc=)`` on it (``1``) and on its moments refreshed at
+  drifted positions wrapped onto the box (``2``); ``d{v}{e}{k}_``: the
+  JAX ``Simulation`` with DSMC (``csidm_config``: CrossSection raised) in
+  the box (``v`` = ``b``), comoving (``c``) and both (``x``), on the list
+  engine (``e`` = ``l``), the walk engine (``w``, ``TreeWalkEngine
+  fused``) and the hash engine of the single-program step (``h``),
+  prepare + CSIDM["steps"] steps with ``ScatterLog 1`` (``d{v}{e}_sct``:
+  the scatter log's records); ``v{p,s}{k}_``: cosmo-veldisp
+  (``cvd_config``) on the phased and the single-program step.
+
+* ``tests/data/torch_walk_golden.npz`` (tests/test_torch_walk.py,
+  tests/test_torch_walk_xla.py): JAX ``wq_gravity`` on an n = 2048
+  Plummer sphere at depth 8 (``walk_inputs``), with the Pallas kernels in
+  interpret mode and opening 0 (``w0_``) and on the XLA path with opening
+  1 (``w1_``): acc, pot, overflow, ``n_segs`` and the item counts.
+
+* ``tests/data/torch_gather_golden.npz`` (tests/test_torch_gather.py): JAX
+  ``build_octree`` on n = 4096 Plummer and Hernquist halos (some particles
+  invalid; ``gather_inputs``): each tree's ``child_start``, ``mac_rows``,
+  ``quad_rows`` and packed table ``flat_tables(pack_tree(tree))``
+  (``g{model}_``).
+
+* ``tests/data/torch_tree_golden.npz`` (tests/test_torch_tree.py): the JAX
+  tree on n = 4096 Plummer (depth 8) and Hernquist (depth 11) halos
+  (``tree_inputs``): ``bounding_cube`` and ``morton_keys2``
+  (``m{model}_``); ``build_octree`` with per-type and uniform softenings
+  (``b{model}{0,1}_``) and after two ``refresh_octree`` drifts
+  (``r{model}_``): the tree's fields and its packed levels' count, start
+  and bmax^2 columns; ``make_windows`` (``w_``) and ``compact_plane`` on a
+  random key plane (``c_``).
+
+* ``tests/data/torch_far_golden.npz`` (tests/test_torch_far.py): one level
+  of a JAX-built n = 2048 Plummer tree (depth 8) for 8 target groups
+  (``f_``: the levels' packed rows and the groups' boxes, targets,
+  thresholds); per walk case (``c{i}_``, ``FAR_CASES``) ``far_items`` in
+  interpret mode (the far field and the segment, open and big key
+  planes), the recording walk's far plane, all through JAX's
+  ``compact_plane``, ``_expand_open_wq`` and the walk's big path; per
+  record case (``r{name}_``, ``FAR_RECORD_CASES``) the level appended to
+  part-full lists by ``_walk_level_keys`` and ``_append_plane`` with the
+  demand, the drops and the next frontier.
+
 Each test file has a ``slow`` test that reruns its JAX outputs and holds the
 file to them. Rerun this script to regenerate the files (all, or the ones
 named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``,
-``sidm_walk``, ``run``, ``hash``, ``veldisp``, ``periodic``):
+``sidm_walk``, ``run``, ``hash``, ``veldisp``, ``periodic``,
+``cosmo_sidm``, ``walk``, ``gather``, ``tree``, ``far``):
 
     python -m tests.make_torch_golden [slice] [list_slice] [list] [sidm]
         [sidm_slice] [sidm_walk] [run] [hash] [veldisp] [periodic]
+        [cosmo_sidm] [walk] [gather] [tree] [far]
 """
 
 import os
@@ -115,9 +166,10 @@ import tempfile
 
 import numpy as np
 
-from sidm_tpu_torch.flagship import (COSMO, DSMC, FLAGSHIP, LISTS, VELDISP,
-                                     cosmo_ics, cosmo_softening,
-                                     flagship_ics)
+from sidm_tpu_torch.flagship import (COSMO, COSMO_BOX, COSMO_FIELD_SIGMA,
+                                     COSMO_SIDM, COSMO_VELDISP, DSMC,
+                                     FLAGSHIP, LISTS, VELDISP, cosmo_ics,
+                                     cosmo_softening, flagship_ics)
 
 N = 2048
 STEPS = 3
@@ -1565,6 +1617,573 @@ def lattice_ics(G: float, H: float):
     return pos, np.full(len(pos), rho_crit * box ** 3 / len(pos))
 
 
+COSMO_SIDM_GOLDEN = os.path.join(_DATA, "torch_cosmo_sidm_golden.npz")
+# cosmo-sidm's field (flagship.cosmo_ics with a_vel) at N = 512 (the list
+# checks' at list_n), mesh 32; CrossSection raised 1e4x (0.7 -> 7000): at
+# cosmo-sidm's value nothing of this coarse field scatters in a few steps;
+# at 7000 a few pairs do on every engine (the SIDM timestep criterion caps
+# each step's probability)
+CSIDM = dict(n=512, seed=3, mesh=32, steps=3, cs=7000.0, a_vel=0.1,
+             list_n=1024, skin=300.0, drift=100.0, drift_seed=17)
+# the box without comoving integration, comoving without the box, both
+CSIDM_VARIANTS = {"b": dict(ComovingIntegrationOn=0),
+                  "c": dict(PeriodicBoundariesOn=0), "x": {}}
+# engine: (mode, changes); JAX's DSMC walk on TreeWalkEngine fused (its
+# wq branch raises NameError, ROADMAP C.9)
+CSIDM_ENGINES = {"l": ("phased", dict(ListMode=1, TreeWalkEngine="wq")),
+                 "w": ("phased", dict(ListMode=0, TreeWalkEngine="fused")),
+                 "h": ("synchronized", dict(TreeWalkEngine="wq"))}
+CSIDM_FIELDS = ("hsml_vd", "ngb_vd", "dvel")
+# cosmo-veldisp on both steps
+CVD_MODES = {"p": "phased", "s": "synchronized"}
+CVD_FIELDS = ("hsml_vd", "ngb_vd", "vel_disp", "dens_vd")
+
+
+def csidm_config(variant: str = "x", engine: str = "l", **changes) -> dict:
+    """cosmo-sidm's parameters at CSIDM["n"] with mesh CSIDM["mesh"] and
+    CrossSection CSIDM["cs"] (as ``flagship.cosmo_config(**COSMO_SIDM)``),
+    in variant ``b``/``c``/``x`` on engine ``l``/``w``/``h``."""
+    eps, cap = cosmo_softening(CSIDM["n"])
+    return {**COSMO, "SofteningHalo": eps, "SofteningHaloMaxPhys": cap,
+            "PMGrid": CSIDM["mesh"], **COSMO_SIDM,
+            "CrossSection": CSIDM["cs"], **CSIDM_VARIANTS[variant],
+            **CSIDM_ENGINES[engine][1], **changes}
+
+
+def cvd_config(**changes) -> dict:
+    """cosmo-veldisp at CSIDM["n"] with mesh CSIDM["mesh"]."""
+    eps, cap = cosmo_softening(CSIDM["n"])
+    return {**COSMO, "SofteningHalo": eps, "SofteningHaloMaxPhys": cap,
+            "PMGrid": CSIDM["mesh"], **COSMO_VELDISP, **changes}
+
+
+def csidm_field(field_sigma: float = 0.0):
+    """(pos, vel, mass) float64 of the tests' cosmo-sidm field."""
+    return cosmo_ics(CSIDM["n"], CSIDM["seed"], a_vel=CSIDM["a_vel"],
+                     field_sigma=field_sigma)
+
+
+def csidm_list_inputs():
+    """The list checks' inputs (float32) at CSIDM["list_n"]: positions,
+    masses, softenings, |a_old| of the relative criterion, and the drifted
+    positions wrapped onto the box (a few dozen particles cross a face)."""
+    n = CSIDM["list_n"]
+    pos, _, mass = cosmo_ics(n, CSIDM["seed"])
+    eps = np.full(n, cosmo_softening(n)[0], np.float32)
+    rng = np.random.default_rng(CSIDM["drift_seed"])
+    old = rng.uniform(0.5, 2.0, n).astype(np.float32) * 1e3
+    pos2 = (pos + rng.normal(0.0, CSIDM["drift"], (n, 3))) % COSMO_BOX
+    return (pos.astype(np.float32), mass.astype(np.float32), eps, old,
+            pos2.astype(np.float32))
+
+
+def jax_cosmo_sidm() -> dict:
+    """The JAX outputs of tests/test_torch_cosmo_lists.py,
+    tests/test_torch_cosmo_dsmc.py and tests/test_torch_cosmo_veldisp.py
+    (see the module note)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.diagnostics import compute_system_state
+    from sidm_tpu.ops.fused_force import default_depth
+    from sidm_tpu.ops.list_force import (ListConfig, eval_lists,
+                                         record_lists)
+    from sidm_tpu.ops.pm import build_pm_kernel
+    from sidm_tpu.ops.tree import build_octree, refresh_octree
+    from sidm_tpu.simulation import Simulation
+
+    out = {}
+    n = CSIDM["list_n"]
+    pos, mass, eps, old, pos2 = csidm_list_inputs()
+    kern = build_pm_kernel(COSMO_BOX, n=CSIDM["mesh"], asmth=COSMO["PMAsmth"],
+                           rcut_fac=COSMO["PMRcutFac"])
+    pbc = (COSMO_BOX, float(kern.alpha), float(kern.rcut))
+    out["rl_pbc"] = np.asarray(pbc, np.float64)
+    mj, ej = jnp.asarray(mass), jnp.asarray(eps)
+    valid = mj > 0
+    tree = build_octree(jnp.asarray(pos), mj, ej, valid, box=COSMO_BOX,
+                        depth=default_depth(n))
+    tree2 = refresh_octree(tree, jnp.asarray(pos2), mj, ej, valid,
+                           box=COSMO_BOX)
+    lcfg = ListConfig(materialize=False)
+    for tag, rel, skin in (("g", False, 0.0), ("r", True, CSIDM["skin"])):
+        lists = record_lists(tree, jnp.asarray(old)[tree.perm],
+                             valid[tree.perm], theta=0.5, use_relative=rel,
+                             err_tol_force_acc=0.005, lcfg=lcfg, skin=skin,
+                             pbc=pbc)
+        for f in ("far", "near", "nf", "nn", "src", "ovf", "need", "pidx",
+                  "gvalid"):
+            out[f"rl{tag}_{f}"] = np.asarray(getattr(lists, f))
+        for k, t in ((1, tree), (2, tree2)):
+            a, p = eval_lists(t, lists, mj, ej, lcfg=lcfg, need_pot=True,
+                              pbc=pbc)
+            out[f"rl{tag}{k}_acc"] = np.asarray(a)
+            out[f"rl{tag}{k}_pot"] = np.asarray(p)
+
+    def state(sim, prefix, fields):
+        snapshot(sim.particles, sim, compute_system_state(sim.particles),
+                 prefix, out)
+        for f in fields:
+            out[prefix + f] = np.asarray(getattr(sim.particles, f))
+
+    n = CSIDM["n"]
+    cpos, cvel, cmass = csidm_field()
+    for v in CSIDM_VARIANTS:
+        for e, (mode, _) in CSIDM_ENGINES.items():
+            tag = f"d{v}{e}"
+            with tempfile.TemporaryDirectory() as d:
+                sim = Simulation(SimConfig(**csidm_config(
+                    v, e, OutputDir=d, ScatterLog=1)), mode=mode, quiet=True)
+                sim.set_particles_from_arrays(cpos, cvel, cmass,
+                                              np.ones(n, np.int32))
+                sim.prepare()
+                state(sim, f"{tag}0_", CSIDM_FIELDS)
+                for k in range(1, CSIDM["steps"] + 1):
+                    _, _, n_scat = sim.step()
+                    state(sim, f"{tag}{k}_", CSIDM_FIELDS)
+                    out[f"{tag}{k}_n_scat"] = np.int64(n_scat)
+                sct = os.path.join(d, "sct_000.0")
+                out[f"{tag}_sct"] = (np.fromfile(sct, np.float32)
+                                     .reshape(-1, 20) if os.path.exists(sct)
+                                     else np.zeros((0, 20), np.float32))
+    vpos, vvel, vmass = csidm_field(COSMO_FIELD_SIGMA)
+    for t, mode in CVD_MODES.items():
+        with tempfile.TemporaryDirectory() as d:
+            sim = Simulation(SimConfig(**cvd_config(OutputDir=d)),
+                             mode=mode, quiet=True)
+            sim.set_particles_from_arrays(vpos, vvel, vmass,
+                                          np.ones(n, np.int32))
+            sim.prepare()
+            state(sim, f"v{t}0_", CVD_FIELDS)
+            for k in range(1, CSIDM["steps"] + 1):
+                sim.step()
+                state(sim, f"v{t}{k}_", CVD_FIELDS)
+    return out
+
+
+WALK_GOLDEN = os.path.join(_DATA, "torch_walk_golden.npz")
+# tests/test_torch_walk.py's Plummer sphere (n, depth, the seed of its
+# positions) and the JAX runs' small super-blocks
+WALK = dict(n=2048, depth=8, seed=5, eps=0.05, wq_block=64,
+            wq_near_block=256)
+
+
+def walk_inputs(opening: int):
+    """(pos, mass, eps, |a_old|) float32 of the walk checks: the Plummer
+    sphere; |a_old| 0 for opening 0, the direct sum's for opening 1."""
+    import torch
+
+    from sidm_tpu_torch.io import ics
+    from sidm_tpu_torch.ops.direct import direct_gravity
+
+    n = WALK["n"]
+    pos, _, m = ics.plummer(n, seed=WALK["seed"])
+    pos, m = pos.astype(np.float32), m.astype(np.float32)
+    eps = np.full(n, WALK["eps"], np.float32)
+    old = np.zeros(n, np.float32)
+    if opening == 1:
+        a, _ = direct_gravity(torch.tensor(pos), torch.tensor(m),
+                              torch.tensor(eps), with_potential=False)
+        old = np.linalg.norm(a.numpy(), axis=1).astype(np.float32)
+    return pos, m, eps, old
+
+
+def jax_walk() -> dict:
+    """JAX ``wq_gravity`` on walk_inputs: opening 0 with the Pallas kernels
+    in interpret mode (``w0_``), opening 1 on the XLA path (``w1_``)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops.fused_force import FusedConfig
+    from sidm_tpu.ops.wq_force import wq_gravity
+
+    out = {}
+    blocks = dict(wq_block=WALK["wq_block"],
+                  wq_near_block=WALK["wq_near_block"])
+    for opening, cfg in ((0, FusedConfig(wq_pallas=True, **blocks)),
+                         (1, FusedConfig(**blocks))):
+        pos, m, eps, old = walk_inputs(opening)
+        acc, pot, info = wq_gravity(
+            jnp.asarray(pos), jnp.asarray(m), jnp.asarray(eps),
+            jnp.asarray(old), theta=0.5, opening=opening,
+            depth=WALK["depth"], config=cfg, return_info=True)
+        out[f"w{opening}_acc"] = np.asarray(acc)
+        out[f"w{opening}_pot"] = np.asarray(pot)
+        for k in ("ovf_items", "n_segs", "max_walk_items", "max_near_items"):
+            out[f"w{opening}_{k}"] = np.int64(np.asarray(info[k]))
+    return out
+
+
+GATHER_GOLDEN = os.path.join(_DATA, "torch_gather_golden.npz")
+# tests/test_torch_gather.py's halos: model -> tree depth
+GATHER = dict(n=4096, seed=21, eps=0.05, invalid_every=53)
+GATHER_MODELS = {"plummer": 8, "hernquist": 11}
+
+
+def gather_inputs(model: str):
+    """(pos, mass, eps, valid) of the gather checks' n = 4096 halo."""
+    from sidm_tpu_torch.io import ics
+
+    n = GATHER["n"]
+    pos, _, m = getattr(ics, model)(n, seed=GATHER["seed"])
+    valid = np.ones(n, bool)
+    valid[::GATHER["invalid_every"]] = False
+    return (pos.astype(np.float32), m.astype(np.float32),
+            np.full(n, GATHER["eps"], np.float32), valid)
+
+
+def jax_gather() -> dict:
+    """JAX ``build_octree`` on gather_inputs at each model's depth: the
+    tree's ``child_start``, ``mac_rows`` and ``quad_rows``, and its packed
+    table ``flat_tables(pack_tree(tree))`` (``g{model}_``)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops import fused_force as jff
+    from sidm_tpu.ops.list_force import flat_tables
+    from sidm_tpu.ops.tree import build_octree
+
+    out = {}
+    for model, depth in GATHER_MODELS.items():
+        pos, m, eps, valid = gather_inputs(model)
+        jt = build_octree(jnp.asarray(pos), jnp.asarray(m), jnp.asarray(eps),
+                          jnp.asarray(valid), depth=depth)
+        out[f"g{model}_child_start"] = np.asarray(jt.child_start)
+        out[f"g{model}_mac_rows"] = np.asarray(jt.mac_rows)
+        out[f"g{model}_quad_rows"] = np.asarray(jt.quad_rows)
+        out[f"g{model}_flat"] = np.asarray(flat_tables(jff.pack_tree(jt))[0])
+    return out
+
+
+TREE_GOLDEN = os.path.join(_DATA, "torch_tree_golden.npz")
+# tests/test_torch_tree.py's halos: model -> tree depth
+TREE_MODELS = {"plummer": 8, "hernquist": 11}
+TREE_N = 4096
+TREE_FIELDS = ("perm", "keys_s", "node_start", "node_count", "child_start",
+               "child_count", "n_nodes", "level_offsets", "origin",
+               "extent", "drift", "mac_rows", "quad_rows", "pos_s", "mass_s")
+PACKED_COLS = [4, 5, 6, 7, 15]   # pack_tree rows' count, starts, bmax^2
+
+
+def tree_inputs(model: str, n: int, seed: int, n_invalid: int):
+    """(pos, mass, eps, valid) of the tree checks: a halo with n_invalid
+    invalid particles and two softenings."""
+    from sidm_tpu_torch.io import ics
+
+    pos, _, m = getattr(ics, model)(n, seed=seed)
+    valid = np.ones(n, bool)
+    valid[np.random.default_rng(seed).choice(n, n_invalid, False)] = False
+    eps = np.where(np.arange(n) % 3 == 0, 0.05, 0.08).astype(np.float32)
+    return pos.astype(np.float32), m.astype(np.float32), eps, valid
+
+
+def compact_keys():
+    """The compaction check's random key plane (60 % IMAX)."""
+    rng = np.random.default_rng(6)
+    keys = rng.integers(0, 1000, (37, 256)).astype(np.int32)
+    keys[rng.random(keys.shape) < 0.6] = 2147483647
+    return keys
+
+
+def jax_tree() -> dict:
+    """The JAX tree functions on tests/test_torch_tree.py's inputs (see the
+    module note)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops import fused_force as jff
+    from sidm_tpu.ops import morton as jmorton
+    from sidm_tpu.ops.tree import build_octree, refresh_octree
+
+    out = {}
+
+    def record(prefix, jt):
+        for f in TREE_FIELDS:
+            out[prefix + f] = np.asarray(getattr(jt, f))
+        levels = [np.asarray(a) for a in jff.pack_tree(jt).levels]
+        out[prefix + "packed"] = np.concatenate(
+            [a[:, PACKED_COLS] for a in levels])
+        out[prefix + "packed_sizes"] = np.asarray([len(a) for a in levels])
+
+    def arrays(*a):
+        return [jnp.asarray(x) for x in a]
+
+    for model, depth in TREE_MODELS.items():
+        pos, _, _, valid = tree_inputs(model, TREE_N, 1, 100)
+        o, e = jmorton.bounding_cube(*arrays(pos, valid))
+        hi, lo = jmorton.morton_keys2(jnp.asarray(pos), o, e, depth)
+        out[f"m{model}_origin"] = np.asarray(o)
+        out[f"m{model}_extent"] = np.float64(e)
+        out[f"m{model}_hi"] = np.asarray(hi)
+        out[f"m{model}_lo"] = np.asarray(lo)
+        for uniform in (False, True):
+            pos, m, eps, valid = tree_inputs(model, TREE_N, 2, 97)
+            if uniform:
+                eps = np.full_like(eps, 0.05)
+            record(f"b{model}{int(uniform)}_", build_octree(
+                *arrays(pos, m, eps, valid), depth=depth,
+                uniform_eps=uniform))
+        pos, m, eps, valid = tree_inputs(model, TREE_N, 3, 50)
+        jt = build_octree(*arrays(pos, m, eps, valid), depth=depth)
+        rng = np.random.default_rng(4)
+        for _ in range(2):
+            pos = (pos + rng.normal(size=pos.shape) * 0.02).astype(
+                np.float32)
+            jt = refresh_octree(jt, *arrays(pos, m, eps, valid))
+        record(f"r{model}_", jt)
+    pos, m, eps, valid = tree_inputs("plummer", TREE_N, 5, 60)
+    jt = build_octree(*arrays(pos, m, eps, valid), depth=8)
+    vs = valid[np.asarray(jt.perm)]
+    jp, jv, *_ = jff.make_windows(jt.keys_s, jnp.asarray(vs), TREE_N, 64, 8,
+                                  4, 32, True)
+    out["w_pidx"], out["w_gvalid"] = np.asarray(jp), np.asarray(jv)
+    out["c_out"] = np.asarray(jff.compact_plane(jnp.asarray(compact_keys())))
+    return out
+
+
+FAR_GOLDEN = os.path.join(_DATA, "torch_far_golden.npz")
+# tests/test_torch_far.py: one level of a JAX-built n = 2048 Plummer tree
+# (depth 8) for 8 of its target groups
+FAR = dict(n=2048, depth=8, g=64, wc=128, seed=7, groups=8)
+FAR_LEVELS = (3, 5, 8)
+FAR_DEFAULT_CAPS = dict(Wn=4096, open_cap=1024, big_cap=8, big_chunks=8)
+# (level, last, use_relative, need_pot, leaf_cap, caps); level 5 run as
+# the last level has overfull cells, so big keys are emitted. The second
+# case caps the opened cells and the next frontier, the third the big
+# cells and their chunks, so that every walk counter overflows somewhere.
+FAR_CASES = [(3, False, False, True, 16, FAR_DEFAULT_CAPS),
+             (3, False, True, False, 16,
+              dict(FAR_DEFAULT_CAPS, Wn=64, open_cap=6)),
+             (5, True, True, True, 16, dict(FAR_DEFAULT_CAPS, big_cap=1,
+                                             big_chunks=1)),
+             (FAR["depth"], True, False, False, 16, FAR_DEFAULT_CAPS)]
+# name -> (level, last, walk caps, list caps (LF, LN, lvl_cap)); each case
+# overflows the cap it is named after
+FAR_LVL_BASE = 4681
+FAR_RECORD_CASES = {
+    "open_cap": (3, False, dict(FAR_DEFAULT_CAPS, open_cap=5),
+                 (4096, 4096, None)),
+    "wn": (3, False, dict(FAR_DEFAULT_CAPS, Wn=16), (4096, 4096, None)),
+    "lvl_cap": (3, False, FAR_DEFAULT_CAPS, (4096, 4096, 16)),
+    "far_cap": (3, False, FAR_DEFAULT_CAPS, (96, 4096, None)),
+    "near_cap": (3, False, FAR_DEFAULT_CAPS, (4096, 12, None)),
+    "big_cap": (5, True, dict(FAR_DEFAULT_CAPS, big_cap=1, big_chunks=1),
+                (4096, 4096, None)),
+}
+
+
+def far_level_inputs(s, level, short=0):
+    """All nodes of ``level`` of the far checks' tree (``s``: the
+    ``f_`` arrays of torch_far_golden.npz, keys without the prefix) as
+    every group's frontier; with ``short``, group g's frontier ends
+    ``short * g`` ids early (-1 past its live count)."""
+    tbl = s[f"tbl{level}"]
+    W = tbl.shape[0]
+    ng = s["xc"].shape[0]
+    n_live = np.maximum(W - short * np.arange(ng), 0).astype(np.int32)
+    fids = np.tile(np.arange(W, dtype=np.int32), (ng, 1))
+    fids[np.arange(W)[None, :] >= n_live[:, None]] = -1
+    s_l = np.float32(float(s["extent"]) / (1 << level))
+    return dict(fids=fids, n_live=n_live, tbl=tbl,
+                nl_real=int(s[f"nl{level}"]), s_l=s_l, xc=s["xc"],
+                te=s["te"], glo=s["glo"], ghi=s["ghi"], oac=s["oac"])
+
+
+def prefilled_lists(ng, LF, LN, seed):
+    """Lists already part full (random fill counts and ids, IMAX tails),
+    as numpy (far, near, nf, nn)."""
+    rng = np.random.default_rng(seed)
+    nf = rng.integers(0, LF + 1, ng).astype(np.int32)
+    nn = rng.integers(0, LN + 1, ng).astype(np.int32)
+    far = rng.integers(0, 1 << 20, (ng, LF)).astype(np.int32)
+    near = rng.integers(0, 1 << 20, (ng, LN)).astype(np.int32)
+    far[np.arange(LF)[None, :] >= nf[:, None]] = 2147483647
+    near[np.arange(LN)[None, :] >= nn[:, None]] = 2147483647
+    return far, near, nf, nn
+
+
+def jax_far_level() -> dict:
+    """The JAX far kernel and the recording walk's level on
+    tests/test_torch_far.py's inputs (see the module note)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import torch
+    from sidm_tpu.ops import fused_force as jff
+    from sidm_tpu.ops.fused_force import FusedConfig
+    from sidm_tpu.ops.list_force import _append_plane, _walk_level_keys
+    from sidm_tpu.ops.pallas_far import far_items, pack_rows_t, pack_tgt_scal
+    from sidm_tpu.ops.tree import build_octree
+    from sidm_tpu.ops.wq_force import _expand_open_wq
+
+    from sidm_tpu_torch.io import ics
+    from sidm_tpu_torch.ops.direct import direct_gravity
+
+    IMAX = 2147483647
+    N, DEPTH, G, WC = FAR["n"], FAR["depth"], FAR["g"], FAR["wc"]
+    out = {}
+    # the tree and the inputs of a subset of target groups, built as
+    # wq_force.wq_gravity_tree builds them
+    pos, _, m = ics.plummer(N, seed=FAR["seed"])
+    pos, m = pos.astype(np.float32), m.astype(np.float32)
+    m[::61] = 0.0                        # a few invalid particles
+    eps = np.full(N, 0.05, np.float32)
+    jt = build_octree(jnp.asarray(pos), jnp.asarray(m), jnp.asarray(eps),
+                      jnp.asarray(m > 0), depth=DEPTH)
+    ft = jff.pack_tree(jt)
+    perm = np.asarray(jt.perm)
+    pidx, gvalid, *_ = jff.make_windows(jt.keys_s, jnp.asarray((m > 0)[perm]),
+                                        N, G, DEPTH, 4, 32, True)
+    pidx, gvalid = np.asarray(pidx), np.asarray(gvalid)
+    pick = np.linspace(0, int(np.any(gvalid, 1).sum()) - 1,
+                       FAR["groups"]).astype(int)
+    pidx, gvalid = pidx[pick], gvalid[pick]
+    acc, _ = direct_gravity(torch.tensor(pos), torch.tensor(m),
+                            torch.tensor(eps), with_potential=False)
+    toac = (np.linalg.norm(acc.numpy(), axis=1)[perm] * 0.005).astype(
+        np.float32)
+    xr = np.asarray(jt.pos_s)[pidx]
+    te = np.where(gvalid, np.asarray(jt.eps_s)[pidx], 1.0).astype(np.float32)
+    goac = np.where(gvalid, toac[pidx], 0.0)
+    glo = np.where(gvalid[..., None], xr, 1e30).min(1).astype(np.float32)
+    ghi = np.where(gvalid[..., None], xr, -1e30).max(1).astype(np.float32)
+    pos_oac = gvalid & (goac > 0)
+    oac = np.where(pos_oac.any(1),
+                   np.where(pos_oac, goac, 1e30).min(1), 0.0).astype(
+                       np.float32)
+    gc = (np.float32(0.5) * (glo + ghi)).astype(np.float32)
+    xc = np.where(gvalid[..., None], xr - gc[:, None, :], 0.0).astype(
+        np.float32)
+    s = dict(xc=xc, te=te, glo=glo, ghi=ghi, oac=oac, gvalid=gvalid,
+             extent=np.float64(jt.extent))
+    for level in FAR_LEVELS:
+        s[f"tbl{level}"] = np.asarray(ft.levels[level])
+        s[f"nl{level}"] = np.int64(ft.n_levels[level])
+    out.update({f"f_{k}": v for k, v in s.items()})
+
+    def compact(plane):
+        return np.asarray(jff.compact_plane(jnp.asarray(plane)))
+
+    def level_keys(inp, *, theta2, use_relative, leaf_cap, last,
+                   lvl_base=0):
+        ng, W = inp["fids"].shape
+        planes = _walk_level_keys(
+            jnp.asarray(inp["fids"]), jnp.asarray([int(inp["n_live"].max())]),
+            jnp.asarray(inp["tbl"]), jnp.asarray(inp["s_l"]), inp["nl_real"],
+            jnp.asarray(inp["glo"])[None], jnp.asarray(inp["ghi"])[None],
+            jnp.asarray(inp["oac"])[None], jnp.int32(lvl_base), W=W,
+            WC=min(WC, W), last=last, theta2=theta2,
+            use_relative=use_relative, cfg=FusedConfig(leaf_cap=leaf_cap),
+            NB=1, GB=ng, ng=ng)
+        return [np.asarray(p) for p in planes]
+
+    def expand(openk, Wn, open_cap):
+        fids, n_live, ovf, _ = _expand_open_wq(
+            jnp.asarray(openk), jnp.zeros(2, jnp.int32), Wn=Wn,
+            cfg=FusedConfig(open_cap=open_cap))
+        return (np.asarray(fids), np.asarray(n_live), int(ovf[0]),
+                np.sum(openk != IMAX, axis=1))
+
+    def big(bigk, tbl, big_cap, big_chunks):
+        # the JAX walk's overfull-cell path (wq_force.py:508-537,
+        # list_force.py:339-366)
+        bid = compact(bigk)[:, :big_cap]
+        bval = bid != IMAX
+        brow = tbl[np.clip(bid, 0, tbl.shape[0] - 1)]
+        bstart = brow[..., 5].astype(np.int32)
+        bcnt = np.where(bval, brow[..., 4].astype(np.int32), 0)
+        k16 = np.arange(big_chunks, dtype=np.int32) * 16
+        cst = bstart[:, :, None] + k16[None, None, :]
+        ccn = np.clip(bcnt[:, :, None] - k16[None, None, :], 0, 16)
+        bkey = np.where(ccn > 0, cst * 32 + ccn, IMAX).reshape(
+            bigk.shape[0], big_cap * big_chunks).astype(np.int32)
+        bkey = compact(bkey)
+        return (bkey, np.sum(bkey != IMAX, axis=1),
+                np.sum(bigk != IMAX, axis=1), bcnt)
+
+    for i, (level, last, rel, need_pot, leaf_cap, caps) in enumerate(
+            FAR_CASES):
+        inp = far_level_inputs(s, level, short=9)
+        fids, tbl = inp["fids"], inp["tbl"]
+        ng, W = fids.shape
+        nc = W // WC
+        g_of = np.repeat(np.arange(ng, dtype=np.int32), nc)
+        ids = fids.reshape(ng * nc, WC)
+        dead = (ids < 0) | (ids >= inp["nl_real"])
+        rows = tbl[np.clip(ids, 0, tbl.shape[0] - 1)]
+        rows_t = pack_rows_t(jnp.asarray(rows), jnp.asarray(ids),
+                             jnp.asarray(dead))
+        tgt, scal = pack_tgt_scal(
+            jnp.asarray(inp["xc"]), jnp.asarray(inp["te"]),
+            jnp.zeros((ng, G, 3), jnp.float32), jnp.asarray(inp["glo"]),
+            jnp.asarray(inp["ghi"]), jnp.asarray(inp["oac"]))
+        acc_j, keys = far_items(
+            jnp.asarray(g_of), jnp.asarray(inp["s_l"]), rows_t, tgt, scal,
+            G=G, WC=WC, theta2=0.25, use_relative=rel, leaf_cap=leaf_cap,
+            last=last, need_pot=need_pot, interpret=True)
+        keys = np.asarray(keys).reshape(ng, nc, 4, WC).transpose(2, 0, 1, 3)
+        segk, openk, bigk = keys[:3].reshape(3, ng, W)
+        fark = level_keys(inp, theta2=0.25, use_relative=rel,
+                          leaf_cap=leaf_cap, last=last)[0]
+        pre = f"c{i}_"
+        out[pre + "acc"] = np.asarray(acc_j)[:ng, :, :4]
+        out[pre + "far"] = compact(fark)
+        out[pre + "seg"] = compact(segk)
+        out[pre + "n_far"] = np.sum(fark != IMAX, 1)
+        out[pre + "n_seg"] = np.sum(segk != IMAX, 1)
+        if not last:
+            (out[pre + "fids"], out[pre + "n_live"], out[pre + "ovf"],
+             out[pre + "n_open"]) = expand(openk, caps["Wn"],
+                                           caps["open_cap"])
+        else:
+            (out[pre + "bkey"], out[pre + "n_bk"], out[pre + "n_big"],
+             out[pre + "bcnt"]) = big(bigk, tbl, caps["big_cap"],
+                                      caps["big_chunks"])
+
+    for name, (level, last, caps, (LF, LN, lvl_cap)) in \
+            FAR_RECORD_CASES.items():
+        inp = far_level_inputs(s, level, short=9)
+        ng, W = inp["fids"].shape
+        far0, near0, nf0, nn0 = prefilled_lists(ng, LF, LN, seed=level)
+        fark, segk, openk, bigk = level_keys(
+            inp, lvl_base=FAR_LVL_BASE, theta2=0.25, use_relative=True,
+            leaf_cap=16, last=last)
+        # JAX _record's do_level, then _expand_open or the big path
+        LC = W if lvl_cap is None else min(lvl_cap, W)
+        live_f, live_n = np.sum(fark != IMAX, 1), np.sum(segk != IMAX, 1)
+        zero = jnp.zeros((), jnp.int32)
+        far, nf, ovf_f = _append_plane(
+            jnp.asarray(far0), jnp.asarray(nf0), zero,
+            jnp.asarray(compact(fark)[:, :LC]), LC)
+        near, nn, ovf_n = _append_plane(
+            jnp.asarray(near0), jnp.asarray(nn0), zero,
+            jnp.asarray(compact(segk)[:, :LC]), LC)
+        r = dict(need_f=live_f, need_n=live_n,
+                 ovf_l=int(np.sum(np.maximum(live_f - LC, 0))
+                           + np.sum(np.maximum(live_n - LC, 0))))
+        if not last:
+            fids, n_live, ovf_open, _ = expand(openk, caps["Wn"],
+                                               caps["open_cap"])
+            r.update(fids=fids, n_live=n_live, ovf_open=ovf_open)
+            r["ovf_l"] += ovf_open
+        else:
+            bkey, n_bk, n_big, bcnt = big(bigk, inp["tbl"], caps["big_cap"],
+                                          caps["big_chunks"])
+            over = np.maximum(n_big - caps["big_cap"], 0)
+            r["need_n"] = live_n + n_bk + over * caps["big_chunks"]
+            near, nn, ovf_n = _append_plane(near, nn, ovf_n,
+                                            jnp.asarray(bkey), bkey.shape[1])
+            r["ovf_l"] += int(over.sum() + np.sum(
+                np.maximum(bcnt - 16 * caps["big_chunks"], 0)))
+            r["over"] = int(over.sum())
+        r.update(far=np.asarray(far), near=np.asarray(near),
+                 nf=np.asarray(nf), nn=np.asarray(nn), ovf_f=int(ovf_f),
+                 ovf_n=int(ovf_n))
+        out.update({f"r{name}_{k}": np.asarray(v) for k, v in r.items()})
+    return out
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
@@ -1574,7 +2193,12 @@ GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "run": (RUN_GOLDEN, jax_run),
            "hash": (HASH_GOLDEN, jax_hash),
            "veldisp": (VELDISP_GOLDEN, jax_veldisp),
-           "periodic": (PERIODIC_GOLDEN, jax_periodic)}
+           "periodic": (PERIODIC_GOLDEN, jax_periodic),
+           "cosmo_sidm": (COSMO_SIDM_GOLDEN, jax_cosmo_sidm),
+           "walk": (WALK_GOLDEN, jax_walk),
+           "gather": (GATHER_GOLDEN, jax_gather),
+           "tree": (TREE_GOLDEN, jax_tree),
+           "far": (FAR_GOLDEN, jax_far_level)}
 
 
 def main(names):

@@ -21,6 +21,10 @@ is held against the plain version (walk, with the far field by the
 ``far_list`` kernel against ``far_list_plain``) and against JAX (record)
 the same way.
 
+JAX's outputs are frozen in tests/data/torch_far_golden.npz (``python -m
+tests.make_torch_golden far``: the tree, the interpreted ``far_items`` and
+the recording walk's level).
+
 The list-far kernel's work-item split (``ops/work_items.py``) covers every
 live list entry once, in order, in items of about equal size; the plain
 ``far_list_plain`` evaluated item by item and summed in the second pass's
@@ -28,164 +32,41 @@ order matches it on the whole lists to 1e-6 relative; on the card the
 kernel (and its split) is held against the plain version on lists with
 an empty list beside one at the cap, dead ids and softened pairs."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from sidm_tpu.io import ics
-from sidm_tpu.ops import fused_force as jff
-from sidm_tpu.ops.fused_force import FusedConfig as JaxConfig
-from sidm_tpu.ops.fused_force import compact_plane as jax_compact_plane
-from sidm_tpu.ops.list_force import _append_plane, _walk_level_keys
-from sidm_tpu.ops.pallas_far import far_items, pack_rows_t, pack_tgt_scal
-from sidm_tpu.ops.tree import build_octree as jbuild
-from sidm_tpu.ops.wq_force import _expand_open_wq
-
-from sidm_tpu_torch.ops.direct import direct_gravity
 from sidm_tpu_torch.ops.far_kernel import (C_BIG, C_BIG_DROP, C_BK, C_FAR,
                                            C_NEXT, C_OPEN, C_OVF_OPEN, C_SEG,
                                            S_NEED_F, S_NEED_N, S_OVF_F,
                                            S_OVF_L, S_OVF_N, ListBuf,
                                            far_level, far_level_plain)
 from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+from tests.make_torch_golden import (FAR, FAR_CASES, FAR_DEFAULT_CAPS,
+                                     FAR_GOLDEN, FAR_LVL_BASE,
+                                     FAR_RECORD_CASES, far_level_inputs,
+                                     prefilled_lists)
 
 torch.set_num_threads(2)
 
-N, DEPTH, G, WC = 2048, 8, 64, 128
+N, DEPTH, G, WC = FAR["n"], FAR["depth"], FAR["g"], FAR["wc"]
 IMAX = 2147483647
 
 
-def groups_of_tree(n_groups=8, seed=7):
-    """JAX tree + packed levels + the inputs of a subset of target groups,
-    built as wq_force.wq_gravity_tree builds them (numpy float32)."""
-    pos, _, m = ics.plummer(N, seed=seed)
-    pos, m = pos.astype(np.float32), m.astype(np.float32)
-    m[::61] = 0.0                        # a few invalid particles
-    eps = np.full(N, 0.05, np.float32)
-    jt = jbuild(jnp.asarray(pos), jnp.asarray(m), jnp.asarray(eps),
-                jnp.asarray(m > 0), depth=DEPTH)
-    ft = jff.pack_tree(jt)
-    perm = np.asarray(jt.perm)
-    pidx, gvalid, *_ = jff.make_windows(jt.keys_s, jnp.asarray((m > 0)[perm]),
-                                        N, G, DEPTH, 4, 32, True)
-    pidx, gvalid = np.asarray(pidx), np.asarray(gvalid)
-    pick = np.linspace(0, int(np.any(gvalid, 1).sum()) - 1, n_groups)
-    pidx, gvalid = pidx[pick.astype(int)], gvalid[pick.astype(int)]
-    acc, _ = direct_gravity(torch.tensor(pos), torch.tensor(m),
-                            torch.tensor(eps), with_potential=False)
-    toac = (np.linalg.norm(acc.numpy(), axis=1)[perm] * 0.005).astype(
-        np.float32)
-    pos_s = np.asarray(jt.pos_s)
-    xr = pos_s[pidx]
-    te = np.where(gvalid, np.asarray(jt.eps_s)[pidx], 1.0).astype(np.float32)
-    goac = np.where(gvalid, toac[pidx], 0.0)
-    glo = np.where(gvalid[..., None], xr, 1e30).min(1).astype(np.float32)
-    ghi = np.where(gvalid[..., None], xr, -1e30).max(1).astype(np.float32)
-    pos_oac = gvalid & (goac > 0)
-    oac = np.where(pos_oac.any(1),
-                   np.where(pos_oac, goac, 1e30).min(1), 0.0).astype(
-                       np.float32)
-    gc = (np.float32(0.5) * (glo + ghi)).astype(np.float32)
-    xc = np.where(gvalid[..., None], xr - gc[:, None, :], 0.0).astype(
-        np.float32)
-    return dict(jt=jt, ft=ft, xr=xr, xc=xc, te=te, glo=glo, ghi=ghi,
-                oac=oac, gvalid=gvalid)
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(FAR_GOLDEN) as z:
+        return {k: z[k] for k in z.files}
 
 
 @pytest.fixture(scope="module")
-def setup():
-    return groups_of_tree()
+def setup(golden):
+    """The JAX tree's levels and the inputs of a subset of its target
+    groups (``f_``), built as wq_force.wq_gravity_tree builds them."""
+    return {k[2:]: v for k, v in golden.items() if k.startswith("f_")}
 
 
-def level_inputs(s, level, short=0):
-    """All nodes of ``level`` as every group's frontier; with ``short``,
-    group g's frontier ends ``short * g`` ids early (-1 past its live
-    count)."""
-    tbl = np.asarray(s["ft"].levels[level])
-    W = tbl.shape[0]
-    ng = s["xc"].shape[0]
-    n_live = np.maximum(W - short * np.arange(ng), 0).astype(np.int32)
-    fids = np.tile(np.arange(W, dtype=np.int32), (ng, 1))
-    fids[np.arange(W)[None, :] >= n_live[:, None]] = -1
-    s_l = np.float32(float(s["jt"].extent) / (1 << level))
-    return dict(fids=fids, n_live=n_live, tbl=tbl,
-                nl_real=int(s["ft"].n_levels[level]), s_l=s_l, xc=s["xc"],
-                te=s["te"], glo=s["glo"], ghi=s["ghi"], oac=s["oac"])
-
-
-def jax_far(inp, *, theta2, use_relative, leaf_cap, last, need_pot):
-    """far_items (interpret mode) over the (group, 128-chunk) items: the
-    far field and the segment, open and big key planes."""
-    fids, tbl = inp["fids"], inp["tbl"]
-    ng, W = fids.shape
-    nc = W // WC
-    g_of = np.repeat(np.arange(ng, dtype=np.int32), nc)
-    ids = fids.reshape(ng * nc, WC)
-    dead = (ids < 0) | (ids >= inp["nl_real"])
-    rows = tbl[np.clip(ids, 0, tbl.shape[0] - 1)]
-    rows_t = pack_rows_t(jnp.asarray(rows), jnp.asarray(ids),
-                         jnp.asarray(dead))
-    tgt, scal = pack_tgt_scal(jnp.asarray(inp["xc"]), jnp.asarray(inp["te"]),
-                              jnp.zeros((ng, G, 3), jnp.float32),
-                              jnp.asarray(inp["glo"]),
-                              jnp.asarray(inp["ghi"]),
-                              jnp.asarray(inp["oac"]))
-    acc, keys = far_items(jnp.asarray(g_of), jnp.asarray(inp["s_l"]), rows_t,
-                          tgt, scal, G=G, WC=WC, theta2=theta2,
-                          use_relative=use_relative, leaf_cap=leaf_cap,
-                          last=last,
-                          need_pot=need_pot, interpret=True)
-    keys = np.asarray(keys).reshape(ng, nc, 4, WC).transpose(2, 0, 1, 3)
-    return np.asarray(acc)[:ng, :, :4], keys[:3].reshape(3, ng, W)
-
-
-def jax_level_keys(inp, *, theta2, use_relative, leaf_cap, last,
-                   lvl_base=0):
-    """The recording walk's key planes (fark = lvl_base + id of accepted
-    nodes, segk, openk, bigk) from JAX ``_walk_level_keys``."""
-    ng, W = inp["fids"].shape
-    planes = _walk_level_keys(
-        jnp.asarray(inp["fids"]), jnp.asarray([int(inp["n_live"].max())]),
-        jnp.asarray(inp["tbl"]), jnp.asarray(inp["s_l"]), inp["nl_real"],
-        jnp.asarray(inp["glo"])[None], jnp.asarray(inp["ghi"])[None],
-        jnp.asarray(inp["oac"])[None], jnp.int32(lvl_base), W=W,
-        WC=min(WC, W), last=last, theta2=theta2, use_relative=use_relative,
-        cfg=JaxConfig(leaf_cap=leaf_cap), NB=1, GB=ng, ng=ng)
-    return [np.asarray(p) for p in planes]
-
-
-def jax_compact(plane):
-    return np.asarray(jax_compact_plane(jnp.asarray(plane)))
-
-
-def jax_expand(openk, Wn, open_cap):
-    """``_expand_open_wq``: next frontier, its widths, dropped count and
-    the opened cells per group."""
-    fids, n_live, ovf, _ = _expand_open_wq(
-        jnp.asarray(openk), jnp.zeros(2, jnp.int32), Wn=Wn,
-        cfg=JaxConfig(open_cap=open_cap))
-    return (np.asarray(fids), np.asarray(n_live), int(ovf[0]),
-            np.sum(openk != IMAX, axis=1))
-
-
-def jax_big(bigk, tbl, big_cap, big_chunks):
-    """The JAX walk's overfull-cell path (sidm_tpu/ops/wq_force.py:508-537,
-    the same in list_force.py:339-366): chunk keys, their counts, the
-    overfull cells and the first big_cap cells' particle counts."""
-    bid = jax_compact(bigk)[:, :big_cap]
-    bval = bid != IMAX
-    brow = tbl[np.clip(bid, 0, tbl.shape[0] - 1)]
-    bstart = brow[..., 5].astype(np.int32)
-    bcnt = np.where(bval, brow[..., 4].astype(np.int32), 0)
-    k16 = np.arange(big_chunks, dtype=np.int32) * 16
-    cst = bstart[:, :, None] + k16[None, None, :]
-    ccn = np.clip(bcnt[:, :, None] - k16[None, None, :], 0, 16)
-    bkey = np.where(ccn > 0, cst * 32 + ccn, IMAX).reshape(
-        bigk.shape[0], big_cap * big_chunks).astype(np.int32)
-    bkey = jax_compact(bkey)
-    return (bkey, np.sum(bkey != IMAX, axis=1), np.sum(bigk != IMAX, axis=1),
-            bcnt)
+level_inputs = far_level_inputs
 
 
 def port_level(fn, inp, device, lists=None, **kw):
@@ -228,17 +109,8 @@ def assert_acc_close(a, b, valid):
                                rtol=2e-5, atol=1e-7)
 
 
-# (level, last, use_relative, need_pot, leaf_cap, caps); level 5 run as
-# the last level has overfull cells, so big keys are emitted. The second
-# case caps the opened cells and the next frontier, the third the big
-# cells and their chunks, so that every walk counter overflows somewhere.
-DEFAULT_CAPS = dict(Wn=4096, open_cap=1024, big_cap=8, big_chunks=8)
-CASES = [(3, False, False, True, 16, DEFAULT_CAPS),
-         (3, False, True, False, 16,
-          dict(DEFAULT_CAPS, Wn=64, open_cap=6)),
-         (5, True, True, True, 16, dict(DEFAULT_CAPS, big_cap=1,
-                                         big_chunks=1)),
-         (DEPTH, True, False, False, 16, DEFAULT_CAPS)]
+DEFAULT_CAPS = FAR_DEFAULT_CAPS
+CASES = FAR_CASES
 
 
 def walk_kw(last, use_relative, leaf_cap, caps):
@@ -248,7 +120,7 @@ def walk_kw(last, use_relative, leaf_cap, caps):
 
 @pytest.mark.parametrize("level,last,use_relative,need_pot,leaf_cap,caps",
                          CASES)
-def test_far_level_matches_pallas(setup, level, last, use_relative,
+def test_far_level_matches_pallas(setup, golden, level, last, use_relative,
                                   need_pot, leaf_cap, caps):
     """The walk mode against JAX: the compacted far ids, segment keys,
     next frontier and big-cell chunks and every count as JAX's key planes
@@ -256,20 +128,20 @@ def test_far_level_matches_pallas(setup, level, last, use_relative,
     give them; the far field of the far ids as ``far_items`` gives it."""
     inp = level_inputs(setup, level, short=9)
     kw = walk_kw(last, use_relative, leaf_cap, caps)
-    jkw = dict(theta2=0.25, use_relative=use_relative, leaf_cap=leaf_cap,
-               last=last)
-    acc_j, (segk, openk, bigk) = jax_far(inp, need_pot=need_pot, **jkw)
-    fark = jax_level_keys(inp, **jkw)[0]
+    i = CASES.index((level, last, use_relative, need_pot, leaf_cap, caps))
+    j = {k.split("_", 1)[1]: v for k, v in golden.items()
+         if k.startswith(f"c{i}_")}
+    acc_j = j["acc"]
     out = port_level(far_level, inp, "cpu", **kw)
     cnt = out.cnt.numpy()
-    assert_prefix(out.far, cnt[C_FAR], jax_compact(fark))
-    assert_prefix(out.seg, cnt[C_SEG], jax_compact(segk))
-    np.testing.assert_array_equal(cnt[C_FAR], np.sum(fark != IMAX, 1))
-    np.testing.assert_array_equal(cnt[C_SEG], np.sum(segk != IMAX, 1))
+    assert_prefix(out.far, cnt[C_FAR], j["far"])
+    assert_prefix(out.seg, cnt[C_SEG], j["seg"])
+    np.testing.assert_array_equal(cnt[C_FAR], j["n_far"])
+    np.testing.assert_array_equal(cnt[C_SEG], j["n_seg"])
     assert cnt[C_SEG].sum() > 0
     if not last:
-        fids, n_live, ovf, n_open = jax_expand(openk, caps["Wn"],
-                                               caps["open_cap"])
+        fids, n_live, ovf, n_open = (j[k] for k in ("fids", "n_live", "ovf",
+                                                    "n_open"))
         assert_prefix(out.fids, cnt[C_NEXT], fids, tail=-1)
         np.testing.assert_array_equal(cnt[C_NEXT], n_live)
         np.testing.assert_array_equal(cnt[C_OPEN], n_open)
@@ -277,8 +149,8 @@ def test_far_level_matches_pallas(setup, level, last, use_relative,
         assert n_open.sum() > 0
         assert (ovf > 0) == (caps["open_cap"] < 1024)
     else:
-        bkey, n_bk, n_big, bcnt = jax_big(bigk, inp["tbl"], caps["big_cap"],
-                                          caps["big_chunks"])
+        bkey, n_bk, n_big, bcnt = (j[k] for k in ("bkey", "n_bk", "n_big",
+                                                  "bcnt"))
         assert_prefix(out.bkey, cnt[C_BK], bkey)
         np.testing.assert_array_equal(cnt[C_BK], n_bk)
         np.testing.assert_array_equal(cnt[C_BIG], n_big)
@@ -295,72 +167,22 @@ def test_far_level_matches_pallas(setup, level, last, use_relative,
         assert np.all(acc[..., 3] == 0)
 
 
-def prefilled_lists(ng, LF, LN, seed):
-    """Lists already part full (random fill counts and ids, IMAX tails),
-    as numpy (far, near, nf, nn)."""
-    rng = np.random.default_rng(seed)
-    nf = rng.integers(0, LF + 1, ng).astype(np.int32)
-    nn = rng.integers(0, LN + 1, ng).astype(np.int32)
-    far = rng.integers(0, 1 << 20, (ng, LF)).astype(np.int32)
-    near = rng.integers(0, 1 << 20, (ng, LN)).astype(np.int32)
-    far[np.arange(LF)[None, :] >= nf[:, None]] = IMAX
-    near[np.arange(LN)[None, :] >= nn[:, None]] = IMAX
-    return far, near, nf, nn
+LVL_BASE = FAR_LVL_BASE
+RECORD_CASES = FAR_RECORD_CASES
 
 
-# name -> (level, last, walk caps, list caps (LF, LN, lvl_cap)); each case
-# overflows the cap it is named after
-LVL_BASE = 4681
-RECORD_CASES = {
-    "open_cap": (3, False, dict(DEFAULT_CAPS, open_cap=5), (4096, 4096, None)),
-    "wn": (3, False, dict(DEFAULT_CAPS, Wn=16), (4096, 4096, None)),
-    "lvl_cap": (3, False, DEFAULT_CAPS, (4096, 4096, 16)),
-    "far_cap": (3, False, DEFAULT_CAPS, (96, 4096, None)),
-    "near_cap": (3, False, DEFAULT_CAPS, (4096, 12, None)),
-    "big_cap": (5, True, dict(DEFAULT_CAPS, big_cap=1, big_chunks=1),
-                (4096, 4096, None)),
-}
-
-
-def record_case(setup, name, device, fn):
+def record_case(setup, golden, name, device, fn):
     """One record-mode level on prefilled lists: the port's (Level,
-    ListBuf) and JAX's composition of the same level (a dict)."""
+    ListBuf) and JAX's composition of the same level (a dict: JAX
+    ``_record``'s do_level, then ``_expand_open`` or the big path)."""
     level, last, caps, (LF, LN, lvl_cap) = RECORD_CASES[name]
     inp = level_inputs(setup, level, short=9)
     ng, W = inp["fids"].shape
     far0, near0, nf0, nn0 = prefilled_lists(ng, LF, LN, seed=level)
     jkw = dict(theta2=0.25, use_relative=True, leaf_cap=16, last=last)
-    fark, segk, openk, bigk = jax_level_keys(inp, lvl_base=LVL_BASE, **jkw)
-    # JAX _record's do_level, then _expand_open or the big path
-    LC = W if lvl_cap is None else min(lvl_cap, W)
-    live_f, live_n = np.sum(fark != IMAX, 1), np.sum(segk != IMAX, 1)
-    zero = jnp.zeros((), jnp.int32)
-    far, nf, ovf_f = _append_plane(jnp.asarray(far0), jnp.asarray(nf0), zero,
-                                   jnp.asarray(jax_compact(fark)[:, :LC]), LC)
-    near, nn, ovf_n = _append_plane(jnp.asarray(near0), jnp.asarray(nn0),
-                                    zero,
-                                    jnp.asarray(jax_compact(segk)[:, :LC]),
-                                    LC)
-    jax = dict(need_f=live_f, need_n=live_n,
-               ovf_l=int(np.sum(np.maximum(live_f - LC, 0))
-                         + np.sum(np.maximum(live_n - LC, 0))))
-    if not last:
-        fids, n_live, ovf_open, _ = jax_expand(openk, caps["Wn"],
-                                               caps["open_cap"])
-        jax.update(fids=fids, n_live=n_live, ovf_open=ovf_open)
-        jax["ovf_l"] += ovf_open
-    else:
-        bkey, n_bk, n_big, bcnt = jax_big(bigk, inp["tbl"], caps["big_cap"],
-                                          caps["big_chunks"])
-        over = np.maximum(n_big - caps["big_cap"], 0)
-        jax["need_n"] = live_n + n_bk + over * caps["big_chunks"]
-        near, nn, ovf_n = _append_plane(near, nn, ovf_n, jnp.asarray(bkey),
-                                        bkey.shape[1])
-        jax["ovf_l"] += int(over.sum() + np.sum(
-            np.maximum(bcnt - 16 * caps["big_chunks"], 0)))
-        jax["over"] = int(over.sum())
-    jax.update(far=np.asarray(far), near=np.asarray(near), nf=np.asarray(nf),
-               nn=np.asarray(nn), ovf_f=int(ovf_f), ovf_n=int(ovf_n))
+    pre = f"r{name}_"
+    jax = {k[len(pre):]: (v if v.ndim else v.item())
+           for k, v in golden.items() if k.startswith(pre)}
     buf = ListBuf(*(torch.tensor(a).to(device) for a in
                     (far0, near0, nf0, nn0)),
                   stat=torch.zeros(5, ng, dtype=torch.int32, device=device))
@@ -388,14 +210,14 @@ def assert_record_equal(out, buf, jax, last):
 
 
 @pytest.mark.parametrize("name", list(RECORD_CASES))
-def test_far_level_record_matches_jax(setup, name):
+def test_far_level_record_matches_jax(setup, golden, name):
     """The record mode against JAX: the level's accepted flat ids and
     segment keys (and big-cell chunks) appended to part-full lists as JAX's
     ``_walk_level_keys`` planes through ``compact_plane`` and
     ``_append_plane`` append them, the next frontier as
     ``_expand_open_wq`` gives it, and the same demand and drops, with the
     cap the case is named after overflowing."""
-    out, buf, jax, _ = record_case(setup, name, "cpu", far_level)
+    out, buf, jax, _ = record_case(setup, golden, name, "cpu", far_level)
     last = RECORD_CASES[name][1]
     assert_record_equal(out, buf, jax, last)
     fired = {"open_cap": jax.get("ovf_open", 0), "wn": jax.get("ovf_open", 0),
@@ -441,8 +263,10 @@ def test_far_kernel_matches_plain_on_card(setup, cuda, level, last,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(RECORD_CASES))
-def test_far_level_record_kernel_matches_jax_on_card(setup, cuda, name):
-    out, buf, jax, launched = record_case(setup, name, cuda, far_level)
+def test_far_level_record_kernel_matches_jax_on_card(setup, golden, cuda,
+                                                     name):
+    out, buf, jax, launched = record_case(setup, golden, name, cuda,
+                                          far_level)
     assert launched == 1
     assert_record_equal(out, buf, jax, RECORD_CASES[name][1])
 

@@ -6,8 +6,10 @@ from the tree's ``mac_rows`` and ``quad_rows``; its plain version is
 ``flat_tables(pack_tree(tree))[src]`` plus the zero row, the port's former
 path, with the columns no reader reads (``UNSET_COLS``: 4-7 and 15) set
 to NaN. Held, on trees from the JAX package (n = 4096 Plummer and
-Hernquist halos, some particles invalid) carried across with their
-moments, at the used rows of lists the port records on them:
+Hernquist halos, some particles invalid; JAX's trees and packed tables
+frozen in tests/data/torch_gather_golden.npz, ``python -m
+tests.make_torch_golden gather``) carried across with their moments, at
+the used rows of lists the port records on them:
 
 * the port's packed table equals JAX's ``flat_tables(pack_tree(tree))``
   rows exactly in columns 0-14 (com, mass, count, node_start,
@@ -28,15 +30,9 @@ L2) to 1e-6 of the largest sum, on aligned and unaligned ids."""
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
-from sidm_tpu.io import ics
-from sidm_tpu.ops import fused_force as jff
-from sidm_tpu.ops.list_force import flat_tables as jax_flat_tables
-from sidm_tpu.ops.tree import build_octree as jbuild
 
 from sidm_tpu_torch.ops import list_force as tlf
 from sidm_tpu_torch.ops.fused_force import flat_tables, pack_tree
@@ -44,32 +40,28 @@ from sidm_tpu_torch.ops.gather import (NODE_COLS, UNSET_COLS, gather_nodes,
                                        gather_nodes_plain, gather_rowsum,
                                        gather_rowsum_plain)
 from sidm_tpu_torch.ops.tree import build_octree
+from tests.make_torch_golden import (GATHER, GATHER_GOLDEN, GATHER_MODELS,
+                                     gather_inputs)
 
 torch.set_num_threads(2)
 
-N = 4096
-MODELS = {"plummer": 8, "hernquist": 11}   # model -> depth
+N = GATHER["n"]
+MODELS = GATHER_MODELS                     # model -> depth
 
 
 def _trees(model):
-    """(JAX tree, the port's tree of the same particles with the JAX
-    tree's moments): the integer structure is the same exactly
+    """(JAX tree's arrays, the port's tree of the same particles with the
+    JAX tree's moments): the integer structure is the same exactly
     (tests/test_torch_tree.py), so both packed tables describe one tree."""
-    pos, _, m = getattr(ics, model)(N, seed=21)
-    pos, m = pos.astype(np.float32), m.astype(np.float32)
-    valid = np.ones(N, bool)
-    valid[::53] = False
-    eps = np.full(N, 0.05, np.float32)
-    depth = MODELS[model]
-    jt = jbuild(jnp.asarray(pos), jnp.asarray(m), jnp.asarray(eps),
-                jnp.asarray(valid), depth=depth)
+    pos, m, eps, valid = gather_inputs(model)
+    with np.load(GATHER_GOLDEN) as z:
+        jt = {k[len(model) + 2:]: z[k] for k in z.files
+              if k.startswith(f"g{model}_")}
     tt = build_octree(torch.tensor(pos), torch.tensor(m), torch.tensor(eps),
-                      torch.tensor(valid), depth=depth)
-    assert torch.equal(tt.child_start, torch.tensor(np.asarray(
-        jt.child_start)))
-    tt = dataclasses.replace(
-        tt, mac_rows=torch.tensor(np.asarray(jt.mac_rows)),
-        quad_rows=torch.tensor(np.asarray(jt.quad_rows)))
+                      torch.tensor(valid), depth=MODELS[model])
+    assert torch.equal(tt.child_start, torch.tensor(jt["child_start"]))
+    tt = dataclasses.replace(tt, mac_rows=torch.tensor(jt["mac_rows"]),
+                             quad_rows=torch.tensor(jt["quad_rows"]))
     return jt, tt, valid
 
 
@@ -89,8 +81,8 @@ def case(request):
 def test_gather_nodes_plain_matches_jax_table(case):
     """The port's packed table and the plain version against JAX's
     packed table at the used rows."""
-    jtbl = np.asarray(jax_flat_tables(jff.pack_tree(case["jt"]))[0])
-    jtbl = np.concatenate([jtbl, np.zeros((1, 16), np.float32)])
+    jtbl = np.concatenate([case["jt"]["flat"],
+                           np.zeros((1, 16), np.float32)])
     src = case["src"].numpy()
     ref = jtbl[src]
     full = flat_tables(pack_tree(case["tt"])).numpy()

@@ -5,7 +5,13 @@ the card ``python -m pytest tests/ -q -m gpu -k periodic``).
 A small cosmo-box (``flagship.cosmo_config``, N = 16384, mesh 128) is walked
 on the card with ``wq_gravity(pbc=)``; every ``far_level``, ``far_list``
 and ``near_level`` call of the walk is repeated on the plain version with
-the same inputs. Bars: far_level's compacted outputs and counts equal;
+the same inputs. Its cached lists are recorded with ``record_lists(pbc=)``
+(the relative criterion, a skin): every level's ``far_level`` call in the
+periodic record mode is repeated on the plain version from the same lists
+(the appended lists, counts and telemetry equal); the lists' evaluation
+(``far_list`` and ``near_level`` in their periodic modes on the compact
+table, the raw targets and the traces) is held to the same calls on the
+plain versions. Bars: far_level's compacted outputs and counts equal;
 far_list and near_level p99.9 relative error < 2e-5 on acc and pot (the
 kernels' erfcf, erff and expf differ from torch's by a few ULP and sum in
 another order); the periodic direct sum p99.9 < 1e-5 on acc and pot
@@ -20,8 +26,11 @@ import torch
 from sidm_tpu_torch.flagship import cosmo_config, cosmo_ics
 from sidm_tpu_torch.ops.direct import direct_gravity, direct_sum
 from sidm_tpu_torch.ops.ewald import build_ewald_table
-from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
+from sidm_tpu_torch.ops.far_kernel import (ListBuf, far_level,
+                                           far_level_plain)
 from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+from sidm_tpu_torch.ops.list_force import (compact_traces, eval_inputs,
+                                           record_lists)
 from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
 from sidm_tpu_torch.ops.pm import build_pm_kernel
 from sidm_tpu_torch.ops.fused_force import default_depth
@@ -99,6 +108,76 @@ def test_far_level_periodic_matches_plain_on_card(box_setup):
             assert torch.equal(torch.where(live, kv, tail),
                                torch.where(live, pv, tail)), (level, f)
     assert far_level.periodic_launches == launched + len(calls)
+
+
+def box_tree(box_setup):
+    cfg, pbc, t = box_setup
+    return build_octree(t["pos"], t["mass"], t["eps"], t["mass"] > 0,
+                        box=cfg.BoxSize, depth=default_depth(N))
+
+
+def box_lists(box_setup, tree, on_level=None):
+    """The box's cached lists: relative criterion with a made-up |a_old|,
+    a skin of 100 kpc/h."""
+    _, pbc, t = box_setup
+    old = torch.full((N,), 1e3, device=t["pos"].device)
+    return record_lists(tree, old[tree.perm], (t["mass"] > 0)[tree.perm],
+                        theta=0.5, use_relative=True, skin=100.0, pbc=pbc,
+                        on_level=on_level)
+
+
+@pytest.mark.gpu
+def test_far_level_record_periodic_matches_plain_on_card(box_setup):
+    tree = box_tree(box_setup)
+    levels = []
+
+    def check(level, kw):
+        bufs = [ListBuf(*(x.clone() for x in kw["lists"])) for _ in range(2)]
+        k = far_level(**dict(kw, lists=bufs[0]))
+        p = far_level_plain(**dict(kw, lists=bufs[1]))
+        assert torch.equal(k.cnt, p.cnt), level
+        if p.fids is not None:
+            live = (torch.arange(p.fids.shape[1], device=p.fids.device)
+                    [None, :] < p.cnt[2][:, None])
+            assert torch.equal(torch.where(live, k.fids, -1),
+                               torch.where(live, p.fids, -1)), level
+        a, b = bufs
+        assert torch.equal(a.nf, b.nf) and torch.equal(a.nn, b.nn), level
+        assert torch.equal(a.stat, b.stat) and torch.equal(a.near, b.near)
+        live = (torch.arange(a.far.shape[1], device=a.far.device)[None, :]
+                < a.nf[:, None])
+        assert torch.equal(torch.where(live, a.far, -1),
+                           torch.where(live, b.far, -1)), level
+        levels.append(level)
+
+    launched = far_level.periodic_record_launches
+    lists = box_lists(box_setup, tree, on_level=check)
+    assert levels and int(lists.nf.sum()) > 0 and int(lists.nn.sum()) > 0
+    assert far_level.periodic_record_launches == launched + 2 * len(levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_pot", [False, True])
+def test_periodic_list_passes_match_plain_on_card(box_setup, need_pot):
+    _, pbc, t = box_setup
+    tree = box_tree(box_setup)
+    lists = box_lists(box_setup, tree)
+    ctbl, gt, _, te, gc = eval_inputs(tree, lists)
+    valid = te != 1.0
+    fkw = dict(tbl=ctbl, ids=lists.far, nf=lists.nf, xc=gt, te=te,
+               gc=torch.zeros_like(gc), need_pot=need_pot, pbc=pbc,
+               trq=compact_traces(tree, lists))
+    nkw = dict(keys=lists.near, n_seg=lists.nn, pos_s=tree.pos_s,
+               mass_s=tree.mass_s, eps_s=tree.eps_s, xr=gt, te=te,
+               need_pot=need_pot, pbc=pbc)
+    for fn, plain, kw in ((far_list, far_list_plain, fkw),
+                          (near_level, near_level_plain, nkw)):
+        k, p = fn(**kw), plain(**kw)
+        assert bool(torch.isfinite(k).all()), fn.__name__
+        ea, ep = p999(k, p, valid)
+        assert ea < 2e-5, (fn.__name__, ea)
+        if need_pot:
+            assert ep < 2e-5, (fn.__name__, ep)
 
 
 @pytest.mark.gpu

@@ -10,7 +10,8 @@ frozen with JAX's outputs in tests/data/torch_periodic_golden.npz (``cl``,
 Tolerances: the classification's planes equal; the far tile within 2e-5
 and the near tile within 1e-5 of JAX's largest magnitude (erf, erfc and
 exp by torch and by XLA; the screened potential beyond the softening as
--erfc(a r)/r, JAX's as -1/r + erf(a r)/r). The record mode refuses a box.
+-erfc(a r)/r, JAX's as -1/r + erf(a r)/r). The record mode takes a
+periodic box and refuses the free-space mode (a box of 0).
 """
 
 import numpy as np
@@ -78,12 +79,33 @@ def test_near_tile_pbc_matches_jax(golden, t, need_pot):
 
 
 def test_record_mode_refuses_a_box(t):
+    """The record mode takes a periodic box since the cached lists run in
+    one (ROADMAP A, item 11.1): it appends what the periodic
+    classification accepts. It refuses the free-space screened mode, a box
+    of 0 (PMVacuum, item 11.2)."""
     ng, W = 4, 8
-    with pytest.raises(NotImplementedError, match="item 11"):
-        far_level(torch.zeros(ng, W, dtype=torch.int32),
-                  torch.zeros(ng, dtype=torch.int32), t["rows"][0], 8,
+
+    def record(pbc):
+        buf = list_buf(ng, 16, 16, "cpu")
+        far_level(torch.arange(ng * W, dtype=torch.int32).reshape(ng, W),
+                  torch.full((ng,), W, dtype=torch.int32),
+                  t["rows"][0].reshape(-1, 16)[:ng * W].contiguous(), ng * W,
                   t["s_l"], t["glo"][:ng], t["ghi"][:ng], t["oac"][:ng],
                   theta2=0.25, use_relative=False, leaf_cap=16, last=False,
-                  Wn=W, open_cap=W, big_cap=8, big_chunks=8,
-                  lists=list_buf(ng, 16, 16, "cpu"), pbc=PBC)
+                  Wn=8 * W, open_cap=W, big_cap=8, big_chunks=8, lists=buf,
+                  pbc=pbc)
+        return buf
+
+    with pytest.raises(NotImplementedError, match="item 11.2"):
+        record((0.0, PBC[1], PBC[2]))
+    buf = record(PBC)
+    rows = t["rows"][0].reshape(-1, 16)[:ng * W].reshape(ng, W, 16)
+    far, seg, _, _ = classify(rows, t["glo"][:ng], t["ghi"][:ng],
+                              t["oac"][:ng], t["s_l"], 0.25, False, 16,
+                              False, PBC)
+    assert buf.nf.tolist() == far.sum(1).tolist()
+    assert buf.nn.tolist() == seg.sum(1).tolist()
+    for g in range(ng):
+        ids = (g * W + torch.nonzero(far[g]).flatten()).tolist()
+        assert buf.far[g, :int(buf.nf[g])].tolist() == ids
     assert IMAX == 2147483647

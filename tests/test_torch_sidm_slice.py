@@ -131,16 +131,16 @@ def test_kicks_conserve_momentum(run):
     (dict(VelDispOn=1), "item 10"), (dict(ComovingIntegrationOn=1),
                                       "item 11")])
 def test_refuses_what_is_not_ported(changes, item):
-    """Each raises naming its ROADMAP item. VelDispOn is ported (item 10);
-    with SIDMOn it is refused as the reference refuses it."""
+    """VelDispOn is ported (item 10); with SIDMOn it is refused as the
+    reference refuses it. DSMC in comoving runs is ported (item 11.4):
+    that configuration constructs."""
     cfg = flagship_config(**{**DSMC, **changes})
     if changes.get("VelDispOn"):
         with pytest.raises(ParameterError, match="sidm.c:14-16"):
             Simulation(cfg, mode="phased", device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        Simulation(cfg, mode="phased", device="cpu")
+    sim = Simulation(cfg, mode="phased", device="cpu")
+    assert sim.cfg.ComovingIntegrationOn and sim.cfg.SIDMOn
 
 
 @pytest.mark.slow

@@ -10,44 +10,50 @@ the node size for bmax). The JAX package sums in float32 with blocked
 prefix sums, whose error is its own: on these inputs up to 1e-4 (Plummer)
 and 5.6e-2 (Hernquist) of a node's raw second moment, so no float32 sum in
 another order could be held to it at rtol 1e-5. The port must agree with
-it to within that error plus the same rtol 1e-5."""
+it to within that error plus the same rtol 1e-5.
 
-import jax.numpy as jnp
+JAX's outputs are frozen in tests/data/torch_tree_golden.npz (``python -m
+tests.make_torch_golden tree``)."""
+
+import types
+
 import numpy as np
 import pytest
 import torch
-
-from sidm_tpu.io import ics
-from sidm_tpu.ops import fused_force as jff
-from sidm_tpu.ops import morton as jmorton
-from sidm_tpu.ops.tree import build_octree as jbuild
-from sidm_tpu.ops.tree import refresh_octree as jrefresh
 
 from sidm_tpu_torch.ops import fused_force as tff
 from sidm_tpu_torch.ops import morton as tmorton
 from sidm_tpu_torch.ops.tree import build_octree as tbuild
 from sidm_tpu_torch.ops.tree import refresh_octree as trefresh
+from tests.make_torch_golden import (PACKED_COLS, TREE_FIELDS, TREE_GOLDEN,
+                                     compact_keys, tree_inputs)
 
 torch.set_num_threads(2)
 
 RTOL = 1e-5
 INT_FIELDS = ("perm", "keys_s", "node_start", "node_count", "child_start",
               "child_count")
+_inputs = tree_inputs
 
 
-def _inputs(model, n, seed, n_invalid):
-    pos, _, m = getattr(ics, model)(n, seed=seed)
-    pos = pos.astype(np.float32)
-    m = m.astype(np.float32)
-    valid = np.ones(n, bool)
-    valid[np.random.default_rng(seed).choice(n, n_invalid, False)] = False
-    eps = np.where(np.arange(n) % 3 == 0, 0.05, 0.08).astype(np.float32)
-    return pos, m, eps, valid
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(TREE_GOLDEN) as z:
+        return {k: z[k] for k in z.files}
 
 
-def _both(fn_j, fn_t, *arrays, **kw):
-    return (fn_j(*(jnp.asarray(a) for a in arrays), **kw),
-            fn_t(*(torch.tensor(a) for a in arrays), **kw))
+def jax_tree(golden, prefix):
+    """The frozen JAX tree ``prefix``: its fields, and ``packed``, its
+    pack_tree levels' PACKED_COLS columns, one array a level."""
+    jt = types.SimpleNamespace(**{f: golden[prefix + f]
+                                  for f in TREE_FIELDS})
+    ends = np.cumsum(golden[prefix + "packed_sizes"])
+    jt.packed = np.split(golden[prefix + "packed"], ends[:-1])
+    return jt
+
+
+def _port(fn, *arrays, **kw):
+    return fn(*(torch.tensor(a) for a in arrays), **kw)
 
 
 def _exact_moments(jt):
@@ -107,72 +113,65 @@ def _compare_trees(jt, tt):
                            + size ** 2))
     # bmax = |com - centre| + (sqrt 3 / 2) size + drift, as packed for the
     # walk: its error is the COM error
-    for l, (a, b) in enumerate(zip(jff.pack_tree(jt).levels,
-                                   tff.pack_tree(tt).levels)):
-        a, b = np.asarray(a), b.numpy()
-        np.testing.assert_array_equal(a[:, 4:8], b[:, 4:8])
-        lv = a[:, 4] > 0
-        np.testing.assert_allclose(np.sqrt(b[lv, 15]), np.sqrt(a[lv, 15]),
+    assert PACKED_COLS == [4, 5, 6, 7, 15]
+    packed = tff.pack_tree(tt).levels
+    assert len(packed) == len(jt.packed)
+    for l, (a, b) in enumerate(zip(jt.packed, packed)):
+        b = b.numpy()
+        np.testing.assert_array_equal(a[:, 0:4], b[:, 4:8])
+        lv = a[:, 0] > 0
+        np.testing.assert_allclose(np.sqrt(b[lv, 15]), np.sqrt(a[lv, 4]),
                                    rtol=RTOL, atol=RTOL * ext)
 
 
 @pytest.mark.parametrize("model,depth", [("plummer", 8), ("hernquist", 11)])
-def test_morton_keys_exact(model, depth):
+def test_morton_keys_exact(golden, model, depth):
     pos, _, _, valid = _inputs(model, 4096, 1, 100)
-    (jo, je), (to, te) = (jmorton.bounding_cube(jnp.asarray(pos),
-                                                jnp.asarray(valid)),
-                          tmorton.bounding_cube(torch.tensor(pos),
-                                                torch.tensor(valid)))
-    np.testing.assert_array_equal(np.asarray(jo), to.numpy())
-    assert float(je) == float(te)
-    jh, jl = jmorton.morton_keys2(jnp.asarray(pos), jo, je, depth)
+    to, te = tmorton.bounding_cube(torch.tensor(pos), torch.tensor(valid))
+    np.testing.assert_array_equal(golden[f"m{model}_origin"], to.numpy())
+    assert float(golden[f"m{model}_extent"]) == float(te)
     th, tl = tmorton.morton_keys2(torch.tensor(pos), to, te, depth)
-    np.testing.assert_array_equal(np.asarray(jh).astype(np.int64), th.numpy())
-    np.testing.assert_array_equal(np.asarray(jl).astype(np.int64), tl.numpy())
+    np.testing.assert_array_equal(
+        golden[f"m{model}_hi"].astype(np.int64), th.numpy())
+    np.testing.assert_array_equal(
+        golden[f"m{model}_lo"].astype(np.int64), tl.numpy())
 
 
 @pytest.mark.parametrize("uniform_eps", [False, True])
 @pytest.mark.parametrize("model,depth", [("plummer", 8), ("hernquist", 11)])
-def test_build_octree_matches(model, depth, uniform_eps):
+def test_build_octree_matches(golden, model, depth, uniform_eps):
     pos, m, eps, valid = _inputs(model, 4096, 2, 97)
     if uniform_eps:
         eps = np.full_like(eps, 0.05)
-    jt, tt = _both(jbuild, tbuild, pos, m, eps, valid, depth=depth,
-                   uniform_eps=uniform_eps)
-    _compare_trees(jt, tt)
+    tt = _port(tbuild, pos, m, eps, valid, depth=depth,
+               uniform_eps=uniform_eps)
+    _compare_trees(jax_tree(golden, f"b{model}{int(uniform_eps)}_"), tt)
 
 
 @pytest.mark.parametrize("model,depth", [("plummer", 8), ("hernquist", 11)])
-def test_refresh_octree_matches(model, depth):
+def test_refresh_octree_matches(golden, model, depth):
     pos, m, eps, valid = _inputs(model, 4096, 3, 50)
-    jt, tt = _both(jbuild, tbuild, pos, m, eps, valid, depth=depth)
+    tt = _port(tbuild, pos, m, eps, valid, depth=depth)
     rng = np.random.default_rng(4)
     for _ in range(2):   # two refreshes accumulate drift
         pos = (pos + rng.normal(size=pos.shape) * 0.02).astype(np.float32)
-        jt = jrefresh(jt, jnp.asarray(pos), jnp.asarray(m), jnp.asarray(eps),
-                      jnp.asarray(valid))
         tt = trefresh(tt, torch.tensor(pos), torch.tensor(m),
                       torch.tensor(eps), torch.tensor(valid))
     assert float(tt.drift) > 0
-    _compare_trees(jt, tt)
+    _compare_trees(jax_tree(golden, f"r{model}_"), tt)
 
 
-def test_make_windows_exact():
+def test_make_windows_exact(golden):
     pos, m, eps, valid = _inputs("plummer", 4096, 5, 60)
-    jt, tt = _both(jbuild, tbuild, pos, m, eps, valid, depth=8)
-    vs = valid[np.asarray(jt.perm)]
-    jp, jv, *_ = jff.make_windows(jt.keys_s, jnp.asarray(vs), 4096, 64, 8,
-                                  4, 32, True)
+    tt = _port(tbuild, pos, m, eps, valid, depth=8)
+    vs = valid[tt.perm.numpy()]
     tp, tv = tff.make_windows(tt.keys_s, torch.tensor(vs), 4096, 8)
-    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
-    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    np.testing.assert_array_equal(golden["w_pidx"], tp.numpy())
+    np.testing.assert_array_equal(golden["w_gvalid"], tv.numpy())
 
 
-def test_compact_plane_exact():
-    rng = np.random.default_rng(6)
-    keys = rng.integers(0, 1000, (37, 256)).astype(np.int32)
-    keys[rng.random(keys.shape) < 0.6] = jff.IMAX
-    a = np.asarray(jff.compact_plane(jnp.asarray(keys)))
+def test_compact_plane_exact(golden):
+    keys = compact_keys()
     b, cnt = tff.compact_plane(torch.tensor(keys))
-    np.testing.assert_array_equal(a, b.numpy())
-    np.testing.assert_array_equal(cnt.numpy(), (keys != jff.IMAX).sum(1))
+    np.testing.assert_array_equal(golden["c_out"], b.numpy())
+    np.testing.assert_array_equal(cnt.numpy(), (keys != tff.IMAX).sum(1))

@@ -3,28 +3,26 @@ engine, and vs the port's direct-sum oracle.
 
 n = 2048, depth 8. Opening 0 is held against JAX ``wq_gravity`` with the
 Pallas kernels (``FusedConfig(wq_pallas=True)``, interpret mode on the
-CPU); opening 1 against the JAX XLA path is in test_torch_walk_xla.py (one
-large JAX compile per file keeps each file within budget). The JAX runs use
-small super-blocks (``wq_block``/``wq_near_block``), a TPU scheduling knob
-that leaves the walk unchanged. Held: equal ``n_segs`` and item counts,
-zero overflow, acceleration p99.9 relative error < 2e-5, potential rtol
-2e-5; against the direct sum p99 <= 1e-3 (the repo's oracle bar)."""
+CPU); opening 1 against the JAX XLA path is in test_torch_walk_xla.py. The
+JAX outputs are frozen in tests/data/torch_walk_golden.npz (``python -m
+tests.make_torch_golden walk``: the interpreted Pallas walk alone takes
+over a minute of the CPU); the JAX runs used small super-blocks
+(``wq_block``/``wq_near_block``), a TPU scheduling knob that leaves the
+walk unchanged. Held: equal ``n_segs`` and item counts, zero overflow,
+acceleration p99.9 relative error < 2e-5, potential rtol 2e-5; against
+the direct sum p99 <= 1e-3 (the repo's oracle bar)."""
 
-import jax.numpy as jnp
 import numpy as np
 import torch
-
-from sidm_tpu.ops.fused_force import FusedConfig as JaxConfig
-from sidm_tpu.ops.wq_force import wq_gravity as jax_wq
 
 from sidm_tpu_torch.io import ics
 from sidm_tpu_torch.ops.direct import direct_gravity
 from sidm_tpu_torch.ops.wq_force import wq_gravity
+from tests.make_torch_golden import WALK, WALK_GOLDEN, walk_inputs
 
 torch.set_num_threads(2)
 
-N, DEPTH = 2048, 8
-JAX_SMALL_BLOCKS = dict(wq_block=64, wq_near_block=256)
+N, DEPTH = WALK["n"], WALK["depth"]
 
 
 def _err(a, b):
@@ -46,23 +44,15 @@ def _port(pos, m, eps, old, opening):
     return acc.numpy(), pot.numpy(), {k: v.tolist() for k, v in info.items()}
 
 
-def _jax(pos, m, eps, old, opening, cfg):
-    acc, pot, info = jax_wq(jnp.asarray(pos), jnp.asarray(m),
-                            jnp.asarray(eps), jnp.asarray(old), theta=0.5,
-                            opening=opening, depth=DEPTH, config=cfg,
-                            return_info=True)
-    return np.asarray(acc), np.asarray(pot), {
-        k: np.asarray(v).tolist() for k, v in info.items()}
-
-
-def check_walk_matches_jax(opening, cfg):
-    pos, m, eps = _setup()
-    old = np.zeros(N, np.float32)
-    if opening == 1:
-        a, _ = direct_gravity(torch.tensor(pos), torch.tensor(m),
-                              torch.tensor(eps), with_potential=False)
-        old = np.linalg.norm(a.numpy(), axis=1).astype(np.float32)
-    acc_j, pot_j, info_j = _jax(pos, m, eps, old, opening, cfg)
+def check_walk_matches_jax(opening):
+    """The port's walk on ``walk_inputs(opening)`` against JAX's frozen
+    outputs (``w{opening}_``)."""
+    pos, m, eps, old = walk_inputs(opening)
+    with np.load(WALK_GOLDEN) as z:
+        acc_j, pot_j = z[f"w{opening}_acc"], z[f"w{opening}_pot"]
+        info_j = {k: int(z[f"w{opening}_{k}"])
+                  for k in ("ovf_items", "n_segs", "max_walk_items",
+                            "max_near_items")}
     acc_t, pot_t, info_t = _port(pos, m, eps, old, opening)
     assert info_j["ovf_items"] == 0
     for k in ("ovf_open", "ovf_big", "ovf_items"):
@@ -74,7 +64,7 @@ def check_walk_matches_jax(opening, cfg):
 
 
 def test_walk_matches_jax_pallas():
-    check_walk_matches_jax(0, JaxConfig(wq_pallas=True, **JAX_SMALL_BLOCKS))
+    check_walk_matches_jax(0)
 
 
 def check_walk_vs_direct_oracle(model):
