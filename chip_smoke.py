@@ -203,20 +203,45 @@ Phases (each asserts; any failure exits non-zero):
      H4 with the box against its plain version (counts equal, dens_vd
      p99.9 <= 1e-6); cosmo-small (N = 2^17 on the single-program step, the
      hash engine in the box) 3 steps and H1 and H2 with the box against
-     their plain versions.
+     their plain versions;
+ 16. the free-space TreePM mesh and the per-pair Ewald walk:
+     flagship-vacuum (``flagship_config(**VACUUM)``: bench.py's halo at
+     N = 1e6 on the lists with ``PMVacuum 1``, a 256 mesh on a 512^3
+     zero-padded grid) prepare (a record) and 3 steps with each step's
+     walls (``force``, ``pm``) and |dE/E| < 1e-3; the free-space TreePM
+     force (geometric theta 0.5) against H3's direct sum on 4096 targets,
+     p99 < 2e-3; on its end state every call of one free-space walk
+     against its plain version, all groups (decisions equal, far and near
+     p99.9 < 2e-5), the free-space record mode on every level (bit-equal)
+     and the list passes on its lists (p99.9 < 2e-5), each timed beside
+     its bound; the same on the walk (``ListMode 0``) for 2 steps;
+     cosmo-ewald (``cosmo_config(**COSMO_EWALD)``: cosmo-box with ``PMGrid
+     -1`` at N = 2^20, a fresh tree and its Ewald walk every step) prepare
+     and 3 steps; the Ewald walk at geometric theta 0.4 against H3's
+     periodic Ewald direct sum on 4096 targets at
+     tests/test_periodic_comoving.py's bars (error / mean |a| p99 < 3e-2,
+     potential energy within 1 %); the no-cut periodic classification and
+     the Ewald far and near modes of one walk against their plain versions
+     on 1024 groups (decisions equal, p99.9 < 2e-5 of the call's largest
+     |a| and |pot|), timed on all.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
 phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
 ("dsmc_walk"), phase 11's ("cli"), phase 12's ("small", "small_direct"),
 phase 13's ("veldisp", "veldisp_individual", "dsmc_individual",
 "small_individual"), phase 14's ("cosmo", "periodic_direct",
-"lattice") and phase 15's ("cosmo_sidm", "cosmo_sidm_walk",
-"cosmo_veldisp", "cosmo_small") counts, each path's counters set to 0
-just before it and read just after; the periodic modes as rows of their
-own, ``far_level_periodic``, ``far_list_periodic``, ``near_level_periodic``,
+"lattice"), phase 15's ("cosmo_sidm", "cosmo_sidm_walk",
+"cosmo_veldisp", "cosmo_small") and phase 16's ("vacuum", "vacuum_walk",
+"ewald") counts, each path's counters set to 0 just before it and read
+just after; the periodic modes as rows of their own,
+``far_level_periodic``, ``far_list_periodic``, ``near_level_periodic``,
 ``direct_periodic`` and ``far_level_record_periodic`` (with the lists'
-TreePM oracle in ``cosmo_lists_oracle``), with the JAX function each
-ports in ``ports`` and the cosmo-box mesh solve's parts in ``cosmo_pm``;
+TreePM oracle in ``cosmo_lists_oracle``), the free-space modes
+``far_level_vacuum``, ``far_level_record_vacuum``, ``far_list_vacuum``,
+``near_level_vacuum`` (the list passes' times in ``lists_*`` keys) and the
+Ewald modes ``far_level_ewald``, ``far_list_ewald``,
+``near_level_ewald``, with the JAX function each ports in ``ports`` and
+the cosmo-box mesh solve's parts in ``cosmo_pm``;
 the DSMC and hash kernels' times on phase 15's runs in their rows'
 ``cosmo_*`` and ``cosmo_small_*`` keys; for far_list and
 near_level ``full_ms`` and ``full_bound_ms`` on all groups of the lists, for near_level and far_list
@@ -456,6 +481,19 @@ class FarLevelCheck:
                 assert prefix_equal(getattr(k, f), getattr(p, f), p.cnt[row],
                                     tail), ("far_level", f)
 
+    def _device(self, mode, fn, names, call_ms):
+        """Device ms a call of fn's kernels named ``names`` by
+        torch.profiler (three tries: it sometimes reports no device event);
+        when it never does, the call's CUDA-event time (host launch
+        included), counted in the mode's ``untimed`` levels."""
+        from sidm_tpu_torch.profile_step import device_ms
+        for _ in range(3):
+            ms = device_ms(fn, 5, names)
+            if ms > 0:
+                return ms
+        self.t[mode]["untimed"] = self.t[mode].get("untimed", 0) + 1
+        return call_ms
+
     def _time(self, mode, level, width, ms, call_ms, plain_ms, work,
               dense=(0.0, 0.0)):
         from sidm_tpu_torch.bounds import bound_ms
@@ -485,7 +523,7 @@ class FarLevelCheck:
         from sidm_tpu_torch.ops.far_kernel import (C_BIG, C_BIG_DROP, C_BK,
                                                    C_OPEN, C_OVF_OPEN, C_SEG,
                                                    far_level, far_level_plain)
-        from sidm_tpu_torch.profile_step import FAR_LEVEL_KERNELS, device_ms
+        from sidm_tpu_torch.profile_step import FAR_LEVEL_KERNELS
         k, p = far_level(**kw), far_level_plain(**kw)
         self._same(k, p)
         c = p.cnt.long()
@@ -499,16 +537,17 @@ class FarLevelCheck:
             self.info["max_open"].append(int(c[C_OPEN].max()))
         if self.stress:
             return
+        call = cuda_ms(lambda: far_level(**kw), 5)
         self._time("walk", level, kw["fids"].shape[1],
-                   device_ms(lambda: far_level(**kw), 5, FAR_LEVEL_KERNELS),
-                   cuda_ms(lambda: far_level(**kw), 5),
-                   cuda_ms(lambda: far_level_plain(**kw), 1),
+                   self._device("walk", lambda: far_level(**kw),
+                                FAR_LEVEL_KERNELS, call),
+                   call, cuda_ms(lambda: far_level_plain(**kw), 1),
                    far_level_work(kw, p.cnt), far_level_dense_work(kw))
 
     def _far_field(self, level, kw):
         from sidm_tpu_torch.bounds import far_list_work
         from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
-        from sidm_tpu_torch.profile_step import FAR_LIST_KERNELS, device_ms
+        from sidm_tpu_torch.profile_step import FAR_LIST_KERNELS
         valid = kw["te"] != 1.0
         errs = {}
         for pot in (False, True):
@@ -530,10 +569,11 @@ class FarLevelCheck:
             self.worst = (level, which, kw)
         if self.stress:
             return
+        call = cuda_ms(lambda: far_list(**kw), 5)
         self._time("far_list", level, kw["ids"].shape[1],
-                   device_ms(lambda: far_list(**kw), 5, FAR_LIST_KERNELS),
-                   cuda_ms(lambda: far_list(**kw), 5),
-                   cuda_ms(lambda: far_list_plain(**kw), 1),
+                   self._device("far_list", lambda: far_list(**kw),
+                                FAR_LIST_KERNELS, call),
+                   call, cuda_ms(lambda: far_list_plain(**kw), 1),
                    far_list_work(kw["tbl"], kw["nf"], torch.sum(valid, 1),
                                  kw["need_pot"]))
 
@@ -606,7 +646,7 @@ class FarLevelCheck:
         from sidm_tpu_torch.bounds import far_level_dense_work, far_level_work
         from sidm_tpu_torch.ops.far_kernel import (ListBuf, far_level,
                                                    far_level_plain)
-        from sidm_tpu_torch.profile_step import FAR_LEVEL_KERNELS, device_ms
+        from sidm_tpu_torch.profile_step import FAR_LEVEL_KERNELS
         bufs = [ListBuf(*(t.clone() for t in kw["lists"])) for _ in range(2)]
         k = far_level(**dict(kw, lists=bufs[0]))
         p = far_level_plain(**dict(kw, lists=bufs[1]))
@@ -627,12 +667,12 @@ class FarLevelCheck:
         def timed(fn, b, reps):
             return (cuda_ms(lambda: (restore(b), fn(**dict(kw, lists=b))),
                             reps) - cuda_ms(lambda: restore(b), reps))
+        call = timed(far_level, bufs[0], 5)
         self._time("record", level, kw["fids"].shape[1],
-                   device_ms(lambda: (restore(bufs[0]),
-                                      far_level(**dict(kw, lists=bufs[0]))),
-                             5, FAR_LEVEL_KERNELS),
-                   timed(far_level, bufs[0], 5),
-                   timed(far_level_plain, bufs[1], 1),
+                   self._device("record", lambda: (
+                       restore(bufs[0]), far_level(**dict(kw, lists=bufs[0]))),
+                       FAR_LEVEL_KERNELS, call),
+                   call, timed(far_level_plain, bufs[1], 1),
                    far_level_work(kw, p.cnt), far_level_dense_work(kw))
 
     def report(self, mode, res, name=None):
@@ -652,12 +692,19 @@ class FarLevelCheck:
         dense = (f"; dense-plane bound "
                  f"{bound_ms(t['dense_ops'], t['dense_bytes'])[0]:.3f} ms"
                  if t["dense_bytes"] else "")
+        untimed = t.get("untimed", 0)
+        if untimed:
+            res.note(name, mode, f"torch.profiler saw no device event on "
+                     f"{untimed} of {t['levels']} levels: their CUDA-event "
+                     f"call time (host launch included) is counted")
         print(f"kernel {name} (one {walk}, all groups, {t['levels']} "
-              f"levels): {what}; device {t['ms']:.3f} ms per {walk}, calls "
-              f"{t['call_ms']:.3f} ms by CUDA events (host launch time "
-              f"included), plain {t['plain_ms']:.3f} ms, bound {bms:.3f} ms "
-              f"({by}), at {bms / t['ms']:.1%} of the bound's speed{dense} "
-              f"[{self.card}]", flush=True)
+              f"levels): {what}; device {t['ms']:.3f} ms per {walk}"
+              + (f" ({untimed} levels by their call time)" if untimed
+                 else "")
+              + f", calls {t['call_ms']:.3f} ms by CUDA events (host launch "
+              f"time included), plain {t['plain_ms']:.3f} ms, bound "
+              f"{bms:.3f} ms ({by}), at {bms / max(t['ms'], 1e-9):.1%} of "
+              f"the bound's speed{dense} [{self.card}]", flush=True)
         if mode == "far_list":
             res.add(name, self.max_abs, 0.0, 0.0, 0.0, 0.0)
             res.rows[name].update(walk_ms=t["ms"], walk_bound_ms=bms,
@@ -929,7 +976,15 @@ def main():
                 "near_level_periodic": (near_level, "periodic_launches"),
                 "direct_periodic": (direct_sum, "periodic_launches"),
                 "far_level_record_periodic": (far_level,
-                                              "periodic_record_launches")}
+                                              "periodic_record_launches"),
+                "far_level_vacuum": (far_level, "vacuum_launches"),
+                "far_level_record_vacuum": (far_level,
+                                            "vacuum_record_launches"),
+                "far_list_vacuum": (far_list, "vacuum_launches"),
+                "near_level_vacuum": (near_level, "vacuum_launches"),
+                "far_level_ewald": (far_level, "ewald_launches"),
+                "far_list_ewald": (far_list, "ewald_launches"),
+                "near_level_ewald": (near_level, "ewald_launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -1317,6 +1372,42 @@ def main():
     del smsim
     torch.cuda.empty_cache()
 
+    # ---- PMVacuum (flagship-vacuum) and PMGrid -1 (cosmo-ewald) ------------
+    t16 = time.perf_counter()
+    zero_counts()
+    vsim16, vrows, _ = vacuum_run(pos, vel, mass, n, dev, card, 1,
+                                  VAC_STEPS)
+    vac_launches = read_counts()
+    print(f"flagship-vacuum launches {vac_launches} [{card}]", flush=True)
+    assert "list" in [r["kind"] for r in vrows], vrows
+    for key in ("far_level_record_vacuum", "far_list_vacuum",
+                "near_level_vacuum", "gather_nodes"):
+        assert vac_launches[key] > 0, (key, vac_launches)
+    vacuum_oracle(vsim16, dev, card)
+    vacuum_kernels(res, vsim16, dev, card)
+    del vsim16
+    torch.cuda.empty_cache()
+    zero_counts()
+    vacuum_run(pos, vel, mass, n, dev, card, 0, VAC_WALK_STEPS)
+    vac_walk_launches = read_counts()
+    print(f"flagship-vacuum (walk) launches {vac_walk_launches} [{card}]",
+          flush=True)
+    for key in ("far_level_vacuum", "far_list_vacuum", "near_level_vacuum"):
+        assert vac_walk_launches[key] > 0, (key, vac_walk_launches)
+    torch.cuda.empty_cache()
+    zero_counts()
+    esim, _ = ewald_run(dev, card)
+    ewald_launches = read_counts()
+    print(f"cosmo-ewald launches {ewald_launches} [{card}]", flush=True)
+    for key in ("far_level_ewald", "far_list_ewald", "near_level_ewald"):
+        assert ewald_launches[key] > 0, (key, ewald_launches)
+    ewald_oracle(esim, dev, card)
+    ewald_kernels(res, esim, dev, card)
+    del esim
+    torch.cuda.empty_cache()
+    print(f"phase 16 (PMVacuum and PMGrid -1): "
+          f"{time.perf_counter() - t16:.1f} s [{card}]", flush=True)
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -1369,6 +1460,21 @@ def main():
         # the record mode's periodic classification
         "far_level_record_periodic": ("sidm_tpu_torch/csrc/far_kernel.cu",
                                       "sidm_tpu/ops/pallas_far.py:55"),
+        # the free-space modes (PMVacuum) and the Ewald modes (PMGrid -1)
+        "far_level_vacuum": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                             "sidm_tpu/ops/pallas_far.py:55"),
+        "far_level_record_vacuum": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                                    "sidm_tpu/ops/pallas_far.py:55"),
+        "far_list_vacuum": ("sidm_tpu_torch/csrc/far_list.cu",
+                            "scripts/pallasfar.py:57"),
+        "near_level_vacuum": ("sidm_tpu_torch/csrc/near_kernel.cu",
+                              "sidm_tpu/ops/pallas_near.py:30"),
+        "far_level_ewald": ("sidm_tpu_torch/csrc/far_kernel.cu",
+                            "sidm_tpu/ops/pallas_far.py:55"),
+        "far_list_ewald": ("sidm_tpu_torch/csrc/far_list.cu",
+                           "scripts/pallasfar.py:57"),
+        "near_level_ewald": ("sidm_tpu_torch/csrc/near_kernel.cu",
+                             "sidm_tpu/ops/pallas_near.py:30"),
     }
     ports = {"far_level_periodic": "sidm_tpu/ops/fused_force.py:427",
              "far_list_periodic": "sidm_tpu/ops/fused_force.py:488",
@@ -1376,7 +1482,21 @@ def main():
              "direct_periodic": "sidm_tpu/ops/direct.py:28,82,99",
              "far_level_record_periodic":
                  "sidm_tpu/ops/list_force.py:160 (_classify(pbc), "
-                 "sidm_tpu/ops/fused_force.py:427)"}
+                 "sidm_tpu/ops/fused_force.py:427)",
+             "far_level_vacuum": "sidm_tpu/ops/fused_force.py:427 "
+                                 "(_classify, pbc box 0)",
+             "far_level_record_vacuum":
+                 "sidm_tpu/ops/list_force.py:160 (_classify, pbc box 0)",
+             "far_list_vacuum": "sidm_tpu/ops/fused_force.py:488 "
+                                "(_far_tile_pbc, box 0)",
+             "near_level_vacuum": "sidm_tpu/ops/fused_force.py:350 "
+                                  "(_near_tile, pbc box 0)",
+             "far_level_ewald": "sidm_tpu/ops/treeforce.py:61,170 "
+                                "(global_walk's periodic MAC)",
+             "far_list_ewald": "sidm_tpu/ops/treeforce.py:337 (eval_flat, "
+                               "node pairs)",
+             "near_level_ewald": "sidm_tpu/ops/treeforce.py:391 (eval_flat,"
+                                 " segments)"}
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
         r = res.rows[name]
@@ -1396,7 +1516,10 @@ def main():
                    "cosmo_sidm": cs_launches[name],
                    "cosmo_sidm_walk": cw_launches[name],
                    "cosmo_veldisp": cv_launches[name],
-                   "cosmo_small": csm_launches[name]}
+                   "cosmo_small": csm_launches[name],
+                   "vacuum": vac_launches[name],
+                   "vacuum_walk": vac_walk_launches[name],
+                   "ewald": ewald_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -3266,6 +3389,106 @@ def same_as_sets(k, p) -> bool:
     return True
 
 
+# the group-indexed arguments of each walk kernel
+GROUP_ARGS = {"far_level": ("fids", "n_live", "glo", "ghi", "oac"),
+              "far_list": ("ids", "nf", "xc", "te", "gc"),
+              "near_level": ("keys", "n_seg", "xr", "te")}
+
+
+def largest_err(a, b, valid):
+    """Per-target |a-b| of [ax ay az] and of pot, each over the largest
+    |b| of the valid targets (the tile tests' measure)."""
+    va, vb = a[..., :3][valid], b[..., :3][valid]
+    e = torch.linalg.norm(va - vb, dim=-1) / torch.clamp(
+        torch.linalg.norm(vb, dim=-1).max(), min=1e-30)
+    pa, pb = a[..., 3][valid], b[..., 3][valid]
+    return e, torch.abs(pa - pb) / torch.clamp(torch.abs(pb).max(),
+                                               min=1e-30)
+
+
+def walk_mode_checks(res, calls, mode, label, card, bar=2e-5, groups=None,
+                     err=rel_err):
+    """Each call of one walk (``on_level`` captures: far_level, far_list,
+    near_level in one of their modes, ``mode`` the rows' suffix) against
+    its plain version, on all groups or on ``groups`` (the kernel run on
+    the same subset): far_level's lists equal as sets and its counts
+    equal, far_list and near_level p99.9 < ``bar`` on acc and pot (with
+    and without the potential; ``err`` the per-target error: relative to
+    the target's own, or ``largest_err``); each kernel's time per walk
+    (CUDA events, all groups) beside its bound and its plain version's (on
+    the groups checked), into the JSON rows ``far_level_<mode>``,
+    ``far_list_<mode>``, ``near_level_<mode>``."""
+    from sidm_tpu_torch.bounds import (bound_ms, far_level_work,
+                                       far_list_work, near_level_work)
+    from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
+    from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+    from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
+
+    keys = [f"{k}_{mode}" for k in ("far_level", "far_list", "near_level")]
+    t = {k: dict(ms=0.0, plain_ms=0.0, ops=0.0, bytes=0.0, err=0.0,
+                 max_abs=0.0, calls=0) for k in keys}
+    for name, level, kw in calls:
+        key = f"{name}_{mode}"
+        r = t[key]
+        r["calls"] += 1
+        ckw = kw if groups is None else dict(kw, **{
+            a: kw[a][groups].contiguous() for a in GROUP_ARGS[name]})
+        if name == "far_level":
+            k, pl = far_level(**ckw), far_level_plain(**ckw)
+            assert same_as_sets(k, pl), (key, level)
+            work = far_level_work(kw, far_level(**kw).cnt)
+            fn, plain = far_level, far_level_plain
+        else:
+            valid = ckw["te"] != 1.0
+            nvalid = torch.sum(kw["te"] != 1.0, 1)
+            fn, plain = ((far_list, far_list_plain) if name == "far_list"
+                         else (near_level, near_level_plain))
+            for pot in (False, True):
+                pkw = dict(ckw, need_pot=pot)
+                a, b = fn(**pkw), plain(**pkw)
+                assert bool(torch.isfinite(a).all()), (key, level)
+                e, ep = err(a, b, valid)
+                errs = [q999(e)] + ([q999(ep)] if pot else [])
+                r["err"] = max(r["err"], *errs)
+                r["max_abs"] = max(r["max_abs"], float(
+                    torch.max(torch.abs(a - b)[valid])) if valid.any()
+                    else 0.0)
+                assert max(errs) < bar, (key, level, pot, errs)
+            if name == "far_list":
+                pbc, ew = kw.get("pbc"), kw.get("ewald")
+                work = far_list_work(
+                    kw["tbl"], kw["nf"], nvalid, kw["need_pot"],
+                    periodic=pbc is not None and pbc[0] > 0,
+                    vacuum=pbc is not None and not pbc[0] > 0,
+                    ewald_en=ew.en if ew is not None else 0)
+            else:
+                work = near_level_work(kw, nvalid)
+        r["ms"] += cuda_ms(lambda: fn(**kw), 3)
+        r["plain_ms"] += cuda_ms(lambda: plain(**ckw), 1)
+        r["ops"] += work[0]
+        r["bytes"] += work[1]
+    checked = ("all groups" if groups is None else
+               f"{groups.numel()} groups checked and the plain version timed"
+               f" on them, the kernel timed on all")
+    for key, r in t.items():
+        bms, by = bound_ms(r["ops"], r["bytes"])
+        print(f"kernel {key} ({label}, {checked}, {r['calls']} calls): "
+              + ("lists equal as sets, counts equal" if key.startswith(
+                  "far_level") else
+                 f"p99.9 err {r['err']:.3e} (acc and pot, with and without "
+                 f"the potential), max abs {r['max_abs']:.3e}")
+              + f"; {r['ms']:.3f} ms per walk (CUDA events), plain "
+              f"{r['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}), at "
+              f"{bms / max(r['ms'], 1e-9):.1%} of the bound's speed "
+              f"[{card}]", flush=True)
+        res.add(key, r["max_abs"], r["ms"], r["plain_ms"], r["ops"],
+                r["bytes"])
+        res.rows[key].update(p999_err=r["err"])
+        if groups is not None:
+            res.rows[key].update(plain_groups=groups.numel())
+    return t
+
+
 def cosmo_kernels(res, sim, oracle_in, dev, card):
     """Each periodic kernel mode against its plain version at cosmo-box's
     shapes: every far_level, far_list and near_level call of one periodic
@@ -3276,14 +3499,9 @@ def cosmo_kernels(res, sim, oracle_in, dev, card):
     bound and its plain version's; H3 periodic on COSMO_PLAIN_TARGETS
     targets against the plain periodic direct sum, p99.9 < 1e-5 on acc and
     pot, and its time on ORACLE_TARGETS targets beside its bound."""
-    from sidm_tpu_torch import integrate
-    from sidm_tpu_torch.bounds import (bound_ms, direct_work, far_level_work,
-                                       far_list_work, near_level_work)
+    from sidm_tpu_torch.bounds import bound_ms, direct_work
     from sidm_tpu_torch.ops.direct import direct_gravity, direct_sum
-    from sidm_tpu_torch.ops.far_kernel import far_level, far_level_plain
-    from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
     from sidm_tpu_torch.ops.fused_force import default_depth
-    from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
     from sidm_tpu_torch.ops.tree import build_octree
     from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
 
@@ -3299,58 +3517,7 @@ def cosmo_kernels(res, sim, oracle_in, dev, card):
                     pbc=sim._pbc(),
                     on_level=lambda name, level, kw: calls.append(
                         (name, level, dict(kw))))
-    t = {k: dict(ms=0.0, plain_ms=0.0, ops=0.0, bytes=0.0, err=0.0,
-                 max_abs=0.0, calls=0)
-         for k in ("far_level_periodic", "far_list_periodic",
-                   "near_level_periodic")}
-    nvalid = None
-    for name, level, kw in calls:
-        key = name + "_periodic"
-        r = t[key]
-        r["calls"] += 1
-        if name == "far_level":
-            k, pl = far_level(**kw), far_level_plain(**kw)
-            assert same_as_sets(k, pl), ("far_level periodic", level)
-            work = far_level_work(kw, pl.cnt)
-            fn, plain = far_level, far_level_plain
-        else:
-            valid = kw["te"] != 1.0
-            nvalid = torch.sum(valid, 1)
-            fn, plain = ((far_list, far_list_plain) if name == "far_list"
-                         else (near_level, near_level_plain))
-            for pot in (False, True):
-                pkw = dict(kw, need_pot=pot)
-                a, b = fn(**pkw), plain(**pkw)
-                assert bool(torch.isfinite(a).all()), (key, level)
-                e, ep = rel_err(a, b, valid)
-                errs = [q999(e)] + ([q999(ep)] if pot else [])
-                r["err"] = max(r["err"], *errs)
-                r["max_abs"] = max(r["max_abs"], float(
-                    torch.max(torch.abs(a - b)[valid])) if valid.any()
-                    else 0.0)
-                assert max(errs) < 2e-5, (key, level, pot, errs)
-            work = (far_list_work(kw["tbl"], kw["nf"], nvalid,
-                                  kw["need_pot"], periodic=True)
-                    if name == "far_list" else near_level_work(kw, nvalid))
-        r["ms"] += cuda_ms(lambda: fn(**kw), 3)
-        r["plain_ms"] += cuda_ms(lambda: plain(**kw), 1)
-        r["ops"] += work[0]
-        r["bytes"] += work[1]
-    for key, r in t.items():
-        bms, by = bound_ms(r["ops"], r["bytes"])
-        print(f"kernel {key} (one cosmo-box walk, all groups, {r['calls']} "
-              f"calls): "
-              + ("lists equal as sets, counts equal" if key.startswith(
-                  "far_level") else
-                 f"p99.9 err {r['err']:.3e} (acc and pot, with and without "
-                 f"the potential), max abs {r['max_abs']:.3e}")
-              + f"; {r['ms']:.3f} ms per walk (CUDA events), plain "
-              f"{r['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}), at "
-              f"{bms / max(r['ms'], 1e-9):.1%} of the bound's speed "
-              f"[{card}]", flush=True)
-        res.add(key, r["max_abs"], r["ms"], r["plain_ms"], r["ops"],
-                r["bytes"])
-        res.rows[key].update(p999_err=r["err"])
+    walk_mode_checks(res, calls, "periodic", "one cosmo-box walk", card)
 
     # H3 periodic: kernel vs plain on a subset, timed on ORACLE_TARGETS
     box = cfg.BoxSize
@@ -3780,6 +3947,352 @@ def cosmo_lists_oracle(sim, dev, card):
     assert out["acc_p99"] < 2.5e-3 and out["acc_max"] < 6e-3, out
     assert out["pot_p99"] < 8e-3 and out["energy"] < 5e-3, out
     return out
+
+# ---- phase 16: the free-space TreePM mesh (PMVacuum) and the per-pair ------
+# ---- Ewald walk (PMGrid -1) -------------------------------------------------
+
+VAC_STEPS = 3          # flagship-vacuum's list steps after prepare's record
+VAC_WALK_STEPS = 2     # ... and on the walk (ListMode 0), after prepare
+EWALD_STEPS = 3        # cosmo-ewald's steps after prepare
+EWALD_THETA = 0.4      # the Ewald oracle's opening (test_periodic_comoving)
+EWALD_GROUPS = 1024    # groups of the Ewald modes' plain checks
+EWALD_SIZE = None      # N in place of cosmo-ewald's (a rehearsal's)
+
+
+def walk_info_ovf(info) -> int:
+    return sum(int(info[f]) for f in ("ovf_open", "ovf_big", "ovf_items"))
+
+
+def vacuum_run(pos, vel, mass, n, dev, card, list_mode, steps):
+    """flagship-vacuum (``flagship_config(**VACUUM)``; ``list_mode`` 0: on
+    the walk) through Simulation on the phased step: prepare, ``steps``
+    steps with each one's kind and walls (``force``, ``pm``), |dE/E|
+    between the potentials of prepare and of the last step
+    (``compute_potential``: the open walk, which PMVacuum does not touch),
+    the free-space mesh; finite, no list or walk overflow, |dE/E| < 1e-3.
+    Returns (sim, per-step rows, |dE/E|)."""
+    from sidm_tpu_torch.flagship import VACUUM, flagship_config
+    from sidm_tpu_torch.simulation import Simulation
+
+    label = "flagship-vacuum" + ("" if list_mode else " (walk)")
+    sim = Simulation(flagship_config(ListMode=list_mode, **VACUUM),
+                     mode="phased", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32),
+                                  pad_to_multiple=4096)
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    sim.compute_potential()
+    e0 = sim_energy(sim)
+    rows, ovf = [], 0
+    t0 = time.perf_counter()
+    for k in range(steps):
+        t1 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        li, wi = sim.last_list_info, sim.last_walk_info
+        if li is not None and li["ovf"] is not None:
+            ovf += sum(li["ovf"])
+        if wi is not None:
+            ovf += walk_info_ovf(wi)
+        rows.append(dict(kind=li["kind"] if li is not None else "walk",
+                         wall_ms=(time.perf_counter() - t1) * 1e3,
+                         **{ph: v * 1e3 for ph, v in
+                            sim.last_phase_wall.items()}))
+        print(f"{label} step {k + 1} ({rows[-1]['kind']}): wall "
+              f"{rows[-1]['wall_ms']:.1f} ms ("
+              + ", ".join(f"{ph} {v * 1e3:.1f} ms" for ph, v in
+                          sim.last_phase_wall.items())
+              + f") [{card}]", flush=True)
+    t_steps = time.perf_counter() - t0
+    sim.compute_potential()
+    de = abs(sim_energy(sim) - e0) / abs(e0)
+    finite = bool(torch.isfinite(sim.particles.pos).all())
+    kern = sim._pm_kernel_free()
+    print(f"{label} (PMVacuum, phased step): N {n}, free-space mesh "
+          f"{kern.n} on a {2 * kern.n}^3 padded grid, region "
+          f"{kern.box:.1f} kpc, rcut {kern.rcut:.2f} kpc, prepare "
+          f"{t_prep:.3f} s, {steps} steps {t_steps:.3f} s "
+          f"({n * steps / t_steps:.4g} particle-steps/s), |dE/E| {de:.3e}, "
+          f"overflow {ovf}, finite {finite} [{card}]", flush=True)
+    assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
+    assert all("pm" in r for r in rows), rows
+    return sim, rows, de
+
+
+def vacuum_oracle(sim, dev, card):
+    """The free-space TreePM force (the walk's free-space mode at
+    geometric theta 0.5 on a fresh tree of the end state, plus the
+    free-space mesh) against H3's direct sum on ORACLE_TARGETS random
+    targets: p99 relative error < 2e-3 (tests/test_pm_vacuum.py's bar)."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.ops.direct import direct_sum
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.pm import pm_accel_free
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
+
+    p = sim.particles
+    t = torch.tensor(sim.time, dtype=sim.dtype, device=dev)
+    pos, _ = integrate.predict_positions(p, t, sim.consts)
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    g = torch.Generator().manual_seed(SEED)
+    tg = torch.randperm(int(p.valid.sum()), generator=g)[:ORACLE_TARGETS].to(
+        dev)
+    acc_r, _ = direct_sum(pos, mass, eps, targets=tg, with_potential=False)
+    tree = build_octree(pos, mass, eps, p.valid,
+                        depth=default_depth(p.n_padded),
+                        uniform_eps=sim._check_uniform_eps())
+    t0 = time.perf_counter()
+    acc, _, info = wq_gravity_tree(tree, mass, eps, p.old_acc, theta=0.5,
+                                   opening=0, need_pot=False,
+                                   return_info=True, pbc=sim._phased_pbc())
+    acc = acc + pm_accel_free(sim._pm_kernel_free(), pos, mass)[0]
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    rel = torch.linalg.norm(acc[tg] - acc_r, dim=1) / torch.clamp(
+        torch.linalg.norm(acc_r, dim=1), min=1e-30)
+    out = dict(acc_p99=float(torch.quantile(rel.double(), 0.99)),
+               acc_max=float(rel.max()), ovf=walk_info_ovf(info))
+    print(f"flagship-vacuum oracle: the free-space TreePM force at "
+          f"geometric theta 0.5 (walk + mesh {sim._pm_kernel_free().n}, "
+          f"{t_f:.3f} s) vs H3's direct sum on {tg.numel()} targets: p99 "
+          f"{out['acc_p99']:.3e} (bar 2e-3), max {out['acc_max']:.3e}, walk "
+          f"overflow {out['ovf']} [{card}]", flush=True)
+    assert out["acc_p99"] < 2e-3 and out["ovf"] == 0, out
+    return out
+
+
+def vacuum_kernels(res, sim, dev, card):
+    """The free-space modes against their plain versions on flagship-
+    vacuum's end state (a fresh tree, the run's opening criterion and
+    skin): the walk's three kernels on every call of one walk, all groups
+    (``walk_mode_checks``: decisions equal, far and near p99.9 < 2e-5),
+    far_level's record mode on every level of a recording walk (lists,
+    counts and telemetry bit-equal, ``FarLevelCheck``), and the list
+    passes on those lists (far_list and near_level, p99.9 < 2e-5 on acc
+    and pot), each timed beside its bound and its plain version's."""
+    from sidm_tpu_torch.bounds import (bound_ms, far_list_work,
+                                       near_level_work)
+    from sidm_tpu_torch.ops.far_list import far_list, far_list_plain
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.list_force import (compact_traces, eval_inputs,
+                                               record_lists)
+    from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
+
+    cfg, p = sim.cfg, sim.particles
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    tree = build_octree(p.pos, mass, eps, p.valid,
+                        depth=default_depth(p.n_padded),
+                        uniform_eps=sim._check_uniform_eps())
+    pbc = sim._phased_pbc()
+    calls = []
+    wq_gravity_tree(tree, mass, eps, p.old_acc, theta=cfg.ErrTolTheta,
+                    opening=cfg.TypeOfOpeningCriterion,
+                    err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=False,
+                    pbc=pbc, on_level=lambda name, level, kw: calls.append(
+                        (name, level, dict(kw))))
+    walk_mode_checks(res, calls, "vacuum", "one flagship-vacuum walk", card)
+    del calls
+    fl = FarLevelCheck(card)
+    lists = record_lists(
+        tree, p.old_acc[tree.perm], p.valid[tree.perm],
+        theta=cfg.ErrTolTheta, use_relative=cfg.TypeOfOpeningCriterion == 1,
+        err_tol_force_acc=cfg.ErrTolForceAcc, lcfg=sim._lfc,
+        skin=sim._skin_now, pbc=pbc, on_level=fl.record_level)
+    assert sum(lists.ovf.tolist()) == 0, lists.ovf
+    fl.report("record", res, name="far_level_record_vacuum")
+    res.rows["far_level_record_vacuum"].update(
+        ptxas=usage_of("far_level_kernel"))
+    # the list passes of a list step (eval_lists' free-space modes)
+    ctbl, gt, _, te, gc = eval_inputs(tree, lists)
+    valid = lists.gvalid
+    nvalid = torch.sum(valid, 1)
+    args = {
+        "far_list": (far_list, far_list_plain, dict(
+            tbl=ctbl, ids=lists.far, nf=lists.nf, xc=gt, te=te,
+            gc=torch.zeros_like(gc), pbc=pbc,
+            trq=compact_traces(tree, lists))),
+        "near_level": (near_level, near_level_plain, dict(
+            keys=lists.near, n_seg=lists.nn, pos_s=tree.pos_s,
+            mass_s=tree.mass_s, eps_s=tree.eps_s, xr=gt, te=te, pbc=pbc))}
+    for name, (fn, plain, kw) in args.items():
+        errs = []
+        for pot in (False, True):
+            a, b = fn(**kw, need_pot=pot), plain(**kw, need_pot=pot)
+            e, ep = rel_err(a, b, valid)
+            errs += [q999(e)] + ([q999(ep)] if pot else [])
+        assert max(errs) < 2e-5, (name, "lists", errs)
+        ms = cuda_ms(lambda: fn(**kw, need_pot=False), 5)
+        plain_ms = cuda_ms(lambda: plain(**kw, need_pot=False), 1)
+        work = (far_list_work(ctbl, lists.nf, nvalid, False, vacuum=True)
+                if name == "far_list" else
+                near_level_work(dict(kw, need_pot=False), nvalid))
+        bms, by = bound_ms(*work)
+        print(f"kernel {name}_vacuum on flagship-vacuum's lists (all groups,"
+              f" far entries {int(lists.nf.sum())}, near keys "
+              f"{int(lists.nn.sum())}): p99.9 err {max(errs):.3e}; {ms:.3f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), at "
+              f"{bms / ms:.1%} of the bound's speed [{card}]", flush=True)
+        res.rows[f"{name}_vacuum"].update(
+            lists_ms=ms, lists_plain_ms=plain_ms, lists_bound_ms=bms,
+            lists_p999_err=max(errs))
+
+
+def ewald_run(dev, card):
+    """cosmo-ewald (``cosmo_config(**COSMO_EWALD)``, N = 2^20) through
+    Simulation on the phased step: prepare and EWALD_STEPS steps, each a
+    fresh tree and its Ewald walk, with each step's walls, a and the
+    walk's overflow and segments; finite, positions in [0, box), a
+    advancing, no overflow. Returns (sim, per-step walls in ms)."""
+    from sidm_tpu_torch.flagship import (COSMO_EWALD, COSMO_N, cosmo_config,
+                                         cosmo_ics)
+    from sidm_tpu_torch.simulation import Simulation
+
+    n = EWALD_SIZE or COSMO_N
+    cfg = cosmo_config(n, **COSMO_EWALD)
+    pos, vel, mass = cosmo_ics(n, SEED)
+    sim = Simulation(cfg, mode="phased", device=dev)
+    sim.set_particles_from_arrays(pos, vel, mass, np.ones(n, np.int32))
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    a0 = sim.time
+    walls, ovf = [], 0
+    t0 = time.perf_counter()
+    for k in range(EWALD_STEPS):
+        t1 = time.perf_counter()
+        _, _, _ = sim.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        wi = sim.last_walk_info
+        ovf += walk_info_ovf(wi)
+        assert sim.last_step_rebuilt
+        print(f"cosmo-ewald step {k + 1}: wall {walls[-1]:.1f} ms ("
+              + ", ".join(f"{ph} {v * 1e3:.1f} ms" for ph, v in
+                          sim.last_phase_wall.items())
+              + f"), a = {sim.time:.7g}, walk overflow {walk_info_ovf(wi)},"
+              f" segments {int(wi['n_segs'])} [{card}]", flush=True)
+    t_steps = time.perf_counter() - t0
+    pv = sim.particles.pos[sim.particles.valid]
+    lo, hi = float(pv.min()), float(pv.max())
+    finite = bool(torch.isfinite(sim.particles.pos).all())
+    print(f"cosmo-ewald (PMGrid -1, the Ewald walk on the phased step): N "
+          f"{n}, EN {cfg.EwaldGridSize}, prepare {t_prep:.3f} s, "
+          f"{EWALD_STEPS} steps {t_steps:.3f} s "
+          f"({n * EWALD_STEPS / t_steps:.4g} particle-steps/s), a {a0:.7g} "
+          f"-> {sim.time:.7g}, positions in [{lo:.4f}, {hi:.4f}] of box "
+          f"{cfg.BoxSize}, overflow {ovf}, finite {finite} [{card}]",
+          flush=True)
+    assert finite and ovf == 0 and sim.time > a0, (finite, ovf, sim.time)
+    assert lo >= 0.0 and hi < cfg.BoxSize, (lo, hi)
+    return sim, walls
+
+
+def ewald_oracle(sim, dev, card):
+    """The Ewald walk at geometric theta EWALD_THETA (a fresh tree of
+    cosmo-ewald's end state) against H3's periodic Ewald direct sum on
+    ORACLE_TARGETS random targets, at tests/test_periodic_comoving.py's
+    bars: the error over the mean |a| at p99 < 3e-2, the targets'
+    potential energy within 1 %."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.ops.direct import direct_sum
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
+
+    p, cfg = sim.particles, sim.cfg
+    t = torch.tensor(sim.time, dtype=sim.dtype, device=dev)
+    pos, _ = integrate.predict_positions(p, t, sim.consts)
+    pos = torch.remainder(pos, cfg.BoxSize)
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    g = torch.Generator().manual_seed(SEED)
+    tg = torch.randperm(int(p.valid.sum()), generator=g)[:ORACLE_TARGETS].to(
+        dev)
+    ew = sim._ewald_table()
+    t0 = time.perf_counter()
+    acc_r, pot_r = direct_sum(pos, mass, eps, targets=tg, box=cfg.BoxSize,
+                              ewald=ew)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    tree = build_octree(pos, mass, eps, p.valid, box=cfg.BoxSize,
+                        depth=default_depth(p.n_padded),
+                        uniform_eps=sim._check_uniform_eps())
+    t0 = time.perf_counter()
+    acc, pot, info = wq_gravity_tree(tree, mass, eps, p.old_acc,
+                                     theta=EWALD_THETA, opening=0,
+                                     need_pot=True, return_info=True,
+                                     ewald=ew)
+    torch.cuda.synchronize()
+    t_w = time.perf_counter() - t0
+    ad = acc_r.double()
+    err = torch.linalg.norm(acc[tg].double() - ad, dim=1) / torch.mean(
+        torch.linalg.norm(ad, dim=1))
+    m = mass[tg].double()
+    pe_r = float(0.5 * torch.sum(m * pot_r.double()))
+    pe = float(0.5 * torch.sum(m * pot[tg].double()))
+    out = dict(acc_p99=float(torch.quantile(err, 0.99)),
+               acc_max=float(err.max()), energy=abs(pe - pe_r) / abs(pe_r),
+               ovf=walk_info_ovf(info), n_segs=int(info["n_segs"]))
+    print(f"cosmo-ewald oracle: the Ewald walk at geometric theta "
+          f"{EWALD_THETA} ({t_w:.3f} s, {out['n_segs']} segments) vs H3's "
+          f"periodic Ewald direct sum on {tg.numel()} targets (H3 call "
+          f"{t_ref:.3f} s): error / mean |a| p99 {out['acc_p99']:.3e} (bar "
+          f"3e-2), max {out['acc_max']:.3e}, the targets' potential energy "
+          f"{out['energy']:.3e} (1e-2), walk overflow {out['ovf']} [{card}]",
+          flush=True)
+    assert out["acc_p99"] < 3e-2 and out["energy"] < 1e-2, out
+    assert out["ovf"] == 0, out
+    return out
+
+
+def ewald_kernels(res, sim, dev, card):
+    """The Ewald modes against their plain versions on cosmo-ewald's end
+    state: every far_level (the periodic classification with no cut),
+    far_list and near_level call of one Ewald walk (a fresh tree, the
+    run's opening criterion), checked on EWALD_GROUPS groups (the longest
+    near lists among them: the plain lookups cost minutes on all) and
+    timed on all (``walk_mode_checks``: decisions equal, p99.9 < 2e-5 on
+    acc and pot of the call's largest |a| and |pot|, the tile tests'
+    measure: a level's partial lattice sums nearly cancel for some
+    targets, so relative to a target's own they show the float32 plain
+    version's own rounding, not the kernel's)."""
+    from sidm_tpu_torch.ops.fused_force import default_depth
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.ops.wq_force import wq_gravity_tree
+
+    cfg, p = sim.cfg, sim.particles
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    eps = sim._softening()[torch.clamp(p.ptype, 0, 5).long()]
+    tree = build_octree(p.pos, mass, eps, p.valid, box=cfg.BoxSize,
+                        depth=default_depth(p.n_padded),
+                        uniform_eps=sim._check_uniform_eps())
+    calls = []
+    wq_gravity_tree(tree, mass, eps, p.old_acc, theta=cfg.ErrTolTheta,
+                    opening=cfg.TypeOfOpeningCriterion,
+                    err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=False,
+                    ewald=sim._ewald_table(),
+                    on_level=lambda name, level, kw: calls.append(
+                        (name, level, dict(kw))))
+    ng = calls[0][2]["fids"].shape[0]
+    seg = sum(kw["n_seg"].long() for name, _, kw in calls
+              if name == "near_level")
+    groups = torch.unique(torch.cat([
+        torch.argsort(seg, descending=True)[:LONGEST],
+        subset(ng, EWALD_GROUPS - LONGEST, dev)]))
+    nfar = sum(int(kw["nf"].sum()) for name, _, kw in calls
+               if name == "far_list")
+    print(f"cosmo-ewald walk: {ng} groups, {int(seg.sum())} segment keys, "
+          f"{nfar} far entries [{card}]", flush=True)
+    walk_mode_checks(res, calls, "ewald", "one cosmo-ewald walk", card,
+                     groups=groups, err=largest_err)
 
 
 if __name__ == "__main__":

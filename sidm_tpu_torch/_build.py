@@ -64,11 +64,11 @@ _SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "near_level_launch": ("near_kernel", [
         _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _F, _F,
-        _F, _I, _P]),
+        _F, _P, _I, _I, _P]),
     "near_split_launch": ("near_kernel", [_P, _P, _I, _I, _P, _I, _P]),
     "far_list_launch": ("far_list", [
         _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _F, _F,
-        _F, _I, _P]),
+        _F, _P, _I, _I, _P]),
     "far_split_launch": ("far_list", [_P, _I, _I, _P, _I, _P]),
     "gather_launch": ("gather", [_P, _I, _P, _L, _P, _P]),
     "rowsum_launch": ("gather", [_P, _I, _P, _L, _P, _P, _P]),
@@ -92,8 +92,8 @@ _SIGNATURES = {
     "hash_veldisp_launch": ("hash_veldisp", [
         _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
         _P, _P, _P]),
-    "direct_launch": ("direct", [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
-                                 _F, _I, _I, _P]),
+    "direct_launch": ("direct", [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F,
+                                 _I, _I, _P]),
 }
 
 _lib = None

@@ -147,6 +147,27 @@ FAR_PBC_POT_OPS = 16    # ... the potential: erf / r or its series 3, -1/r,
 # 3 complements, 8 multiply-adds: 27 each), -sign(d) m F 3 x 3
 DIRECT_PBC_PAIR_OPS = NEAR_PAIR_OPS + MIN_IMAGE_OPS + 18 + 3 * 27 + 9
 DIRECT_PBC_POT_OPS = NEAR_PAIR_POT_OPS + 27 + 2   # ... and psi's lookup
+# The free-space modes (PMVacuum): the periodic modes without the minimum
+# image; the classification's box gap is the open walk's, plus the rcut
+# reach test (2 square roots, add, compare, and)
+CLASSIFY_VAC_OPS = CLASSIFY_OPS + 5
+NEAR_VAC_PAIR_OPS = NEAR_PBC_PAIR_OPS - MIN_IMAGE_OPS
+FAR_VAC_PAIR_OPS = FAR_PBC_PAIR_OPS - MIN_IMAGE_OPS
+# The Ewald modes (PMGrid -1): the near pair is the periodic direct sum's
+# (142 operations: the softened pair, the minimum image, the three
+# lookups of the force correction and -sign(d) m F; 171 with the
+# potential); the far pair is the Newtonian far pair with the minimum
+# image and the same lookups and sums. Each call reads the interleaved
+# table (16 B a grid point) once. The classification is the periodic one.
+EWALD_NEAR_PAIR_OPS = DIRECT_PBC_PAIR_OPS
+EWALD_NEAR_POT_OPS = DIRECT_PBC_POT_OPS
+EWALD_FAR_PAIR_OPS = FAR_PAIR_OPS + MIN_IMAGE_OPS + 18 + 3 * 27 + 9
+EWALD_FAR_POT_OPS = FAR_PAIR_POT_OPS + 27 + 2 + 2   # ... the trace term
+
+
+def ewald_table_bytes(en: int) -> int:
+    """The interleaved Ewald table of grid EN (csrc/ewald.cuh)."""
+    return 16 * (en // 2 + 1) ** 3
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -170,8 +191,9 @@ def far_level_work(kw: dict, cnt):
     rows), the group boxes and thresholds, the compacted outputs written
     (far ids, segment keys, next frontier, chunk keys) and the counts; in
     record mode the list counts and telemetry read and written.
-    Operations: CLASSIFY_OPS per classified node (CLASSIFY_PBC_OPS with
-    ``pbc``, in either mode). The walk's far field is
+    Operations: CLASSIFY_OPS per classified node (CLASSIFY_PBC_OPS with a
+    periodic ``pbc``, the Ewald walk's included, CLASSIFY_VAC_OPS with the
+    free-space one, in either mode). The walk's far field is
     ``far_list``'s call (``far_list_work``)."""
     from .ops.far_kernel import C_BK, C_FAR, C_NEXT, C_SEG, N_CNT
 
@@ -181,8 +203,9 @@ def far_level_work(kw: dict, cnt):
     c = cnt.long()
     written = _n(torch.sum(c[C_FAR]) + torch.sum(c[C_SEG])
                  + torch.sum(c[C_NEXT]) + torch.sum(c[C_BK]))
-    ops = (CLASSIFY_PBC_OPS if kw.get("pbc") is not None
-           else CLASSIFY_OPS) * live
+    pbc = kw.get("pbc")
+    ops = (CLASSIFY_OPS if pbc is None else CLASSIFY_PBC_OPS
+           if float(pbc[0]) > 0 else CLASSIFY_VAC_OPS) * live
     nbytes = (4 * (live + ng) + 28 * ng
               + CLASS_ROW_BYTES * min(tbl.shape[0], live) + 4 * written
               + 4 * N_CNT * ng)
@@ -235,36 +258,51 @@ def far_level_dense_work(kw: dict):
 
 
 def near_level_work(kw: dict, nvalid):
-    """(ops, bytes) of one ``near_level`` call (its periodic mode with
-    ``kw["pbc"]``); nvalid (ng,) valid targets per group."""
+    """(ops, bytes) of one ``near_level`` call (its periodic or free-space
+    mode with ``kw["pbc"]``, its Ewald mode with ``kw["ewald"]``); nvalid
+    (ng,) valid targets per group."""
     keys, n_seg, pos_s = kw["keys"], kw["n_seg"], kw["pos_s"]
     ng, K = keys.shape
     live = torch.arange(K, device=keys.device)[None, :] < n_seg[:, None]
     cnt = torch.where(live, keys & 31, torch.zeros_like(keys)).long()
     per_group = torch.sum(cnt, dim=1)
-    if kw.get("pbc") is not None:
-        per = NEAR_PBC_PAIR_OPS + (NEAR_PBC_POT_OPS if kw["need_pot"]
-                                   else 0)
+    pbc, ewald = kw.get("pbc"), kw.get("ewald")
+    pot = kw["need_pot"]
+    tables = 0
+    if ewald is not None:
+        per = EWALD_NEAR_PAIR_OPS + (EWALD_NEAR_POT_OPS if pot else 0)
+        tables = ewald_table_bytes(ewald.en)
+    elif pbc is not None:
+        per = ((NEAR_PBC_PAIR_OPS if float(pbc[0]) > 0 else NEAR_VAC_PAIR_OPS)
+               + (NEAR_PBC_POT_OPS if pot else 0))
     else:
-        per = NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if kw["need_pot"] else 0)
+        per = NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if pot else 0)
     ops = per * _n(torch.sum(per_group * nvalid.long()))
     covered = min(pos_s.shape[0], _n(torch.sum(per_group)))
     nbytes = (4 * (_n(torch.sum(n_seg)) + ng) + PART_BYTES * covered
-              + 16 * ng * 64 * 2)
+              + 16 * ng * 64 * 2 + tables)
     return ops, nbytes
 
 
-def far_list_work(tbl, nf, nvalid, need_pot: bool, periodic: bool = False):
+def far_list_work(tbl, nf, nvalid, need_pot: bool, periodic: bool = False,
+                  vacuum: bool = False, ewald_en: int = 0):
     """(ops, bytes) of one ``far_list`` call: every listed node on every
     valid target of its group (``periodic``: the periodic mode, which also
-    reads each row's trace and has no per-entry expansion)."""
+    reads each row's trace and has no per-entry expansion; ``vacuum``: the
+    free-space mode, the same without the minimum image; ``ewald_en`` > 0:
+    the Ewald mode with its table of grid EN, no per-entry expansion)."""
     ng = nf.shape[0]
     pairs = _n(torch.sum(nf.long() * nvalid.long()))
     entries = _n(torch.sum(nf.long()))
     rows = min(tbl.shape[0], entries)
-    if periodic:
-        ops = (FAR_PBC_PAIR_OPS + (FAR_PBC_POT_OPS if need_pot else 0)) \
+    if ewald_en:
+        ops = (EWALD_FAR_PAIR_OPS + (EWALD_FAR_POT_OPS if need_pot else 0)) \
             * pairs
+        return ops, (4 * (entries + ng) + (ROW_BYTES + 4) * rows
+                     + 16 * ng * 64 * 2 + ewald_table_bytes(ewald_en))
+    if periodic or vacuum:
+        ops = ((FAR_PBC_PAIR_OPS if periodic else FAR_VAC_PAIR_OPS)
+               + (FAR_PBC_POT_OPS if need_pot else 0)) * pairs
         return ops, (4 * (entries + ng) + (ROW_BYTES + 4) * rows
                      + 16 * ng * 64 * 2)
     per = FAR_PAIR_OPS + (FAR_PAIR_POT_OPS if need_pot else 0)
@@ -503,7 +541,7 @@ def direct_work(n: int, T: int, need_pot: bool, en: int = 0):
     grid EN (DIRECT_PBC_* per pair; the four tables read once)."""
     if en:
         per = DIRECT_PBC_PAIR_OPS + (DIRECT_PBC_POT_OPS if need_pot else 0)
-        tables = 4 * 4 * (en // 2 + 1) ** 3
+        tables = ewald_table_bytes(en)
     else:
         per = NEAR_PAIR_OPS + (NEAR_PAIR_POT_OPS if need_pot else 0)
         tables = 0

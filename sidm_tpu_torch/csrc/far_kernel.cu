@@ -43,6 +43,15 @@
 // :160-189 with pbc): the same classification, the accepted flat ids and
 // segment keys appended to the group's lists; the group boxes are the
 // skin-grown ones the caller passes.
+//
+// Free-space mode (periodic = 1 with box = 0: PMVacuum, the TreePM split
+// of an isolated run on the zero-padded mesh; _classify with pbc = (0,
+// alpha, rcut), which takes the plain box gap): the box distance of the
+// open walk, max(lo - com, com - hi, 0) from the group box's corners, and
+// the rcut drop of the periodic mode. The Ewald walk (PMGrid -1) runs the
+// periodic mode with a cut of twice the box, which no minimum-image
+// distance reaches: every cell of the box stays, and only the parked dead
+// groups' cells are dropped.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,7 +136,7 @@ __device__ __forceinline__ Node classify(const Args& a, const Row& row,
                                          float hi1, float hi2, float oac) {
     const float4 r0 = row.r0, r1 = row.r1;
     float dx0, dx1, dx2;
-    if (a.periodic) {
+    if (a.periodic && a.box > 0.0f) {
         // lo = group centre, hi = half-width in this mode (the caller's)
         dx0 = pbc_dx(r0.x, lo0, hi0, a.box);
         dx1 = pbc_dx(r0.y, lo1, hi1, a.box);
@@ -170,7 +179,7 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
           lo2 = a.glo[g * 3 + 2];
     float hi0 = a.ghi[g * 3 + 0], hi1 = a.ghi[g * 3 + 1],
           hi2 = a.ghi[g * 3 + 2];
-    if (a.periodic) {
+    if (a.periodic && a.box > 0.0f) {
         // the box's centre and half-width, as the plain version rounds them
         const float c0 = __fmul_rn(0.5f, __fadd_rn(lo0, hi0));
         const float c1 = __fmul_rn(0.5f, __fadd_rn(lo1, hi1));
@@ -328,7 +337,8 @@ __global__ void __launch_bounds__(kT) far_level_kernel(const Args a) {
 // (far_w = seg_w = W, LC = W, lvl_base = 0) and bkey the last level's
 // chunk keys. Record mode: far and seg are the group lists (ng, LF) and
 // (ng, LN), appended at nf and nn; bkey is null. Either mode: periodic = 1
-// with box > 0 and rcut the periodic classification.
+// with box > 0 and rcut the periodic classification, with box = 0 the
+// free-space one (the cut without the minimum image).
 extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 const int* fids, const int* n_live, int ng,
                                 int W, const float* s_l, const float* glo,
@@ -343,7 +353,7 @@ extern "C" int far_level_launch(const float* tbl, int nl_real,
                                 void* stream) {
     if (ng <= 0) return 0;
     if (big_cap > kBigMax) return (int)cudaErrorInvalidValue;
-    if (periodic && !(box > 0.0f)) return (int)cudaErrorInvalidValue;
+    if (periodic && !(box >= 0.0f)) return (int)cudaErrorInvalidValue;
     const Args a{reinterpret_cast<const float4*>(tbl), nl_real, fids,
                  n_live, W, s_l, glo, ghi, oac, theta2, leaf_cap, mode, last,
                  O, Wn, big_cap, big_chunks, lvl_base, LC, far, far_w, seg,

@@ -47,9 +47,31 @@
 // of the Newtonian path's rsqrt: the screened pair is dominated by erfcf
 // and expf anyway. erfcf, erff and expf differ from torch's by a few ULP,
 // inside the 2e-5 bar chip_smoke.py holds it to.
+//
+// Free-space mode (the same mode with box = 0: PMVacuum's short range in an
+// isolated run, _far_tile_pbc with pbc = (0, alpha, rcut)): the plain pair
+// vector, no minimum image; the rest as above.
+//
+// Ewald mode (EWALD, PMGrid -1: the per-pair Ewald walk, port of the far
+// pairs of sidm_tpu/ops/treeforce.py:eval_flat :337-375, forcetree.c:1572's
+// node-level correction): the rows staged raw (com, m | 2.8 eps, q0-q2 |
+// q3-q5, the raw quadrupole trace), the pair vector d = com - x the
+// minimum image from the raw target; the softened Newtonian monopole and
+// potential (softening.cuh's softened_inv_r3 / softened_potential, IEEE
+// division), on the Newtonian range the quadrupole -Q d / r^5 + 2.5
+// (d.Q.d) d / r^7 and -(d.Q.d) / (2 r^5); and m times the Ewald correction
+// of d (ewald.cuh: the interleaved table's trilinear lookup, the force's
+// and psi's). No cut: every listed node adds its whole lattice-corrected
+// field. The potential also takes the isotropic second-order term of the
+// node's correction, (1/6) lap(psi) tr = -(2 pi / 3 V) tr (the correction
+// has the constant Laplacian -4 pi / V of the neutralising background;
+// ROADMAP.md C.21): the reference's correction at the COM alone leaves the
+// potential energy biased by it (1.4 % on cosmo-ewald); the force has no
+// such term.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ewald.cuh"
 #include "softening.cuh"
 #include "work_items.cuh"
 
@@ -83,13 +105,21 @@ __device__ __forceinline__ bool load_row(const float* tbl, int nrows,
     return true;
 }
 
+// The pass's modes: the group-centred Newtonian field, the screened one
+// (TreePM: periodic with box > 0, free-space with box = 0), the Ewald one.
+enum { kOpen = 0, kScreened = 1, kEwald = 2 };
+
 struct Pbc {
     const float* trq;                // (nrows,) raw quadrupole traces
     float box, alpha, rcut;
+    EwaldTab ew;                     // kEwald: the table (box = ew.box)
+    float trace_pot;                 // kEwald: -(2 pi / 3) / box^3
 };
 
+// d - box rint(d / box) (half to even, as torch.round); d itself with no
+// box (the free-space mode).
 __device__ __forceinline__ float min_image(float d, float box) {
-    return d - box * rintf(d / box);
+    return box > 0.0f ? d - box * rintf(d / box) : d;
 }
 
 // One periodic (target, node) pair (see the note at the top): adds the
@@ -155,7 +185,49 @@ __device__ __forceinline__ void pbc_pair(const float4& A, const float4& B,
     a[2] += az;
 }
 
-template <bool POT, bool PBC>
+// One Ewald-mode (target, node) pair (see the note at the top): the
+// minimum-image softened monopole and Newtonian-range quadrupole plus the
+// node mass times the Ewald correction.
+template <bool POT>
+__device__ __forceinline__ void ewald_pair(const float4& A, const float4& B,
+                                           const float4& C, float x0,
+                                           float x1, float x2, float ht,
+                                           const EwaldTab& ew,
+                                           float trace_pot, float* a,
+                                           float* pot) {
+    const float d0 = min_image(A.x - x0, ew.box);
+    const float d1 = min_image(A.y - x1, ew.box);
+    const float d2 = min_image(A.z - x2, ew.box);
+    const float r2 = d0 * d0 + d1 * d1 + d2 * d2;
+    const float r = sqrtf(r2);
+    const float h = fmaxf(ht, B.x);
+    const float fac = A.w * softened_inv_r3(r, h);
+    float ax = fac * d0, ay = fac * d1, az = fac * d2;
+    if (POT) *pot += A.w * softened_potential(r, h);
+    if (r >= h) {
+        const float ir = 1.0f / fmaxf(r, 1e-30f);
+        const float ir2 = ir * ir;
+        const float w5 = ir2 * ir2 * ir;
+        const float w7 = w5 * ir2;
+        const float u0 = B.y * d0 + C.x * d1 + C.y * d2;
+        const float u1 = C.x * d0 + B.z * d1 + C.z * d2;
+        const float u2 = C.y * d0 + C.z * d1 + B.w * d2;
+        const float dqd = d0 * u0 + d1 * u1 + d2 * u2;
+        const float t7 = 2.5f * w7 * dqd;
+        ax += t7 * d0 - w5 * u0;
+        ay += t7 * d1 - w5 * u1;
+        az += t7 * d2 - w5 * u2;
+        if (POT) *pot -= 0.5f * dqd * w5;
+    }
+    float c[4];
+    ewald_corr<POT>(d0, d1, d2, ew, c);
+    a[0] += ax + A.w * c[0];
+    a[1] += ay + A.w * c[1];
+    a[2] += az + A.w * c[2];
+    if (POT) *pot += A.w * c[3] + trace_pot * C.w;
+}
+
+template <bool POT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 far_list_kernel(const float* __restrict__ tbl, int nrows,
                 const int* __restrict__ ids, const int* __restrict__ nf,
@@ -178,10 +250,12 @@ far_list_kernel(const float* __restrict__ tbl, int nrows,
     const int e0 = (it - off[g]) * E;
     const int e1 = min(e0 + E, w);
     const int* ids_g = ids + (int64_t)g * LF;
-    // PBC: xc holds the raw targets and the rows stay raw
-    const float gc0 = PBC ? 0.0f : gc[g * 3 + 0];
-    const float gc1 = PBC ? 0.0f : gc[g * 3 + 1];
-    const float gc2 = PBC ? 0.0f : gc[g * 3 + 2];
+    // the screened and Ewald modes: xc holds the raw targets and the rows
+    // stay raw
+    constexpr bool RAW = MODE != kOpen;
+    const float gc0 = RAW ? 0.0f : gc[g * 3 + 0];
+    const float gc1 = RAW ? 0.0f : gc[g * 3 + 1];
+    const float gc2 = RAW ? 0.0f : gc[g * 3 + 2];
     const float x0 = xc[(g * kG + t) * 3 + 0];
     const float x1 = xc[(g * kG + t) * 3 + 1];
     const float x2 = xc[(g * kG + t) * 3 + 2];
@@ -205,7 +279,7 @@ far_list_kernel(const float* __restrict__ tbl, int nrows,
         if (keep) {
             float4* st = sm.row[pos + __popc(ball & ((1u << lane) - 1u))];
             st[0] = make_float4(r0.x - gc0, r0.y - gc1, r0.z - gc2, r0.w);
-            if (PBC) {
+            if (RAW) {
                 st[1] = make_float4(2.8f * r3.z, r2.x, r2.y, r2.z);
                 st[2] = make_float4(r2.w, r3.x, r3.y,
                                     __ldg(pb.trq + ids_g[c0 + tid]));
@@ -218,11 +292,17 @@ far_list_kernel(const float* __restrict__ tbl, int nrows,
         // the next chunk's rows load while this one computes
         ok = load_row(tbl, nrows, ids_g, c0 + kThreads + tid, e1, &r0,
                       &r2, &r3);
-        if (PBC) {
+        if (RAW) {
             float a3[3] = {ax, ay, az};
-            for (int k = slice; k < total; k += kSlices)
-                pbc_pair<POT>(sm.row[k][0], sm.row[k][1], sm.row[k][2], x0,
-                              x1, x2, ht, pb, a3, &pot);
+            for (int k = slice; k < total; k += kSlices) {
+                if (MODE == kScreened)
+                    pbc_pair<POT>(sm.row[k][0], sm.row[k][1], sm.row[k][2],
+                                  x0, x1, x2, ht, pb, a3, &pot);
+                else
+                    ewald_pair<POT>(sm.row[k][0], sm.row[k][1],
+                                    sm.row[k][2], x0, x1, x2, ht, pb.ew,
+                                    pb.trace_pot, a3, &pot);
+            }
             ax = a3[0];
             ay = a3[1];
             az = a3[2];
@@ -286,27 +366,39 @@ extern "C" int far_split_launch(const int* nf, int ng, int LF, int* ws,
                  (cudaStream_t)stream);
 }
 
-// periodic = 1: the periodic mode (xc the raw targets, gc not read; trq
-// (nrows,) the rows' raw quadrupole traces; box, alpha, rcut the split).
+// mode 0: the group-centred field; 1: the screened mode (xc the raw
+// targets, gc not read; trq (nrows,) the rows' raw quadrupole traces; box
+// (0: free space), alpha, rcut the split); 2: the Ewald mode (xc the raw
+// targets, gc not read; trq the traces; table4 the interleaved Ewald table
+// of grid en for the box).
 extern "C" int far_list_launch(const float* tbl, int nrows, const int* ids,
                                const int* nf, int ng, int LF,
                                const float* xc, const float* te,
                                const float* gc, int need_pot, float* acc,
                                int* ws, int icap, float* part,
                                const float* trq, float box, float alpha,
-                               float rcut, int periodic, void* stream) {
+                               float rcut, const float* table4, int en,
+                               int mode, void* stream) {
     if (ng <= 0) return 0;
-    if (periodic && !trq) return (int)cudaErrorInvalidValue;
+    if (mode != kOpen && !trq) return (int)cudaErrorInvalidValue;
+    if (mode == kEwald && (!table4 || en < 2 || !(box > 0.0f)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const items::Ws w = items::ws_of(ws, ng, icap, false);
     int err = split(nf, ng, LF, w, icap, st);
     if (err) return err;
-    auto kern = periodic
-        ? (need_pot ? far_list_kernel<true, true>
-                    : far_list_kernel<false, true>)
-        : (need_pot ? far_list_kernel<true, false>
-                    : far_list_kernel<false, false>);
-    const Pbc pb{trq, box, alpha, rcut};
+    auto kern = mode == kEwald
+        ? (need_pot ? far_list_kernel<true, kEwald>
+                    : far_list_kernel<false, kEwald>)
+        : mode == kScreened
+        ? (need_pot ? far_list_kernel<true, kScreened>
+                    : far_list_kernel<false, kScreened>)
+        : (need_pot ? far_list_kernel<true, kOpen>
+                    : far_list_kernel<false, kOpen>);
+    const float kTracePot = -2.0943951023931953f;      // -(2 pi / 3)
+    const Pbc pb{trq, box, alpha, rcut,
+                 ewald_tab(table4, box, mode == kEwald ? en : 0),
+                 mode == kEwald ? kTracePot / (box * box * box) : 0.0f};
     kern<<<icap, kThreads, 0, st>>>(tbl, nrows, ids, nf, LF, ng, w.unit, w.off,
                                     w.item_g, xc, te, gc, part, pb);
     if ((err = (int)cudaGetLastError())) return err;

@@ -56,9 +56,22 @@
 // softened_inv_r3 / softened_potential): most near pairs of a clustered
 // box lie inside the softening, where both the spline and the screen act.
 // The staged slots keep h = 2.8 eps instead of its reciprocal.
+//
+// Free-space mode (the same mode with box = 0: PMVacuum's short range in an
+// isolated run, _near_tile with pbc = (0, alpha, rcut)): the plain pair
+// vector, no minimum image; the rest as above.
+//
+// Ewald mode (EWALD, PMGrid -1: the per-pair Ewald walk, port of the
+// segment pairs of sidm_tpu/ops/treeforce.py:eval_flat :391-430): the
+// minimum-image pair vector, the softened pair force and potential
+// (softening.cuh's softened_inv_r3 / softened_potential, IEEE division) and
+// m times the Ewald correction of d (ewald.cuh); no cut. The self pair
+// adds -2.8 m / h and psi(0) m to the potential (the caller removes the
+// first, the spline self term, and keeps the lattice self energy).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ewald.cuh"
 #include "softening.cuh"
 #include "work_items.cuh"
 
@@ -192,9 +205,20 @@ __device__ __forceinline__ void stage_tile(NearSmem& sm, int buf, int a,
     }
 }
 
+// The pass's modes: the plain softened pairs, the screened ones (TreePM:
+// periodic with box > 0, free-space with box = 0), the Ewald ones.
+enum { kOpen = 0, kScreened = 1, kEwald = 2 };
+
 struct Pbc {
     float box, alpha, rcut;
+    EwaldTab ew;                     // kEwald: the table (box = ew.box)
 };
+
+// d - box rint(d / box) (half to even, as torch.round); d itself with no
+// box (the free-space mode).
+__device__ __forceinline__ float min_image(float d, float box) {
+    return box > 0.0f ? d - box * rintf(d / box) : d;
+}
 
 // One periodic pair (see the note at the top): the source q (xyz, m)
 // with h = 2.8 max(eps_t, eps_j) against the target x.
@@ -204,9 +228,9 @@ __device__ __forceinline__ void pbc_pair(const float4& q, float h, float x0,
                                          float* ax, float* ay, float* az,
                                          float* pot) {
     constexpr float kTwoOverSqrtPi = 1.1283791670955126f;
-    const float d0 = (q.x - x0) - pb.box * rintf((q.x - x0) / pb.box);
-    const float d1 = (q.y - x1) - pb.box * rintf((q.y - x1) / pb.box);
-    const float d2 = (q.z - x2) - pb.box * rintf((q.z - x2) / pb.box);
+    const float d0 = min_image(q.x - x0, pb.box);
+    const float d1 = min_image(q.y - x1, pb.box);
+    const float d2 = min_image(q.z - x2, pb.box);
     const float r = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
     if (!(r <= pb.rcut)) return;
     const float x = pb.alpha * r;
@@ -241,7 +265,28 @@ __device__ __forceinline__ void pbc_pair(const float4& q, float h, float x0,
     if (POT) *pot = fmaf(q.w, ph, *pot);
 }
 
-template <bool POT, bool PBC>
+// One Ewald-mode pair (see the note at the top): the source q (xyz, m)
+// with h = 2.8 max(eps_t, eps_j) against the target x.
+template <bool POT>
+__device__ __forceinline__ void ewald_pair(const float4& q, float h,
+                                           float x0, float x1, float x2,
+                                           const EwaldTab& ew, float* ax,
+                                           float* ay, float* az,
+                                           float* pot) {
+    const float d0 = min_image(q.x - x0, ew.box);
+    const float d1 = min_image(q.y - x1, ew.box);
+    const float d2 = min_image(q.z - x2, ew.box);
+    const float r = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
+    float c[4];
+    ewald_corr<POT>(d0, d1, d2, ew, c);
+    const float fac = softened_inv_r3(r, h);
+    *ax = fmaf(q.w, fmaf(fac, d0, c[0]), *ax);
+    *ay = fmaf(q.w, fmaf(fac, d1, c[1]), *ay);
+    *az = fmaf(q.w, fmaf(fac, d2, c[2]), *az);
+    if (POT) *pot = fmaf(q.w, softened_potential(r, h) + c[3], *pot);
+}
+
+template <bool POT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 near_level_kernel(const int* __restrict__ keys, int K,
                   const int* __restrict__ item_g,
@@ -304,16 +349,21 @@ near_level_kernel(const int* __restrict__ keys, int K,
         for (int s = tid; s < C; s += kThreads) {
             const float h = 2.8f * sm.hi[buf][s];
             sm.h2[buf][s] = h * h;
-            sm.hi[buf][s] = PBC ? h : 1.0f / h;
+            sm.hi[buf][s] = MODE != kOpen ? h : 1.0f / h;
         }
         __syncthreads();
         const float4* pm = sm.pm[buf];
         const float* hs = sm.hi[buf];
         const float* h2s = sm.h2[buf];
-        if (PBC) {
-            for (int j = slice; j < C; j += kSlices)
-                pbc_pair<POT>(pm[j], fmaxf(ht, hs[j]), x0, x1, x2, pb, &ax,
-                              &ay, &az, &pot);
+        if (MODE != kOpen) {
+            for (int j = slice; j < C; j += kSlices) {
+                if (MODE == kScreened)
+                    pbc_pair<POT>(pm[j], fmaxf(ht, hs[j]), x0, x1, x2, pb,
+                                  &ax, &ay, &az, &pot);
+                else
+                    ewald_pair<POT>(pm[j], fmaxf(ht, hs[j]), x0, x1, x2,
+                                    pb.ew, &ax, &ay, &az, &pot);
+            }
             __syncthreads();     // buffer buf is refilled next
             if (!next) break;
             buf ^= 1;
@@ -381,25 +431,34 @@ extern "C" int near_split_launch(const int* keys, const int* n_seg, int ng,
                  (cudaStream_t)stream);
 }
 
-// periodic = 1: the periodic mode (box, alpha, rcut the TreePM split).
+// mode 0: the plain softened pairs; 1: the screened mode (box (0: free
+// space), alpha, rcut the TreePM split); 2: the Ewald mode (table4 the
+// interleaved Ewald table of grid en for the box).
 extern "C" int near_level_launch(const int* keys, const int* n_seg, int ng,
                                  int K, const float* pos_s,
                                  const float* mass_s, const float* eps_s,
                                  int n, const float* xr, const float* te,
                                  int need_pot, float* acc, int* ws, int icap,
                                  float* part, float box, float alpha,
-                                 float rcut, int periodic, void* stream) {
+                                 float rcut, const float* table4, int en,
+                                 int mode, void* stream) {
     if (ng <= 0) return 0;
+    if (mode == kEwald && (!table4 || en < 2 || !(box > 0.0f)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const items::Ws w = items::ws_of(ws, ng, icap, true);
     int err = split(keys, n_seg, ng, K, w, icap, st);
     if (err) return err;
-    auto kern = periodic
-        ? (need_pot ? near_level_kernel<true, true>
-                    : near_level_kernel<false, true>)
-        : (need_pot ? near_level_kernel<true, false>
-                    : near_level_kernel<false, false>);
-    const Pbc pb{box, alpha, rcut};
+    auto kern = mode == kEwald
+        ? (need_pot ? near_level_kernel<true, kEwald>
+                    : near_level_kernel<false, kEwald>)
+        : mode == kScreened
+        ? (need_pot ? near_level_kernel<true, kScreened>
+                    : near_level_kernel<false, kScreened>)
+        : (need_pot ? near_level_kernel<true, kOpen>
+                    : near_level_kernel<false, kOpen>);
+    const Pbc pb{box, alpha, rcut,
+                 ewald_tab(table4, box, mode == kEwald ? en : 0)};
     kern<<<icap, kThreads, 0, st>>>(keys, K, w.item_g, w.k0, w.k1,
                                     w.off + ng, pos_s, mass_s, eps_s, n, xr,
                                     te, part, pb);

@@ -61,6 +61,17 @@ neighbours are all at rest, and the run would not advance.
 N = 2^17 on the single-program step (the wq walk's TreePM every step and
 the hash DSMC engine in the box).
 
+``flagship_config(**VACUUM)`` is flagship-vacuum: bench.py's isolated NFW
+halo on the lists with ``PMVacuum 1``: the far field on the free-space
+TreePM mesh (``PMGrid 0``: a 256 mesh on a zero-padded 512^3 grid at
+N = 1e6, the region the reflection sphere x 1.02, the default split
+``PMAsmth 2``, ``PMRcutFac 6``, interlaced), the recording walk, the
+list passes and the walk in their free-space screened modes cut at rcut.
+``cosmo_config(**COSMO_EWALD)`` is cosmo-ewald: cosmo-box with ``PMGrid
+-1``, GADGET-1.1's own periodic method, the tree walk with the Ewald
+correction on every node and particle interaction (``EwaldGridSize 64``),
+rebuilt and walked every step.
+
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
 ``SIDMOn 0`` and ``TreeWalkEngine wq``, on the cached interaction lists
@@ -120,6 +131,10 @@ DSMC_WALK = dict(DSMC, ListMode=0)
 VELDISP = dict(VelDispOn=1, TypeOfTimestepCriterion=4)
 
 
+# flagship-vacuum: flagship_config(**VACUUM), the isolated halo's far field
+# on the free-space TreePM mesh (PMGrid 0: 256 at N = 1e6)
+VACUUM = dict(PMVacuum=1)
+
 # small-halo: the single-program step's largest N (padded to 256)
 SMALL_N = (1 << 18) - 256
 
@@ -175,6 +190,8 @@ COSMO_SIDM_WALK = dict(COSMO_SIDM, ListMode=0)
 COSMO_VELDISP = dict(ListMode=1, ListNearCap=8192, VelDispOn=1,
                      TypeOfTimestepCriterion=4)
 COSMO_SMALL_N = 1 << 17
+# cosmo-ewald: cosmo_config(**COSMO_EWALD), the per-pair Ewald walk
+COSMO_EWALD = dict(PMGrid=-1)
 # cosmo-veldisp: the uniform part's peculiar dispersion per axis (km/s), a
 # tenth of the clumps' virial one
 COSMO_FIELD_SIGMA = 100.0

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..kernels import softened_inv_r3, softened_potential
+from .ewald import interleaved
 from .fused_force import min_image
 
 
@@ -83,8 +84,9 @@ def direct_sum(pos, mass, eps, *, targets: Optional[torch.Tensor] = None,
     held to the plain version at p99.9 relative error < 1e-5. A periodic
     ``box`` needs its ``ewald`` table: the kernel's periodic mode takes the
     minimum image (``rintf``, half to even) and the trilinear Ewald
-    lookups from the tables in global memory (0.57 MB at EN = 64, read
-    through the read-only cache; they stay in L2)."""
+    lookups from the interleaved table in global memory (``csrc/
+    ewald.cuh``; 0.57 MB at EN = 64, read through the read-only cache; it
+    stays in L2)."""
     if box and ewald is None:
         raise ValueError("direct_sum: a periodic box needs its Ewald table")
     if not pos.is_cuda:
@@ -107,15 +109,14 @@ def direct_sum(pos, mass, eps, *, targets: Optional[torch.Tensor] = None,
     pot = (torch.empty(T, dtype=torch.float32, device=pos.device)
            if with_potential else None)
     periodic = bool(box)
+    t4 = None
     if periodic:
         ed1 = ewald.en // 2 + 1
+        t4 = interleaved(ewald)
         check_cuda("direct_sum", pos=(pos, torch.float32, (n, 3)),
-                   fcorr=(ewald.fcorr, torch.float32, (3, ed1, ed1, ed1)),
-                   potcorr=(ewald.potcorr, torch.float32, (ed1, ed1, ed1)))
+                   table4=(t4, torch.float32, (ed1, ed1, ed1, 4)))
     err = kernels_lib().direct_launch(*launch_args(
-        pos, mass, eps, n, tg, T, acc, pot,
-        ewald.fcorr if periodic else None,
-        ewald.potcorr if periodic else None, float(box or 0.0),
+        pos, mass, eps, n, tg, T, acc, pot, t4, float(box or 0.0),
         int(ewald.en if periodic else 0), int(periodic)))
     if err:
         raise RuntimeError(f"direct kernel launch failed: CUDA error {err}")

@@ -34,6 +34,14 @@ are parked with an inverted huge box, so nothing reaches them. Both modes
 take it: the walk's, and the record mode's (the cached lists in a TreePM
 box, their group boxes grown by the skin).
 
+Free-space mode (``pbc`` = (0, alpha, rcut): ``PMVacuum``, the TreePM split
+of an isolated run on the zero-padded mesh; ``_classify`` with that pbc):
+the plain box distance of the open walk (no minimum image) and the rcut
+drop; dead groups are parked outside the tree as in the open walk. The
+Ewald walk of ``PMGrid -1`` runs the periodic mode with
+``fused_force.ewald_pbc(box)``: a cut of twice the box, which drops no
+cell of the box (JAX's Ewald walk has no cut).
+
 ``far_level_plain`` also runs the range test (``range_walk``, record mode
 on the range rows of ``ops/fused_range.range_levels``, the SIDM candidate
 record's walk, ``sidm_tpu/ops/list_range.py:_record_segments`` :94-202):
@@ -87,7 +95,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from .fused_force import (IMAX, R_CCNT, R_CNT, R_CSTART, R_NSTART, WC,
-                          classify, compact_plane, range_classify)
+                          classify, compact_plane, count_launch, mode_prefix,
+                          range_classify)
 
 ITEM_BLOCK = 512   # plain version: (group, chunk) items per batch
 BIG_MAX = 64       # largest big_cap (csrc/far_kernel.cu kBigMax)
@@ -333,14 +342,11 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
 
     With ``lists`` (record mode) lvl_base is the level's flat node offset
     and lvl_cap the level cap (None: none); the lists are updated in
-    place. ``pbc`` (box, alpha, rcut), box > 0: the periodic
-    classification, in either mode.
+    place. ``pbc`` (box, alpha, rcut): the periodic classification (box >
+    0; ``ewald_pbc``'s for the Ewald walk) or the free-space one (box 0),
+    in either mode.
 
     Returns a ``Level``."""
-    if pbc is not None and not float(pbc[0]) > 0:
-        raise NotImplementedError(
-            "far_level: the free-space screened mode (pbc box 0, PMVacuum) "
-            "is not ported to sidm_tpu_torch yet (ROADMAP.md A, item 11.2)")
     if not fids.is_cuda:
         return far_level_plain(
             fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
@@ -392,22 +398,20 @@ def far_level(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
     if err:
         raise RuntimeError(f"far_level kernel launch failed: CUDA error "
                            f"{err}")
+    count_launch(far_level, mode_prefix(pbc)
+                 + ("launches" if walk else "record_launches"))
     if not walk:
-        if pbc is not None:
-            far_level.periodic_record_launches += 1
-        else:
-            far_level.record_launches += 1
         return Level(far=None, seg=None, fids=fids_n, bkey=None, cnt=cnt)
-    if pbc is not None:
-        far_level.periodic_launches += 1
-    else:
-        far_level.launches += 1
     return Level(far=far, seg=seg, fids=fids_n, bkey=bkey, cnt=cnt)
 
 
 far_level.launches = 0          # launches of the walk mode
 far_level.periodic_launches = 0  # ... of its periodic mode (pbc)
+far_level.vacuum_launches = 0    # ... of its free-space mode (pbc, box 0)
+far_level.ewald_launches = 0     # ... of the Ewald walk's (ewald_pbc)
 far_level.record_launches = 0   # launches of the record mode
 far_level.periodic_record_launches = 0   # ... of its periodic mode (pbc)
+far_level.vacuum_record_launches = 0     # ... of its free-space mode
+far_level.ewald_record_launches = 0      # (no path records the Ewald walk)
 far_level.range_launches = 0    # launches of the whole range walk
                                 # (fused_range.range_segments, one a walk)

@@ -23,6 +23,20 @@ minus target, and the pair takes the screened monopole cut at ``rcut``,
 the exact screened quadrupole and the screened potential
 (``fused_force.far_tile_pbc``).
 
+Free-space mode (``pbc`` = (0, alpha, rcut), ``PMVacuum``'s short range in
+an isolated run: ``_far_tile_pbc`` with box 0): the same, with the plain
+pair vectors (no minimum image).
+
+Ewald mode (``ewald``, an ``ops/ewald.EwaldTable``, with the rows'
+``trq``: ``PMGrid -1``'s per-pair Ewald walk,
+``sidm_tpu/ops/treeforce.py:eval_flat`` :337-375): ``xc`` holds the raw
+targets and ``gc`` is not read; each pair vector is the minimum image of
+node COM minus target in the table's box, and the pair takes the softened
+monopole and potential, the Newtonian-range quadrupole and the node mass
+times the Ewald correction of that vector, uncut; the potential also the
+isotropic second-order term of the node's correction
+(``fused_force.far_tile_ewald``, ROADMAP.md C.21).
+
 On a CUDA tensor ``far_list`` launches ``csrc/far_list.cu``; on a CPU
 tensor it runs ``far_list_plain``. There is no fallback between the two.
 
@@ -49,7 +63,9 @@ from __future__ import annotations
 
 import torch
 
-from .fused_force import G, far_tile, far_tile_pbc
+from .ewald import interleaved
+from .fused_force import (G, count_launch, far_tile, far_tile_ewald,
+                          far_tile_pbc, mode_prefix)
 from .work_items import (far_items, far_split_plain, item_buffers,
                          kernel_split)
 
@@ -58,10 +74,10 @@ PLAIN_PAIRS = 1 << 21   # plain version: (target, entry) pairs per batch
 
 
 def far_list_plain(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
-                   trq=None):
+                   trq=None, ewald=None):
     """Plain PyTorch version of ``far_list``: live (group, FC-entry chunk)
-    items through ``far_tile`` (``far_tile_pbc`` with ``pbc``) in batches,
-    summed per group."""
+    items through ``far_tile`` (``far_tile_pbc`` with ``pbc``,
+    ``far_tile_ewald`` with ``ewald``) in batches, summed per group."""
     ng, LF = ids.shape
     dev, dtype = tbl.device, tbl.dtype
     acc = torch.zeros(ng, G, 4, dtype=dtype, device=dev)
@@ -80,9 +96,12 @@ def far_list_plain(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
         live = (cols < n[g, None]) & (idx >= 0) & (idx < nrows)
         rows = tbl[torch.clamp(idx, 0, nrows - 1)]
         rows = torch.where(live[..., None], rows, torch.zeros_like(rows))
-        if pbc is not None:
+        if pbc is not None or ewald is not None:
             tr = torch.where(live, trq[torch.clamp(idx, 0, nrows - 1)],
                              torch.zeros_like(rows[..., 0]))
+        if ewald is not None:
+            da, dp = far_tile_ewald(rows, tr, xc[g], te[g], ewald, need_pot)
+        elif pbc is not None:
             da, dp = far_tile_pbc(rows, tr, xc[g], te[g], pbc, need_pot)
         else:
             da, dp = far_tile(rows, xc[g], te[g], gc[g], need_pot)
@@ -93,7 +112,7 @@ def far_list_plain(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
 
 
 def far_list(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
-             trq=None):
+             trq=None, ewald=None):
     """Far field of every group's recorded nodes.
 
     tbl (U+1, 16) float32 compact node rows (``pack_tree`` layout; ids
@@ -101,13 +120,18 @@ def far_list(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
     int32 row ids, live prefix nf (ng,) int32; xc (ng, 64, 3) group-centred
     targets; te (ng, 64) target softenings; gc (ng, 3) group centres.
     ``pbc`` (box, alpha, rcut) with trq (U+1,) float32 the rows' raw
-    quadrupole traces: the periodic mode (xc the raw targets, gc unread).
+    quadrupole traces: the periodic mode (box > 0) or the free-space mode
+    (box 0) (xc the raw targets, gc unread). ``ewald``: the Ewald mode
+    with trq the traces (xc the raw targets, gc and ``pbc`` unread).
     Returns (ng, 64, 4) float32 [ax ay az pot] (pot 0 unless need_pot)."""
-    if pbc is not None and trq is None:
-        raise ValueError("far_list: the periodic mode needs trq")
+    if ewald is not None:
+        pbc = None
+    if (pbc is not None or ewald is not None) and trq is None:
+        raise ValueError("far_list: the periodic, free-space and Ewald "
+                         "modes need trq")
     if not tbl.is_cuda:
         return far_list_plain(tbl, ids, nf, xc, te, gc, need_pot=need_pot,
-                              pbc=pbc, trq=trq)
+                              pbc=pbc, trq=trq, ewald=ewald)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, LF = ids.shape
@@ -117,21 +141,28 @@ def far_list(tbl, ids, nf, xc, te, gc, *, need_pot: bool, pbc=None,
                xc=(xc, torch.float32, (ng, G, 3)),
                te=(te, torch.float32, (ng, G)),
                gc=(gc, torch.float32, (ng, 3)))
-    if pbc is not None:
+    if trq is not None:
         check_cuda("far_list", tbl=(tbl, torch.float32, (tbl.shape[0], 16)),
                    trq=(trq, torch.float32, (tbl.shape[0],)))
+    t4 = None
+    if ewald is not None:
+        ed1 = ewald.en // 2 + 1
+        t4 = interleaved(ewald)
+        check_cuda("far_list", tbl=(tbl, torch.float32, (tbl.shape[0], 16)),
+                   table4=(t4, torch.float32, (ed1, ed1, ed1, 4)))
     icap, ws, part = item_buffers(ng, tbl.device, near=False)
     acc = torch.empty(ng, G, 4, dtype=torch.float32, device=tbl.device)
     box, alpha, rcut = (float(v) for v in pbc) if pbc else (0.0, 0.0, 0.0)
+    if ewald is not None:
+        box = float(ewald.box)
+    mode = 2 if ewald is not None else int(pbc is not None)
     err = kernels_lib().far_list_launch(*launch_args(
         tbl, int(tbl.shape[0]), ids, nf, ng, LF, xc, te, gc, int(need_pot),
-        acc, ws, icap, part, trq, box, alpha, rcut, int(pbc is not None)))
+        acc, ws, icap, part, trq, box, alpha, rcut, t4,
+        int(ewald.en) if ewald is not None else 0, mode))
     if err:
         raise RuntimeError(f"far_list kernel launch failed: CUDA error {err}")
-    if pbc is not None:
-        far_list.periodic_launches += 1
-    else:
-        far_list.launches += 1
+    count_launch(far_list, mode_prefix(pbc, ewald) + "launches")
     return acc
 
 
@@ -151,6 +182,8 @@ def far_split(nf, LF: int) -> dict:
 
 far_list.launches = 0
 far_list.periodic_launches = 0   # launches of the periodic mode (pbc)
+far_list.vacuum_launches = 0     # ... of the free-space mode (pbc, box 0)
+far_list.ewald_launches = 0      # ... of the Ewald mode (ewald)
 
 
 def units_to_lists(rows, tgt):

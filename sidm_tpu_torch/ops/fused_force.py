@@ -8,9 +8,15 @@
 ``near_tile(pbc=)``; ``min_image`` for them and the SIDM range test).
 
 ``pbc`` = (box, alpha, rcut) is the TreePM split of ``ops/pm.py``: pair
-vectors by the minimum image (``box`` > 0), the pair force screened by
+vectors by the minimum image (``box`` > 0; ``box`` 0 is the free-space
+split of ``PMVacuum``, the plain vectors), the pair force screened by
 S(r) and cut at ``rcut``, and the walk drops a cell that cannot reach
-within ``rcut`` of a group (its force is all on the mesh).
+within ``rcut`` of a group (its force is all on the mesh). The per-pair
+Ewald walk of ``PMGrid -1`` (``sidm_tpu/ops/treeforce.py``'s ``ewald``
+argument) classifies with ``ewald_pbc(box)``, the periodic classification
+whose cut no minimum-image distance reaches, and evaluates its pairs with
+``far_tile_ewald`` and ``near_tile(ewald=)``: the minimum-image Newtonian
+field plus the Ewald correction of every pair (``ops/ewald.py``).
 
 Semantics are the JAX package's (reference: force_treeevaluate,
 forcetree.c:786-1377): targets are 64-wide Morton windows restarted at
@@ -208,6 +214,32 @@ def classify(rows, glo, ghi, oac, s_l, theta2, use_relative, leaf_cap,
     return far, seg, deep, torch.zeros_like(deep)
 
 
+def ewald_pbc(box: float):
+    """The Ewald walk's classification: the periodic one (``classify(pbc=
+    )``, the minimum image about the group box's centre) with a cut of
+    twice the box, which no minimum-image distance (at most sqrt(3)/2 box)
+    reaches: no cell of the box is dropped (JAX's walk has no cut), and the
+    dead groups' cells, parked with an inverted huge box, are. alpha 0
+    marks the mode (a TreePM split always has alpha > 0)."""
+    return (float(box), 0.0, 2.0 * float(box))
+
+
+def mode_prefix(pbc, ewald=None) -> str:
+    """The prefix of a kernel mode's launch counter: "" (open), "periodic_"
+    (``pbc`` with a box), "vacuum_" (box 0), "ewald_" (``ewald`` given, or
+    ``ewald_pbc``'s classification, alpha 0)."""
+    if ewald is not None or (pbc is not None and float(pbc[1]) == 0.0):
+        return "ewald_"
+    if pbc is None:
+        return ""
+    return "periodic_" if float(pbc[0]) > 0 else "vacuum_"
+
+
+def count_launch(fn, name: str):
+    """Add one to the wrapper ``fn``'s counter ``name``."""
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
 def min_image(d, box: float):
     """``d - box*round(d/box)`` (round half to even, as ``jnp.round``);
     ``d`` itself when ``box`` is 0. The same roundings as that
@@ -311,48 +343,134 @@ def far_tile(rows, xc, te, gc, need_pot=True):
     return torch.stack(da, dim=-1), dpot
 
 
-def near_tile(ent, pos_s, mass_s, eps_s, xr, te, need_pot=True, pbc=None):
+def near_tile(ent, pos_s, mass_s, eps_s, xr, te, need_pot=True, pbc=None,
+              ewald=None):
     """Leaf-segment particles against one group each (``_near_tile``).
 
     ent (B, SC) int32 keys start*32+cnt (IMAX = dead); xr (B, G, 3) raw
     target positions; te (B, G). Raw-coordinate per-pair differencing: the
     group-centred expansion loses > 1e-2 on tight pairs. ``pbc`` (box,
     alpha, rcut): the minimum image (box > 0) and the screened pair force
-    and potential (``short_range_fac``/``_pot``) cut at rcut. Returns
-    (dacc (B,G,3), dpot (B,G))."""
+    and potential (``short_range_fac``/``_pot``) cut at rcut. ``ewald``
+    (an ``EwaldTable``; ``pbc`` unread): the Ewald walk's pairs
+    (``treeforce.eval_flat``'s segments, :391-430): the minimum image in
+    the table's box, the softened pair and its Ewald correction, uncut.
+    The pair math runs on the (group, massive source) slots only, their
+    terms added to their group's targets in slot order.
+    Returns (dacc (B,G,3), dpot (B,G))."""
     B, SC = ent.shape
+    G = xr.shape[1]
     n = pos_s.shape[0]
     live = ent != IMAX
     e = torch.where(live, ent, torch.zeros_like(ent)).long()
     start = e >> 5
     cnt = torch.where(live, e & 31, torch.zeros_like(e))
     slot = torch.arange(32, device=ent.device)
-    pidx = (start[:, :, None] + slot).reshape(B, SC * 32)
+    pidx = torch.clamp((start[:, :, None] + slot).reshape(B, SC * 32),
+                       max=n - 1)
     ok = (slot < cnt[:, :, None]).reshape(B, SC * 32)
-    pidx = torch.clamp(pidx, max=n - 1)
-    y = pos_s[pidx]                                         # (B,S,3)
-    ym = torch.where(ok, mass_s[pidx], torch.zeros_like(mass_s[pidx]))
-    yeps = eps_s[pidx]
-    d = [xr[:, :, None, k] - y[:, None, :, k] for k in range(3)]
-    if pbc is not None and pbc[0] > 0:
-        d = [min_image(dk, pbc[0]) for dk in d]
-    r = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    h = 2.8 * torch.maximum(te[:, :, None], yeps[:, None, :])
-    if pbc is not None:
-        cut = r <= pbc[2]
-        fac = ym[:, None, :] * short_range_fac(r, h, pbc[1]) * cut
+    b, s = torch.nonzero(ok & (mass_s[pidx] != 0), as_tuple=True)
+    p = pidx[b, s]
+    m = mass_s[p][:, None]                                  # (P, 1)
+    d = [xr[b, :, k] - pos_s[p, k][:, None] for k in range(3)]  # (P, G)
+    h = 2.8 * torch.maximum(te[b], eps_s[p][:, None])
+    if ewald is not None:
+        dv = torch.stack([min_image(-dk, ewald.box) for dk in d],
+                         dim=-1)                         # source - target
+        r = torch.sqrt(dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1]
+                       + dv[..., 2] * dv[..., 2])
+        corr, pcorr = ewald.lookup(dv, need_pot)
+        acc = (m * softened_inv_r3(r, h))[..., None] * dv + m[..., None] * corr
+        pot = m * (softened_potential(r, h) + pcorr) if need_pot else None
     else:
-        fac = ym[:, None, :] * softened_inv_r3(r, h)
-    dacc = torch.stack([-(fac * d[k]).sum(-1) for k in range(3)], dim=-1)
-    if need_pot and pbc is not None:
-        dpot = (ym[:, None, :] * short_range_pot(r, h, pbc[1])
-                * cut).sum(-1)
-    elif need_pot:
-        dpot = (ym[:, None, :] * softened_potential(r, h)).sum(-1)
-    else:
-        dpot = torch.zeros(dacc.shape[:2], dtype=dacc.dtype,
-                           device=dacc.device)
+        if pbc is not None and pbc[0] > 0:
+            d = [min_image(dk, pbc[0]) for dk in d]
+        r = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+        if pbc is not None:
+            cut = r <= pbc[2]
+            zero = torch.zeros_like(r)
+            fac = torch.where(cut, m * short_range_fac(r, h, pbc[1]), zero)
+            pot = (torch.where(cut, m * short_range_pot(r, h, pbc[1]), zero)
+                   if need_pot else None)
+        else:
+            fac = m * softened_inv_r3(r, h)
+            pot = m * softened_potential(r, h) if need_pot else None
+        acc = torch.stack([-fac * dk for dk in d], dim=-1)
+    dacc = torch.zeros(B, G, 3, dtype=xr.dtype, device=xr.device)
+    dacc.index_add_(0, b, acc)
+    dpot = torch.zeros(B, G, dtype=xr.dtype, device=xr.device)
+    if need_pot:
+        dpot.index_add_(0, b, pot)
     return dacc, dpot
+
+
+def _live_lookup(ewald, dv, live, need_pot: bool):
+    """``ewald.lookup`` of the pair vectors dv (..., 3) where ``live``
+    (broadcast to dv's leading shape) holds, zeros elsewhere (the pairs of
+    a massless source add nothing)."""
+    live = live.expand(dv.shape[:-1])
+    corr = torch.zeros_like(dv)
+    pcorr = torch.zeros_like(dv[..., 0]) if need_pot else None
+    c, p = ewald.lookup(dv[live], need_pot)
+    corr[live] = c
+    if need_pot:
+        pcorr[live] = p
+    return corr, pcorr
+
+
+def ewald_trace_pot(box: float) -> float:
+    """The isotropic second-order term of a node's Ewald correction per
+    unit of its raw quadrupole trace: (1/6) lap(psi) = -(2 pi / 3) / V
+    (the correction's Laplacian is the neutralising background's constant
+    -4 pi / V)."""
+    return -(2.0 * math.pi / 3.0) / float(box) ** 3
+
+
+def far_tile_ewald(rows, trq, xr, te, ewald, need_pot=True):
+    """The Ewald walk's multipole of node rows against one group each
+    (``treeforce.eval_flat``'s node pairs, :337-375; forcetree.c:1572):
+    per-pair minimum-image vectors d = com - x from the raw targets in the
+    table's box, the softened monopole and potential, the Newtonian-range
+    quadrupole (-Q d / r^5 + 2.5 (d.Q.d) d / r^7, -(d.Q.d) / (2 r^5)) and
+    the node mass times the Ewald correction of d; no cut. The potential
+    also takes the isotropic second-order term of each node's correction,
+    ``ewald_trace_pot`` times its raw quadrupole trace (the reference's
+    correction at the COM alone leaves the potential energy biased by it,
+    ROADMAP.md C.21; the force has no such term).
+
+    rows (B, WC, 16) with mass zeroed on non-accepted slots; trq (B, WC)
+    their raw quadrupole traces (0 on those slots); xr (B, G, 3) raw
+    targets; te (B, G). Returns (dacc, dpot)."""
+    m = rows[:, None, :, R_MASS]
+    epsn = rows[:, None, :, R_EPS]
+    q = [rows[:, None, :, 8 + j] for j in range(6)]
+    d = [min_image(rows[:, None, :, k] - xr[:, :, k:k + 1], ewald.box)
+         for k in range(3)]
+    r = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    h = 2.8 * torch.maximum(te[:, :, None], epsn)
+    fac = m * softened_inv_r3(r, h)
+    zero = torch.zeros_like(r)
+    newton = (r >= h) & (m > 0)
+    ir = torch.where(newton, 1.0 / torch.clamp(r, min=1e-30), zero)
+    ir2 = ir * ir
+    w5 = ir2 * ir2 * ir
+    w7 = w5 * ir2
+    u = [q[0] * d[0] + q[3] * d[1] + q[4] * d[2],
+         q[3] * d[0] + q[1] * d[1] + q[5] * d[2],
+         q[4] * d[0] + q[5] * d[1] + q[2] * d[2]]
+    dqd = d[0] * u[0] + d[1] * u[1] + d[2] * u[2]
+    t7 = 2.5 * w7 * dqd
+    corr, pcorr = _live_lookup(ewald, torch.stack(d, dim=-1), m > 0,
+                               need_pot)
+    da = [((fac + t7) * d[k] - w5 * u[k] + m * corr[..., k]).sum(-1)
+          for k in range(3)]
+    if need_pot:
+        dpot = (m * (softened_potential(r, h) + pcorr)
+                - 0.5 * dqd * w5).sum(-1) \
+            + ewald_trace_pot(ewald.box) * trq.sum(-1)[:, None]
+    else:
+        dpot = torch.zeros_like(da[0])
+    return torch.stack(da, dim=-1), dpot
 
 
 def far_tile_pbc(rows, trq, xr, te, pbc, need_pot=True):

@@ -25,7 +25,8 @@ from the current tree's node arrays (``gather_nodes``), the far pass is
 ``far_list`` and the near pass the walk's ``near_level`` on the recorded
 keys. With ``pbc`` (a TreePM box, JAX's ``pbc`` arguments :162-189,
 :631-636, :746-747) the recording walk and both passes take their
-periodic modes. Between rebuilds ``advance_tree`` drifts the node centres
+periodic modes, and with ``pbc`` of box 0 (``PMVacuum``, an isolated run's
+TreePM split) their free-space modes. Between rebuilds ``advance_tree`` drifts the node centres
 of mass by the node velocities recorded at the rebuild (``vcom``), as the
 reference predicts nodes within a tree-update period
 (forcetree.c:941-948).
@@ -148,7 +149,9 @@ def record_lists(tree: Octree, old_acc_sorted, valid_sorted, *, theta=0.5,
     list_force.py:392-405 with pbc): the skin-grown group boxes are
     classified by the minimum image about their centres, cells beyond
     rcut + bmax are dropped, and dead groups are parked with an inverted
-    huge box. on_level: see ``_record``."""
+    huge box; with box 0 (``PMVacuum``) by the plain box distance, with
+    the cut, and dead groups parked outside the tree (JAX :406-409).
+    on_level: see ``_record``."""
     cfg = cfg or FusedConfig()
     lcfg = lcfg or ListConfig()
     n = tree.pos_s.shape[0]
@@ -161,7 +164,7 @@ def record_lists(tree: Octree, old_acc_sorted, valid_sorted, *, theta=0.5,
     goac = torch.where(gvalid, toac[pidx], torch.zeros_like(toac[pidx]))
     skin = torch.as_tensor(skin, dtype=dtype, device=dev)
     glo, ghi, oac = group_boxes(tree, gtargets, gvalid, goac, skin,
-                                periodic=pbc is not None)
+                                periodic=pbc is not None and pbc[0] > 0)
     if pbc is not None:
         pbc = tuple(float(v) for v in pbc)
 

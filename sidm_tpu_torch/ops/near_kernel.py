@@ -17,6 +17,18 @@ image, the screened force factor ``pm.short_range_fac`` and potential
 ``rcut``. The self pair adds 2 alpha / sqrt(pi) m to the potential; the
 caller removes it with the spline self term.
 
+Free-space mode (``pbc`` = (0, alpha, rcut), ``PMVacuum``'s short range in
+an isolated run: ``_near_tile(pbc)`` with box 0): the same, with the plain
+pair vectors.
+
+Ewald mode (``ewald``, an ``ops/ewald.EwaldTable``: ``PMGrid -1``'s
+per-pair Ewald walk, ``sidm_tpu/ops/treeforce.py:eval_flat`` :391-430):
+the minimum-image pair vector in the table's box, the softened pair force
+and potential and the source mass times the Ewald correction, uncut. The
+self pair adds psi(0) m to the potential besides the spline's -2.8 m / h;
+the caller removes only the latter (JAX's ``tree_gravity`` keeps the
+lattice self energy).
+
 On a CUDA tensor it launches ``csrc/near_kernel.cu``; on a CPU tensor it
 runs ``near_level_plain``. There is no fallback between the two.
 
@@ -38,14 +50,15 @@ from __future__ import annotations
 
 import torch
 
-from .fused_force import G, IMAX, SC, near_tile
+from .ewald import interleaved
+from .fused_force import G, IMAX, SC, count_launch, mode_prefix, near_tile
 from .work_items import item_buffers, kernel_split, near_split_plain
 
 ITEM_BLOCK = 256   # plain version: (group, key chunk) items per batch
 
 
 def near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
-                     need_pot: bool, pbc=None):
+                     need_pot: bool, pbc=None, ewald=None):
     """Plain PyTorch version of ``near_level``: live (group, 16-key chunk)
     items in batches of ITEM_BLOCK, summed per group."""
     ng, K = keys.shape
@@ -66,23 +79,26 @@ def near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
         ent = torch.where(c[:, None] * sc + col < n_seg[g, None].long(),
                           keys_c[g, c], IMAX)
         da, dp = near_tile(ent, pos_s, mass_s, eps_s, xr[g], te[g], need_pot,
-                           pbc)
+                           pbc, ewald)
         acc.index_add_(0, g, torch.cat([da, dp[..., None]], dim=-1))
     return acc
 
 
 def near_level(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
-               need_pot: bool, pbc=None):
+               need_pot: bool, pbc=None, ewald=None):
     """Near field of compacted segment keys for every group.
 
     keys (ng, K) int32 compacted keys, live prefix n_seg (ng,) int32 (the
     entries past it are not read); pos_s (N, 3), mass_s (N,), eps_s (N,)
     float32 sorted particles; xr (ng, 64, 3) raw target positions; te
     (ng, 64) target softenings; ``pbc`` (box, alpha, rcut) the periodic
-    mode. Returns acc (ng, 64, 4) float32 [ax ay az pot]."""
+    mode (box 0: the free-space mode); ``ewald`` the Ewald mode (``pbc``
+    unread). Returns acc (ng, 64, 4) float32 [ax ay az pot]."""
+    if ewald is not None:
+        pbc = None
     if not keys.is_cuda:
         return near_level_plain(keys, n_seg, pos_s, mass_s, eps_s, xr, te,
-                                need_pot=need_pot, pbc=pbc)
+                                need_pot=need_pot, pbc=pbc, ewald=ewald)
     from .._build import check_cuda, kernels_lib, launch_args
 
     ng, K = keys.shape
@@ -94,24 +110,33 @@ def near_level(keys, n_seg, pos_s, mass_s, eps_s, xr, te, *,
                eps_s=(eps_s, torch.float32, (n,)),
                xr=(xr, torch.float32, (ng, G, 3)),
                te=(te, torch.float32, (ng, G)))
+    t4 = None
+    if ewald is not None:
+        ed1 = ewald.en // 2 + 1
+        t4 = interleaved(ewald)
+        check_cuda("near_level", keys=(keys, torch.int32, (ng, K)),
+                   table4=(t4, torch.float32, (ed1, ed1, ed1, 4)))
     icap, ws, part = item_buffers(ng, keys.device, near=True)
     acc = torch.empty(ng, G, 4, dtype=torch.float32, device=keys.device)
     box, alpha, rcut = (float(v) for v in pbc) if pbc else (0.0, 0.0, 0.0)
+    if ewald is not None:
+        box = float(ewald.box)
+    mode = 2 if ewald is not None else int(pbc is not None)
     err = kernels_lib().near_level_launch(*launch_args(
         keys, n_seg, ng, K, pos_s, mass_s, eps_s, n, xr, te, int(need_pot),
-        acc, ws, icap, part, box, alpha, rcut, int(pbc is not None)))
+        acc, ws, icap, part, box, alpha, rcut, t4,
+        int(ewald.en) if ewald is not None else 0, mode))
     if err:
         raise RuntimeError(f"near_level kernel launch failed: CUDA error "
                            f"{err}")
-    if pbc is not None:
-        near_level.periodic_launches += 1
-    else:
-        near_level.launches += 1
+    count_launch(near_level, mode_prefix(pbc, ewald) + "launches")
     return acc
 
 
 near_level.launches = 0
 near_level.periodic_launches = 0   # launches of the periodic mode (pbc)
+near_level.vacuum_launches = 0     # ... of the free-space mode (pbc, box 0)
+near_level.ewald_launches = 0      # ... of the Ewald mode (ewald)
 
 
 def near_split(keys, n_seg) -> dict:

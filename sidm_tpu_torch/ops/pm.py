@@ -1,7 +1,9 @@
-"""Particle-mesh long-range gravity for periodic boxes, the TreePM split
-(port of ``sidm_tpu/ops/pm.py``, the periodic part: ``PMKernel`` :56,
+"""Particle-mesh long-range gravity, the TreePM split, for periodic boxes
+and for isolated runs (port of ``sidm_tpu/ops/pm.py``: ``PMKernel`` :56,
 ``short_range_screen``/``_fac``/``_pot`` :89-128, ``build_pm_kernel``
-:131-171, ``cic_deposit``/``cic_gather`` :194-270, ``pm_accel`` :273-354).
+:131-171, ``cic_deposit``/``cic_gather`` :194-270, ``pm_accel`` :273-354;
+the free-space mesh ``PMKernelFree`` :370, ``build_pm_kernel_free``
+:391-439 and ``pm_accel_free`` :442-490).
 
 The periodic force is split Ewald-style: a_total = a_short + a_long.
 ``a_short`` is the spline-softened pair force times the real-space screen
@@ -19,8 +21,19 @@ planes, where the interlacing phase is not Hermitian. The deposit is one
 ``index_add_`` per corner (JAX sorts by cell and takes blocked range sums,
 the TPU having no fast scatter-add): the same sums in another order, within
 1e-6 of the grid's largest cell (tests/test_torch_pm.py). The grids are
-float32, as JAX's. ``pm_accel_free`` (``PMVacuum``) is not ported (ROADMAP
-A).
+float32, as JAX's.
+
+The free-space mesh (``PMVacuum``, an isolated run's far field) is the
+Hockney-Eastwood zero-padded convolution: the density of an n-cell region
+of side L is deposited as in a box of L (positions clamped 1.6 cells
+inside the region, which only moves escapers: the region's margin keeps
+every particle 2 cells in), zero-padded to a 2n grid, and convolved with
+the DFT of the real-space screened kernel -erf(alpha r)/r sampled on the
+2n grid (minimum image on the doubled box): the cyclic convolution is then
+the exact linear one for every pair of the region. The fields are the
+periodic solve's, on the 2n grid, cut back to the region's n^3 cells.
+JAX transforms the kernel with its float32 matmul DFT; here ``torch.fft``
+in float64 at build time, rounded once to float32.
 """
 
 from __future__ import annotations
@@ -176,17 +189,61 @@ def cic_gather(field4, pos, box: float, n: int):
     return out
 
 
-def _k_grids(kern: PMKernel):
+def _k_grids(kv, m: int):
     """Per axis the k of the half spectrum's indices and of their negated
     indices (k~: -k, but +k on the Nyquist plane, whose index is its own
-    negative), as broadcastable (n, n, n//2+1) factors."""
-    n = kern.n
-    kv = kern.kvec
-    kneg = kv[torch.remainder(-torch.arange(n, device=kv.device), n)]
-    hz = n // 2 + 1
+    negative), as broadcastable (m, m, m//2+1) factors of an m grid."""
+    kneg = kv[torch.remainder(-torch.arange(m, device=kv.device), m)]
+    hz = m // 2 + 1
     k = (kv[:, None, None], kv[None, :, None], kv[None, None, :hz])
     kt = (kneg[:, None, None], kneg[None, :, None], kneg[None, None, :hz])
     return k, kt
+
+
+def _solver(greens, kvec, m: int, r1, r2, h: float, with_potential: bool,
+            crop: int):
+    """The mesh's real-space fields from the density spectra: r1 (and r2,
+    the half-cell shifted deposit's, None when not interlaced) the
+    half spectra of an m grid, greens its Green's function. Returns
+    ``solve(shift)``: the packed (crop^3, 4) [ax, ay, az, pot] rows of the
+    first crop^3 cells (pot 0 unless with_potential), at the grid points
+    or (shift) at the half-cell shifted ones."""
+    fft = torch.fft
+    (kx, ky, kz), (kxt, kyt, kzt) = _k_grids(kvec, m)
+    if r2 is not None:
+        ph = 0.5 * h * (kx + ky + kz)
+        pht = 0.5 * h * (kxt + kyt + kzt)
+        e = torch.polar(torch.ones_like(ph), ph)            # e^{i ph(k)}
+        et_c = torch.polar(torch.ones_like(pht), -pht)      # e^{-i ph(k~)}
+        # the combined density at k, and its conjugate at k~ (each grid's
+        # own spectrum is Hermitian: rho_j(k~) = conj rho_j(k))
+        phi = greens * 0.5 * (r1 + r2 * e)
+        phit = greens * 0.5 * (r1 + r2 * et_c)
+    else:
+        phi = phit = greens * r1
+
+    def field(f, ft_c):
+        """Real-space field of the spectrum f(k) phi(k): the inverse of its
+        Hermitian part (f phi + conj(f(k~) phi(k~)))/2, ft_c = conj f(k~)."""
+        g = fft.irfftn(0.5 * (f * phi + ft_c * phit), s=(m, m, m),
+                       norm="forward")
+        return g[:crop, :crop, :crop].reshape(-1)
+
+    def solve(shift: bool):
+        grads = [(-1j * kc, 1j * kct) for kc, kct in ((kx, kxt), (ky, kyt),
+                                                      (kz, kzt))]
+        pots = [(1.0, 1.0)] if with_potential else []
+        out = []
+        for f, ft_c in grads + pots:
+            if shift:
+                f, ft_c = f * e, ft_c * et_c
+            out.append(field(f, ft_c))
+        if not with_potential:
+            out.append(torch.zeros(crop ** 3, dtype=torch.float32,
+                                   device=r1.device))
+        return torch.stack(out, dim=-1)                     # (crop^3, 4)
+
+    return solve
 
 
 def pm_accel(kern: PMKernel, pos, mass, *, with_potential: bool = False):
@@ -201,46 +258,112 @@ def pm_accel(kern: PMKernel, pos, mass, *, with_potential: bool = False):
     h = box / n
     dtype = pos.dtype
     pos = torch.remainder(pos, box)
-    fft = torch.fft
-    r1 = fft.rfftn(cic_deposit(pos, mass, box, n))
-    (kx, ky, kz), (kxt, kyt, kzt) = _k_grids(kern)
-    if kern.interlace:
-        ph = 0.5 * h * (kx + ky + kz)
-        pht = 0.5 * h * (kxt + kyt + kzt)
-        e = torch.polar(torch.ones_like(ph), ph)            # e^{i ph(k)}
-        et_c = torch.polar(torch.ones_like(pht), -pht)      # e^{-i ph(k~)}
-        r2 = fft.rfftn(cic_deposit(torch.remainder(pos + 0.5 * h, box), mass,
-                                   box, n))
-        # the combined density at k, and its conjugate at k~ (each grid's
-        # own spectrum is Hermitian: rho_j(k~) = conj rho_j(k))
-        phi = kern.greens * 0.5 * (r1 + r2 * e)
-        phit = kern.greens * 0.5 * (r1 + r2 * et_c)
-    else:
-        phi = phit = kern.greens * r1
-
-    def field(f, ft_c):
-        """Real-space field of the spectrum f(k) phi(k): the inverse of its
-        Hermitian part (f phi + conj(f(k~) phi(k~)))/2, ft_c = conj f(k~)."""
-        return fft.irfftn(0.5 * (f * phi + ft_c * phit), s=(n, n, n),
-                          norm="forward").reshape(-1)
-
-    def solve(shift: bool):
-        grads = [(-1j * kc, 1j * kct) for kc, kct in ((kx, kxt), (ky, kyt),
-                                                      (kz, kzt))]
-        pots = [(1.0, 1.0)] if with_potential else []
-        out = []
-        for f, ft_c in grads + pots:
-            if shift:
-                f, ft_c = f * e, ft_c * et_c
-            out.append(field(f, ft_c))
-        if not with_potential:
-            out.append(torch.zeros(n ** 3, dtype=torch.float32,
-                                   device=pos.device))
-        return torch.stack(out, dim=-1)                     # (n^3, 4)
-
+    r1 = torch.fft.rfftn(cic_deposit(pos, mass, box, n))
+    r2 = (torch.fft.rfftn(cic_deposit(torch.remainder(pos + 0.5 * h, box),
+                                      mass, box, n))
+          if kern.interlace else None)
+    solve = _solver(kern.greens, kern.kvec, n, r1, r2, h, with_potential, n)
     out = cic_gather(solve(False), pos, box, n)
     if kern.interlace:
         out2 = cic_gather(solve(True), torch.remainder(pos - 0.5 * h, box),
                           box, n)
+        out = 0.5 * (out + out2)
+    return out[..., :3].to(dtype), out[..., 3].to(dtype)
+
+
+class PMKernelFree(NamedTuple):
+    """The free-space mesh operator of one region (``PMVacuum``)."""
+    greens: torch.Tensor  # (2n, 2n, n+1) DFT[-erf(ar)/r] / (2n)^3 / W^2
+    kvec: torch.Tensor    # (2n,) physical k of the padded grid (signed)
+    origin: torch.Tensor  # (3,) float32 position of grid point (0, 0, 0)
+    box: float            # the region's side L (n cells)
+    n: int                # the region's mesh (the padded grid is 2n)
+    alpha: float
+    rcut: float
+    pot_self: float       # mesh potential of a unit mass at its position
+    interlace: bool
+
+
+PROBE_FREE = (0.0811, 0.0377, -0.0629)  # build_pm_kernel_free's probe, in
+                                        # units of the radius from the centre
+
+
+def build_pm_kernel_free(center, radius: float, n: int = 128,
+                         asmth: float = 1.25, rcut_fac: float = 4.5,
+                         interlace: bool = True,
+                         device=None) -> PMKernelFree:
+    """The free-space mesh of the sphere (center, radius): the region's
+    side L solves L = 2 radius + 2 (rcut + 2h) with h = L/n (so every
+    particle and its interlaced half-cell images deposit without a wrap,
+    and no short-range ball reaches the padding), the split constants, the
+    Green's function of the 2n grid and the mesh's self-potential (a unit
+    mass at an off-grid probe)."""
+    pad_cells = 2.0 * (rcut_fac * asmth + 2.0)
+    L = 2.0 * float(radius) / max(1.0 - pad_cells / n, 0.5)
+    h = L / n
+    alpha = 1.0 / (2.0 * asmth * h)
+    rcut = rcut_fac * asmth * h
+    m = 2 * n
+    p = np.arange(m)
+    # the real-space screened kernel on the doubled box (minimum image),
+    # transformed in float64 on the device (a real even kernel: a real
+    # spectrum)
+    imi = ((p + n) % m) - n                       # [-n, n)
+    r1 = torch.as_tensor(np.abs(imi) * h, dtype=torch.float64, device=device)
+    r = torch.sqrt(r1[:, None, None] ** 2 + r1[None, :, None] ** 2
+                   + r1[None, None, :] ** 2)
+    g = -torch.special.erf(alpha * r) / torch.where(r > 0, r,
+                                                     torch.ones_like(r))
+    g[0, 0, 0] = -2.0 * alpha / SQRT_PI
+    del r
+    gr = torch.fft.rfftn(g).real
+    del g
+    mm = np.where(p > m // 2, p - m, p).astype(np.float64)
+    s = np.sinc(mm / m)
+    w1 = s * s
+    w2 = torch.as_tensor((w1[:, None, None] * w1[None, :, None]
+                          * w1[None, None, :m // 2 + 1]) ** 2 * m ** 3,
+                         device=device)
+    greens = (gr / w2).to(torch.float32).contiguous()
+    del gr, w2
+    k1 = 2.0 * np.pi / (m * h) * mm
+    center = np.asarray(center, np.float64)
+    kern = PMKernelFree(
+        greens=greens,
+        kvec=torch.as_tensor(k1.astype(np.float32), device=device),
+        origin=torch.as_tensor((center - 0.5 * L).astype(np.float32),
+                               device=device),
+        box=float(L), n=int(n), alpha=float(alpha), rcut=float(rcut),
+        pot_self=0.0, interlace=bool(interlace))
+    probe = torch.tensor(
+        (center + np.array(PROBE_FREE) * radius)[None].astype(np.float32),
+        device=device)
+    _, pot = pm_accel_free(kern, probe, torch.ones(1, dtype=torch.float32,
+                                                   device=device),
+                           with_potential=True)
+    return kern._replace(pot_self=float(pot[0]))
+
+
+def pm_accel_free(kern: PMKernelFree, pos, mass, *,
+                  with_potential: bool = False):
+    """Long-range acceleration (and potential) of an isolated particle set
+    on the free-space mesh, with ``pm_accel``'s conventions (raw units, the
+    mesh self term left in pot). Positions are clamped 1.6 cells inside
+    the region first (the region's margin keeps real particles 2 cells in:
+    only escapers move)."""
+    n, L = kern.n, kern.box
+    m = 2 * n
+    h = L / n
+    dtype = pos.dtype
+    q = torch.clamp(pos.to(torch.float32) - kern.origin[None, :], 1.6 * h,
+                    L - 1.6 * h)
+    s = (m, m, m)
+    r1 = torch.fft.rfftn(cic_deposit(q, mass, L, n), s=s)
+    r2 = (torch.fft.rfftn(cic_deposit(q + 0.5 * h, mass, L, n), s=s)
+          if kern.interlace else None)
+    solve = _solver(kern.greens, kern.kvec, m, r1, r2, h, with_potential, n)
+    out = cic_gather(solve(False), q, L, n)
+    if kern.interlace:
+        out2 = cic_gather(solve(True), q - 0.5 * h, L, n)
         out = 0.5 * (out + out2)
     return out[..., :3].to(dtype), out[..., 3].to(dtype)

@@ -10,7 +10,20 @@ three kernels run their periodic modes (the minimum image; the walk drops
 what lies beyond ``rcut``; the screened far field from the raw targets
 with the exact screened quadrupole; the screened near pairs). The
 potential loses the near pass's self term 2 alpha/sqrt(pi) m (JAX
-:601-602).
+:601-602). With ``pbc`` = (0, alpha, rcut), ``PMVacuum``'s split of an
+isolated run, the tree is built free, dead groups are parked outside it,
+and the kernels run their free-space modes (no minimum image).
+
+``ewald`` (an ``ops/ewald.EwaldTable``, ``PMGrid -1``): the per-pair Ewald
+walk of ``sidm_tpu/ops/treeforce.py`` (its ``ewald`` argument) on this
+walk: the tree built on the table's box, the periodic classification with
+``fused_force.ewald_pbc`` (no cut), and the far and near passes' Ewald
+modes (the minimum-image Newtonian field plus every pair's Ewald
+correction, the node-level correction of forcetree.c:1572 on the far
+nodes, whose potential also takes the isotropic second-order term of the
+correction, ROADMAP.md C.21). The potential keeps the self pair's psi(0) m
+(JAX's ``tree_gravity`` :569-571). The pair sets are the wq walk's, not
+treeforce's ``global_walk``'s (ROADMAP C).
 
 Same walk and the same accepted pair sets as the JAX engine: for every
 64-target group a per-level frontier of node ids is classified against the
@@ -44,8 +57,8 @@ from .far_kernel import (C_BIG, C_BIG_DROP, C_BK, C_FAR, C_NEXT, C_OPEN,
                          C_OVF_OPEN, C_SEG, far_level)
 from .far_list import far_list
 from .fused_force import (LEAF_CAP, SC, START_LEVEL, WC, FusedConfig,
-                          FusedTree, default_depth, make_windows, pack_tree,
-                          w_schedule)
+                          FusedTree, default_depth, ewald_pbc, make_windows,
+                          pack_tree, w_schedule)
 from .near_kernel import near_level
 from .pm import SQRT_PI
 from .tree import build_octree
@@ -57,9 +70,10 @@ def _near_items(n_seg, width: int):
 
 def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
              theta: float, use_relative: bool, cfg: FusedConfig,
-             need_pot: bool, on_level=None, pbc=None):
+             need_pot: bool, on_level=None, pbc=None, ewald=None):
     """The walk + evaluation over all levels. Returns per-group
     acc (ng, G, 3), pot (ng, G) and the info dict (0-dim tensors).
+    ``ewald``: the Ewald walk (``pbc`` unread).
 
     on_level: optional observer called as ``on_level(name, level, kw)``
     before every ``far_level``/``far_list``/``near_level`` call with the
@@ -71,8 +85,10 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
     n = tree.pos_s.shape[0]
     theta2 = theta * theta
     gtargets = gtargets.contiguous()
-    if pbc is not None:
-        # the periodic far field differences raw targets per pair
+    walk_pbc = ewald_pbc(ewald.box) if ewald is not None else pbc
+    if walk_pbc is not None:
+        # the periodic, free-space and Ewald far fields difference raw
+        # targets per pair
         gc = torch.zeros_like(glo)
         xc = gtargets
     else:
@@ -101,7 +117,8 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
         nonlocal acc, pot, max_near
         a = call(near_level, level, keys=keys.contiguous(), n_seg=n_seg,
                  pos_s=tree.pos_s, mass_s=tree.mass_s, eps_s=tree.eps_s,
-                 xr=gtargets, te=geps, need_pot=need_pot, pbc=pbc)
+                 xr=gtargets, te=geps, need_pot=need_pot, pbc=pbc,
+                 ewald=ewald)
         acc = acc + a[..., :3]
         if need_pot:
             pot = pot + a[..., 3]
@@ -116,11 +133,12 @@ def _wq_eval(ftree: FusedTree, tree, gtargets, geps, glo, ghi, oac, gvalid,
             nl_real=ftree.n_levels[l], s_l=s_l, glo=glo, ghi=ghi, oac=oac,
             theta2=theta2, use_relative=use_relative, leaf_cap=LEAF_CAP,
             last=last, Wn=0 if last else ws[l + 1], open_cap=cfg.open_cap,
-            big_cap=cfg.big_cap, big_chunks=cfg.big_chunks, pbc=pbc)
+            big_cap=cfg.big_cap, big_chunks=cfg.big_chunks, pbc=walk_pbc)
         a = call(far_list, l, tbl=ftree.levels[l], ids=out.far,
                  nf=out.cnt[C_FAR], xc=xc, te=geps, gc=gc,
                  need_pot=need_pot, pbc=pbc,
-                 trq=ftree.levels_tr[l] if pbc is not None else None)
+                 trq=ftree.levels_tr[l] if walk_pbc is not None else None,
+                 ewald=ewald)
         acc = acc + a[..., :3]
         if need_pot:
             pot = pot + a[..., 3]
@@ -181,12 +199,16 @@ def wq_gravity_tree(tree, mass, eps, old_acc, *, theta=0.5, opening=1,
                     err_tol_force_acc=0.005,
                     config: Optional[FusedConfig] = None,
                     return_info: bool = False, need_pot: bool = True,
-                    on_level=None, pbc=None):
+                    on_level=None, pbc=None, ewald=None):
     """Work-queue walk/eval on a prebuilt octree. mass/eps/old_acc are in
     original particle order; returns raw (acc, pot[, info]) in original
     order (no G factor; the spline self potential removed). on_level: see
     ``_wq_eval``; ``pbc`` (box, alpha, rcut): the TreePM short range in a
-    periodic box (the tree built with ``box``)."""
+    periodic box (the tree built with ``box``), or box 0 in free space;
+    ``ewald``: the Ewald walk in the table's box (the tree built on it;
+    ``pbc`` unread)."""
+    if ewald is not None:
+        pbc = None
     cfg = config or FusedConfig()
     n = tree.pos_s.shape[0]
     dtype = tree.pos_s.dtype
@@ -199,15 +221,16 @@ def wq_gravity_tree(tree, mass, eps, old_acc, *, theta=0.5, opening=1,
     geps = torch.where(gvalid, tree.eps_s[pidx],
                        torch.ones((), dtype=dtype, device=pidx.device))
     goac = torch.where(gvalid, toac[pidx], torch.zeros_like(toac[pidx]))
-    glo, ghi, oac = group_boxes(tree, gtargets, gvalid, goac,
-                                periodic=pbc is not None)
+    glo, ghi, oac = group_boxes(
+        tree, gtargets, gvalid, goac,
+        periodic=ewald is not None or (pbc is not None and pbc[0] > 0))
     if pbc is not None:
         pbc = tuple(float(v) for v in pbc)
 
     acc_g, pot_g, info = _wq_eval(ftree, tree, gtargets, geps.contiguous(),
                                   glo, ghi, oac, gvalid, float(theta),
                                   bool(opening == 1), cfg, bool(need_pot),
-                                  on_level, pbc)
+                                  on_level, pbc, ewald)
 
     acc, pot = ungroup(acc_g, pot_g, pidx, gvalid, tree.perm, mass, eps,
                        need_pot)
@@ -247,18 +270,20 @@ def wq_gravity(pos, mass, eps, old_acc, *, theta=0.5, opening=1,
                err_tol_force_acc=0.005, depth: Optional[int] = None,
                config: Optional[FusedConfig] = None,
                return_info: bool = False, need_pot: bool = True,
-               pbc=None):
+               pbc=None, ewald=None):
     """Raw acceleration/potential for all particles (wq engine): builds the
-    octree (on the periodic box with ``pbc``), then ``wq_gravity_tree``."""
+    octree (on the periodic box with ``pbc``, on the table's box with
+    ``ewald``), then ``wq_gravity_tree``."""
     n = pos.shape[0]
     if depth is None:
         depth = default_depth(n)
     if n > (1 << 24):
         raise ValueError("wq engine packs indices as exact f32; "
                          "N must be <= 2^24")
-    tree = build_octree(pos, mass, eps, mass > 0, depth=depth,
-                        box=float(pbc[0]) if pbc is not None else 0.0)
+    box = (float(ewald.box) if ewald is not None
+           else float(pbc[0]) if pbc is not None else 0.0)
+    tree = build_octree(pos, mass, eps, mass > 0, depth=depth, box=box)
     return wq_gravity_tree(
         tree, mass, eps, old_acc, theta=theta, opening=opening,
         err_tol_force_acc=err_tol_force_acc, config=config,
-        return_info=return_info, need_pot=need_pot, pbc=pbc)
+        return_info=return_info, need_pot=need_pot, pbc=pbc, ewald=ewald)

@@ -17,14 +17,25 @@ single-program step ``_build_step`` :373-458 with ``_make_force_fn``
 ``_pm_kernel`` :254-270, the periodic direct sum and TreePM of
 ``_make_force_fn`` :276-283, :303-331 and of the phased step :481-526,
 ``box_wrap`` in both finishes :439-443, :730-731, and ``compute_potential``'s
-comoving and periodic terms :1550-1575).
+comoving and periodic terms :1550-1575; the free-space TreePM mesh
+``_use_vacuum_pm`` :216-222 and ``_pm_kernel_free`` :224-252 on the phased
+step :506-514; the per-pair Ewald walk of ``PMGrid -1``, ``tree_gravity``
+of ``_make_force_fn`` :333-344 and the phased step's ``eval_targets``
+:616-632 with the DSMC walk on its tree :1242-1253).
 
 A periodic box (``PeriodicBoundariesOn 1``) runs TreePM on ``ForceMethod
 tree`` (``PMGrid`` >= 0, 0 choosing the mesh by N): the walk's periodic
 mode gives the short range (the minimum image, the screened pair force cut
 at ``rcut``, ``ops/wq_force.py``) and ``ops/pm.py``'s mesh the long range;
 ``ForceMethod direct`` is the minimum-image direct sum with the Ewald
-correction (``ops/ewald.py``). Positions are wrapped onto the box after
+correction (``ops/ewald.py``). ``PMGrid -1`` is GADGET-1.1's own periodic
+method, the tree walk with the Ewald correction of every node and
+particle interaction, on both steps (the wq walk's Ewald modes,
+``wq_gravity(ewald=)``): the phased step builds the tree and walks it
+every step (``ListMode`` and ``TreeRefreshSteps`` do not apply, as in
+JAX), DSMC runs on the walk engine on that tree, and the potential keeps
+the lattice self energy psi(0) m. The walk's pair sets are the wq walk's
+(ROADMAP C). Positions are wrapped onto the box after
 every step. Comoving runs (``ComovingIntegrationOn 1``) take the scale
 factor as their time (in the logs, snapshots and restarts), the comoving
 drift and kick factors and timestep criteria, the softenings of the current
@@ -42,6 +53,16 @@ the minimum image of each displacement (``LIST_MONITOR_IMAGE``, ROADMAP
 C.20; JAX's plain difference ends a cycle whenever a particle was wrapped
 onto the box since the record); the list steps where JAX's rule would
 have ended the cycle are counted in ``wrap_records``.
+
+An isolated tree run with ``PMVacuum 1`` moves its far field onto the
+free-space mesh (``ops/pm.py`` ``pm_accel_free``, a zero-padded 2n grid,
+``PMGrid 0`` choosing n by N up to 256) on the phased step: the walk, the
+record and the list evaluation take the screened short range cut at
+``rcut`` without the minimum image (``pbc`` = (0, alpha, rcut)), the tree
+is built free, and the drift-mode lists stay on. The mesh's region is the
+reflection sphere x 1.02 (else 1.5 x the particles' bounding sphere at
+the first step). The single-program step and ``compute_potential`` ignore
+``PMVacuum``, as JAX's ``_make_force_fn`` does.
 
 ``mode="individual"`` (JAX's ``sync = False``, :378, :471) keeps every
 particle's own next kick time: a step advances only the particles due at
@@ -148,7 +169,8 @@ from .ops.list_range import (RangeListConfig,
                              record_candidates_from_particles,
                              sidm_scatter_lists)
 from .ops.neighbors import setup_smoothing_lengths
-from .ops.pm import build_pm_kernel, pm_accel
+from .ops.pm import (build_pm_kernel, build_pm_kernel_free, pm_accel,
+                     pm_accel_free)
 from .ops.sidm import SidmParams, make_sidm_step, sidm_params
 from .ops.tree import build_octree, refresh_octree
 from .ops.veldisp import veldisp
@@ -192,12 +214,6 @@ def check_supported(cfg: SimConfig, mode: str, device: torch.device):
         _refuse_phased_direct()
     if cfg.TreeWalkEngine != "wq":
         _refuse(f"TreeWalkEngine {cfg.TreeWalkEngine}", "A, item 15")
-    if cfg.PMVacuum and not cfg.PeriodicBoundariesOn \
-            and cfg.ForceMethod == "tree":
-        _refuse("PMVacuum (the free-space TreePM mesh)", "A, item 11.2")
-    if cfg.PeriodicBoundariesOn:
-        if cfg.ForceMethod == "tree" and cfg.PMGrid < 0:
-            _refuse("PMGrid -1 (the per-pair Ewald walk)", "A, item 11.3")
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}: not one of {MODES}")
     if cfg.SIDMOn and cfg.CrossSection > 0 and cfg.VelDispOn:
@@ -343,6 +359,7 @@ class Simulation:
         self._hash_step = None
         self._ewald = None
         self._pm = None
+        self._pm_free = None
         # list steps whose validity monitor ended the cycle only because a
         # particle was wrapped onto the box since the record
         self.wrap_records = 0
@@ -430,7 +447,51 @@ class Simulation:
     def _use_treepm(self) -> bool:
         """Periodic tree runs take the TreePM split (PMGrid >= 0)."""
         return bool(self.cfg.PeriodicBoundariesOn
-                    and self.cfg.ForceMethod == "tree")
+                    and self.cfg.ForceMethod == "tree"
+                    and self.cfg.PMGrid >= 0)
+
+    def _use_ewald_walk(self) -> bool:
+        """Periodic tree runs with PMGrid -1: the per-pair Ewald walk."""
+        return bool(self.cfg.PeriodicBoundariesOn
+                    and self.cfg.ForceMethod == "tree"
+                    and self.cfg.PMGrid < 0)
+
+    def _use_vacuum_pm(self) -> bool:
+        """Isolated tree runs with PMVacuum 1: the far field on the
+        free-space mesh (the phased step only)."""
+        return bool(not self.cfg.PeriodicBoundariesOn
+                    and self.cfg.ForceMethod == "tree"
+                    and self.cfg.PMVacuum)
+
+    def _pm_kernel_free(self):
+        """The free-space mesh operator (cached): PMGrid cells a side, or
+        with PMGrid 0 the power of two from 64 up to 256 that reaches
+        2 N^(1/3) (N padded); the region covers the reflection sphere x 1.02
+        when there is one, else 1.5 x the bounding sphere of the particles
+        as they are at the first call (float32 on the host, as JAX)."""
+        if self._pm_free is None:
+            cfg = self.cfg
+            n_mesh = int(cfg.PMGrid)
+            if n_mesh <= 0:
+                npart = (self.particles.pos.shape[0]
+                         if self.particles is not None else 1 << 20)
+                n_mesh = 64
+                while n_mesh < 2.0 * npart ** (1.0 / 3.0) and n_mesh < 256:
+                    n_mesh *= 2
+            if cfg.ReflectionBoundary > 0:
+                center = np.zeros(3)
+                radius = float(cfg.ReflectionBoundary) * 1.02
+            else:
+                p = self.particles
+                pv = p.pos[p.valid].cpu().numpy().astype(np.float32)
+                center = 0.5 * (pv.min(0) + pv.max(0))
+                radius = 1.5 * float(
+                    np.sqrt(((pv - center) ** 2).sum(1).max()))
+            self._pm_free = build_pm_kernel_free(
+                center, radius, n=n_mesh, asmth=float(cfg.PMAsmth),
+                rcut_fac=float(cfg.PMRcutFac),
+                interlace=bool(cfg.PMInterlace), device=self.device)
+        return self._pm_free
 
     def _pm_kernel(self):
         """The TreePM mesh operator (cached): PMGrid cells a side, or with
@@ -457,6 +518,19 @@ class Simulation:
             return None
         kern = self._pm_kernel()
         return (float(self.cfg.BoxSize), kern.alpha, kern.rcut)
+
+    def _phased_pbc(self):
+        """The phased step's short range: the TreePM split in a periodic
+        box, (0, alpha, rcut) of the free-space mesh with PMVacuum, or
+        None."""
+        if self._use_vacuum_pm():
+            kern = self._pm_kernel_free()
+            return (0.0, kern.alpha, kern.rcut)
+        return self._pbc()
+
+    def _walk_ewald(self):
+        """The Ewald table of the Ewald walk (PMGrid -1), or None."""
+        return self._ewald_table() if self._use_ewald_walk() else None
 
     def _box(self) -> float:
         return float(self.cfg.BoxSize) if self.cfg.PeriodicBoundariesOn \
@@ -575,9 +649,11 @@ class Simulation:
 
     def _force(self, p, pos_pred, soft, need_pot: bool):
         """The single-program step's force (``_make_force_fn``,
-        simulation.py:271-300): raw (acc, pot, walk info or None). The
+        simulation.py:271-344): raw (acc, pot, walk info or None). The
         direct sum always gives the potential (JAX's does); the walk only
-        with ``need_pot``."""
+        with ``need_pot``. In a periodic box the walk is TreePM's short
+        range plus the mesh, or with PMGrid -1 the Ewald walk; PMVacuum is
+        not read here (JAX's ``_make_force_fn`` has no vacuum branch)."""
         cfg = self.cfg
         eps = soft[torch.clamp(p.ptype, 0, 5).long()]
         mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
@@ -587,13 +663,14 @@ class Simulation:
                                   ewald=self._ewald_table() if box else None)
             return acc, pot, None
         pbc = self._pbc()
+        ewald = self._walk_ewald()
         while True:
             depth = self._small_depth or default_depth(p.n_padded)
             acc, pot, info = wq_gravity(
                 pos_pred, mass, eps, p.old_acc, theta=cfg.ErrTolTheta,
                 opening=cfg.TypeOfOpeningCriterion,
                 err_tol_force_acc=cfg.ErrTolForceAcc, depth=depth,
-                need_pot=need_pot, return_info=True, pbc=pbc)
+                need_pot=need_pot, return_info=True, pbc=pbc, ewald=ewald)
             drops = [int(x) for x in torch.stack([
                 info[k] for k in ("ovf_open", "ovf_big",
                                   "ovf_items")]).tolist()]
@@ -646,19 +723,23 @@ class Simulation:
         if self._cadence_stale:
             self._reset_cadence()
         refresh_steps = max(int(cfg.TreeRefreshSteps), 1)
-        use_lists = bool(cfg.ListMode) and not self._lists_disabled
+        # the Ewald walk rebuilds and walks every step (JAX's legacy
+        # periodic path, simulation.py:616-632): no lists, no refresh
+        ewald = self._walk_ewald()
+        use_lists = (bool(cfg.ListMode) and not self._lists_disabled
+                     and ewald is None)
         t_next = torch.clamp(integrate.find_next_time(p), max=cfg.TimeMax)
         active = integrate.active_mask(p, t_next)
         pos_pred, vel_pred = integrate.predict_positions(p, t_next, consts)
         eps = params.softening_table[torch.clamp(p.ptype, 0, 5).long()]
         mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
-        reuse = (not first and self._refresh_left > 0
+        reuse = (not first and self._refresh_left > 0 and ewald is None
                  and self._tree_cache is not None
                  and (not use_lists or self._lists_cache is not None))
         info, kind, md = None, "walk", None
         ovf = need = None
         box = self._box()
-        pbc = self._pbc()
+        pbc = self._phased_pbc()
         drift_mode = use_lists and not cfg.ComovingIntegrationOn
         if reuse and use_lists:
             # cached lists on the advanced rebuild-time tree (comoving runs:
@@ -750,6 +831,13 @@ class Simulation:
             clock.mark("force")
             raw_acc, pot = self._add_mesh(raw_acc, pot, pos_pred, mass,
                                           p.valid, False)
+            clock.mark("pm")
+        elif self._use_vacuum_pm():
+            # the free-space mesh's long range (JAX's pm_fn, simulation.py:
+            # 506-514): the acceleration only, as the phased step needs
+            clock.mark("force")
+            raw_acc = raw_acc + pm_accel_free(self._pm_kernel_free(),
+                                              pos_pred, mass)[0]
             clock.mark("pm")
         accel, old_acc = integrate.apply_accel_postfactors(
             raw_acc, pos_pred, vel_pred, t_next, consts)
@@ -1122,13 +1210,16 @@ class Simulation:
               f"rebuild.", file=sys.stderr, flush=True)
 
     def _walk(self, tree, mass, eps, old_acc):
-        """The work-queue walk on ``tree``: (raw acc, pot (0), info)."""
+        """The phased step's work-queue walk on ``tree``: (raw acc, pot
+        (0), info); the short range of TreePM or of the free-space mesh,
+        or the Ewald walk."""
         cfg = self.cfg
         return wq_gravity_tree(
             tree, mass, eps, old_acc, theta=cfg.ErrTolTheta,
             opening=cfg.TypeOfOpeningCriterion,
             err_tol_force_acc=cfg.ErrTolForceAcc, need_pot=False,
-            return_info=True, pbc=self._pbc())
+            return_info=True, pbc=self._phased_pbc(),
+            ewald=self._walk_ewald())
 
     @staticmethod
     def _round_cap(v, mult=128):
@@ -1214,7 +1305,9 @@ class Simulation:
         """compute_potential (potential.c:18-195) at the current time, with
         the JAX package's force function for ``ForceMethod``
         (simulation.py:1550-1575): a fresh tree's walk (TreePM in a periodic
-        box), or the direct sum; comoving runs without a box lose
+        box, the Ewald walk with PMGrid -1; PMVacuum not read, as JAX's
+        force function does not), or the direct sum; comoving runs without
+        a box lose
         Omega0 H0^2 r^2 / 2, physical ones OmegaLambda H0^2 r^2 / 2."""
         cfg, p = self.cfg, self.particles
         t = torch.tensor(self.time, dtype=self.dtype, device=self.device)

@@ -396,6 +396,327 @@ def jax_list_ops() -> dict:
                                      need_pot=True, t_now=t)
             out[f"eval_{when}_{mode}_acc"] = np.asarray(acc)
             out[f"eval_{when}_{mode}_pot"] = np.asarray(pot)
+    out.update(jax_k3_ref())
+    out.update(jax_list_refits(out["tiny_need"]))
+    return out
+
+
+def pallasfar():
+    """scripts/pallasfar.py as a module (it imports JAX)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "pallasfar.py")
+    spec = importlib.util.spec_from_file_location("pallasfar", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# scripts/pallasfar.py's chunk: NU units of 32 node rows, NG groups
+K3 = dict(nu=2048, ng=16384)
+
+
+def k3_inputs():
+    """(rows, tgt) numpy of scripts/pallasfar.py's ``make_chunk(
+    default_rng(0))`` (NU = 2048 units of 32 rows), the same draws."""
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((K3["nu"] * 32, 16)).astype(np.float32)
+    rows[:, 3] = np.abs(rows[:, 3])
+    rows[:, 14] = 1.0 / 0.3
+    np.sort(rng.integers(0, K3["ng"], K3["nu"]))        # the unit groups
+    tgt = rng.standard_normal((K3["nu"], 256)).astype(np.float32)
+    tgt[:, 192:] = 1.0 / 0.3
+    return rows, tgt
+
+
+def jax_k3_ref() -> dict:
+    """``k3_ref{c}``: scripts/pallasfar.py's ``xla_ref`` (a0, a1, a2, pot)
+    on k3_inputs(), which equal its ``make_chunk``'s."""
+    import jax.numpy as jnp
+    mod = pallasfar()
+    rows, tgt = k3_inputs()
+    r2, t2, _ = mod.make_chunk(np.random.default_rng(0))
+    assert np.array_equal(rows, np.asarray(r2))
+    assert np.array_equal(tgt, np.asarray(t2))
+    assert (mod.NU, mod.NG) == (K3["nu"], K3["ng"])
+    return {f"k3_ref{c}": np.asarray(x) for c, x in enumerate(
+        mod.xla_ref(jnp.asarray(rows), jnp.asarray(tgt)))}
+
+
+def jax_list_refits(need) -> dict:
+    """The JAX Simulation's cap refits from TINY_CAPS at the tiny record's
+    demand (doubled after each grown refit), four times: ``refit_grew``
+    (4,) and ``refit_caps`` (4, 4) [far, near, used, level] (zeros where it
+    did not grow)."""
+    from sidm_tpu.config import SimConfig as JaxConfig
+    from sidm_tpu.ops.list_force import ListConfig as JaxListConfig
+    from sidm_tpu.simulation import Simulation as JaxSimulation
+
+    jax_sim = JaxSimulation(JaxConfig(**FLAGSHIP), mode="phased", quiet=True)
+    jax_sim._lfc_active = JaxListConfig(**TINY_CAPS)
+    need = np.asarray(need)
+    grew, caps = [], []
+    for _ in range(4):
+        g = bool(jax_sim._refit_list_caps(need))
+        grew.append(g)
+        ref = jax_sim._lfc_override if g else None
+        caps.append([ref.far_cap, ref.near_cap, ref.used_cap, ref.lvl_cap]
+                    if g else [0, 0, 0, 0])
+        if g:
+            jax_sim._lfc_active = ref
+            need = need * 2
+    return {"refit_grew": np.array(grew), "refit_caps": np.array(caps)}
+
+
+# tests/test_torch_near.py: a Plummer tree's sorted particles (zero-mass
+# padding sorted last), 8 target groups and NEAR_K segment keys a group
+NEAR_GOLDEN = os.path.join(_DATA, "torch_near_golden.npz")
+NEAR_LEVEL = dict(n=2048, depth=8, k=64, seed=9, key_seed=10)
+
+
+def near_level_setup():
+    """The setup of tests/test_torch_near.py: (tree, xr, te, gvalid, keys,
+    n_seg) with the port's tree (its structure is JAX's,
+    tests/test_torch_tree.py): 8 groups, each with its own leaf segment,
+    36 random others and one window across the end of the valid
+    particles."""
+    import torch
+    from sidm_tpu_torch.io import ics
+    from sidm_tpu_torch.ops.fused_force import make_windows
+    from sidm_tpu_torch.ops.tree import build_octree, level_offsets
+
+    n, depth, K = NEAR_LEVEL["n"], NEAR_LEVEL["depth"], NEAR_LEVEL["k"]
+    pos, _, m = ics.plummer(n, seed=NEAR_LEVEL["seed"])
+    pos, m = pos.astype(np.float32), m.astype(np.float32)
+    m[::53] = 0.0
+    eps = np.where(np.arange(n) % 2 == 0, 0.05, 0.08).astype(np.float32)
+    tree = build_octree(torch.tensor(pos), torch.tensor(m), torch.tensor(eps),
+                        torch.tensor(m > 0), depth=depth)
+    valid_s = torch.tensor(m > 0)[tree.perm]
+    pidx, gvalid = make_windows(tree.keys_s, valid_s, n, depth)
+    pick = torch.linspace(0, int(gvalid.any(1).sum()) - 1, 8).long()
+    pidx, gvalid = pidx[pick], gvalid[pick]
+    xr = tree.pos_s[pidx]
+    te = torch.where(gvalid, tree.eps_s[pidx], torch.ones(()))
+    offs = level_offsets(n, depth)
+    start = tree.node_start[offs[depth]:].numpy()
+    cnt = tree.node_count[offs[depth]:].numpy()
+    leaves = np.flatnonzero((cnt > 0) & (cnt <= 16))
+    nv = int(valid_s.sum())
+    rng = np.random.default_rng(NEAR_LEVEL["key_seed"])
+    keys = np.full((8, K), 2147483647, np.int32)
+    n_seg = np.zeros(8, np.int32)
+    for g in range(8):
+        own = int(np.flatnonzero((start <= int(pidx[g, 0]))
+                                 & (int(pidx[g, 0]) < start + cnt))[0])
+        pick_l = rng.choice(leaves, 36, replace=False)
+        ks = [start[own] * 32 + cnt[own]] \
+            + [start[i] * 32 + cnt[i] for i in pick_l] + [(nv - 3) * 32 + 8]
+        n_seg[g] = len(ks)
+        keys[g, :len(ks)] = ks
+    return tree, xr.numpy(), te.numpy(), gvalid.numpy(), keys, n_seg
+
+
+def jax_near() -> dict:
+    """JAX ``pallas_near.near_items`` in interpret mode on
+    near_level_setup's keys (``acc{need_pot}``: the groups' [ax ay az
+    pot])."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from types import SimpleNamespace
+    from sidm_tpu.ops.fused_force import pack_part16
+    from sidm_tpu.ops.pallas_near import near_items, pack_near_fields
+
+    tree, xr, te, _, keys, _ = near_level_setup()
+    K, SC, G = NEAR_LEVEL["k"], 16, 64
+    part16 = pack_part16(SimpleNamespace(
+        pos_s=jnp.asarray(tree.pos_s.numpy()),
+        mass_s=jnp.asarray(tree.mass_s.numpy()),
+        eps_s=jnp.asarray(tree.eps_s.numpy())))
+    ng = keys.shape[0]
+    ent = keys.reshape(ng * (K // SC), SC)
+    g_of = np.repeat(np.arange(ng, dtype=np.int32), K // SC)
+    tgt = np.zeros((ng + 1, G, 8), np.float32)
+    tgt[:ng, :, 3] = te
+    tgt[:ng, :, 4:7] = xr
+    out = {}
+    for pot in (True, False):
+        acc = near_items(jnp.asarray(g_of), pack_near_fields(
+            jnp.asarray(ent), part16), jnp.asarray(tgt), G=G, S=SC * 32,
+            need_pot=pot, interpret=True)
+        out[f"acc{int(pot)}"] = np.asarray(acc)[:ng, :, :4]
+    return out
+
+
+# tests/test_torch_foundation.py: configuration, state, integration,
+# timesteps, softening kernels and ICs of the JAX package
+FOUNDATION_GOLDEN = os.path.join(_DATA, "torch_foundation_golden.npz")
+FOUNDATION_OUTDIR = "o/"
+FOUNDATION_CONFIG = dict(InitCondFile="ics", OutputDir=FOUNDATION_OUTDIR,
+                         ResubmitCommand="none", OutputListFilename="x",
+                         SIDMOn=0, TreeWalkEngine="wq", ListMode=0,
+                         ErrTolTheta=0.7, TreeRefreshSteps=2)
+FOUNDATION_BAD = ("NotATag 1.0\n", "TimeMax 1.0\nTimeMax 2.0\n")
+FOUNDATION_T = 0.012
+
+
+def param_text(cfg) -> str:
+    """Every field of a SimConfig as a parameter file (OutputListTimes
+    left out)."""
+    import dataclasses
+    lines = ["% written by the test", ""]
+    for f in dataclasses.fields(cfg):
+        if f.name != "OutputListTimes":
+            lines.append(f"{f.name:<30} {getattr(cfg, f.name)}   % value")
+    return "\n".join(lines) + "\n"
+
+
+def foundation_state(seed: int = 0, n: int = 300) -> dict:
+    """A particle state with every field randomised (numpy, the port's
+    ``state_dict`` layout): the input of the integration and timestep
+    checks."""
+    from sidm_tpu_torch import state as tstate
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(n, 3)) * 10
+    vel = rng.normal(size=(n, 3)) * 50
+    mass = rng.uniform(0.5, 2.0, n)
+    ptype = rng.integers(1, 3, n)
+    tp = tstate.make_particles(pos, vel, mass, ptype, pad_to_multiple=64)
+    npad = tp.pos.shape[0]
+    extra = dict(
+        accel=rng.normal(size=(npad, 3)) * 100,
+        dvel=rng.normal(size=(npad, 3)),
+        current_time=rng.uniform(0.0, 0.01, npad),
+        hsml=rng.uniform(0.1, 1.0, npad),
+        hsml_vd=rng.uniform(0.1, 1.0, npad),
+        vel_disp=rng.uniform(1.0, 10.0, npad),
+        dens_vd=rng.uniform(0.1, 10.0, npad))
+    extra["max_pred_time"] = extra["current_time"] + rng.uniform(
+        0, 0.01, npad)
+    d = tstate.state_dict(tp)
+    for k, v in extra.items():
+        d[k] = v.astype(np.float32)
+    return d
+
+
+def foundation_consts(mod, reflection=5.0):
+    return mod.StepConsts(G=43007.1, hubble=0.1, omega0=0.3,
+                          omega_lambda=0.7, comoving=False, periodic=False,
+                          box_size=0.0, no_force=False, no_scatter=False,
+                          reflection_radius=reflection)
+
+
+def foundation_params(mod, criterion, to_array):
+    return mod.TimestepParams(
+        criterion=criterion, err_tol_int_accuracy=0.025,
+        err_tol_vel_scale=0.66, err_tol_dynamical_accuracy=0.004,
+        max_size_timestep=0.01, min_size_timestep=0.0, courant_fac=0.15,
+        art_bulk_visc=0.75,
+        softening_table=to_array(np.array([0.1, 0.3, 0.2, 0.2, 0.2, 1e-30],
+                                          np.float32)),
+        sidm_on=True, probability_tol=0.2, des_num_ngb=30,
+        max_num_ngb_dev=2, cross_section_internal=79.9,
+        cross_section_type=0, yukawa_velocity=0.0,
+        cross_section_vel_scale=1.0, cross_section_pow_law=0.0, G=43007.1,
+        hubble=0.1, omega0=0.3, omega_lambda=0.7, comoving=False)
+
+
+def foundation_make_inputs():
+    rng = np.random.default_rng(1)
+    n = 1000
+    return (rng.normal(size=(n, 3)), rng.normal(size=(n, 3)),
+            rng.uniform(size=n), rng.integers(0, 6, n))
+
+
+def softening_inputs():
+    rng = np.random.default_rng(5)
+    r = np.concatenate([[0.0], rng.uniform(0, 3, 4000)]).astype(np.float32)
+    h = rng.uniform(0.1, 2.0, r.shape).astype(np.float32)
+    return r, h
+
+
+def jax_foundation() -> dict:
+    """The JAX outputs of tests/test_torch_foundation.py: ``cfg_*`` the
+    parse of FOUNDATION_CONFIG's parameter file and its units (JSON), the
+    two parameter errors' messages; ``ics_*`` the IC generators; ``mk_*``
+    ``make_particles``; ``int_*`` the integration functions on
+    foundation_state(2); ``ts{criterion}{first}`` the timesteps on
+    foundation_state(4) (``vmax``); ``soft{0,1}`` the softening kernels."""
+    import dataclasses
+    import json
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import sidm_tpu.config as jcfg
+    import sidm_tpu.integrate as jint
+    import sidm_tpu.kernels as jker
+    import sidm_tpu.state as jstate
+    import sidm_tpu.timestep as jts
+    from sidm_tpu.io import ics as jics
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "param.txt")
+        with open(p, "w") as f:
+            f.write(param_text(jcfg.SimConfig(**FOUNDATION_CONFIG)))
+        a = jcfg.parse_parameter_file(p)
+        out["cfg_parse"] = np.array(json.dumps(dataclasses.asdict(a)))
+        out["cfg_units"] = np.array(json.dumps(dataclasses.asdict(
+            jcfg.set_units(a))))
+        for k, text in enumerate(FOUNDATION_BAD):
+            with open(p, "w") as f:
+                f.write(text)
+            try:
+                jcfg.parse_parameter_file(p, strict=False)
+            except jcfg.ParameterError as e:
+                out[f"cfg_error{k}"] = np.array(str(e))
+    for gen in ("plummer", "hernquist"):
+        for c, x in enumerate(getattr(jics, gen)(500, seed=3)):
+            out[f"ics_{gen}{c}"] = np.asarray(x)
+    for c, x in enumerate(jics.nfw(500, rho0=1.49e-4, rs=11.14356,
+                                   G=43007.1, seed=4)):
+        out[f"ics_nfw{c}"] = np.asarray(x)
+    jp = jstate.make_particles(*foundation_make_inputs(), pad_to_multiple=256)
+    for f in dataclasses.fields(jp):
+        out["mk_" + f.name] = np.asarray(getattr(jp, f.name))
+
+    def jstate_of(seed):
+        return jstate.Particles(**{k: jnp.asarray(v) for k, v in
+                                   foundation_state(seed).items()})
+
+    jp = jstate_of(2)
+    jt = jnp.float32(FOUNDATION_T)
+    jc = foundation_consts(jint)
+    jpos, jvel = jint.predict_positions(jp, jt, jc)
+    raw = np.random.default_rng(3).normal(size=jpos.shape).astype(np.float32)
+    ja, jo = jint.apply_accel_postfactors(jnp.asarray(raw), jpos, jvel, jt,
+                                          jc)
+    active = np.asarray(jint.active_mask(jp, jt))
+    jq = jint.reflect(jint.advance(jp, jt, jnp.asarray(active), jc), 5.0)
+    out.update(int_pos=np.asarray(jpos), int_vel=np.asarray(jvel),
+               int_raw=raw, int_acc=np.asarray(ja), int_old=np.asarray(jo),
+               int_active=active,
+               int_next=np.float64(jint.find_next_time(jp)),
+               **{f"int_q_{f}": np.asarray(getattr(jq, f))
+                  for f in ("pos", "vel", "dvel", "current_time")})
+    jp = jstate_of(4)
+    active = np.asarray(jint.active_mask(jp, jt))
+    vmax = jts.get_vmax(jp)
+    out["ts_vmax"] = np.float64(vmax)
+    out["ts_active"] = active
+    for criterion in (0, 1, 4):
+        for first in (False, True):
+            a = jts.find_timesteps(jp, jt, jnp.asarray(active), vmax,
+                                   foundation_params(jts, criterion,
+                                                     jnp.asarray),
+                                   first=first)
+            out[f"ts{criterion}{int(first)}"] = np.asarray(a)
+    r, h = softening_inputs()
+    out["soft0"] = np.asarray(jker.softened_inv_r3(jnp.asarray(r),
+                                                   jnp.asarray(h)))
+    out["soft1"] = np.asarray(jker.softened_potential(jnp.asarray(r),
+                                                      jnp.asarray(h)))
     return out
 
 
@@ -2184,6 +2505,314 @@ def jax_far_level() -> dict:
     return out
 
 
+# ---- the free-space TreePM mesh (PMVacuum) and the per-pair Ewald walk ----
+
+VACUUM_GOLDEN = os.path.join(_DATA, "torch_vacuum_golden.npz")
+EWALD_WALK_GOLDEN = os.path.join(_DATA, "torch_ewald_walk_golden.npz")
+# tests/test_pm_vacuum.py's two inputs and mesh: the NFW halo of
+# test_vacuum_treepm_matches_direct (``1``) and the uniform cube of
+# test_vacuum_pm_potential_total_energy (``2``)
+VAC_MESH = dict(n1=1500, seed1=5, eps1=0.3, margin1=1.3, n2=1024, seed2=3,
+                eps2=0.05, center2=50.0, radius2=55.0, mesh=64, asmth=1.25,
+                rcut_fac=4.5)
+# flagship-vacuum (flagship_config(PMVacuum=1)) at N = VAC["n"] on the
+# phased step, on the lists (``l``) and on the walk (``w``)
+VAC = dict(n=2048, seed=12345, steps=3)
+VAC_MODES = {"l": dict(ListMode=1), "w": dict(ListMode=0)}
+# tests/test_periodic_comoving.py:27-53's clustered box; the all-open
+# opening (relative criterion with ErrTolForceAcc 0: the geometric test at
+# theta EWALD["theta_open"], under which no cell is far-accepted) on
+# EWALD["open_n"] particles of that box
+EWALD = dict(n=2048, seed=4, box=10.0, eps=0.05, theta=0.4, open_n=512,
+             theta_open=1e-6)
+# a clustered cosmo box (cosmo_ics, N = 2048) at geometric theta 0.4: the
+# node-level correction's potential bias (ROADMAP.md C.21)
+EWALD_COSMO = dict(n=2048, seed=6, theta=0.4)
+# cosmo-ewald (cosmo_config(PMGrid=-1)) at CSIDM's N on cosmo-sidm's field
+# at the all-open opening: on the single-program (``s``) and the phased
+# step (``p``), and on the phased step with DSMC (``d``: cosmo-sidm-walk's
+# settings, CrossSection CSIDM["cs"], JAX's walk engine ``fused``)
+EWALD_RUN = dict(steps=3)
+EWALD_MODES = {"s": ("synchronized", {}), "p": ("phased", {}),
+               "d": ("phased", dict(COSMO_SIDM, ListMode=0,
+                                    CrossSection=7000.0,
+                                    TreeWalkEngine="fused", ScatterLog=1))}
+
+
+def vacuum_mesh_inputs(k: int):
+    """(pos, mass, eps, center, radius) float32 of tests/test_pm_vacuum.py's
+    input k (1 or 2) and its mesh region."""
+    from sidm_tpu_torch.io import ics
+    v = VAC_MESH
+    if k == 1:
+        pos, _, mass = ics.nfw(v["n1"], rho0=1.49e-4, rs=11.14356,
+                               G=43007.1, seed=v["seed1"])
+        pos, mass = pos.astype(np.float32), mass.astype(np.float32)
+        center = 0.5 * (pos.min(0) + pos.max(0))
+        radius = v["margin1"] * float(
+            np.sqrt(((pos - center) ** 2).sum(1).max()))
+        return pos, mass, np.full(v["n1"], v["eps1"], np.float32), center, \
+            radius
+    rng = np.random.default_rng(v["seed2"])
+    n = v["n2"]
+    pos = rng.uniform(20.0, 80.0, (n, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    return pos, mass, np.full(n, v["eps2"], np.float32), \
+        np.full(3, v["center2"]), v["radius2"]
+
+
+def vacuum_config(mode: str, **changes) -> dict:
+    return {**FLAGSHIP, **LISTS, "PMVacuum": 1, **VAC_MODES[mode],
+            **changes}
+
+
+def ewald_inputs(n: int = None):
+    """(pos, mass, eps) float32 of tests/test_periodic_comoving.py:27-53's
+    box (its first n particles: half of them the clump)."""
+    e = EWALD
+    rng = np.random.default_rng(e["seed"])
+    N, box = e["n"], e["box"]
+    pos = rng.uniform(0, box, (N, 3))
+    pos[: N // 2] = 5.0 + rng.normal(0, 0.6, (N // 2, 3))
+    pos = np.mod(pos, box).astype(np.float32)
+    if n is not None:
+        pos = np.concatenate([pos[:n // 2], pos[N // 2:N // 2 + n // 2]])
+    n = len(pos)
+    return pos, np.full(n, 1.0 / n, np.float32), np.full(n, e["eps"],
+                                                         np.float32)
+
+
+def ewald_config(mode: str, **changes) -> dict:
+    """cosmo-ewald at CSIDM["n"] on CSIDM's mesh-free box, all-open."""
+    eps, cap = cosmo_softening(CSIDM["n"])
+    return {**COSMO, "SofteningHalo": eps, "SofteningHaloMaxPhys": cap,
+            "PMGrid": -1, "TypeOfOpeningCriterion": 1, "ErrTolForceAcc": 0.0,
+            "ErrTolTheta": EWALD["theta_open"], **EWALD_MODES[mode][1],
+            **changes}
+
+
+def ewald_tiles():
+    """Pairs of the Ewald walk's far and near passes on a tree of
+    EWALD["open_n"] particles of the clustered box: per target group
+    (64 consecutive sorted particles) the nodes of a random sample of a
+    middle level (``pair_n``) and the deepest level's non-empty cells as
+    segments (``seg_s``, ``seg_c``, at most 16)."""
+    return dict(level=4, per_group=24, seed=21)
+
+
+def jax_vacuum() -> dict:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.diagnostics import compute_system_state
+    from sidm_tpu.ops import pm
+    from sidm_tpu.ops.direct import direct_gravity
+    from sidm_tpu.ops.fused_force import (_classify, _far_tile_pbc,
+                                          _near_tile)
+    from sidm_tpu.simulation import Simulation
+
+    out = {}
+    v = VAC_MESH
+    for k in (1, 2):
+        pos, mass, eps, center, radius = vacuum_mesh_inputs(k)
+        pj, mj, ej = jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(eps)
+        kern = pm.build_pm_kernel_free(center, radius, n=v["mesh"],
+                                       asmth=v["asmth"],
+                                       rcut_fac=v["rcut_fac"],
+                                       interlace=True)
+        a, p = pm.pm_accel_free(kern, pj, mj, with_potential=True)
+        out.update({f"vm{k}_acc": np.asarray(a), f"vm{k}_pot": np.asarray(p),
+                    f"vm{k}_pot_self": np.float64(kern.pot_self),
+                    f"vm{k}_alpha": np.float64(kern.alpha),
+                    f"vm{k}_rcut": np.float64(kern.rcut),
+                    f"vm{k}_box": np.float64(kern.box),
+                    f"vm{k}_origin": np.asarray(kern.origin)})
+        ad, pd = direct_gravity(pj, mj, ej, with_potential=True)
+        out[f"vm{k}_dacc"], out[f"vm{k}_dpot"] = np.asarray(ad), \
+            np.asarray(pd)
+        # JAX's own TreePM identity (test_pm_vacuum.py's brute-force short
+        # range under rcut) and potential energy
+        d = pj[:, None, :] - pj[None, :, :]
+        r = jnp.sqrt(jnp.sum(d * d, axis=-1))
+        h = 2.8 * jnp.maximum(ej[:, None], ej[None, :])
+        off = 1.0 - jnp.eye(len(pos))
+        cut = (r <= kern.rcut) * off
+        fac = mj[None, :] * pm.short_range_fac(r, h, kern.alpha) * cut
+        acc = np.asarray(a - jnp.sum(fac[..., None] * d, axis=1))
+        ad = np.asarray(ad)
+        rel = (np.linalg.norm(acc - ad, axis=1)
+               / np.maximum(np.linalg.norm(ad, axis=1), 1e-20))
+        out[f"vm{k}_jax_p99"] = np.float64(np.percentile(rel, 99))
+        pp = jnp.sum(mj[None, :] * pm.short_range_pot(r, h, kern.alpha)
+                     * cut, axis=1)
+        pot = np.asarray(p - mj * kern.pot_self + pp)
+        e_pm = 0.5 * float(np.sum(mass * pot))
+        e_d = 0.5 * float(np.sum(mass * np.asarray(pd)))
+        out[f"vm{k}_jax_energy"] = np.float64(abs(e_pm - e_d) / abs(e_d))
+
+    t = tile_inputs()
+    vpbc = (0.0, TILE["alpha"], TILE["rcut"])
+    for last in (False, True):
+        for rel in (False, True):
+            planes = _classify(jnp.asarray(t["rows"]), jnp.asarray(t["glo"]),
+                               jnp.asarray(t["ghi"]), jnp.asarray(t["oac"]),
+                               jnp.asarray(t["s_l"]), 0.25, rel, 16, last,
+                               vpbc)
+            for name, pl in zip(("far", "seg", "opn", "big"), planes):
+                out[f"vcl{int(last)}{int(rel)}_{name}"] = np.asarray(pl)
+    far = out["vcl00_far"]
+    rows_far = t["rows"].copy()
+    rows_far[..., 3] = np.where(far, rows_far[..., 3], 0.0)
+    trr = np.where(far, t["trq"], 0.0).astype(np.float32)
+    p16 = jnp.asarray(part16(t["ppos"], t["pmass"], t["peps"]))
+    for pot in (False, True):
+        da, dp = _far_tile_pbc(jnp.asarray(rows_far), jnp.asarray(trr),
+                               jnp.asarray(t["xr"]), jnp.asarray(t["te"]),
+                               vpbc, pot)
+        out[f"vft{int(pot)}_acc"] = np.asarray(da)
+        out[f"vft{int(pot)}_pot"] = np.asarray(dp)
+        da, dp = _near_tile(jnp.asarray(t["ent"]), p16, jnp.asarray(t["xr"]),
+                            jnp.asarray(t["te"]), pot, vpbc)
+        out[f"vnt{int(pot)}_acc"] = np.asarray(da)
+        out[f"vnt{int(pot)}_pot"] = np.asarray(dp)
+
+    pos, vel, mass = flagship_ics(VAC["n"], VAC["seed"])
+    for tag in VAC_MODES:
+        sim = Simulation(SimConfig(**vacuum_config(tag)), mode="phased",
+                         quiet=True)
+        sim.set_particles_from_arrays(pos, vel, mass,
+                                      np.ones(VAC["n"], np.int32))
+        sim.prepare()
+        snapshot(sim.particles, sim, compute_system_state(sim.particles),
+                 f"vs{tag}0_", out)
+        for k in range(1, VAC["steps"] + 1):
+            sim.step()
+            snapshot(sim.particles, sim,
+                     compute_system_state(sim.particles), f"vs{tag}{k}_",
+                     out)
+        kern = sim._pm_kernel_free()
+        out[f"vs{tag}_mesh"] = np.array([kern.n, kern.alpha, kern.rcut,
+                                         kern.box])
+    return out
+
+
+def jax_ewald_walk() -> dict:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.diagnostics import compute_system_state
+    from sidm_tpu.ops.direct import direct_gravity
+    from sidm_tpu.ops.ewald import build_ewald_table
+    from sidm_tpu.ops.tree import build_octree
+    from sidm_tpu.ops.treeforce import WalkConfig, eval_flat, tree_gravity
+    from sidm_tpu.simulation import Simulation
+
+    out = {}
+    e = EWALD
+    with tempfile.TemporaryDirectory() as d:
+        tab = build_ewald_table(e["box"], cache_dir=d)
+    for tag, n in (("w", None), ("o", e["open_n"])):
+        pos, mass, eps = ewald_inputs(n)
+        pj, mj, ej = jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(eps)
+        a, p = direct_gravity(pj, mj, ej, box=e["box"], ewald=tab)
+        out[f"{tag}_dacc"], out[f"{tag}_dpot"] = np.asarray(a), np.asarray(p)
+        if tag == "w":
+            kw = dict(theta=e["theta"], opening=0)
+            old = jnp.zeros(len(pos), jnp.float32)
+        else:
+            # relative criterion with ErrTolForceAcc 0: the geometric
+            # test at theta_open
+            kw = dict(theta=e["theta_open"], opening=1,
+                      err_tol_force_acc=0.0)
+            old = jnp.ones(len(pos), jnp.float32)
+        a, p, info = tree_gravity(pj, mj, ej, old, box=e["box"], ewald=tab,
+                                  return_info=True, **kw)
+        out[f"{tag}_acc"], out[f"{tag}_pot"] = np.asarray(a), np.asarray(p)
+        for k in ("dropped", "n_pairs", "n_segs"):
+            out[f"{tag}_{k}"] = np.int64(info[k])
+
+    ec = EWALD_COSMO
+    cpos, _, cmass = cosmo_ics(ec["n"], ec["seed"])
+    cj = (jnp.asarray(cpos, jnp.float32), jnp.asarray(cmass, jnp.float32),
+          jnp.full(ec["n"], cosmo_softening(ec["n"])[0], jnp.float32))
+    with tempfile.TemporaryDirectory() as d:
+        ctab = build_ewald_table(COSMO_BOX, cache_dir=d)
+    a, p = direct_gravity(*cj, box=COSMO_BOX, ewald=ctab)
+    out["c_dacc"], out["c_dpot"] = np.asarray(a), np.asarray(p)
+    a, p = tree_gravity(*cj, jnp.zeros(ec["n"], jnp.float32), box=COSMO_BOX,
+                        theta=ec["theta"], opening=0, ewald=ctab)
+    out["c_acc"], out["c_pot"] = np.asarray(a), np.asarray(p)
+
+    # the tiles: eval_flat on chosen (group, node) pairs and segments
+    pos, mass, eps = ewald_inputs(e["open_n"])
+    n = len(pos)
+    tree = build_octree(jnp.asarray(pos), jnp.asarray(mass),
+                        jnp.asarray(eps), jnp.ones(n, bool), box=e["box"],
+                        depth=8)
+    tl = ewald_tiles()
+    rng = np.random.default_rng(tl["seed"])
+    ng = n // 64
+    offs = np.asarray(tree.level_offsets)
+    lvl = tl["level"]
+    cnt = np.asarray(tree.node_count)
+    cells = np.arange(offs[lvl], offs[lvl + 1])
+    cells = cells[cnt[cells] > 0]
+    pair_g = np.repeat(np.arange(ng), tl["per_group"]).astype(np.int32)
+    pair_n = np.concatenate([rng.choice(cells, tl["per_group"],
+                                        replace=False)
+                             for _ in range(ng)]).astype(np.int32)
+    deep = np.arange(offs[8], len(cnt))
+    deep = deep[cnt[deep] > 0]
+    start = np.asarray(tree.node_start)[deep]
+    c = np.minimum(cnt[deep], 16)
+    seg_g = np.repeat(np.arange(ng), len(deep)).astype(np.int32)
+    seg_s = np.tile(start, ng).astype(np.int32)
+    seg_c = np.tile(c, ng).astype(np.int32)
+    gt = np.asarray(tree.pos_s).reshape(ng, 64, 3)
+    ge = np.asarray(tree.eps_s).reshape(ng, 64)
+    cfg = WalkConfig()
+    P, S = len(pair_g), len(seg_g)
+    zp, zs = np.zeros(1, np.int32), np.zeros(1, np.int32)
+    for part, wo in (("f", (pair_g, pair_n, P, zs, zs, zs, 0)),
+                     ("n", (zp, zp, 0, seg_g, seg_s, seg_c, S))):
+        walk = tuple(jnp.asarray(x) for x in wo) + (jnp.int32(0),)
+        a, p = eval_flat(tree, jnp.asarray(gt), jnp.asarray(ge), walk, cfg,
+                         e["box"], ewald=tab)
+        out[f"t{part}_acc"], out[f"t{part}_pot"] = np.asarray(a), \
+            np.asarray(p)
+    out.update(t_pair_g=pair_g, t_pair_n=pair_n, t_seg_g=seg_g,
+               t_seg_s=seg_s, t_seg_c=seg_c,
+               t_mac_rows=np.asarray(tree.mac_rows),
+               t_quad_rows=np.asarray(tree.quad_rows))
+
+    cpos, cvel, cmass = csidm_field()
+    for tag, (mode, _) in EWALD_MODES.items():
+        with tempfile.TemporaryDirectory() as d:
+            sim = Simulation(SimConfig(**ewald_config(tag, OutputDir=d)),
+                             mode=mode, quiet=True)
+            sim.set_particles_from_arrays(cpos, cvel, cmass,
+                                          np.ones(CSIDM["n"], np.int32))
+            sim.prepare()
+            snapshot(sim.particles, sim,
+                     compute_system_state(sim.particles), f"r{tag}0_", out)
+            for k in range(1, EWALD_RUN["steps"] + 1):
+                _, _, ns = sim.step()
+                snapshot(sim.particles, sim,
+                         compute_system_state(sim.particles),
+                         f"r{tag}{k}_", out)
+                out[f"r{tag}{k}_n_scat"] = np.int64(ns)
+            sim.compute_potential()
+            snapshot(sim.particles, sim,
+                     compute_system_state(sim.particles), f"r{tag}p_", out)
+            sct = os.path.join(d, "sct_000.0")
+            if os.path.exists(sct):
+                out[f"r{tag}_sct"] = np.fromfile(sct, np.float32).reshape(
+                    -1, 20)
+    return out
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
@@ -2198,7 +2827,11 @@ GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "walk": (WALK_GOLDEN, jax_walk),
            "gather": (GATHER_GOLDEN, jax_gather),
            "tree": (TREE_GOLDEN, jax_tree),
-           "far": (FAR_GOLDEN, jax_far_level)}
+           "far": (FAR_GOLDEN, jax_far_level),
+           "vacuum": (VACUUM_GOLDEN, jax_vacuum),
+           "near": (NEAR_GOLDEN, jax_near),
+           "foundation": (FOUNDATION_GOLDEN, jax_foundation),
+           "ewald_walk": (EWALD_WALK_GOLDEN, jax_ewald_walk)}
 
 
 def main(names):

@@ -7,8 +7,9 @@ tests do not see on their own, on the CPU:
   monitor);
 * ``list_force.compact_traces``: the compact table's raw quadrupole
   traces, the tree's ``trq`` at the used rows and 0 for the zero row;
-* ``far_level`` refuses the free-space screened mode (a box of 0) in
-  either mode, naming ROADMAP A, item 11.2;
+* ``far_level`` takes the free-space screened mode (a box of 0,
+  ``PMVacuum``) in either mode: the open walk's box distance and the cut
+  at rcut, the walk's and the record's counts those of its classification;
 * ``flagship.cosmo_ics(a_vel=, field_sigma=)``: positions and masses as
   without velocities; the clumps' one-dimensional dispersion a sqrt(G M /
   (6 sqrt(pi) a s)) within 2 % (pooled over the clumps); the uniform part
@@ -86,15 +87,47 @@ def test_compact_traces_are_the_used_rows_traces():
 
 @pytest.mark.parametrize("record", [False, True])
 def test_far_level_refuses_the_free_space_mode(record):
+    """The free-space screened mode (a box of 0: PMVacuum, ROADMAP A, item
+    11.2, once refused here) runs in either mode: cells beyond rcut + bmax
+    of a group box are dropped, the rest classified as the open walk
+    classifies them."""
+    from sidm_tpu_torch.ops.far_kernel import C_FAR, C_OPEN, C_SEG
+    from sidm_tpu_torch.ops.fused_force import classify
+
     ng, W = 2, 8
-    with pytest.raises(NotImplementedError, match="item 11.2"):
-        far_level(torch.zeros(ng, W, dtype=torch.int32),
-                  torch.zeros(ng, dtype=torch.int32), torch.zeros(W, 16), W,
-                  torch.tensor(1.0), torch.zeros(ng, 3), torch.ones(ng, 3),
-                  torch.zeros(ng), theta2=0.25, use_relative=False,
-                  leaf_cap=16, last=False, Wn=W, open_cap=W, big_cap=8,
-                  big_chunks=8, pbc=(0.0, 0.1, 5.0),
-                  lists=list_buf(ng, 16, 16, "cpu") if record else None)
+    rng = np.random.default_rng(3)
+    rows = np.zeros((ng * W, 16), np.float32)
+    rows[:, 0:3] = rng.uniform(-9, 9, (ng * W, 3))
+    rows[:, 3] = 1.0
+    rows[:, 4] = rng.choice([4, 40], ng * W)
+    rows[:, 6] = rng.integers(0, 8, ng * W)
+    rows[:, 7] = 8
+    rows[:, 15] = 1.0
+    rows = torch.tensor(rows)
+    glo, ghi = torch.full((ng, 3), -1.0), torch.full((ng, 3), 1.0)
+    pbc = (0.0, 0.1, 5.0)
+    buf = list_buf(ng, 16, 16, "cpu") if record else None
+    out = far_level(torch.arange(ng * W, dtype=torch.int32).reshape(ng, W),
+                    torch.full((ng,), W, dtype=torch.int32), rows, ng * W,
+                    torch.tensor(4.0), glo, ghi, torch.zeros(ng),
+                    theta2=0.25, use_relative=False, leaf_cap=16, last=False,
+                    Wn=8 * W, open_cap=W, big_cap=8, big_chunks=8, pbc=pbc,
+                    lists=buf)
+    planes = [classify(rows.reshape(ng, W, 16), glo, ghi, torch.zeros(ng),
+                       torch.tensor(4.0), 0.25, False, 16, False, c)
+              for c in (pbc, None)]
+    far, seg, opn, _ = planes[0]
+    assert out.cnt[C_FAR].tolist() == far.sum(1).tolist()
+    assert out.cnt[C_SEG].tolist() == seg.sum(1).tolist()
+    assert out.cnt[C_OPEN].tolist() == opn.sum(1).tolist()
+    dx = torch.clamp(torch.maximum(glo[:, None] - rows.reshape(ng, W, 16)[
+        ..., 0:3], rows.reshape(ng, W, 16)[..., 0:3] - ghi[:, None]), min=0)
+    reach = torch.linalg.norm(dx, dim=-1) <= 5.0 + 1.0
+    for a, b in zip(planes[0], planes[1]):
+        assert torch.equal(a, b & reach)
+    assert 0 < int(reach.sum()) < ng * W
+    if record:
+        assert buf.nf.tolist() == far.sum(1).tolist()
 
 
 @pytest.mark.parametrize("field_sigma", [0.0, COSMO_FIELD_SIGMA])

@@ -4,8 +4,9 @@ CPU: cosmo-box (``flagship.COSMO``) at N = 2048 with ``PMGrid 64`` through
 on a fresh tree every step), prepare + 4 steps and ``compute_potential``,
 held to JAX's states frozen in tests/data/torch_periodic_golden.npz
 (``cs``; tolerances in tests/torch_cosmo_checks.py); ``check_omega``; and
-what stays refused in a box, each naming its ROADMAP.md item (the lists,
-DSMC and VelDispOn in a box now construct).
+the configurations once refused in and around a box, each named by its
+ROADMAP.md item: the lists, DSMC and VelDispOn in a box, PMVacuum and
+PMGrid -1 now construct.
 """
 
 import dataclasses
@@ -43,13 +44,13 @@ def test_check_omega_raises(tmp_path):
     (dict(SIDMOn=1, CrossSection=1.0), "11.4"),
     (dict(VelDispOn=1), "11.4")])
 def test_still_refused(tmp_path, changes, item):
-    """PMVacuum (11.2) and PMGrid -1 (11.3) raise naming their item; the
-    cached lists in a box (11.1), DSMC and VelDispOn in periodic comoving
-    runs (11.4) are ported: those construct."""
+    """The cached lists in a box (11.1), PMVacuum in an isolated run
+    (11.2), PMGrid -1's Ewald walk (11.3), DSMC and VelDispOn in periodic
+    comoving runs (11.4) are ported: each construct, on the force its
+    item gives."""
     cfg = SimConfig(**periodic_config(OutputDir=str(tmp_path), **changes))
-    if item in ("11.1", "11.4"):
-        sim = Simulation(cfg, mode="phased", device="cpu")
-        assert all(getattr(sim.cfg, k) == v for k, v in changes.items())
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Simulation(cfg, mode="phased", device="cpu")
+    sim = Simulation(cfg, mode="phased", device="cpu")
+    assert all(getattr(sim.cfg, k) == v for k, v in changes.items())
+    assert sim._use_vacuum_pm() == (item == "11.2")
+    assert sim._use_ewald_walk() == (item == "11.3")
+    assert sim._use_treepm() == (item not in ("11.2", "11.3"))

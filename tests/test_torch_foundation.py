@@ -1,25 +1,21 @@
 """PyTorch port (sidm_tpu_torch) vs the JAX package: configuration, state,
 integration, timesteps, softening kernels, ICs, refusals, no-jax import.
 
-Inputs are made from a seed with numpy and fed to both packages; float
-results agree to rtol 1e-6 (both compute in float32 with the same
-operation order up to reassociation of 3-term sums), integers exactly."""
+Inputs are made from a seed with numpy; the JAX package's outputs on them
+are frozen in tests/data/torch_foundation_golden.npz
+(tests/make_torch_golden.py ``foundation``; the ``slow`` test reruns JAX
+and holds the file to them). Float results agree to rtol 1e-6 (both
+compute in float32 with the same operation order up to reassociation of
+3-term sums), integers exactly."""
 
 import dataclasses
+import json
 import subprocess
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
-import sidm_tpu.config as jcfg
-import sidm_tpu.integrate as jint
-import sidm_tpu.kernels as jker
-import sidm_tpu.state as jstate
-import sidm_tpu.timestep as jts
-from sidm_tpu.io import ics as jics
 
 import sidm_tpu_torch.config as tcfg
 import sidm_tpu_torch.integrate as tint
@@ -28,83 +24,67 @@ import sidm_tpu_torch.state as tstate
 import sidm_tpu_torch.timestep as tts
 from sidm_tpu_torch.io import ics as tics
 from sidm_tpu_torch.simulation import Simulation
+from tests.make_torch_golden import (FOUNDATION_BAD, FOUNDATION_CONFIG,
+                                     FOUNDATION_GOLDEN, FOUNDATION_OUTDIR,
+                                     FOUNDATION_T, foundation_consts,
+                                     foundation_make_inputs,
+                                     foundation_params, foundation_state,
+                                     jax_foundation, param_text,
+                                     softening_inputs)
 
 torch.set_num_threads(2)
 
 RTOL = 1e-6
 
 
-def _param_text(cfg):
-    lines = ["% written by the test", ""]
-    for f in dataclasses.fields(cfg):
-        if f.name != "OutputListTimes":
-            lines.append(f"{f.name:<30} {getattr(cfg, f.name)}   % value")
-    return "\n".join(lines) + "\n"
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(FOUNDATION_GOLDEN) as z:
+        return {k: z[k] for k in z.files}
 
 
-def test_parse_parameter_file_equal(tmp_path):
-    cfg = jcfg.SimConfig(InitCondFile="ics", OutputDir=str(tmp_path / "o"),
-                         ResubmitCommand="none", OutputListFilename="x",
-                         SIDMOn=0, TreeWalkEngine="wq", ListMode=0,
-                         ErrTolTheta=0.7, TreeRefreshSteps=2)
+def _asdict_json(x) -> dict:
+    return json.loads(json.dumps(dataclasses.asdict(x)))
+
+
+def test_parse_parameter_file_equal(tmp_path, golden):
+    out = str(tmp_path / "o") + "/"
+    cfg = tcfg.SimConfig(**dict(FOUNDATION_CONFIG, OutputDir=out))
     p = tmp_path / "param.txt"
-    p.write_text(_param_text(cfg))
-    a = jcfg.parse_parameter_file(str(p))
+    p.write_text(param_text(cfg))
     b = tcfg.parse_parameter_file(str(p))
-    assert dataclasses.asdict(a) == dataclasses.asdict(b)
-    assert dataclasses.asdict(jcfg.set_units(a)) == \
-        dataclasses.asdict(tcfg.set_units(b))
+    want = json.loads(str(golden["cfg_parse"]))
+    assert want["OutputDir"] == FOUNDATION_OUTDIR
+    want["OutputDir"] = out
+    assert _asdict_json(b) == want
+    assert _asdict_json(tcfg.set_units(b)) == json.loads(
+        str(golden["cfg_units"]))
 
 
-@pytest.mark.parametrize("text", ["NotATag 1.0\n",
-                                  "TimeMax 1.0\nTimeMax 2.0\n"])
-def test_parameter_errors_equal(tmp_path, text):
+@pytest.mark.parametrize("text", list(FOUNDATION_BAD))
+def test_parameter_errors_equal(tmp_path, golden, text):
     p = tmp_path / "bad.txt"
     p.write_text(text)
-    with pytest.raises(jcfg.ParameterError) as ej:
-        jcfg.parse_parameter_file(str(p), strict=False)
     with pytest.raises(tcfg.ParameterError) as et:
         tcfg.parse_parameter_file(str(p), strict=False)
-    assert str(ej.value) == str(et.value)
+    k = FOUNDATION_BAD.index(text)
+    assert str(et.value) == str(golden[f"cfg_error{k}"])
 
 
 @pytest.mark.parametrize("gen", ["plummer", "hernquist"])
-def test_ics_copy_equal(gen):
-    a = getattr(jics, gen)(500, seed=3)
+def test_ics_copy_equal(golden, gen):
     b = getattr(tics, gen)(500, seed=3)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
-    a = jics.nfw(500, rho0=1.49e-4, rs=11.14356, G=43007.1, seed=4)
+    for c, y in enumerate(b):
+        np.testing.assert_array_equal(golden[f"ics_{gen}{c}"], y)
     b = tics.nfw(500, rho0=1.49e-4, rs=11.14356, G=43007.1, seed=4)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
+    for c, y in enumerate(b):
+        np.testing.assert_array_equal(golden[f"ics_nfw{c}"], y)
 
 
-def _random_state(seed=0, n=300):
-    """Matching JAX and port particle states with every field randomised."""
-    rng = np.random.default_rng(seed)
-    pos = rng.normal(size=(n, 3)) * 10
-    vel = rng.normal(size=(n, 3)) * 50
-    mass = rng.uniform(0.5, 2.0, n)
-    ptype = rng.integers(1, 3, n)
-    jp = jstate.make_particles(pos, vel, mass, ptype, pad_to_multiple=64)
-    tp = tstate.make_particles(pos, vel, mass, ptype, pad_to_multiple=64)
-    npad = jp.n_padded
-    extra = dict(
-        accel=rng.normal(size=(npad, 3)) * 100,
-        dvel=rng.normal(size=(npad, 3)),
-        current_time=rng.uniform(0.0, 0.01, npad),
-        hsml=rng.uniform(0.1, 1.0, npad),
-        hsml_vd=rng.uniform(0.1, 1.0, npad),
-        vel_disp=rng.uniform(1.0, 10.0, npad),
-        dens_vd=rng.uniform(0.1, 10.0, npad))
-    extra["max_pred_time"] = extra["current_time"] + rng.uniform(
-        0, 0.01, npad)
-    d = tstate.state_dict(tp)
-    for k, v in extra.items():
-        d[k] = v.astype(np.float32)
-    jp = jstate.Particles(**{k: jnp.asarray(v) for k, v in d.items()})
-    return jp, tstate.state_from_dict(d)
+def _random_state(seed=0):
+    """The port's particle state with every field randomised (the JAX
+    outputs in the golden file are on the same state)."""
+    return tstate.state_from_dict(foundation_state(seed))
 
 
 def _close(a, b, rtol=RTOL, atol=0.0):
@@ -113,94 +93,62 @@ def _close(a, b, rtol=RTOL, atol=0.0):
                                atol=atol)
 
 
-def test_make_particles_equal():
-    rng = np.random.default_rng(1)
-    n = 1000
-    args = (rng.normal(size=(n, 3)), rng.normal(size=(n, 3)),
-            rng.uniform(size=n), rng.integers(0, 6, n))
-    jp = jstate.make_particles(*args, pad_to_multiple=256)
-    tp = tstate.make_particles(*args, pad_to_multiple=256)
+def test_make_particles_equal(golden):
+    tp = tstate.make_particles(*foundation_make_inputs(), pad_to_multiple=256)
     d = tstate.state_dict(tp)
-    for f in dataclasses.fields(jp):
-        a = np.asarray(getattr(jp, f.name))
-        assert a.dtype == d[f.name].dtype, f.name
-        np.testing.assert_array_equal(a, d[f.name], err_msg=f.name)
+    names = [k[3:] for k in golden if k.startswith("mk_")]
+    assert sorted(names) == sorted(d)
+    for f in names:
+        a = golden["mk_" + f]
+        assert a.dtype == d[f].dtype, f
+        np.testing.assert_array_equal(a, d[f], err_msg=f)
     back = tstate.state_from_dict(d)
     assert torch.equal(back.pos, tp.pos) and torch.equal(back.pid, tp.pid)
 
 
-def _consts(mod, reflection=5.0):
-    return mod.StepConsts(G=43007.1, hubble=0.1, omega0=0.3,
-                          omega_lambda=0.7, comoving=False, periodic=False,
-                          box_size=0.0, no_force=False, no_scatter=False,
-                          reflection_radius=reflection)
-
-
-def test_integrate_matches():
-    jp, tp = _random_state(2)
-    t = np.float32(0.012)
-    jt, tt = jnp.float32(t), torch.tensor(t)
-    jc, tc = _consts(jint), _consts(tint)
-    jpos, jvel = jint.predict_positions(jp, jt, jc)
+def test_integrate_matches(golden):
+    tp = _random_state(2)
+    tt = torch.tensor(np.float32(FOUNDATION_T))
+    tc = foundation_consts(tint)
     tpos, tvel = tint.predict_positions(tp, tt, tc)
-    _close(jpos, tpos)
-    _close(jvel, tvel)
-    raw = np.random.default_rng(3).normal(size=jpos.shape).astype(np.float32)
-    ja, jo = jint.apply_accel_postfactors(jnp.asarray(raw), jpos, jvel, jt,
-                                          jc)
+    _close(golden["int_pos"], tpos)
+    _close(golden["int_vel"], tvel)
+    raw = golden["int_raw"]
     ta, to = tint.apply_accel_postfactors(torch.tensor(raw), tpos, tvel, tt,
                                           tc)
-    _close(ja, ta, atol=1e-6 * float(np.abs(np.asarray(ja)).max()))
-    _close(jo, to)
-    active_np = np.asarray(jint.active_mask(jp, jt))
+    ja = golden["int_acc"]
+    _close(ja, ta, atol=1e-6 * float(np.abs(ja).max()))
+    _close(golden["int_old"], to)
+    active_np = golden["int_active"]
     np.testing.assert_array_equal(active_np, tint.active_mask(tp, tt).numpy())
-    assert float(jint.find_next_time(jp)) == float(tint.find_next_time(tp))
-    jq = jint.reflect(jint.advance(jp, jt, jnp.asarray(active_np), jc), 5.0)
+    assert float(golden["int_next"]) == float(tint.find_next_time(tp))
     tq = tint.reflect(tint.advance(tp, tt, torch.tensor(active_np), tc), 5.0)
     for f in ("pos", "vel", "dvel", "current_time"):
-        _close(getattr(jq, f), getattr(tq, f), atol=1e-6 * float(
-            np.abs(np.asarray(getattr(jq, f))).max()))
-
-
-def _params(mod, criterion, to_array):
-    return mod.TimestepParams(
-        criterion=criterion, err_tol_int_accuracy=0.025,
-        err_tol_vel_scale=0.66, err_tol_dynamical_accuracy=0.004,
-        max_size_timestep=0.01, min_size_timestep=0.0, courant_fac=0.15,
-        art_bulk_visc=0.75,
-        softening_table=to_array(np.array([0.1, 0.3, 0.2, 0.2, 0.2, 1e-30],
-                                          np.float32)),
-        sidm_on=True, probability_tol=0.2, des_num_ngb=30,
-        max_num_ngb_dev=2, cross_section_internal=79.9,
-        cross_section_type=0, yukawa_velocity=0.0,
-        cross_section_vel_scale=1.0, cross_section_pow_law=0.0, G=43007.1,
-        hubble=0.1, omega0=0.3, omega_lambda=0.7, comoving=False)
+        want = golden["int_q_" + f]
+        _close(want, getattr(tq, f), atol=1e-6 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("criterion", [0, 1, 4])
 @pytest.mark.parametrize("first", [False, True])
-def test_timesteps_match(criterion, first):
-    jp, tp = _random_state(4)
-    t = np.float32(0.012)
-    active = np.asarray(jint.active_mask(jp, jnp.float32(t)))
-    vmax_j, vmax_t = jts.get_vmax(jp), tts.get_vmax(tp)
-    _close(vmax_j, vmax_t)
-    a = jts.find_timesteps(jp, jnp.float32(t), jnp.asarray(active), vmax_j,
-                           _params(jts, criterion, jnp.asarray), first=first)
+def test_timesteps_match(golden, criterion, first):
+    tp = _random_state(4)
+    t = np.float32(FOUNDATION_T)
+    active = golden["ts_active"]
+    np.testing.assert_array_equal(
+        active, tint.active_mask(tp, torch.tensor(t)).numpy())
+    vmax_t = tts.get_vmax(tp)
+    _close(golden["ts_vmax"], vmax_t)
     b = tts.find_timesteps(tp, torch.tensor(t), torch.tensor(active), vmax_t,
-                           _params(tts, criterion, torch.tensor),
+                           foundation_params(tts, criterion, torch.tensor),
                            first=first)
-    _close(a, b)
+    _close(golden[f"ts{criterion}{int(first)}"], b)
 
 
-def test_softening_kernels_match():
-    rng = np.random.default_rng(5)
-    r = np.concatenate([[0.0], rng.uniform(0, 3, 4000)]).astype(np.float32)
-    h = rng.uniform(0.1, 2.0, r.shape).astype(np.float32)
-    for jf, tf in ((jker.softened_inv_r3, tker.softened_inv_r3),
-                   (jker.softened_potential, tker.softened_potential)):
-        _close(jf(jnp.asarray(r), jnp.asarray(h)),
-               tf(torch.tensor(r), torch.tensor(h)), rtol=2e-6)
+def test_softening_kernels_match(golden):
+    r, h = softening_inputs()
+    for k, tf in enumerate((tker.softened_inv_r3, tker.softened_potential)):
+        _close(golden[f"soft{k}"], tf(torch.tensor(r), torch.tensor(h)),
+               rtol=2e-6)
 
 
 _BASE = dict(SIDMOn=0, TreeWalkEngine="wq", ListMode=0)
@@ -215,10 +163,14 @@ _BASE = dict(SIDMOn=0, TreeWalkEngine="wq", ListMode=0)
 def test_unported_configs_refused(change):
     """Each configuration outside the port raises, naming its ROADMAP
     item; VelDispOn (A, item 10), periodic boxes and comoving runs (A,
-    item 11's core) are ported: those construct."""
+    item 11's core) and PMVacuum (A, item 11.2) are ported: those
+    construct."""
     cfg = tcfg.SimConfig(**{**_BASE, **change})
     if change.get("VelDispOn"):
         assert Simulation(cfg, mode="phased", device="cpu").cfg.VelDispOn
+        return
+    if change.get("PMVacuum"):
+        assert Simulation(cfg, mode="phased", device="cpu")._use_vacuum_pm()
         return
     if change.get("PeriodicBoundariesOn") or change.get(
             "ComovingIntegrationOn"):
@@ -266,3 +218,12 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.slow
+def test_golden_is_current_jax_output(golden):
+    """The committed golden file is what the JAX package gives now."""
+    live = jax_foundation()
+    assert sorted(live) == sorted(golden)
+    for k, v in live.items():
+        np.testing.assert_array_equal(v, golden[k], err_msg=k)

@@ -20,17 +20,16 @@ acceleration p99.9 relative error < 2e-5, potential rtol 2e-5 atol 1e-7;
 ``node_velocities`` within rtol 1e-5 of float64 truth and within JAX's own
 float32 error of JAX; ``advance_tree`` and ``max_displacement`` to float32
 rounding; tiny caps fire the same overflow counters as JAX and the cap
-refit grows them as the JAX Simulation's does. The plain version of
-``far_list`` at the Pallas prototype's shapes is held to
-``scripts/pallasfar.py:xla_ref`` by that script's measure (max |diff| /
-max |ref| per component < 1e-5), the plain gathers to numpy exactly. The
-kernels are held to their plain versions on the card (``gpu``)."""
+refit grows them as the JAX Simulation's does (its refits frozen in the
+same file). The plain version of ``far_list`` at the Pallas prototype's
+shapes is held to ``scripts/pallasfar.py:xla_ref`` by that script's
+measure (max |diff| / max |ref| per component < 1e-5; its outputs frozen
+in the same file, on the script's own chunk), the plain gathers to numpy
+exactly. The kernels are held to their plain versions on the card
+(``gpu``)."""
 
 import dataclasses
-import importlib.util
-import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -46,7 +45,7 @@ from sidm_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
 from sidm_tpu_torch.ops.tree import build_octree
 from tests.make_torch_golden import (LIST_DT, LIST_GOLDEN, LIST_N,
                                      LIST_SKINS, TINY_CAPS, jax_list_ops,
-                                     list_inputs)
+                                     k3_inputs, list_inputs)
 
 torch.set_num_threads(2)
 
@@ -211,60 +210,37 @@ def test_refit_grows_caps_as_jax(golden):
     tiny caps' demand: the same far, near and used caps three times, then
     exhaustion. The level cap deliberately differs (ROADMAP C.8): the
     port's Simulation records with none, JAX grows its 3072 to the
-    narrower list cap."""
-    from sidm_tpu.config import SimConfig as JaxConfig
-    from sidm_tpu.ops.list_force import ListConfig as JaxListConfig
-    from sidm_tpu.simulation import Simulation as JaxSimulation
-
+    narrower list cap (the JAX refits frozen as ``refit_grew`` and
+    ``refit_caps`` [far, near, used, level])."""
     from sidm_tpu_torch.config import SimConfig
     from sidm_tpu_torch.flagship import FLAGSHIP
     from sidm_tpu_torch.simulation import Simulation
 
     port = Simulation(SimConfig(**FLAGSHIP), mode="phased", device="cpu")
-    jax = JaxSimulation(JaxConfig(**FLAGSHIP), mode="phased", quiet=True)
     port._lfc = tlf.ListConfig(**{**TINY_CAPS, "lvl_cap": None})
-    jax._lfc_active = JaxListConfig(**TINY_CAPS)
     need = golden["tiny_need"]
     for k in range(4):
         grew = port._refit_list_caps(need[:3])
-        assert grew == jax._refit_list_caps(need) == (k < 3)
+        assert grew == bool(golden["refit_grew"][k]) == (k < 3)
         if grew:
-            ref = jax._lfc_override
-            assert port._lfc == tlf.ListConfig(
-                far_cap=ref.far_cap, near_cap=ref.near_cap,
-                used_cap=ref.used_cap)
-            assert ref.lvl_cap == min(ref.far_cap, ref.near_cap)
-            jax._lfc_active = ref
+            far, near, used, lvl = (int(c) for c in golden["refit_caps"][k])
+            assert port._lfc == tlf.ListConfig(far_cap=far, near_cap=near,
+                                               used_cap=used)
+            assert lvl == min(far, near)
             need = need * 2
-
-
-def _pallasfar():
-    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                        "scripts", "pallasfar.py")
-    spec = importlib.util.spec_from_file_location("pallasfar", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _k3_inputs(mod):
-    rows, tgt, _ = mod.make_chunk(np.random.default_rng(0))
-    return np.asarray(rows), np.asarray(tgt)
 
 
 def _max_rel(a, b):
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
 
 
-def test_far_units_plain_matches_xla_ref():
+def test_far_units_plain_matches_xla_ref(golden):
     """K3's own interface (NU = 2048 units of 32 rows) through the plain
     far_list against the script's XLA reference, by its measure
     (scripts/pallasfar.py:240-242); the PyTorch transcription of that
     reference agrees with it as closely (its sums run in another order)."""
-    mod = _pallasfar()
-    rows, tgt = _k3_inputs(mod)
-    ref = [np.asarray(x) for x in mod.xla_ref(jnp.asarray(rows),
-                                              jnp.asarray(tgt))]
+    rows, tgt = k3_inputs()
+    ref = [golden[f"k3_ref{c}"] for c in range(4)]
     out = far_units(torch.tensor(rows), torch.tensor(tgt))   # plain: CPU
     tr = k3_reference(torch.tensor(rows), torch.tensor(tgt))
     for a, b, r in zip(out, tr, ref):
@@ -400,8 +376,7 @@ def test_far_list_kernel_matches_plain_on_card(setup, cuda, need_pot):
 
 @pytest.mark.gpu
 def test_far_units_kernel_matches_reference_on_card(cuda):
-    mod = _pallasfar()
-    rows, tgt = (torch.tensor(a, device=cuda) for a in _k3_inputs(mod))
+    rows, tgt = (torch.tensor(a, device=cuda) for a in k3_inputs())
     for a, r in zip(far_units(rows, tgt), k3_reference(rows, tgt)):
         assert _max_rel(a.cpu().numpy(), r.cpu().numpy()) < 1e-5
 

@@ -1,6 +1,8 @@
 """The port of the Pallas near kernel (``sidm_tpu_torch.ops.near_kernel``)
 vs JAX ``pallas_near.near_items`` in interpret mode, on the same segment
-keys over the same sorted particles.
+keys over the same sorted particles (JAX's outputs frozen in
+tests/data/torch_near_golden.npz, tests/make_torch_golden.py ``near``;
+the ``slow`` test reruns JAX and holds the file to them).
 
 Per-group [ax ay az] agree to p99.9 relative error < 2e-5 and the
 potential to rtol 2e-5, atol 1e-7. The keys include each group's own
@@ -18,80 +20,43 @@ relative; on the card the kernel's own split equals the plain one."""
 
 from types import SimpleNamespace
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from sidm_tpu.ops.fused_force import pack_part16
-from sidm_tpu.ops.pallas_near import near_items, pack_near_fields
-
-from sidm_tpu_torch.io import ics
-from sidm_tpu_torch.ops.fused_force import make_windows
 from sidm_tpu_torch.ops.near_kernel import near_level, near_level_plain
-from sidm_tpu_torch.ops.tree import build_octree, level_offsets
+from sidm_tpu_torch.ops.tree import level_offsets
+from tests.make_torch_golden import (NEAR_GOLDEN, NEAR_LEVEL,
+                                     near_level_setup)
+from tests.make_torch_golden import jax_near as jax_near_live
 
 torch.set_num_threads(2)
 
-N, DEPTH, G, SC, K = 2048, 8, 64, 16, 64
+N, DEPTH, G, SC, K = (NEAR_LEVEL["n"], NEAR_LEVEL["depth"], 64, 16,
+                      NEAR_LEVEL["k"])
 IMAX = 2147483647
 
 
 @pytest.fixture(scope="module")
 def setup():
     """Sorted particles of a Plummer tree (with zero-mass padding sorted
-    last), 8 target groups and K segment keys per group."""
-    pos, _, m = ics.plummer(N, seed=9)
-    pos, m = pos.astype(np.float32), m.astype(np.float32)
-    m[::53] = 0.0
-    eps = np.where(np.arange(N) % 2 == 0, 0.05, 0.08).astype(np.float32)
-    tree = build_octree(torch.tensor(pos), torch.tensor(m), torch.tensor(eps),
-                        torch.tensor(m > 0), depth=DEPTH)
-    valid_s = torch.tensor(m > 0)[tree.perm]
-    pidx, gvalid = make_windows(tree.keys_s, valid_s, N, DEPTH)
-    pick = torch.linspace(0, int(gvalid.any(1).sum()) - 1, 8).long()
-    pidx, gvalid = pidx[pick], gvalid[pick]
-    xr = tree.pos_s[pidx]
-    te = torch.where(gvalid, tree.eps_s[pidx], torch.ones(()))
-
-    # leaf segments of the deepest level: the group's own, random others,
-    # and one window across the end of the valid particles
-    offs = level_offsets(N, DEPTH)
-    start = tree.node_start[offs[DEPTH]:].numpy()
-    cnt = tree.node_count[offs[DEPTH]:].numpy()
-    leaves = np.flatnonzero((cnt > 0) & (cnt <= 16))
-    nv = int(valid_s.sum())
-    rng = np.random.default_rng(10)
-    keys = np.full((8, K), IMAX, np.int32)
-    n_seg = np.zeros(8, np.int32)
-    for g in range(8):
-        own = int(np.flatnonzero((start <= int(pidx[g, 0]))
-                                 & (int(pidx[g, 0]) < start + cnt))[0])
-        pick_l = rng.choice(leaves, 36, replace=False)
-        ks = [start[own] * 32 + cnt[own]] \
-            + [start[i] * 32 + cnt[i] for i in pick_l] + [(nv - 3) * 32 + 8]
-        n_seg[g] = len(ks)
-        keys[g, :len(ks)] = ks
-    return SimpleNamespace(tree=tree, xr=xr.numpy(), te=te.numpy(),
-                           gvalid=gvalid.numpy(), keys=keys, n_seg=n_seg)
+    last), 8 target groups and K segment keys per group (the group's own
+    leaf, random others and a window across the end of the valid
+    particles: tests/make_torch_golden.py ``near_level_setup``)."""
+    tree, xr, te, gvalid, keys, n_seg = near_level_setup()
+    return SimpleNamespace(tree=tree, xr=xr, te=te, gvalid=gvalid, keys=keys,
+                           n_seg=n_seg)
 
 
-def jax_near(s, need_pot):
-    t = s.tree
-    part16 = pack_part16(SimpleNamespace(
-        pos_s=jnp.asarray(t.pos_s.numpy()), mass_s=jnp.asarray(
-            t.mass_s.numpy()), eps_s=jnp.asarray(t.eps_s.numpy())))
-    ng = s.keys.shape[0]
-    ent = s.keys.reshape(ng * (K // SC), SC)
-    g_of = np.repeat(np.arange(ng, dtype=np.int32), K // SC)
-    tgt = np.zeros((ng + 1, G, 8), np.float32)
-    tgt[:ng, :, 3] = s.te
-    tgt[:ng, :, 4:7] = s.xr
-    acc = near_items(jnp.asarray(g_of), pack_near_fields(jnp.asarray(ent),
-                                                         part16),
-                     jnp.asarray(tgt), G=G, S=SC * 32, need_pot=need_pot,
-                     interpret=True)
-    return np.asarray(acc)[:ng, :, :4]
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(NEAR_GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+def jax_near(golden, need_pot):
+    """JAX's near_items on the setup's keys, frozen."""
+    return golden[f"acc{int(need_pot)}"]
 
 
 def port_near(fn, s, device, need_pot, keys=None, n_seg=None):
@@ -114,8 +79,8 @@ def assert_acc_close(a, b, valid):
 
 
 @pytest.mark.parametrize("need_pot", [True, False])
-def test_near_level_matches_pallas(setup, need_pot):
-    acc_j = jax_near(setup, need_pot)
+def test_near_level_matches_pallas(setup, golden, need_pot):
+    acc_j = jax_near(golden, need_pot)
     acc_t = port_near(near_level, setup, "cpu", need_pot)
     assert_acc_close(acc_t, acc_j, setup.gvalid)
     if not need_pot:
@@ -352,3 +317,12 @@ def test_near_split_kernel_matches_plain_on_card(cuda, name):
     b = near_split(torch.tensor(keys), torch.tensor(n_seg))
     for k in ("cov", "unit", "off", "item_g", "k0", "k1"):
         np.testing.assert_array_equal(a[k].cpu().numpy(), b[k].numpy())
+
+
+@pytest.mark.slow
+def test_golden_is_current_jax_output(golden):
+    """The committed golden file is what JAX's near_items gives now."""
+    live = jax_near_live()
+    assert sorted(live) == sorted(golden)
+    for k, v in live.items():
+        np.testing.assert_array_equal(v, golden[k], err_msg=k)

@@ -11,7 +11,7 @@ Tolerances: the classification's planes equal; the far tile within 2e-5
 and the near tile within 1e-5 of JAX's largest magnitude (erf, erfc and
 exp by torch and by XLA; the screened potential beyond the softening as
 -erfc(a r)/r, JAX's as -1/r + erf(a r)/r). The record mode takes a
-periodic box and refuses the free-space mode (a box of 0).
+periodic box and the free-space mode (a box of 0).
 """
 
 import numpy as np
@@ -81,8 +81,9 @@ def test_near_tile_pbc_matches_jax(golden, t, need_pot):
 def test_record_mode_refuses_a_box(t):
     """The record mode takes a periodic box since the cached lists run in
     one (ROADMAP A, item 11.1): it appends what the periodic
-    classification accepts. It refuses the free-space screened mode, a box
-    of 0 (PMVacuum, item 11.2)."""
+    classification accepts. It takes the free-space screened mode too, a
+    box of 0 (PMVacuum, item 11.2, once refused here): it appends what the
+    free-space classification accepts."""
     ng, W = 4, 8
 
     def record(pbc):
@@ -96,16 +97,15 @@ def test_record_mode_refuses_a_box(t):
                   pbc=pbc)
         return buf
 
-    with pytest.raises(NotImplementedError, match="item 11.2"):
-        record((0.0, PBC[1], PBC[2]))
-    buf = record(PBC)
     rows = t["rows"][0].reshape(-1, 16)[:ng * W].reshape(ng, W, 16)
-    far, seg, _, _ = classify(rows, t["glo"][:ng], t["ghi"][:ng],
-                              t["oac"][:ng], t["s_l"], 0.25, False, 16,
-                              False, PBC)
-    assert buf.nf.tolist() == far.sum(1).tolist()
-    assert buf.nn.tolist() == seg.sum(1).tolist()
-    for g in range(ng):
-        ids = (g * W + torch.nonzero(far[g]).flatten()).tolist()
-        assert buf.far[g, :int(buf.nf[g])].tolist() == ids
+    for pbc in (PBC, (0.0, PBC[1], PBC[2])):
+        buf = record(pbc)
+        far, seg, _, _ = classify(rows, t["glo"][:ng], t["ghi"][:ng],
+                                  t["oac"][:ng], t["s_l"], 0.25, False, 16,
+                                  False, pbc)
+        assert buf.nf.tolist() == far.sum(1).tolist()
+        assert buf.nn.tolist() == seg.sum(1).tolist()
+        for g in range(ng):
+            ids = (g * W + torch.nonzero(far[g]).flatten()).tolist()
+            assert buf.far[g, :int(buf.nf[g])].tolist() == ids
     assert IMAX == 2147483647
