@@ -223,7 +223,29 @@ Phases (each asserts; any failure exits non-zero):
      potential energy within 1 %); the no-cut periodic classification and
      the Ewald far and near modes of one walk against their plain versions
      on 1024 groups (decisions equal, p99.9 < 2e-5 of the call's largest
-     |a| and |pot|), timed on all.
+     |a| and |pot|), timed on all; flagship-vacuum's steps print the
+     particles the mesh's region clamp moved (``pm_clamped``, ROADMAP
+     C.22);
+ 17. SPH on the hash grid: gas-halo (``flagship_config(**GAS)`` on
+     ``gas_ics``: bench.py's halo at N = 1e6 with a random sixth of it gas)
+     from a Gadget IC whose gas has u = 0 (``load_ic`` applies
+     ``InitGasTemp``) through Simulation on the phased step: prepare (its
+     first gas pass from no smoothing length, timed, with its cap, levels
+     and passes) and 4 steps (records and list steps on refreshed moments)
+     with each step's walls (``force``, ``gas``, ``finish``) and SPH pass,
+     |dE/E| < 1e-3 with the thermal energy, no bucket past the grown cap
+     and no clipped level after growth, launches of H5, H6, H1 and the
+     list kernels; on its end state the next step's pass: H5 (counts,
+     need, clip, rows read equal; rho, divv, rot p99.9 < 1e-6) and H6
+     (pairs, need, clip, rows read equal; acc, dt_egy p99.9 < 1e-5;
+     momentum |sum m a| <= 1e-5 sum m |a|) against their plain versions on
+     all gas queries, timed beside their bounds, and H5's rho against a
+     float64 sum at the same h on 4096 gas queries (rtol 1e-4); one more
+     step under torch.profiler (device busy, idle share, the SPH kernels'
+     device time, the top kernels); gas-small
+     (the same at N = 2^17 on the single-program step) 3 steps; both
+     kernels against their plain versions on a periodic comoving box of
+     2^17 gas particles (cosmo_ics, a = 0.1), with the oracle.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
 phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
@@ -231,19 +253,21 @@ phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
 phase 13's ("veldisp", "veldisp_individual", "dsmc_individual",
 "small_individual"), phase 14's ("cosmo", "periodic_direct",
 "lattice"), phase 15's ("cosmo_sidm", "cosmo_sidm_walk",
-"cosmo_veldisp", "cosmo_small") and phase 16's ("vacuum", "vacuum_walk",
-"ewald") counts, each path's counters set to 0 just before it and read
-just after; the periodic modes as rows of their own,
-``far_level_periodic``, ``far_list_periodic``, ``near_level_periodic``,
-``direct_periodic`` and ``far_level_record_periodic`` (with the lists'
-TreePM oracle in ``cosmo_lists_oracle``), the free-space modes
+"cosmo_veldisp", "cosmo_small"), phase 16's ("vacuum", "vacuum_walk",
+"ewald") and phase 17's ("gas", "gas_small") counts, each path's
+counters set to 0 just before it and read just after; the periodic modes
+as rows of their own, ``far_level_periodic``, ``far_list_periodic``,
+``near_level_periodic``, ``direct_periodic`` and
+``far_level_record_periodic`` (with the lists' TreePM oracle in
+``cosmo_lists_oracle``), the free-space modes
 ``far_level_vacuum``, ``far_level_record_vacuum``, ``far_list_vacuum``,
 ``near_level_vacuum`` (the list passes' times in ``lists_*`` keys) and the
 Ewald modes ``far_level_ewald``, ``far_list_ewald``,
 ``near_level_ewald``, with the JAX function each ports in ``ports`` and
 the cosmo-box mesh solve's parts in ``cosmo_pm``;
 the DSMC and hash kernels' times on phase 15's runs in their rows'
-``cosmo_*`` and ``cosmo_small_*`` keys; for far_list and
+``cosmo_*`` and ``cosmo_small_*`` keys, H5's and H6's (``sph_density``,
+``sph_hydro``) on the periodic comoving box in ``box_*`` keys; for far_list and
 near_level ``full_ms`` and ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
 ``witness``, for far_level (walk and record modes) ``ms`` per walk on all
@@ -738,6 +762,7 @@ def main():
     from sidm_tpu_torch.ops.neighbors import knn_radius
     from sidm_tpu_torch.ops.sidm import hash_scan
     from sidm_tpu_torch.ops.veldisp import veldisp_sums
+    from sidm_tpu_torch.ops.sph import hydro_pairs, sph_density_sums
     from sidm_tpu_torch.ops.far_kernel import far_level
     from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
                                              far_split, far_units,
@@ -984,7 +1009,9 @@ def main():
                 "near_level_vacuum": (near_level, "vacuum_launches"),
                 "far_level_ewald": (far_level, "ewald_launches"),
                 "far_list_ewald": (far_list, "ewald_launches"),
-                "near_level_ewald": (near_level, "ewald_launches")}
+                "near_level_ewald": (near_level, "ewald_launches"),
+                "sph_density": (sph_density_sums, "launches"),
+                "sph_hydro": (hydro_pairs, "launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -1408,6 +1435,37 @@ def main():
     print(f"phase 16 (PMVacuum and PMGrid -1): "
           f"{time.perf_counter() - t16:.1f} s [{card}]", flush=True)
 
+    # ---- SPH on the hash grid (gas-halo, gas-small) ------------------------
+    from sidm_tpu_torch.flagship import GAS_SMALL_N
+    gas_n, gas_small_n, gas_box_n = GAS_SIZE or (n, GAS_SMALL_N, GAS_BOX_N)
+    t17 = time.perf_counter()
+    zero_counts()
+    gsim, grows = gas_run(gas_n, GAS_STEPS, dev, card, "gas-halo")
+    gas_launches = read_counts()
+    print(f"gas-halo launches {gas_launches} [{card}]", flush=True)
+    assert gsim._use_phased()
+    for key in ("sph_density", "sph_hydro", "hash_knn", "far_level_record",
+                "far_list", "near_level", "gather_nodes"):
+        assert gas_launches[key] > 0, (key, gas_launches)
+    gas_kernels(res, gsim, dev, card)
+    gas_breakdown(gsim, grows, card)
+    del gsim
+    torch.cuda.empty_cache()
+    zero_counts()
+    gssim, _ = gas_run(gas_small_n, GAS_SMALL_STEPS, dev, card, "gas-small")
+    gas_small_launches = read_counts()
+    print(f"gas-small launches {gas_small_launches} [{card}]", flush=True)
+    assert not gssim._use_phased()
+    for key in ("sph_density", "sph_hydro", "hash_knn", "far_level",
+                "far_list", "near_level"):
+        assert gas_small_launches[key] > 0, (key, gas_small_launches)
+    del gssim
+    torch.cuda.empty_cache()
+    gas_box_kernels(res, gas_box_n, dev, card)
+    torch.cuda.empty_cache()
+    print(f"phase 17 (SPH on the hash grid): "
+          f"{time.perf_counter() - t17:.1f} s [{card}]", flush=True)
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -1475,6 +1533,11 @@ def main():
                            "scripts/pallasfar.py:57"),
         "near_level_ewald": ("sidm_tpu_torch/csrc/near_kernel.cu",
                              "sidm_tpu/ops/pallas_near.py:30"),
+        # SPH on the hash grid: plain XLA in JAX (no Pallas original)
+        "sph_density": ("sidm_tpu_torch/csrc/hash_sph.cu",
+                        "sidm_tpu/ops/sph.py:112"),
+        "sph_hydro": ("sidm_tpu_torch/csrc/hash_sph.cu",
+                      "sidm_tpu/ops/sph.py:248"),
     }
     ports = {"far_level_periodic": "sidm_tpu/ops/fused_force.py:427",
              "far_list_periodic": "sidm_tpu/ops/fused_force.py:488",
@@ -1496,7 +1559,10 @@ def main():
              "far_list_ewald": "sidm_tpu/ops/treeforce.py:337 (eval_flat, "
                                "node pairs)",
              "near_level_ewald": "sidm_tpu/ops/treeforce.py:391 (eval_flat,"
-                                 " segments)"}
+                                 " segments)",
+             "sph_density": "sidm_tpu/ops/sph.py:112-135 (sph_density's "
+                            "dens_block)",
+             "sph_hydro": "sidm_tpu/ops/sph.py:248-333 (hydro_force's blk)"}
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
         r = res.rows[name]
@@ -1519,7 +1585,9 @@ def main():
                    "cosmo_small": csm_launches[name],
                    "vacuum": vac_launches[name],
                    "vacuum_walk": vac_walk_launches[name],
-                   "ewald": ewald_launches[name]}
+                   "ewald": ewald_launches[name],
+                   "gas": gas_launches[name],
+                   "gas_small": gas_small_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -3998,13 +4066,15 @@ def vacuum_run(pos, vel, mass, n, dev, card, list_mode, steps):
             ovf += walk_info_ovf(wi)
         rows.append(dict(kind=li["kind"] if li is not None else "walk",
                          wall_ms=(time.perf_counter() - t1) * 1e3,
+                         pm_clamped=(li or {}).get("pm_clamped"),
                          **{ph: v * 1e3 for ph, v in
                             sim.last_phase_wall.items()}))
         print(f"{label} step {k + 1} ({rows[-1]['kind']}): wall "
               f"{rows[-1]['wall_ms']:.1f} ms ("
               + ", ".join(f"{ph} {v * 1e3:.1f} ms" for ph, v in
                           sim.last_phase_wall.items())
-              + f") [{card}]", flush=True)
+              + f"), particles clamped into the mesh's region "
+              f"{rows[-1]['pm_clamped']} [{card}]", flush=True)
     t_steps = time.perf_counter() - t0
     sim.compute_potential()
     de = abs(sim_energy(sim) - e0) / abs(e0)
@@ -4293,6 +4363,419 @@ def ewald_kernels(res, sim, dev, card):
           f"{nfar} far entries [{card}]", flush=True)
     walk_mode_checks(res, calls, "ewald", "one cosmo-ewald walk", card,
                      groups=groups, err=largest_err)
+
+
+# ---- phase 17: SPH on the hash grid (gas-halo, gas-small) --------------------
+
+GAS_STEPS = 4          # gas-halo's steps after prepare (its record)
+GAS_SMALL_STEPS = 3    # gas-small's, on the single-program step
+GAS_ORACLE = 4096      # gas queries of H5's float64 brute-force oracle
+GAS_BOX_N = 1 << 17    # gas particles of the periodic comoving input
+GAS_SIZE = None        # (gas-halo's N, gas-small's N, the box's N) in place
+                       # of the defaults (a rehearsal's)
+
+
+def gas_energy(sim) -> float:
+    """Kinetic + potential + thermal energy (float64 sums)."""
+    from sidm_tpu_torch.diagnostics import compute_system_state
+    s = compute_system_state(sim.particles)
+    return float(s.energy_kin + s.energy_pot + s.energy_int)
+
+
+def load_gas_ic(sim, n, card):
+    """gas_ics(n) through the real path: a Gadget IC written by
+    ``io/gadget.py`` with u = 0 for the gas, read by ``load_ic``
+    (``InitGasTemp``). Returns the write and load seconds."""
+    import os
+    import tempfile
+    from sidm_tpu_torch.flagship import gas_ics
+    from sidm_tpu_torch.io.gadget import GadgetHeader, Snapshot, write_snapshot
+    pos, vel, mass, ptype = gas_ics(n, SEED)
+    npart = np.bincount(ptype, minlength=6).astype(np.int32)
+    snap = Snapshot(header=GadgetHeader(npart=npart, npart_total=npart.copy()),
+                    pos=pos.astype(np.float32), vel=vel.astype(np.float32),
+                    pid=np.arange(1, n + 1, dtype=np.uint32),
+                    mass=mass.astype(np.float32), ptype=ptype,
+                    u=np.zeros(int(npart[0]), np.float32))
+    with tempfile.TemporaryDirectory() as d:
+        ic = os.path.join(d, "gas_ic")
+        t0 = time.perf_counter()
+        write_snapshot(ic, snap)
+        t1 = time.perf_counter()
+        sim.load_ic(ic)
+        t2 = time.perf_counter()
+    p = sim.particles
+    gas = p.ptype == 0
+    u = p.egy_spec[gas]
+    assert int(gas.sum()) == int(npart[0]) and bool(torch.all(u == u[0]))
+    assert not bool(torch.any(p.egy_spec[~gas] != 0))
+    return t1 - t0, t2 - t1, float(u[0])
+
+
+def sph_line(v) -> str:
+    return (f"cap {v['cap']} (need {v['need']}), levels {v['levels']}, "
+            f"passes {v['tries']}, {v['queries']} density queries reading "
+            f"{v['rows_mean']:.1f} rows (max {v['rows_max']}), "
+            f"{v['hydro_queries']} hydro queries reading "
+            f"{v['hydro_rows_mean']:.1f}, past cap {v['ngb_ovf']}, clipped "
+            f"{v['lvl_clip']}")
+
+
+def gas_run(n, steps, dev, card, label, mode="synchronized"):
+    """``flagship_config(**GAS)`` on gas_ics(n) from a Gadget IC through
+    Simulation: prepare (its first gas pass from no smoothing length,
+    timed, with its cap, levels and passes), compute_potential, ``steps``
+    steps with each one's kind, walls by phase and SPH pass, compute_
+    potential: finite, no list or walk overflow, no bucket past the grown
+    cap and no clipped level in any pass after growth, |dE/E| < 1e-3 with
+    the thermal energy. Returns (sim, rows)."""
+    from sidm_tpu_torch.flagship import GAS, flagship_config
+    from sidm_tpu_torch.simulation import Simulation
+
+    sim = Simulation(flagship_config(**GAS), mode=mode, device=dev)
+    t_w, t_l, u0 = load_gas_ic(sim, n, card)
+    t0 = time.perf_counter()
+    sim.prepare()
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    infos = [dict(sim.last_sph_info)]
+    prep_walls = dict(sim.last_phase_wall)
+    print(f"{label} prepare: {t_prep:.3f} s ("
+          + ", ".join(f"{ph} {v * 1e3:.1f} ms" for ph, v in
+                      prep_walls.items())
+          + f"); its gas pass from no smoothing length: "
+          f"{sph_line(infos[0])}; the IC's write {t_w:.2f} s, load_ic "
+          f"{t_l:.2f} s, InitGasTemp u {u0:.2f} (km/s)^2 [{card}]",
+          flush=True)
+    sim.compute_potential()
+    e0 = gas_energy(sim)
+    rows, ovf = [], 0
+    t0 = time.perf_counter()
+    for k in range(steps):
+        t1 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        li, wi = sim.last_list_info, sim.last_walk_info
+        if li is not None and li["ovf"] is not None:
+            ovf += sum(li["ovf"])
+        if wi is not None:
+            ovf += walk_info_ovf(wi)
+        infos.append(dict(sim.last_sph_info))
+        rows.append(dict(kind=li["kind"] if li is not None else "single",
+                         wall_ms=(time.perf_counter() - t1) * 1e3,
+                         **{ph: v * 1e3 for ph, v in
+                            sim.last_phase_wall.items()}))
+        print(f"{label} step {k + 1} ({rows[-1]['kind']}): wall "
+              f"{rows[-1]['wall_ms']:.1f} ms ("
+              + ", ".join(f"{ph} {v * 1e3:.1f} ms" for ph, v in
+                          sim.last_phase_wall.items())
+              + f"); {sph_line(infos[-1])} [{card}]", flush=True)
+    t_steps = time.perf_counter() - t0
+    sim.compute_potential()
+    de = abs(gas_energy(sim) - e0) / abs(e0)
+    p = sim.particles
+    gas = p.ptype == 0
+    finite = all(bool(torch.isfinite(getattr(p, f)).all()) for f in
+                 ("pos", "vel", "egy_spec", "density", "hsml"))
+    step = "phased" if sim._use_phased() else "single-program"
+    print(f"{label} (SPH on the hash grid, {step} step): N {n}, {int(gas.sum())} gas, {steps} steps "
+          f"{t_steps:.3f} s, {n * steps / t_steps:.4g} particle-steps/s, "
+          f"t = {sim.time:.6g}, gas density median "
+          f"{float(torch.median(p.density[gas])):.4g}, hsml min/median/max "
+          f"{float(p.hsml[gas].min()):.4g}/"
+          f"{float(torch.median(p.hsml[gas])):.4g}/"
+          f"{float(p.hsml[gas].max()):.4g}, u median "
+          f"{float(torch.median(p.egy_spec[gas])):.4g}, |dE/E| (with the "
+          f"thermal energy) {de:.3e}, force overflow {ovf}, finite {finite} "
+          f"[{card}]", flush=True)
+    assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
+    assert all(r.get("gas", 0) > 0 for r in rows), rows
+    assert all(v["ngb_ovf"] == 0 and v["lvl_clip"] == 0
+               for v in infos[1:]), infos
+    return sim, rows
+
+
+def sph_oracle(q, pos_pred, dinfo, card, label):
+    """H5's rho on GAS_ORACLE random gas queries against a float64 sum over
+    every gas particle at the same h (the kernel's own, via
+    sph_density): rtol 1e-4 (tests/test_sph.py's bar)."""
+    p = q
+    sel = dinfo["sel"]
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    pick = sel[torch.randperm(sel.numel(), generator=g)[:GAS_ORACLE].to(
+        sel.device)]
+    gas = torch.nonzero(p.ptype == 0).flatten()
+    src = pos_pred[gas].double()
+    m = p.mass[gas].double()
+    box = dinfo["table"].box
+    rho = []
+    for c in range(0, pick.numel(), 64):
+        i = pick[c:c + 64]
+        d = src[None, :, :] - pos_pred[i].double()[:, None, :]
+        if box:
+            d = d - box * torch.round(d / box)
+        h = p.hsml[i].double()[:, None]
+        u = torch.sqrt(torch.sum(d * d, -1)) / h
+        w = torch.where(u < 0.5, 1.0 - 6.0 * u * u * (1.0 - u),
+                        2.0 * (1.0 - u) ** 3) * (8.0 / np.pi) * (u < 1)
+        rho.append(torch.sum(w * m[None, :], 1) / h[:, 0] ** 3)
+    ref = torch.cat(rho)
+    got = p.density[pick].double()
+    err = torch.abs(got - ref) / ref
+    print(f"H5 oracle ({label}): rho of {pick.numel()} random gas queries "
+          f"against a float64 sum over all {gas.numel()} gas particles at "
+          f"the same h: max rel err {float(err.max()):.3e}, p99 "
+          f"{float(torch.quantile(err.float(), 0.99)):.3e} [{card}]",
+          flush=True)
+    assert float(err.max()) <= 1e-4, float(err.max())
+
+
+def sph_kernels(res, p, pos_pred, vel_pred, t, active, params, box, cap,
+                levels, card, label, tag=None):
+    """H1, H5 and H6 on one SPH pass of all the gas queries against their
+    plain versions: H1's h, counts, overflow, need, clip and rows read
+    bit-equal (from the pass's warm radii, 3 iterations; its times into
+    the hash_knn row's ``gas_*`` or ``gas_{tag}_*`` keys); H5's counts,
+    need, clip and rows read equal, rho, divv and
+    rot p99.9 relative error <= 1e-6; H6's pairs, need, clip and rows read
+    equal, acc (per particle, relative to |a|) and dt_egy p99.9 <= 1e-5;
+    with every gas particle active, H6's momentum |sum m a| <= 1e-5 sum m
+    |a|; each timed (CUDA events; the plain version one call) beside its
+    bound and ptxas's registers. ``tag``: another input's, its times into
+    the JSON rows' ``{tag}_*`` keys. Returns (q, dinfo)."""
+    from sidm_tpu_torch.bounds import (bound_ms, hydro_work, knn_work,
+                                       sph_density_work)
+    from sidm_tpu_torch.ops.neighbors import knn_radius, knn_radius_plain
+    from sidm_tpu_torch.ops.sph import (hydro_force, hydro_pairs,
+                                        hydro_pairs_plain, sph_density,
+                                        sph_density_sums,
+                                        sph_density_sums_plain)
+
+    q, dinfo = sph_density(p, pos_pred, vel_pred, t, active, params, box=box,
+                           cap=cap, n_levels=levels)
+    acc, de, hinfo = hydro_force(q, pos_pred, vel_pred, t, active, params,
+                                 dinfo["table"], box=box, cap=cap)
+    assert int(dinfo["ngb_ovf"]) == 0 and int(dinfo["lvl_clip"]) == 0
+    assert int(hinfo["ngb_ovf"]) == 0 and int(hinfo["lvl_clip"]) == 0
+    sel = dinfo["sel"]
+    # H1: the pass's k-th neighbour radius of the same queries
+    kargs = (dinfo["table"], pos_pred[sel].contiguous(),
+             p.ptype[sel].contiguous(), dinfo["warm"], params.des_num_ngb)
+    kk = knn_radius(*kargs, cap=cap, n_iter=3)
+    keys = []
+    t0 = time.perf_counter()
+    kp = knn_radius_plain(*kargs, cap=cap, n_iter=3, keys=keys)
+    torch.cuda.synchronize()
+    kplain_ms = (time.perf_counter() - t0) * 1e3
+    for f in ("h", "cnt", "ovf", "need", "clip", "scanned"):
+        a, b = getattr(kk, f), getattr(kp, f)
+        assert torch.equal(a, b.to(a.dtype)), ("hash_knn", f)
+        assert torch.equal(getattr(dinfo["knn"], f), a), ("hash_knn", f)
+    kms = cuda_ms(lambda: knn_radius(*kargs, cap=cap, n_iter=3), 5)
+    kops, knb = knn_work(dinfo["table"], keys, kp.scanned, sel.numel(), cap)
+    kbms, kby = bound_ms(kops, knb)
+    krows = kp.scanned.double() / 3.0
+    print(f"kernel hash_knn (H1, {label}: {sel.numel()} gas queries of "
+          f"{p.pos.shape[0]} rows, 3 iterations, cap {cap}, {levels} levels, "
+          f"k {params.des_num_ngb}): h, counts, overflow, need, clip and "
+          f"rows read bit-equal to the plain version and to the pass's; rows "
+          f"read per query and iteration mean {float(krows.mean()):.1f}, max "
+          f"{float(krows.max()):.0f}; kernel {kms:.3f} ms, plain "
+          f"{kplain_ms:.1f} ms (one call), bound {kbms:.4f} ms ({kby}), at "
+          f"{kbms / kms:.1%} of the bound's speed [{card}]", flush=True)
+    pre = f"gas_{tag}" if tag else "gas"
+    side_row(res, "hash_knn", **{f"{pre}_{k}": v for k, v in (
+        ("ms", kms), ("bound_ms", kbms), ("plain_ms", kplain_ms),
+        ("queries", int(sel.numel())), ("levels", levels))})
+    args = (dinfo["table"], pos_pred[sel].contiguous(),
+            vel_pred[sel].contiguous(), p.ptype[sel].contiguous(),
+            q.hsml[sel].contiguous())
+    s = dinfo["sums"]
+    keys = []
+    t0 = time.perf_counter()
+    sp = sph_density_sums_plain(*args, cap=cap, keys=keys)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = cuda_ms(lambda: sph_density_sums(*args, cap=cap), 5)
+    for f in ("cnt", "need", "clip", "scanned"):
+        assert torch.equal(getattr(s, f), getattr(sp, f).to(
+            getattr(s, f).dtype)), f
+    errs = {}
+    for f in ("rho", "divv", "rot"):
+        a, b = getattr(s, f), getattr(sp, f)
+        errs[f] = (q999(torch.abs(a - b) / torch.clamp(torch.abs(b),
+                                                       min=1e-300)),
+                   float(torch.max(torch.abs(a - b))))
+    ops, nb = sph_density_work(dinfo["table"], keys, s.scanned, s.cnt,
+                               sel.numel(), cap)
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel sph_density (H5, {label}: {sel.numel()} queries, cap "
+          f"{cap}, {levels} levels, box {box}): counts, need, clip and rows "
+          f"read equal to the plain version, p99.9 rel err rho "
+          f"{errs['rho'][0]:.3e} divv {errs['divv'][0]:.3e} rot "
+          f"{errs['rot'][0]:.3e}; rows read a query "
+          f"{float(s.scanned.double().mean()):.1f}, neighbours a query "
+          f"{float(s.cnt.double().mean()):.1f}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms (one call), bound {bms:.4f} ms ({by}), at "
+          f"{bms / ms:.1%} of the bound's speed; ptxas "
+          f"{usage_of('sph_density_kernel')} [{card}]", flush=True)
+    assert all(e[0] <= 1e-6 for e in errs.values()), errs
+    # H6 on every gas query
+    hsel, out = hinfo["sel"], hinfo["out"]
+    hargs = (hinfo["table"], pos_pred[hsel].contiguous(),
+             vel_pred[hsel].contiguous(), p.ptype[hsel].contiguous(),
+             q.hsml[hsel].contiguous(), hsel.to(torch.int32), hinfo["qv"],
+             p.pos.shape[0], hinfo["factors"])
+    hkeys = []
+    t0 = time.perf_counter()
+    hp = hydro_pairs_plain(*hargs, cap=cap, keys=hkeys)
+    torch.cuda.synchronize()
+    hplain_ms = (time.perf_counter() - t0) * 1e3
+    hms = cuda_ms(lambda: hydro_pairs(*hargs, cap=cap), 5)
+    for f in ("pairs", "need", "clip", "scanned"):
+        assert torch.equal(getattr(out, f), getattr(hp, f).to(
+            getattr(out, f).dtype)), f
+    a, b = out.acc[hsel], hp.acc[hsel]
+    acc_err = torch.linalg.norm(a - b, dim=1) / torch.clamp(
+        torch.linalg.norm(b, dim=1), min=1e-300)
+    e_err = torch.abs(out.dt_egy[hsel] - hp.dt_egy[hsel]) / torch.clamp(
+        torch.abs(hp.dt_egy[hsel]), min=1e-300)
+    herrs = dict(acc=(q999(acc_err), float(torch.max(torch.abs(a - b)))),
+                 dt_egy=(q999(e_err), float(torch.max(torch.abs(
+                     out.dt_egy[hsel] - hp.dt_egy[hsel])))))
+    mom = None
+    if bool(torch.all(active[hsel])):
+        ma = p.mass[hsel].double()[:, None] * out.acc[hsel]
+        mom = float(torch.linalg.norm(ma.sum(0))
+                    / torch.sum(torch.linalg.norm(ma, dim=1)))
+    hops, hnb = hydro_work(hinfo["table"], hkeys, out.scanned, out.pairs,
+                           hsel.numel(), cap)
+    hbms, hby = bound_ms(hops, hnb)
+    print(f"kernel sph_hydro (H6, {label}: {hsel.numel()} queries, "
+          f"{int(out.pairs.sum())} pairs): pairs, need, clip and rows read "
+          f"equal to the plain version, p99.9 rel err acc "
+          f"{herrs['acc'][0]:.3e} dt_egy {herrs['dt_egy'][0]:.3e}, momentum "
+          f"|sum m a| / sum m |a| {mom if mom is None else f'{mom:.3e}'}; "
+          f"kernel {hms:.3f} ms, plain {hplain_ms:.1f} ms (one call), bound "
+          f"{hbms:.4f} ms ({hby}), at {hbms / hms:.1%} of the bound's "
+          f"speed; ptxas {usage_of('sph_hydro_kernel')} [{card}]",
+          flush=True)
+    assert all(e[0] <= 1e-5 for e in herrs.values()), herrs
+    assert mom is None or mom <= 1e-5, mom
+    d_abs = max(e[1] for e in errs.values())
+    h_abs = max(e[1] for e in herrs.values())
+    if tag:
+        res.add("sph_density", d_abs, 0.0, 0.0, 0.0, 0.0)
+        res.add("sph_hydro", h_abs, 0.0, 0.0, 0.0, 0.0)
+        side_row(res, "sph_density", **{f"{tag}_{k}": v for k, v in (
+            ("ms", ms), ("bound_ms", bms), ("plain_ms", plain_ms),
+            ("queries", int(sel.numel())), ("rho_p999", errs["rho"][0]))})
+        side_row(res, "sph_hydro", **{f"{tag}_{k}": v for k, v in (
+            ("ms", hms), ("bound_ms", hbms), ("plain_ms", hplain_ms),
+            ("queries", int(hsel.numel())), ("acc_p999", herrs["acc"][0]),
+            ("momentum", mom))})
+        return q, dinfo
+    res.add("sph_density", d_abs, ms, plain_ms, ops, nb)
+    res.rows["sph_density"].update(
+        queries=int(sel.numel()), share=bms / ms, cap=cap, levels=levels,
+        rho_p999=errs["rho"][0], divv_p999=errs["divv"][0],
+        rot_p999=errs["rot"][0])
+    res.add("sph_hydro", h_abs, hms, hplain_ms, hops, hnb)
+    res.rows["sph_hydro"].update(
+        queries=int(hsel.numel()), pairs=int(out.pairs.sum()),
+        share=hbms / hms, acc_p999=herrs["acc"][0],
+        dt_egy_p999=herrs["dt_egy"][0], momentum=mom)
+    return q, dinfo
+
+
+def gas_kernels(res, sim, dev, card):
+    """H5 and H6 on gas-halo's end state, the next step's pass
+    (``sph_kernels``), and H5's rho against the float64 oracle."""
+    from sidm_tpu_torch import integrate
+    p = sim.particles
+    t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, vel_pred = integrate.predict_positions(p, t_next, sim.consts)
+    q, dinfo = sph_kernels(res, p, pos_pred, vel_pred, t_next, active,
+                           sim._sph_params(), sim._box(), sim._sph_cap,
+                           sim._sph_levels, card, "gas-halo's next pass")
+    sph_oracle(q, pos_pred, dinfo, card, "gas-halo")
+
+
+def gas_breakdown(sim, rows, card):
+    """One more gas-halo step under torch.profiler: its device busy time
+    and idle share against the unprofiled walls of its kind (``rows``),
+    the device time of the SPH pass's kernels (H1, H5, H6) and the top
+    device kernels; "not measured" when the profiler sees no device
+    event."""
+    from torch.profiler import ProfilerActivity, profile
+    from sidm_tpu_torch.profile_step import _device_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.step()
+        torch.cuda.synchronize()
+    kind = sim.last_list_info["kind"]
+    avg = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in avg) / 1e3
+    walls = sorted(r["wall_ms"] for r in rows if r["kind"] == kind)
+    if not avg or not walls:
+        print(f"gas-halo {kind} step under the profiler: device busy not "
+              f"measured (no device event or no unprofiled {kind} step) "
+              f"[{card}]", flush=True)
+        return
+    sph = {k: round(sum(_device_us(e) for e in avg if k in e.key) / 1e3, 4)
+           for k in ("hash_knn_kernel", "sph_density_kernel",
+                     "sph_hydro_kernel")}
+    print(f"gas-halo {kind} step under the profiler: device busy "
+          f"{busy:.1f} ms against unprofiled {kind} walls "
+          f"{walls[0]:.1f}-{walls[-1]:.1f} ms: idle share "
+          f"{1 - busy / walls[-1]:.3f}-{1 - busy / walls[0]:.3f}; the SPH "
+          f"kernels' device ms {sph}; phases of this step "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                      sim.last_phase_wall.items()) + f" [{card}]",
+          flush=True)
+    for e in sorted(avg, key=_device_us, reverse=True)[:12]:
+        print(f"    {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def gas_box_kernels(res, n, dev, card):
+    """H5 and H6 against their plain versions with a periodic box and
+    comoving factors: cosmo_ics(n, a_vel=0.1) all gas (u of 1e4 K) in
+    cosmo-box's box at a = 0.1, half a step of 0.002 in a since the last
+    kick (so the drift correction, the floors and the viscosity limiter
+    act), cosmo-box's cosmology; the pass grown to its demand from no
+    smoothing length, then the checked pass from its lengths."""
+    import dataclasses
+    from sidm_tpu_torch.constants import (BOLTZMANN_CGS, GAMMA_MINUS1,
+                                          PROTONMASS_CGS)
+    from sidm_tpu_torch.flagship import COSMO, COSMO_BOX, cosmo_ics
+    from sidm_tpu_torch.ops.sph import SphParams, grown_pass
+    from sidm_tpu_torch.state import make_particles
+
+    a = COSMO["TimeBegin"]
+    pos, vel, mass = cosmo_ics(n, a_vel=a)
+    u = (1.0 / GAMMA_MINUS1) * (BOLTZMANN_CGS / PROTONMASS_CGS) * 1e4 / 1e10
+    p = make_particles(pos, vel, mass, np.zeros(n, np.int32),
+                       egy_spec=np.full(n, u), pad_to_multiple=4096,
+                       device=dev)
+    p = dataclasses.replace(p, current_time=torch.full_like(
+        p.current_time, a - 0.001))
+    t = torch.tensor(a, dtype=torch.float32, device=dev)
+    params = SphParams(des_num_ngb=30, max_num_ngb_dev=2, art_bulk_visc=0.75,
+                       min_egy_spec=0.0, min_gas_hsml=0.0, comoving=True,
+                       hubble=0.1, omega0=COSMO["Omega0"],
+                       omega_lambda=COSMO["OmegaLambda"])
+    r = grown_pass(p, p.pos, p.vel, t, p.valid, params, box=COSMO_BOX,
+                   cap=SphParams._field_defaults["cap"], n_levels=10)
+    r = grown_pass(r.p, p.pos, p.vel, t, p.valid, params, box=COSMO_BOX,
+                   cap=r.cap, n_levels=r.levels)
+    q, dinfo = sph_kernels(res, r.p, p.pos, p.vel, t, p.valid, params,
+                           COSMO_BOX, r.cap, r.levels, card,
+                           f"the periodic comoving box, N {n}", tag="box")
+    sph_oracle(q, p.pos, dinfo, card, "the periodic comoving box")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,8 @@ interface, loaded with ``ctypes``:
 ``<h>`` hashes the source's own flags, the source and every header, so an
 edited file builds anew and an unchanged one is reused. ``-fmad=false`` is
 given to ``far_kernel.cu``, ``range_walk.cu``, ``sidm_emit.cu``,
-``sidm_gated.cu``, ``sidm_near.cu``, ``hash_knn.cu``, ``hash_scan.cu`` and
-``hash_veldisp.cu``: it keeps every product and sum rounded as in the
+``sidm_gated.cu``, ``sidm_near.cu``, ``hash_knn.cu``, ``hash_scan.cu``,
+``hash_veldisp.cu`` and ``hash_sph.cu``: it keeps every product and sum rounded as in the
 plain PyTorch version (beside explicit ``__fmul_rn``/``__fadd_rn``), so
 that the walks' classifications, the candidate tests, the DSMC keys and the
 hash grid's cells, levels, distances and pair terms, and hence every
@@ -48,7 +48,8 @@ _SOURCE_FLAGS = {"far_kernel": ["-fmad=false"], "range_walk": ["-fmad=false"],
                  "sidm_emit": ["-fmad=false"], "sidm_gated": ["-fmad=false"],
                  "sidm_near": ["-fmad=false"], "hash_knn": ["-fmad=false"],
                  "hash_scan": ["-fmad=false"],
-                 "hash_veldisp": ["-fmad=false"]}
+                 "hash_veldisp": ["-fmad=false"],
+                 "hash_sph": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -92,6 +93,12 @@ _SIGNATURES = {
     "hash_veldisp_launch": ("hash_veldisp", [
         _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
         _P, _P, _P]),
+    "sph_density_launch": ("hash_sph", [
+        _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+        _P, _P, _P, _P]),
+    "sph_hydro_launch": ("hash_sph", [
+        _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+        _F, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P]),
     "direct_launch": ("direct", [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F,
                                  _I, _I, _P]),
 }

@@ -114,6 +114,32 @@ SCAN_TARGET_BYTES = 64
 VD_ROW_OPS = 13
 VD_NGB_OPS = 10 + 2 * 10
 VD_QUERY_BYTES = 76
+# ... H5 (csrc/hash_sph.cu, sph_density_kernel) reads the whole row
+# (CAND_ROW_BYTES); per row read the type 3, d 3, r^2 5, sqrt, r < h; per
+# neighbour in float32 u, W(u) 7, * h^-3, m W (10), dW(u) 6, * h^-4, m dW,
+# the max and division by r (10), dv 3, d.dv 5, its product, d x dv 9 and
+# its 3 products (21), and in float64 the sums of m W, divv and rot (5
+# adds, each counted twice: the float64 rate is half the float32 one); per
+# query its position, velocity, type and h in, count, need, clip, rows read
+# and the float64 rho, divv and rot (3) out
+SPH_ROW_OPS = 13
+SPH_NGB_OPS = 10 + 10 + 21 + 2 * 5
+SPH_QUERY_BYTES = 88
+# ... H6 (csrc/hash_sph.cu, sph_hydro_kernel) per row read its position
+# and aux and the row's particle id (self test), the type 3, d 3, r^2 5,
+# sqrt, r < h; per pair (both halves: a synchronized step's gas is all
+# active) u, dW 6, / h^4, dv 3, d.dv 5, h_ij, c_ij, rho_ij 6, mu 5, the
+# viscosity 10 and its limiter 11, P/rho^2 of the row 4, pp 4, r_safe, the
+# gathered term 5 and its 5 products, the scattered term 4 and its 5
+# products, and the 8 float64 adds, each counted twice; bytes: the wide
+# row (48) and its particle id (4); per query its position, velocity,
+# type, h, id and 8 scalars in, its pairs, need, clip and rows read out
+# and its float64 acc (3) and dt_egy written
+HYDRO_ROW_OPS = 13
+HYDRO_PAIR_OPS = 1 + 6 + 1 + 3 + 5 + 6 + 5 + 10 + 11 + 4 + 4 + 1 + 5 + 5 \
+    + 4 + 5 + 2 * 8
+HYDRO_ROW_BYTES = 48 + 4
+HYDRO_QUERY_BYTES = 68 + 16 + 32
 
 
 # The periodic modes (the TreePM split's short range, the Ewald direct
@@ -530,6 +556,31 @@ def veldisp_work(table, keys, scanned, cnt, n: int, cap: int):
     ops = (VD_ROW_OPS * _n(torch.sum(scanned.long()))
            + VD_NGB_OPS * _n(torch.sum(cnt.long())))
     return ops, BUCKET_BYTES * nb + CAND_ROW_BYTES * rows + VD_QUERY_BYTES * n
+
+
+def sph_density_work(table, keys, scanned, cnt, n: int, cap: int):
+    """(ops, bytes) of one ``sph_density_sums`` call (H5) on n queries:
+    SPH_ROW_OPS per row read (``scanned``) and SPH_NGB_OPS per neighbour
+    (``cnt``); bytes: the distinct buckets of ``keys`` (the plain
+    version's key list) and their rows up to cap once each, the queries'
+    inputs and outputs."""
+    nb, rows = _bucket_rows(table, keys, cap)
+    ops = (SPH_ROW_OPS * _n(torch.sum(scanned.long()))
+           + SPH_NGB_OPS * _n(torch.sum(cnt.long())))
+    return ops, (BUCKET_BYTES * nb + CAND_ROW_BYTES * rows
+                 + SPH_QUERY_BYTES * n)
+
+
+def hydro_work(table, keys, scanned, pairs, n: int, cap: int):
+    """(ops, bytes) of one ``hydro_pairs`` call (H6) on n queries:
+    HYDRO_ROW_OPS per row read and HYDRO_PAIR_OPS per (q, c) pair
+    (``pairs``); bytes: the distinct buckets and their wide rows up to cap
+    once each, the queries' inputs and outputs."""
+    nb, rows = _bucket_rows(table, keys, cap)
+    ops = (HYDRO_ROW_OPS * _n(torch.sum(scanned.long()))
+           + HYDRO_PAIR_OPS * _n(torch.sum(pairs.long())))
+    return ops, (BUCKET_BYTES * nb + HYDRO_ROW_BYTES * rows
+                 + HYDRO_QUERY_BYTES * n)
 
 
 def direct_work(n: int, T: int, need_pot: bool, en: int = 0):

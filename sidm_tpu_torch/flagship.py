@@ -72,6 +72,20 @@ list passes and the walk in their free-space screened modes cut at rcut.
 correction on every node and particle interaction (``EwaldGridSize 64``),
 rebuilt and walked every step.
 
+``flagship_config(**GAS)`` on ``gas_ics(n)`` is gas-halo: bench.py's
+halo with a seeded random sixth of its particles made gas (type 0, the
+same positions, velocities and masses: a baryon fraction of 1/6, near the
+cosmic 0.16) on the lists, gravity plus SPH on the hash grid (``SphEngine
+cell``, the engine the phased step runs: ``auto`` would take the tree
+engine of ROADMAP item 12.2), no DSMC. ``SofteningGas`` is the halo's 0.3
+(one softening across types, so node eps_max stays a broadcast),
+``DesNumNgb 30`` is the flagship's, ``ArtBulkViscConst 0.75`` and
+``CourantFac 0.15`` are ``SimConfig``'s defaults, and ``InitGasTemp
+5e4`` K gives the gas that a Gadget IC writes with u = 0 a u of 620
+(km/s)^2, a sound speed of 26 km/s against the halo's v_max of about 46
+km/s. gas-small is the same on the single-program step
+(``mode="synchronized"``) at ``GAS_SMALL_N``.
+
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
 ``SIDMOn 0`` and ``TreeWalkEngine wq``, on the cached interaction lists
@@ -134,6 +148,13 @@ VELDISP = dict(VelDispOn=1, TypeOfTimestepCriterion=4)
 # flagship-vacuum: flagship_config(**VACUUM), the isolated halo's far field
 # on the free-space TreePM mesh (PMGrid 0: 256 at N = 1e6)
 VACUUM = dict(PMVacuum=1)
+
+# gas-halo: flagship_config(**GAS) on gas_ics(n), SPH on the hash grid
+GAS = dict(SphEngine="cell", SofteningGas=0.3, SofteningGasMaxPhys=0.3,
+           DesNumNgb=30, ArtBulkViscConst=0.75, CourantFac=0.15,
+           InitGasTemp=5e4)
+GAS_FRACTION = 1.0 / 6.0
+GAS_SMALL_N = 1 << 17   # gas-small, on the single-program step
 
 # small-halo: the single-program step's largest N (padded to 256)
 SMALL_N = (1 << 18) - 256
@@ -244,3 +265,15 @@ def cosmo_ics(n: int, seed: int = 12345, box: float = COSMO_BOX,
 def flagship_ics(n: int, seed: int = 12345):
     """(pos, vel, mass) numpy float64 of the N-particle NFW halo."""
     return ics.nfw(n, rho0=1.49e-4, rs=11.14356, G=43007.1, seed=seed)
+
+
+def gas_ics(n: int, seed: int = 12345):
+    """(pos, vel, mass, ptype) of gas-halo: ``flagship_ics(n, seed)`` with
+    a seeded random ``GAS_FRACTION`` of the particles of type 0 (gas), the
+    rest of type 1."""
+    import numpy as np
+    pos, vel, mass = flagship_ics(n, seed)
+    ptype = np.ones(n, np.int32)
+    rng = np.random.default_rng(seed + 1)
+    ptype[rng.permutation(n)[:int(round(n * GAS_FRACTION))]] = 0
+    return pos, vel, mass, ptype

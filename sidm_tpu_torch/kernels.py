@@ -1,5 +1,5 @@
 """Closed-form spline softening kernels and the SPH cubic spline
-(port of ``sidm_tpu/kernels.py:24-96``).
+(port of ``sidm_tpu/kernels.py:24-106``).
 
 Conventions (u = r/h, h = 2.8 eps, forcetree.c:834): the softened force on a
 unit-mass source is ``m * wf(u) / h^3 * dx`` for u < 1 and Newtonian
@@ -70,3 +70,13 @@ def sph_kernel(u):
     outer = (_EIGHT_OVER_PI * 2.0) * om * om * om
     w = torch.where(u < 0.5, inner, outer)
     return torch.where(u < 1.0, w, torch.zeros_like(w))
+
+
+def sph_kernel_deriv(u):
+    """dW/du of the cubic spline (begrun.c:980,986): W'(r;h) =
+    sph_kernel_deriv(r/h)/h^4; zero for u >= 1."""
+    inner = _EIGHT_OVER_PI * (-12.0 * u + 18.0 * u * u)
+    om = 1.0 - u
+    outer = _EIGHT_OVER_PI * (-6.0 * om * om)
+    d = torch.where(u < 0.5, inner, outer)
+    return torch.where(u < 1.0, d, torch.zeros_like(d))

@@ -31,7 +31,9 @@ decide alike:
   (``need`` > cap: the largest bucket count a query reached) and a query
   whose level is clipped to L - 1 (``clip``: its stencil no longer covers
   its ball; ROADMAP C). Both ops keep JAX's fixed ``cap`` and drop exactly
-  JAX's candidates; ``Simulation`` grows ``cap`` to the demand.
+  JAX's candidates; ``Simulation`` grows ``cap`` to the demand
+  (``grown_cap``) and, for the velocity-dispersion and SPH grids, the
+  levels (``grown_levels``).
 """
 
 from __future__ import annotations
@@ -45,9 +47,27 @@ from ..rng import M32, mul32
 
 PAYLOAD_DIM = 8
 MAX_K = 128             # csrc/hash_knn.cu kMaxK: the k-list of a warp
+MAX_LEVELS = 24         # the most levels a grown grid takes
 
 _STENCIL = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
             for dz in (-1, 0, 1)]
+
+
+def grown_cap(cap: int, need: int) -> int:
+    """Rows per bucket for the pass after one whose largest bucket held
+    ``need`` rows: ``need`` rounded up to 32 where it is past ``cap``."""
+    return int(cap) if need <= cap else -(-int(need) // 32) * 32
+
+
+def grown_levels(levels: int, clip: int, ratio: float) -> int:
+    """Levels for the grid after a pass that clipped ``clip`` queries'
+    levels: enough that the last level's cells s0 2^(L-1) reach the
+    largest radius (``ratio`` = that radius / s0) with one level to spare,
+    at least one more than ``levels``, at most MAX_LEVELS."""
+    if not clip:
+        return int(levels)
+    want = max(levels + 1, int(np.ceil(np.log2(max(ratio, 1.0)))) + 2)
+    return max(int(levels), min(want, MAX_LEVELS))
 
 
 class NeighborTable(NamedTuple):

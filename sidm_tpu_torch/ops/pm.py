@@ -344,19 +344,34 @@ def build_pm_kernel_free(center, radius: float, n: int = 128,
     return kern._replace(pot_self=float(pot[0]))
 
 
+def _region_coords(kern: PMKernelFree, pos):
+    """Positions relative to the free-space region's corner, and the same
+    clamped 1.6 cells inside it (the region's margin keeps real particles
+    2 cells in: only escapers move)."""
+    h = kern.box / kern.n
+    q0 = pos.to(torch.float32) - kern.origin[None, :]
+    return q0, torch.clamp(q0, 1.6 * h, kern.box - 1.6 * h)
+
+
+def count_clamped(kern: PMKernelFree, pos, mass):
+    """The particles of mass > 0 that ``pm_accel_free``'s clamp moves into
+    the region, whose mesh force is then taken at the clamp point (a 0-d
+    int64 tensor; JAX's clamp counts nothing: ROADMAP C.22)."""
+    q0, q = _region_coords(kern, pos)
+    return torch.sum(torch.any(q != q0, dim=1) & (mass > 0))
+
+
 def pm_accel_free(kern: PMKernelFree, pos, mass, *,
                   with_potential: bool = False):
     """Long-range acceleration (and potential) of an isolated particle set
     on the free-space mesh, with ``pm_accel``'s conventions (raw units, the
     mesh self term left in pot). Positions are clamped 1.6 cells inside
-    the region first (the region's margin keeps real particles 2 cells in:
-    only escapers move)."""
+    the region first (``count_clamped`` counts the particles it moves)."""
     n, L = kern.n, kern.box
     m = 2 * n
     h = L / n
     dtype = pos.dtype
-    q = torch.clamp(pos.to(torch.float32) - kern.origin[None, :], 1.6 * h,
-                    L - 1.6 * h)
+    q = _region_coords(kern, pos)[1]
     s = (m, m, m)
     r1 = torch.fft.rfftn(cic_deposit(q, mass, L, n), s=s)
     r2 = (torch.fft.rfftn(cic_deposit(q + 0.5 * h, mass, L, n), s=s)

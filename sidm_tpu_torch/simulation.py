@@ -21,7 +21,12 @@ comoving and periodic terms :1550-1575; the free-space TreePM mesh
 ``_use_vacuum_pm`` :216-222 and ``_pm_kernel_free`` :224-252 on the phased
 step :506-514; the per-pair Ewald walk of ``PMGrid -1``, ``tree_gravity``
 of ``_make_force_fn`` :333-344 and the phased step's ``eval_targets``
-:616-632 with the DSMC walk on its tree :1242-1253).
+:616-632 with the DSMC walk on its tree :1242-1253; SPH on the hash grid:
+``_sph_params`` :360, the single-program step's gas half :416-433, the
+phased step's ``phase_gas`` under ``SphEngine cell`` :675-723 and
+:1265-1269, ``_check_ngb_overflow`` :1370, the gas parts of ``load_ic``
+:130-144 and ``write_snapshot_file`` :1536-1543, gas turning the lists'
+drift mode off :526-528, :1000-1001).
 
 A periodic box (``PeriodicBoundariesOn 1``) runs TreePM on ``ForceMethod
 tree`` (``PMGrid`` >= 0, 0 choosing the mesh by N): the walk's periodic
@@ -117,6 +122,17 @@ the initial smoothing lengths by ``tree_hsml_init_fused``.
 With ``VelDispOn 1`` the velocity-dispersion pass follows the force on
 both steps (JAX runs it right after the force phase).
 
+Gas (type 0) takes the SPH pass (``ops/sph.py``) after the force and the
+DSMC pass on both steps, on the force phase's predicted positions and
+velocities: the density pass (the active gas's smoothing lengths, rho, div
+v, curl v and their rates) and the hydro force (the pressure and viscous
+acceleration added, du/dt set, where gas and active), with the pass's
+rows per bucket and grid levels grown to its demand. The single-program
+step runs it whatever ``SphEngine`` says; the phased step under
+``SphEngine cell``, and it refuses the tree engine (``fused``, or
+``auto`` with ``ForceMethod tree``; ROADMAP.md A, item 12.2). With gas
+the list steps refresh the tree's moments instead of drifting its nodes.
+
 Then: kick factors -> DKD advance (which applies the scattering kicks) ->
 reflection -> new timesteps (the global minimum unless
 ``mode="individual"``). Tensors live on the device given at construction
@@ -153,7 +169,8 @@ import torch
 from . import integrate, timestep
 from .config import ParameterError, SimConfig, Units, \
     parse_parameter_file, set_units, write_parameters_out
-from .constants import MAX_REAL_NUMBER
+from .constants import (BOLTZMANN_CGS, GAMMA_MINUS1, MAX_REAL_NUMBER,
+                        PROTONMASS_CGS)
 from .diagnostics import (CpuLog, EnergyLog, InfoLog, Timer, TimingsLog,
                           compute_system_state, system_state_to_host)
 from .integrate import StepConsts
@@ -168,10 +185,11 @@ from .ops.list_force import (ListConfig, advance_tree, eval_lists,
 from .ops.list_range import (RangeListConfig,
                              record_candidates_from_particles,
                              sidm_scatter_lists)
-from .ops.neighbors import setup_smoothing_lengths
-from .ops.pm import (build_pm_kernel, build_pm_kernel_free, pm_accel,
-                     pm_accel_free)
+from .ops.neighbors import grown_cap, grown_levels, setup_smoothing_lengths
+from .ops.pm import (build_pm_kernel, build_pm_kernel_free, count_clamped,
+                     pm_accel, pm_accel_free)
 from .ops.sidm import SidmParams, make_sidm_step, sidm_params
+from .ops.sph import SphParams, grown_pass
 from .ops.tree import build_octree, refresh_octree
 from .ops.veldisp import veldisp
 from .ops.wq_force import wq_gravity, wq_gravity_tree
@@ -200,8 +218,7 @@ def _refuse(what: str, item: str):
 
 
 MODES = ("synchronized", "phased", "fused", "individual")
-VD_LEVELS = 10      # the velocity-dispersion grid's levels, JAX's
-MAX_VD_LEVELS = 24
+HASH_LEVELS = 10    # the velocity-dispersion and SPH grids' levels, JAX's
 
 
 def check_supported(cfg: SimConfig, mode: str, device: torch.device):
@@ -353,13 +370,20 @@ class Simulation:
         self.last_sidm_info = None
         self.last_hsml_init = None
         self._hash_cap = SidmParams._field_defaults["cap"]   # JAX's 96
-        self._vd_levels = VD_LEVELS
+        self._vd_levels = HASH_LEVELS
         self.last_veldisp_info = None
+        self._sph_cap = SphParams._field_defaults["cap"]     # JAX's 96
+        self._sph_levels = HASH_LEVELS
+        self.last_sph_info = None
+        self.ngb_overflow_total = 0     # SPH queries that still dropped
+        self._gas_of = None             # the ptype tensor _has_gas read
+        self._gas_present = False
         self._small_depth = None
         self._hash_step = None
         self._ewald = None
         self._pm = None
         self._pm_free = None
+        self._pm_clamp_warned = False
         # list steps whose validity monitor ended the cycle only because a
         # particle was wrapped onto the box since the record
         self.wrap_records = 0
@@ -392,20 +416,26 @@ class Simulation:
         return sim
 
     def set_particles_from_arrays(self, pos, vel, mass, ptype, pid=None,
-                                  pad_to_multiple: int = 256):
-        if np.any(np.asarray(ptype) == 0):
-            _refuse("gas particles (SPH)", "A, item 12")
-        p = make_particles(pos, vel, mass, ptype, pid=pid,
+                                  pad_to_multiple: int = 256,
+                                  egy_spec=None):
+        """The particles from host arrays (``egy_spec``: the gas's specific
+        internal energy, 0 where not given). Gas on the phased step with
+        the tree SPH engine (``SphEngine fused``, or ``auto`` with
+        ``ForceMethod tree``) is refused."""
+        p = make_particles(pos, vel, mass, ptype, pid=pid, egy_spec=egy_spec,
                            pad_to_multiple=pad_to_multiple, dtype=self.dtype,
                            device=self.device)
         self.particles = self._init_particle_times(p)
+        self._check_sph_engine()
 
     def load_ic(self, path: Optional[str] = None):
         """read_ic (nbody/read_ic.c): a Gadget snapshot (``ICFormat 1``) or
         ZIC cluster ICs (``ICFormat 3``, not on restart flag 2) as initial
         conditions, the path ``InitCondFile`` beside ``OutputDir`` as JAX
         joins it. Restart flag 2 takes the time from the snapshot header
-        (read_ic.c:118-121). Gas is refused."""
+        (read_ic.c:118-121). The gas's u is the snapshot's, with
+        ``InitGasTemp`` for gas at u = 0 on restart flag 0 (ZIC ICs carry
+        no gas)."""
         path = path or os.path.join(os.path.dirname(self.cfg.OutputDir),
                                     self.cfg.InitCondFile)
         if self.cfg.ICFormat == 3 and self.restart_flag != 2:
@@ -417,8 +447,22 @@ class Simulation:
         snap = read_snapshot(path)
         if self.restart_flag == 2:
             self.time = float(snap.header.time)
+        u = None
+        if snap.u is not None:
+            # the u block holds the gas, which the type-sorted snapshot
+            # lists first (JAX passes it as it is, ROADMAP C.23)
+            u = np.zeros(len(snap.ptype), np.float64)
+            u[snap.ptype == 0] = snap.u
+            if self.restart_flag == 0 and self.cfg.InitGasTemp > 0:
+                # read_ic.c:449-467: gas whose IC energy is exactly zero
+                # starts at InitGasTemp (JAX simulation.py:130-140)
+                u_init = ((1.0 / GAMMA_MINUS1)
+                          * (BOLTZMANN_CGS / PROTONMASS_CGS)
+                          * self.cfg.InitGasTemp * self.units.UnitMass_in_g
+                          / self.units.UnitEnergy_in_cgs)
+                u = np.where((snap.ptype == 0) & (u == 0), u_init, u)
         self.set_particles_from_arrays(snap.pos, snap.vel, snap.mass,
-                                       snap.ptype, pid=snap.pid)
+                                       snap.ptype, pid=snap.pid, egy_spec=u)
 
     def check_omega(self):
         """init.c:201-225: the box's mass must account for Omega0 (comoving
@@ -585,6 +629,27 @@ class Simulation:
             _refuse_phased_direct()
         return phased
 
+    def _has_gas(self) -> bool:
+        """Gas among the particles (read once per particle set)."""
+        pt = self.particles.ptype
+        if self._gas_of is not pt:
+            self._gas_of, self._gas_present = pt, bool(torch.any(pt == 0))
+        return self._gas_present
+
+    def _check_sph_engine(self):
+        """JAX's SPH rule (simulation.py:675-690): the single-program step
+        runs the hash engine whatever ``SphEngine`` says; the phased step
+        runs it under ``SphEngine cell``, and the tree engine
+        (``fused_sph.py``) under ``fused``, or ``auto`` with ``ForceMethod
+        tree``: refused, never replaced by the hash engine."""
+        cfg = self.cfg
+        if self._has_gas() and self._use_phased() and (
+                cfg.SphEngine == "fused" or (cfg.SphEngine == "auto"
+                                             and cfg.ForceMethod == "tree")):
+            _refuse(f"gas on the phased step with SphEngine {cfg.SphEngine} "
+                    f"(the tree SPH engine, ops/fused_sph.py)",
+                    "A, item 12.2")
+
     def _check_uniform_eps(self) -> bool:
         """One softening value across the particle types present: node
         eps_max is then a broadcast (simulation.py:539-554)."""
@@ -614,7 +679,7 @@ class Simulation:
         predict; the force (the wq walk, ``ForceMethod tree``, or the
         direct sum, ``direct``); the kick factors; the velocity-dispersion
         pass (``VelDispOn 1``); the hash engine's DSMC pass (``SIDMOn 1``);
-        advance, reflection and the timesteps."""
+        the SPH pass (gas); advance, reflection and the timesteps."""
         cfg, consts = self.cfg, self.consts
         params = self._timestep_params()
         clock = _PhaseClock(self.device)
@@ -644,6 +709,7 @@ class Simulation:
             p, n_scat = self._sidm_hash(p, pos_pred, t_next, active, vmax,
                                         key)
             clock.mark("sidm")
+        p = self._sph(p, pos_pred, vel_pred, t_next, active, clock)
         return self._finish(p, t_next, active, vmax, params, first, clock,
                             n_scat)
 
@@ -712,6 +778,7 @@ class Simulation:
     def _step_phased(self, first: bool):
         """The phased step (see the module docstring)."""
         cfg, consts = self.cfg, self.consts
+        self._check_sph_engine()
         if self._uniform_eps is None:
             self._uniform_eps = self._check_uniform_eps()
         params = self._timestep_params()
@@ -736,11 +803,14 @@ class Simulation:
         reuse = (not first and self._refresh_left > 0 and ewald is None
                  and self._tree_cache is not None
                  and (not use_lists or self._lists_cache is not None))
-        info, kind, md = None, "walk", None
+        info, kind, md, pm_clamped = None, "walk", None, None
         ovf = need = None
         box = self._box()
         pbc = self._phased_pbc()
-        drift_mode = use_lists and not cfg.ComovingIntegrationOn
+        # gas runs refresh the moments instead of the node drift, as comoving
+        # runs do (JAX simulation.py:526-528, 1000-1001)
+        drift_mode = (use_lists and not cfg.ComovingIntegrationOn
+                      and not self._has_gas())
         if reuse and use_lists:
             # cached lists on the advanced rebuild-time tree (comoving runs:
             # on a moments refresh, JAX simulation.py:520-526; in a box it
@@ -834,10 +904,18 @@ class Simulation:
             clock.mark("pm")
         elif self._use_vacuum_pm():
             # the free-space mesh's long range (JAX's pm_fn, simulation.py:
-            # 506-514): the acceleration only, as the phased step needs
+            # 506-514): the acceleration only, as the phased step needs,
+            # and the particles its clamp moved (ROADMAP C.22)
             clock.mark("force")
-            raw_acc = raw_acc + pm_accel_free(self._pm_kernel_free(),
-                                              pos_pred, mass)[0]
+            kern = self._pm_kernel_free()
+            raw_acc = raw_acc + pm_accel_free(kern, pos_pred, mass)[0]
+            pm_clamped = int(count_clamped(kern, pos_pred, mass))
+            if pm_clamped and not self._pm_clamp_warned:
+                self._pm_clamp_warned = True
+                print(f"WARNING: {pm_clamped} particles lie outside the "
+                      f"free-space mesh's region: their mesh force is taken "
+                      f"at its edge (counted in last_list_info"
+                      f"['pm_clamped']).", file=sys.stderr, flush=True)
             clock.mark("pm")
         accel, old_acc = integrate.apply_accel_postfactors(
             raw_acc, pos_pred, vel_pred, t_next, consts)
@@ -848,7 +926,7 @@ class Simulation:
         self.last_step_rebuilt = not reuse
         self.last_walk_info = info
         self.last_list_info = (dict(kind=kind, skin=self._skin_now, md=md,
-                                    ovf=ovf, need=need)
+                                    ovf=ovf, need=need, pm_clamped=pm_clamped)
                                if cfg.ListMode else None)
         if not use_lists and self._refresh_left > 0:
             # walk only: early rebuild once the guard inflation reaches a
@@ -870,6 +948,8 @@ class Simulation:
                            0x7FFFFFFF if first else self.step_count)
             p, n_scat = self._sidm(p, pos_pred, tree, t_next, active, vmax,
                                    key, use_lists, clock)
+        # the gas phase on the force phase's predictions (JAX :1265-1269)
+        p = self._sph(p, pos_pred, vel_pred, t_next, active, clock)
         return self._finish(p, t_next, active, vmax, params, first, clock,
                             n_scat)
 
@@ -988,15 +1068,35 @@ class Simulation:
         clock.mark("sidm")
         return p, n_scat
 
-    def _grow_hash_cap(self, need: int, what: str) -> bool:
-        """Grow the hash engine's rows per bucket to ``need`` (rounded up to
-        32) when it is past the cap and growth is on; True if it grew."""
-        if not self.HASH_CAP_GROWTH or need <= self._hash_cap:
+    def _grow_hash_cap(self, need: int, what: str,
+                       attr: str = "_hash_cap") -> bool:
+        """Grow a hash pass's rows per bucket (``attr``: the DSMC and
+        velocity-dispersion passes' ``_hash_cap``, the SPH pass's
+        ``_sph_cap``) to ``need`` (rounded up to 32) when it is past the
+        cap and growth is on; True if it grew."""
+        old = getattr(self, attr)
+        if not self.HASH_CAP_GROWTH or need <= old:
             return False
-        old, self._hash_cap = self._hash_cap, self._round_cap(need, 32)
+        setattr(self, attr, grown_cap(old, need))
         print(f"NOTE: the hash grid's {what} reached a bucket of {need} "
-              f"rows past cap {old}: cap -> {self._hash_cap}, pass redone.",
-              file=sys.stderr, flush=True)
+              f"rows past cap {old}: cap -> {getattr(self, attr)}, pass "
+              f"redone.", file=sys.stderr, flush=True)
+        return True
+
+    def _grow_levels(self, clip: int, ratio: float, what: str,
+                     attr: str) -> bool:
+        """After a pass that clipped ``clip`` queries' levels, grow the
+        grid's levels (``attr``) so that the last level's cells s0
+        2^(L-1) reach the largest radius (``ratio`` = that radius / s0),
+        with one level to spare for the redone pass; True if they grew."""
+        old = getattr(self, attr)
+        want = grown_levels(old, clip, ratio)
+        if not self.HASH_CAP_GROWTH or want == old:
+            return False
+        print(f"NOTE: the {what} clipped {clip} queries' levels at {old} "
+              f"levels: levels -> {want}, pass redone.", file=sys.stderr,
+              flush=True)
+        setattr(self, attr, want)
         return True
 
     def _sidm_hash(self, p, pos_pred, t_next, active, vmax, key):
@@ -1058,19 +1158,8 @@ class Simulation:
                 torch.mean(rows), torch.max(rows)]).tolist()
             need, ovf, clip = int(need), int(ovf), int(clip)
             grew = self._grow_hash_cap(need, "velocity-dispersion pass")
-            if clip and self.HASH_CAP_GROWTH:
-                # the last level's cells s0 2^(L-1) must reach the largest
-                # radius, with one level to spare for the redone pass
-                want = min(max(self._vd_levels + 1,
-                               int(np.ceil(np.log2(max(ratio, 1.0)))) + 2),
-                           MAX_VD_LEVELS)
-                if want > self._vd_levels:
-                    print(f"NOTE: the velocity-dispersion pass clipped "
-                          f"{clip} queries' levels at {self._vd_levels} "
-                          f"levels: levels -> {want}, pass redone.",
-                          file=sys.stderr, flush=True)
-                    self._vd_levels = want
-                    grew = True
+            grew = self._grow_levels(clip, ratio, "velocity-dispersion pass",
+                                     "_vd_levels") or grew
             if tries == self.HASH_TRIES or not grew:
                 break
         if ovf or clip:
@@ -1085,6 +1174,58 @@ class Simulation:
             rows_max=int(rows_max))
         clock.mark("veldisp")
         return q
+
+    def _sph_params(self) -> SphParams:
+        cfg = self.cfg
+        return SphParams(
+            des_num_ngb=cfg.DesNumNgb,
+            max_num_ngb_dev=cfg.MaxNumNgbDeviation,
+            art_bulk_visc=cfg.ArtBulkViscConst,
+            min_egy_spec=self.units.MinEgySpec,
+            min_gas_hsml=cfg.MinGasHsmlFractional * cfg.SofteningGas,
+            comoving=bool(cfg.ComovingIntegrationOn),
+            hubble=self.units.Hubble, omega0=cfg.Omega0,
+            omega_lambda=cfg.OmegaLambda)
+
+    def _sph(self, p, pos_pred, vel_pred, t_next, active, clock):
+        """The SPH pass (gas only; JAX's density() and hydro_force(), the
+        gas half of compute_accelerations, accel.c:71-116): ``grown_pass``
+        (``sph_density``, kernels H1 and H5, then ``hydro_force``, H6) at
+        the force phase's predicted positions and velocities, its rows per
+        bucket (``_sph_cap``) and its grid's levels (``_sph_levels``) grown
+        to the pass's demand, up to HASH_TRIES passes, and kept for the
+        next step. What still drops is warned about and counted
+        (``ngb_overflow_total``). Adds the hydro acceleration and sets
+        dt_egy where gas and active; returns the particles, the pass's
+        numbers in ``last_sph_info``."""
+        if not self._has_gas():
+            self.last_sph_info = None
+            return p
+        old = (self._sph_cap, self._sph_levels)
+        r = grown_pass(p, pos_pred, vel_pred, t_next, active,
+                       self._sph_params(), box=self._box(), cap=old[0],
+                       n_levels=old[1], tries=self.HASH_TRIES,
+                       grow=self.HASH_CAP_GROWTH)
+        self._sph_cap, self._sph_levels = r.cap, r.levels
+        s = r.stats
+        if (r.cap, r.levels) != old:
+            print(f"NOTE: the hash grid's SPH pass outgrew cap {old[0]} or "
+                  f"{old[1]} levels: cap -> {r.cap}, levels -> {r.levels}, "
+                  f"{r.tries} passes.", file=sys.stderr, flush=True)
+        if s["ngb_ovf"] or s["lvl_clip"]:
+            self.ngb_overflow_total += s["ngb_ovf"] + s["lvl_clip"]
+            print(f"WARNING: the SPH pass still read {s['ngb_ovf']} buckets "
+                  f"past its cap and clipped {s['lvl_clip']} levels after "
+                  f"{r.tries} passes this step (pairs dropped; cap now "
+                  f"{r.cap}, levels {r.levels}).", file=sys.stderr,
+                  flush=True)
+        self.last_sph_info = dict(
+            cap=r.cap, levels=r.levels, tries=r.tries,
+            queries=r.dinfo["queries"], hydro_queries=r.hinfo["queries"],
+            **s)
+        clock.mark("gas")
+        return dataclasses.replace(r.p, accel=r.p.accel + r.acc,
+                                   dt_egy=r.dt_egy)
 
     def _sidm_walk(self, p, pos_pred, tree, t_next, active, vmax, key,
                    params, info, clock):
@@ -1418,6 +1559,7 @@ class Simulation:
             self.cpu_log.add("Sidm", ph.get("sidm", 0.0)
                              + ph.get("veldisp", 0.0))
             self.cpu_log.add("EnsureNgb", ph.get("sidmrec", 0.0))
+            self.cpu_log.add("Hydro", ph.get("gas", 0.0))
             self.cpu_log.add("TimeLine", ph.get("finish", 0.0))
             self.cpu_log.add("Predict", max(step_wall - sum(ph.values()),
                                             0.0))
@@ -1468,7 +1610,8 @@ class Simulation:
 
     def write_snapshot_file(self, count: int):
         """``<OutputDir>/<SnapshotFileBase>_<count>``: the valid particles
-        predicted to the current time (io.c savepositions)."""
+        predicted to the current time, and the gas's u, rho and hsml (io.c
+        savepositions)."""
         p = self.particles
         valid = p.valid.cpu().numpy()
         pos, vel = self._predicted_host_state()
@@ -1479,10 +1622,16 @@ class Simulation:
                            box_size=self.cfg.BoxSize, omega0=self.cfg.Omega0,
                            omega_lambda=self.cfg.OmegaLambda,
                            hubble_param=self.cfg.HubbleParam)
+        ptype = p.ptype.cpu().numpy()[valid]
+        # the gas's u, rho and hsml blocks (JAX simulation.py:1536-1543):
+        # gas comes first in the state, as the Gadget reader orders it
+        gas = {f: getattr(p, k).cpu().numpy()[valid][ptype == 0]
+               for f, k in (("u", "egy_spec"), ("rho", "density"),
+                            ("hsml", "hsml"))} if np.any(ptype == 0) else {}
         snap = Snapshot(header=hdr, pos=pos[valid], vel=vel[valid],
                         pid=p.pid.cpu().numpy()[valid].astype(np.uint32),
-                        mass=p.mass.cpu().numpy()[valid],
-                        ptype=p.ptype.cpu().numpy()[valid])
+                        mass=p.mass.cpu().numpy()[valid], ptype=ptype,
+                        **gas)
         base = os.path.join(self.cfg.OutputDir,
                             f"{self.cfg.SnapshotFileBase}_{count:03d}")
         return write_snapshot(base, snap,

@@ -2813,6 +2813,214 @@ def jax_ewald_walk() -> dict:
     return out
 
 
+# ---- SPH on the hash grid ---------------------------------------------------
+
+SPH_GOLDEN = os.path.join(_DATA, "torch_sph_golden.npz")
+SPH_STEPS_GOLDEN = os.path.join(_DATA, "torch_sph_steps_golden.npz")
+# tests/test_sph.py's SphParams (its block of 256 is JAX's alone)
+SPH_PARAMS = dict(des_num_ngb=32, max_num_ngb_dev=2, art_bulk_visc=0.75,
+                  min_egy_spec=0.0, min_gas_hsml=0.0, comoving=False,
+                  hubble=0.1, omega0=0.0, omega_lambda=0.0, cap=128)
+# tests/test_sph.py's four inputs (``d`` density, ``s`` symmetry, ``c`` the
+# clump, ``v`` the converging flows) and ``x``: a periodic comoving box
+# (a clump across its corner, a fifth of the particles dark matter,
+# padding, warm smoothing lengths and gas state, 60 % active)
+SPH_TAGS = ("d", "s", "c", "v", "x")
+SPH_X = dict(n=500, n_dm=100, pad=512, box=1.0, a=0.5, dt=0.1, seed=9,
+             active=0.6)
+SPH_DENS_FIELDS = ("hsml", "density", "div_vel", "curl_vel", "dt_density",
+                   "dt_hsml", "ngb_sph")
+# tests/test_phased_mode.py::test_phased_gas_matches_synchronized on the wq
+# walk: a Plummer sphere, half gas, 3 steps on each step
+SPH_STEPS_CONFIG = dict(
+    GravityConstantInternal=1.0, UnitLength_in_cm=1.0, UnitMass_in_g=1.0,
+    UnitVelocity_in_cm_per_s=1.0, ForceMethod="tree",
+    TypeOfTimestepCriterion=0, ErrTolIntAccuracy=0.05, CourantFac=0.15,
+    MaxSizeTimestep=0.01, TimeBegin=0.0, TimeMax=0.03, SofteningGas=0.05,
+    SofteningGasMaxPhys=0.05, SofteningHalo=0.05, SofteningHaloMaxPhys=0.05,
+    DesNumNgb=16, MaxNumNgbDeviation=2, InitGasTemp=100.0, SphEngine="cell",
+    TreeWalkEngine="wq")
+SPH_STEPS = dict(n=1024, seed=3, pad=256, steps=3)
+SPH_STEPS_MODES = {"s": "synchronized", "p": "phased"}
+SPH_STEP_FIELDS = ("pos", "vel", "egy_spec", "hsml", "density", "accel",
+                   "dt_egy", "max_pred_time")
+# the gas CLI run: gas-halo's settings on gas_ics(GAS_CLI["n"]), from a
+# Gadget IC whose gas has u = 0 (InitGasTemp applies)
+GAS_CLI = dict(n=512, seed=21, time_max=8e-4, max_dt=0.01)
+
+
+def sph_steps_ptype(n: int):
+    return np.where(np.arange(n) < n // 2, 0, 1).astype(np.int32)
+
+
+def gas_cli_config(**changes) -> dict:
+    from sidm_tpu_torch.flagship import GAS
+    return {**FLAGSHIP, **LISTS, **GAS, "TimeMax": GAS_CLI["time_max"],
+            "MaxSizeTimestep": GAS_CLI["max_dt"], **changes}
+
+
+def gas_cli_ic(snapshot_cls, header_cls):
+    """The gas CLI run's Gadget IC as a package's ``Snapshot`` (type
+    sorted; the gas's u 0)."""
+    from sidm_tpu_torch.flagship import gas_ics
+    pos, vel, mass, ptype = gas_ics(GAS_CLI["n"], GAS_CLI["seed"])
+    order = np.argsort(ptype, kind="stable")
+    n = len(order)
+    npart = np.bincount(ptype, minlength=6).astype(np.int32)
+    return snapshot_cls(
+        header=header_cls(npart=npart, npart_total=npart.copy()),
+        pos=pos[order].astype(np.float32), vel=vel[order].astype(np.float32),
+        pid=np.arange(1, n + 1, dtype=np.uint32),
+        mass=mass[order].astype(np.float32), ptype=ptype[order],
+        u=np.zeros(int(npart[0]), np.float32))
+
+
+def sph_inputs(tag: str) -> dict:
+    """The SPH ops' input ``tag`` as numpy: make_particles' ``pos``,
+    ``vel``, ``mass``, ``ptype``, ``egy_spec`` and ``pad``; ``state``
+    (fields to set after make_particles), ``time``, ``active`` (padded),
+    the SphParams ``params`` changes and ``box``."""
+    def box_case(n, seed):
+        rng = np.random.default_rng(seed)
+        return rng, rng.uniform(0, 1, (n, 3)), rng.normal(0, 0.1, (n, 3))
+
+    state, params, box, egy = {}, {}, 0.0, 1.0
+    if tag in ("d", "s"):
+        n = 400 if tag == "d" else 300
+        _, pos, vel = box_case(n, 1 if tag == "d" else 2)
+    elif tag == "c":
+        n = 256
+        rng = np.random.default_rng(3)
+        pos = rng.uniform(0, 1, (n, 3))
+        pos[:64] = 0.5 + rng.normal(0, 0.02, (64, 3))
+        vel = np.zeros((n, 3))
+    elif tag == "v":
+        n = 400
+        rng = np.random.default_rng(4)
+        pos = rng.uniform(0, 1, (n, 3))
+        vel = np.zeros((n, 3))
+        vel[:, 0] = np.where(pos[:, 0] < 0.5, 1.0, -1.0)
+        egy = 0.01
+    else:
+        x = SPH_X
+        n, box = x["n"], x["box"]
+        rng = np.random.default_rng(x["seed"])
+        pos = rng.uniform(0, box, (n, 3))
+        pos[:150] = (0.9 * box + rng.normal(0, 0.05, (150, 3))) % box
+        vel = rng.normal(0, 0.2, (n, 3))
+        npad = x["pad"]
+        ng = n - x["n_dm"]
+
+        def pad(a):
+            out = np.zeros(npad)
+            out[:n] = a
+            return out
+
+        egy = rng.uniform(0.5, 1.5, n)
+        state = dict(
+            current_time=np.full(npad, x["a"] - 0.5 * x["dt"]),
+            hsml=pad(np.where(np.arange(n) < ng,
+                              rng.uniform(0.05, 0.2, n), 0.0)),
+            density=pad(rng.uniform(0.5, 2.0, n)),
+            div_vel=pad(rng.normal(0, 1.0, n)),
+            curl_vel=pad(rng.uniform(0, 1.0, n)))
+        active = np.zeros(npad, bool)
+        active[:n] = rng.random(n) < x["active"]
+        ptype = np.where(np.arange(n) < ng, 0, 1).astype(np.int32)
+        params = dict(comoving=True, omega0=0.3, omega_lambda=0.7)
+        return dict(pos=pos, vel=vel, mass=np.full(n, 1.0 / n), ptype=ptype,
+                    egy_spec=egy, pad=npad, state=state, time=x["a"],
+                    active=active, params=params, box=box)
+    return dict(pos=pos, vel=vel, mass=np.full(n, 1.0 / n),
+                ptype=np.zeros(n, np.int32), egy_spec=np.full(n, egy),
+                pad=n, state=state, time=0.05, active=np.ones(n, bool),
+                params=params, box=box)
+
+
+def jax_sph_ops() -> dict:
+    """JAX's ``sph_density`` and ``hydro_force`` on each of SPH_TAGS
+    (``{tag}_``): the density pass's fields, the hydro acc and dt_egy,
+    and both passes' overflow counts."""
+    import dataclasses
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops.sph import SphParams, hydro_force, sph_density
+    from sidm_tpu.state import make_particles
+
+    out = {}
+    for tag in SPH_TAGS:
+        x = sph_inputs(tag)
+        p = make_particles(x["pos"], x["vel"], x["mass"], x["ptype"],
+                           egy_spec=x["egy_spec"], pad_to_multiple=x["pad"])
+        p = dataclasses.replace(p, **{
+            k: jnp.asarray(v, getattr(p, k).dtype)
+            for k, v in x["state"].items()})
+        t = jnp.float32(x["time"])
+        active = jnp.asarray(x["active"]) & p.valid
+        prm = SphParams(**{**SPH_PARAMS, **x["params"], "block": 256})
+        p2, table, ovf = sph_density(p, p.pos, p.vel, t, active, prm,
+                                     box=x["box"])
+        acc, dt_egy, ovf_h = hydro_force(p2, p.pos, p.vel, t, active, prm,
+                                         table, box=x["box"])
+        for f in SPH_DENS_FIELDS:
+            out[f"{tag}_{f}"] = np.asarray(getattr(p2, f))
+        out[f"{tag}_acc"] = np.asarray(acc)
+        out[f"{tag}_dt_egy"] = np.asarray(dt_egy)
+        out[f"{tag}_ovf"] = np.int64(ovf)
+        out[f"{tag}_ovf_h"] = np.int64(ovf_h)
+    return out
+
+
+def jax_sph_steps() -> dict:
+    """The JAX Simulation on SPH_STEPS_CONFIG in each of SPH_STEPS_MODES
+    (``{tag}{k}_``, after prepare and each step); whether JAX's ``load_ic``
+    raises on the gas CLI run's IC (``cli_mixed_raises``), and its
+    egy_spec on that IC's all-gas twin (``cli_gas_egy_spec``)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.io import ics
+    from sidm_tpu.io.gadget import GadgetHeader, Snapshot, write_snapshot
+    from sidm_tpu.simulation import Simulation
+
+    out = {}
+    n = SPH_STEPS["n"]
+    pos, vel, mass = ics.plummer(n, seed=SPH_STEPS["seed"])
+    for tag, mode in SPH_STEPS_MODES.items():
+        sim = Simulation(SimConfig(**SPH_STEPS_CONFIG), mode=mode,
+                         quiet=True)
+        sim.set_particles_from_arrays(pos, vel, mass, sph_steps_ptype(n),
+                                      pad_to_multiple=SPH_STEPS["pad"])
+        sim.prepare()
+        for k in range(SPH_STEPS["steps"] + 1):
+            if k:
+                sim.step()
+            for f in SPH_STEP_FIELDS:
+                out[f"{tag}{k}_{f}"] = np.asarray(getattr(sim.particles, f))
+            out[f"{tag}{k}_time"] = np.float64(sim.time)
+    # JAX's load_ic hands the u block (the gas's) to make_particles, which
+    # wants N values: it raises on an IC that holds gas and another type
+    # (ROADMAP C.23). Its InitGasTemp u is read on the IC's all-gas twin.
+    cfg = SimConfig(**gas_cli_config())
+    with tempfile.TemporaryDirectory() as d:
+        ic = os.path.join(d, "ic")
+        snap = gas_cli_ic(Snapshot, GadgetHeader)
+        write_snapshot(ic, snap)
+        try:
+            Simulation(cfg, quiet=True).load_ic(ic)
+            out["cli_mixed_raises"] = np.int64(0)
+        except ValueError:
+            out["cli_mixed_raises"] = np.int64(1)
+        snap.ptype = np.zeros_like(snap.ptype)
+        snap.u = np.zeros(len(snap.ptype), np.float32)
+        write_snapshot(ic, snap)
+        sim = Simulation(cfg, quiet=True)
+        sim.load_ic(ic)
+        out["cli_gas_egy_spec"] = np.asarray(sim.particles.egy_spec)
+    return out
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
@@ -2831,7 +3039,9 @@ GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "vacuum": (VACUUM_GOLDEN, jax_vacuum),
            "near": (NEAR_GOLDEN, jax_near),
            "foundation": (FOUNDATION_GOLDEN, jax_foundation),
-           "ewald_walk": (EWALD_WALK_GOLDEN, jax_ewald_walk)}
+           "ewald_walk": (EWALD_WALK_GOLDEN, jax_ewald_walk),
+           "sph": (SPH_GOLDEN, jax_sph_ops),
+           "sph_steps": (SPH_STEPS_GOLDEN, jax_sph_steps)}
 
 
 def main(names):

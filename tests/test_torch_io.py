@@ -285,8 +285,10 @@ def test_scatter_log_matches_jax_records(tmp_path):
 
 def test_load_ic_gadget_zic_and_gas_refused(tmp_path):
     """``Simulation.load_ic``: a Gadget file (ICFormat 1) and ZIC ICs
-    (ICFormat 3) become the particles JAX's readers give; gas is refused
-    as ``set_particles_from_arrays`` refuses it."""
+    (ICFormat 3) become the particles JAX's readers give; a gas IC loads
+    with the u block at its gas (the single-program step runs SPH), and is
+    refused on the phased step with ``SphEngine auto`` (the tree engine,
+    ROADMAP item 12.2)."""
     from sidm_tpu_torch.config import SimConfig
     snap = _snapshot(tgadget, gas=False)
     (path,) = tgadget.write_snapshot(str(tmp_path / "ic"), snap)
@@ -322,7 +324,19 @@ def test_load_ic_gadget_zic_and_gas_refused(tmp_path):
                                     _snapshot(tgadget, gas=True))
     sim = Simulation(SimConfig(InitCondFile=gas, TreeWalkEngine="wq"),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    sim.load_ic()
+    want = jgadget.read_snapshot(gas, use_native=False)
+    d = tstate.state_dict(sim.particles)
+    n, ng = want.n, int(want.header.npart[0])
+    for f in ("pos", "ptype"):
+        np.testing.assert_array_equal(d[f][:n], getattr(want, f), err_msg=f)
+    # the u block (gas first) at the gas, 0 elsewhere; JAX's load_ic hands
+    # the ng values to make_particles, which wants n (ROADMAP C.23)
+    np.testing.assert_array_equal(d["egy_spec"][:ng], want.u)
+    assert ng == 40 and not d["egy_spec"][ng:].any()
+    sim = Simulation(SimConfig(InitCondFile=gas, TreeWalkEngine="wq"),
+                     mode="phased", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12.2"):
         sim.load_ic()
 
 

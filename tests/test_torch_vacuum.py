@@ -27,7 +27,8 @@ tests/data/torch_vacuum_golden.npz (tests/make_torch_golden.py
   than a third;
 * the potential energy of the split (mesh plus the walk's screened pairs,
   the mesh's self term removed) within 1e-2 of JAX's direct sum's, that
-  test's bar.
+  test's bar;
+* the particles the region's clamp moves are counted (ROADMAP C.22).
 """
 
 import numpy as np
@@ -86,6 +87,22 @@ def test_pm_accel_free_matches_jax(golden, k):
     close(pot, golden[f"vm{k}_pot"], 1e-5)
     acc0, pot0 = pm.pm_accel_free(kern, pos, mass)
     assert torch.equal(acc0, acc) and not pot0.any()
+
+
+def test_count_clamped_particles():
+    """ROADMAP C.22: the particles of mass > 0 that pm_accel_free's clamp
+    moves into the region are counted (one far outside, one just past the
+    clamp plane; one massless outside is not); none of the input's own."""
+    kern, pos, mass, _ = kernel(2)
+    h = kern.box / kern.n
+    pos, mass = pos.clone(), mass.clone()
+    o = kern.origin
+    pos[0] = o + torch.tensor([kern.box * 2.0, 0.5 * kern.box, 0.0])
+    pos[1] = o + torch.tensor([0.5 * kern.box, 1.5 * h, 0.5 * kern.box])
+    pos[2] = o - 3.0 * kern.box
+    mass[2] = 0.0
+    assert int(pm.count_clamped(kern, pos, mass)) == 2
+    assert int(pm.count_clamped(kern, *kernel(2)[1:3])) == 0
 
 
 @pytest.mark.parametrize("last", [False, True])
