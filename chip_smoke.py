@@ -245,7 +245,28 @@ Phases (each asserts; any failure exits non-zero):
      device time, the top kernels); gas-small
      (the same at N = 2^17 on the single-program step) 3 steps; both
      kernels against their plain versions on a periodic comoving box of
-     2^17 gas particles (cosmo_ics, a = 0.1), with the oracle.
+     2^17 gas particles (cosmo_ics, a = 0.1), with the oracle;
+ 18. SPH on the tree: gas-halo-tree (``flagship_config(**GAS_TREE)``:
+     gas-halo with ``SphEngine auto``, JAX's default, which with
+     ``ForceMethod tree`` runs the tree engine ``ops/fused_sph.py`` on the
+     phased step) at N = 1e6 with 166667 gas from the same Gadget IC:
+     prepare and 4 steps (records and list steps on refreshed moments)
+     with each step's walls, its ``last_sph_info`` (the controller's
+     passes, the walks, their caps and drops) and |dE/E| < 1e-3 with the
+     thermal energy, no walk drop, launches of T1 (the range walk's hmax
+     mode), T2 (both modes), T3 and the density walk, none of H1, H5 or
+     H6; on its end state the next step's pass: both walks on all groups
+     bit-equal to the plain walk (T1 the hydro walk's), timed beside their
+     bounds; T2 on the controller's last count pass and on the density
+     pass and T3 on the hydro pass against their plain versions on 1023
+     groups with the 8 longest among them (counts equal, float64 sums
+     p99.9 of |a - b| / max(|b|, median |b|) <= 1e-12), timed on all groups
+     beside their bounds; the hash engine as the oracle at the tree
+     engine's smoothing lengths (H5's counts equal and rho within 1e-6
+     relative, H6's acc within 1e-6 of the largest); the hydro momentum
+     |sum m a| <= 1e-5 sum m |a|; one more step under torch.profiler; the
+     same kernel checks on phase 17's periodic comoving box of 2^17 gas
+     particles on its tree built on the box.
 Before the last line it prints one JSON object with the per-kernel results
 (``launches``: the sum over the main paths driven here, ``launches_by_path``:
 phase 5's ("lists"), phase 8's ("walk"), phase 9's ("dsmc"), phase 10's
@@ -254,7 +275,8 @@ phase 13's ("veldisp", "veldisp_individual", "dsmc_individual",
 "small_individual"), phase 14's ("cosmo", "periodic_direct",
 "lattice"), phase 15's ("cosmo_sidm", "cosmo_sidm_walk",
 "cosmo_veldisp", "cosmo_small"), phase 16's ("vacuum", "vacuum_walk",
-"ewald") and phase 17's ("gas", "gas_small") counts, each path's
+"ewald"), phase 17's ("gas", "gas_small") and phase 18's ("gas_tree")
+counts, each path's
 counters set to 0 just before it and read just after; the periodic modes
 as rows of their own, ``far_level_periodic``, ``far_list_periodic``,
 ``near_level_periodic``, ``direct_periodic`` and
@@ -267,7 +289,10 @@ Ewald modes ``far_level_ewald``, ``far_list_ewald``,
 the cosmo-box mesh solve's parts in ``cosmo_pm``;
 the DSMC and hash kernels' times on phase 15's runs in their rows'
 ``cosmo_*`` and ``cosmo_small_*`` keys, H5's and H6's (``sph_density``,
-``sph_hydro``) on the periodic comoving box in ``box_*`` keys; for far_list and
+``sph_hydro``) on the periodic comoving box in ``box_*`` keys, T1-T3's
+(``range_walk_hmax``, ``tree_density``, ``tree_density_count``,
+``tree_hydro``) in theirs and the density walk's in ``range_walk``'s
+``gas_tree_*`` and ``box_gas_tree_*``; for far_list and
 near_level ``full_ms`` and ``full_bound_ms`` on all groups of the lists, for near_level and far_list
 ``walk_ms`` and ``walk_bound_ms`` per walk, far_list's float64
 ``witness``, for far_level (walk and record modes) ``ms`` per walk on all
@@ -763,6 +788,8 @@ def main():
     from sidm_tpu_torch.ops.sidm import hash_scan
     from sidm_tpu_torch.ops.veldisp import veldisp_sums
     from sidm_tpu_torch.ops.sph import hydro_pairs, sph_density_sums
+    from sidm_tpu_torch.ops.fused_sph import (tree_density_sums,
+                                              tree_hydro_sums)
     from sidm_tpu_torch.ops.far_kernel import far_level
     from sidm_tpu_torch.ops.far_list import (far_list, far_list_plain,
                                              far_split, far_units,
@@ -1011,7 +1038,12 @@ def main():
                 "far_list_ewald": (far_list, "ewald_launches"),
                 "near_level_ewald": (near_level, "ewald_launches"),
                 "sph_density": (sph_density_sums, "launches"),
-                "sph_hydro": (hydro_pairs, "launches")}
+                "sph_hydro": (hydro_pairs, "launches"),
+                "range_walk_hmax": (far_level, "range_hmax_launches"),
+                "tree_density": (tree_density_sums, "launches"),
+                "tree_density_count": (tree_density_sums,
+                                       "count_launches"),
+                "tree_hydro": (tree_hydro_sums, "launches")}
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -1466,6 +1498,31 @@ def main():
     print(f"phase 17 (SPH on the hash grid): "
           f"{time.perf_counter() - t17:.1f} s [{card}]", flush=True)
 
+    # ---- SPH on the tree (gas-halo-tree) ------------------------------------
+    from sidm_tpu_torch.flagship import GAS_TREE
+    t18 = time.perf_counter()
+    zero_counts()
+    tsim, trows = gas_run(gas_n, GAS_TREE_STEPS, dev, card, "gas-halo-tree",
+                          changes=GAS_TREE)
+    gas_tree_launches = read_counts()
+    print(f"gas-halo-tree launches {gas_tree_launches} [{card}]", flush=True)
+    assert tsim._use_phased() and tsim.last_sph_info["engine"] == "tree"
+    assert {"record", "list"} <= {r["kind"] for r in trows}, trows
+    for key in ("range_walk", "range_walk_hmax", "tree_density",
+                "tree_density_count", "tree_hydro", "far_level_record",
+                "far_list", "near_level", "gather_nodes"):
+        assert gas_tree_launches[key] > 0, (key, gas_tree_launches)
+    for key in ("sph_density", "sph_hydro", "hash_knn"):
+        assert gas_tree_launches[key] == 0, (key, gas_tree_launches)
+    gas_tree_kernels(res, tsim, dev, card)
+    gas_breakdown(tsim, trows, card, "gas-halo-tree")
+    del tsim
+    torch.cuda.empty_cache()
+    gas_tree_box_kernels(res, TREE_BOX_N or gas_box_n, dev, card)
+    torch.cuda.empty_cache()
+    print(f"phase 18 (SPH on the tree): {time.perf_counter() - t18:.1f} s "
+          f"[{card}]", flush=True)
+
     replaces = {
         "far_level": ("sidm_tpu_torch/csrc/far_kernel.cu",
                       "sidm_tpu/ops/pallas_far.py:55"),
@@ -1538,6 +1595,15 @@ def main():
                         "sidm_tpu/ops/sph.py:112"),
         "sph_hydro": ("sidm_tpu_torch/csrc/hash_sph.cu",
                       "sidm_tpu/ops/sph.py:248"),
+        # SPH on the tree: plain XLA in JAX (no Pallas original)
+        "range_walk_hmax": ("sidm_tpu_torch/csrc/range_walk.cu",
+                            "sidm_tpu/ops/fused_sph.py:116"),
+        "tree_density": ("sidm_tpu_torch/csrc/tree_sph.cu",
+                         "sidm_tpu/ops/fused_sph.py:231"),
+        "tree_density_count": ("sidm_tpu_torch/csrc/tree_sph.cu",
+                               "sidm_tpu/ops/fused_sph.py:231"),
+        "tree_hydro": ("sidm_tpu_torch/csrc/tree_sph.cu",
+                       "sidm_tpu/ops/fused_sph.py:274"),
     }
     ports = {"far_level_periodic": "sidm_tpu/ops/fused_force.py:427",
              "far_list_periodic": "sidm_tpu/ops/fused_force.py:488",
@@ -1562,7 +1628,17 @@ def main():
                                  " segments)",
              "sph_density": "sidm_tpu/ops/sph.py:112-135 (sph_density's "
                             "dens_block)",
-             "sph_hydro": "sidm_tpu/ops/sph.py:248-333 (hydro_force's blk)"}
+             "sph_hydro": "sidm_tpu/ops/sph.py:248-333 (hydro_force's blk)",
+             "range_walk_hmax": "sidm_tpu/ops/fused_sph.py:116-196 "
+                                "(_sph_classify with use_hmax, "
+                                "_sph_level_pass)",
+             "tree_density": "sidm_tpu/ops/fused_sph.py:231-271, 361-389 "
+                             "(_density_tile over _sph_near_level)",
+             "tree_density_count": "sidm_tpu/ops/fused_sph.py:604-636 "
+                                   "(the controller's count passes of "
+                                   "_density_tile)",
+             "tree_hydro": "sidm_tpu/ops/fused_sph.py:274-358, 361-389 "
+                           "(_hydro_tile over _sph_near_level)"}
     kernels_json = []
     for name, (src_file, repl) in replaces.items():
         r = res.rows[name]
@@ -1587,7 +1663,8 @@ def main():
                    "vacuum_walk": vac_walk_launches[name],
                    "ewald": ewald_launches[name],
                    "gas": gas_launches[name],
-                   "gas_small": gas_small_launches[name]}
+                   "gas_small": gas_small_launches[name],
+                   "gas_tree": gas_tree_launches[name]}
         kernels_json.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": repl, "launches": sum(by_path.values()),
@@ -1781,7 +1858,9 @@ def range_walk_check(res, card, kw, label, parent=None, **kernel_kw):
     printed. Timed: the walk kernel's device time and all the call's
     kernels' (torch.profiler), the call by CUDA events, the plain walk;
     with its bound and the parent design's (device, call) times
-    ``parent``. Returns (times, the kernel's outputs, its drops)."""
+    ``parent``. With ``use_hmax`` in ``kw``, its hmax mode (T1, one
+    ``far_level.range_hmax_launches``). Returns (times, the kernel's
+    outputs, its drops)."""
     from sidm_tpu_torch.bounds import (bound_ms, range_level_rows,
                                        range_walk_work)
     from sidm_tpu_torch.ops.far_kernel import far_level
@@ -1795,9 +1874,12 @@ def range_walk_check(res, card, kw, label, parent=None, **kernel_kw):
                        .float()))
     dp, dk = {}, {}
     ref = range_walk_plain(**kw, drops=dp, on_level=observe)
-    n0 = far_level.range_launches
+    hmax = bool(kw.get("use_hmax"))
+    kname = "range_walk_hmax" if hmax else "range_walk"
+    attr = "range_hmax_launches" if hmax else "range_launches"
+    n0 = getattr(far_level, attr)
     got = range_segments(**kw, drops=dk, **kernel_kw)
-    assert far_level.range_launches == n0 + 1, (label, "one launch a walk")
+    assert getattr(far_level, attr) == n0 + 1, (label, "one launch a walk")
     for name, a, b in zip(("keys", "nn", "ovf", "need", "stat"), got, ref):
         assert a.shape == b.shape and torch.equal(a, b), (label, name)
     dks = {k: int(v) for k, v in dk.items()}
@@ -1821,14 +1903,14 @@ def range_walk_check(res, card, kw, label, parent=None, **kernel_kw):
              all_ms=device_time(run, 5, ("",), whole=True)[0],
              call_ms=cuda_ms(run, 10),
              plain_ms=cuda_ms(lambda: range_walk_plain(**kw), 1))
-    t["ops"], t["bytes"] = range_walk_work(levels, ng, kw["seg_cap"])
+    t["ops"], t["bytes"] = range_walk_work(levels, ng, kw["seg_cap"], hmax)
     t["bound_ms"], by = bound_ms(t["ops"], t["bytes"])
     par = "" if parent is None else (
         f" (parent design, this script on the tree before the redesign, "
         f"PR 8's run: its far_level launches {parent[0]:.3f} ms of device "
         f"time" + ("" if parent[1] is None else
                    f", their calls {parent[1]:.3f} ms") + ")")
-    print(f"kernel range_walk ({label}, one launch, {len(levels)} levels): "
+    print(f"kernel {kname} ({label}, one launch, {len(levels)} levels): "
           f"device {t['ms']:.4f} ms ({t['ms_by']}), all the call's kernels "
           f"{t['all_ms']:.4f} ms, call {t['call_ms']:.4f} ms by CUDA "
           f"events{par}; plain {t['plain_ms']:.3f} ms; bound "
@@ -1838,7 +1920,7 @@ def range_walk_check(res, card, kw, label, parent=None, **kernel_kw):
           f"of the bound's speed; ptxas {usage_of('range_walk_kernel')} "
           f"[{card}]", flush=True)
     if t["ms_by"] != "torch.profiler":
-        res.note("range_walk", label, t["ms_by"])
+        res.note(kname, label, t["ms_by"])
     return t, got, dks
 
 
@@ -4413,6 +4495,14 @@ def load_gas_ic(sim, n, card):
 
 
 def sph_line(v) -> str:
+    if v["engine"] == "tree":
+        return (f"tree engine: {v['passes']} density passes and a hydro "
+                f"pass, {v['walks']} walks, {v['groups']} groups of "
+                f"{v['queries']} gas targets, {v['pairs']} neighbours, "
+                f"{v['hydro_pairs']} hydro pairs, seg_cap {v['seg_cap']}, "
+                f"caps w_max {v['w_max']} open_cap {v['open_cap']} big_cap "
+                f"{v['big_cap']} big_chunks {v['big_chunks']}, drops "
+                f"{v['drops']}")
     return (f"cap {v['cap']} (need {v['need']}), levels {v['levels']}, "
             f"passes {v['tries']}, {v['queries']} density queries reading "
             f"{v['rows_mean']:.1f} rows (max {v['rows_max']}), "
@@ -4421,18 +4511,20 @@ def sph_line(v) -> str:
             f"{v['lvl_clip']}")
 
 
-def gas_run(n, steps, dev, card, label, mode="synchronized"):
-    """``flagship_config(**GAS)`` on gas_ics(n) from a Gadget IC through
-    Simulation: prepare (its first gas pass from no smoothing length,
-    timed, with its cap, levels and passes), compute_potential, ``steps``
-    steps with each one's kind, walls by phase and SPH pass, compute_
-    potential: finite, no list or walk overflow, no bucket past the grown
-    cap and no clipped level in any pass after growth, |dE/E| < 1e-3 with
-    the thermal energy. Returns (sim, rows)."""
+def gas_run(n, steps, dev, card, label, mode="synchronized", changes=None):
+    """``flagship_config(**changes)`` (default ``GAS``) on gas_ics(n) from
+    a Gadget IC through Simulation: prepare (its first gas pass from no
+    smoothing length, timed, with its cap, levels and passes, or the tree
+    engine's walks), compute_potential, ``steps`` steps with each one's
+    kind, walls by phase and SPH pass, compute_potential: finite, no list
+    or walk overflow, no bucket past the grown cap and no clipped level in
+    any pass after growth (the tree engine: no walk drop), |dE/E| < 1e-3
+    with the thermal energy. Returns (sim, rows)."""
     from sidm_tpu_torch.flagship import GAS, flagship_config
     from sidm_tpu_torch.simulation import Simulation
 
-    sim = Simulation(flagship_config(**GAS), mode=mode, device=dev)
+    sim = Simulation(flagship_config(**(changes or GAS)), mode=mode,
+                     device=dev)
     t_w, t_l, u0 = load_gas_ic(sim, n, card)
     t0 = time.perf_counter()
     sim.prepare()
@@ -4478,7 +4570,10 @@ def gas_run(n, steps, dev, card, label, mode="synchronized"):
     finite = all(bool(torch.isfinite(getattr(p, f)).all()) for f in
                  ("pos", "vel", "egy_spec", "density", "hsml"))
     step = "phased" if sim._use_phased() else "single-program"
-    print(f"{label} (SPH on the hash grid, {step} step): N {n}, {int(gas.sum())} gas, {steps} steps "
+    engine = ("on the tree" if infos[-1]["engine"] == "tree"
+              else "on the hash grid")
+    print(f"{label} (SPH {engine}, {step} step): N {n}, "
+          f"{int(gas.sum())} gas, {steps} steps "
           f"{t_steps:.3f} s, {n * steps / t_steps:.4g} particle-steps/s, "
           f"t = {sim.time:.6g}, gas density median "
           f"{float(torch.median(p.density[gas])):.4g}, hsml min/median/max "
@@ -4490,7 +4585,8 @@ def gas_run(n, steps, dev, card, label, mode="synchronized"):
           f"[{card}]", flush=True)
     assert finite and ovf == 0 and de < 1e-3, (finite, ovf, de)
     assert all(r.get("gas", 0) > 0 for r in rows), rows
-    assert all(v["ngb_ovf"] == 0 and v["lvl_clip"] == 0
+    assert all(v["drops"] == 0 if v["engine"] == "tree" else
+               v["ngb_ovf"] == 0 and v["lvl_clip"] == 0
                for v in infos[1:]), infos
     return sim, rows
 
@@ -4702,12 +4798,18 @@ def gas_kernels(res, sim, dev, card):
     sph_oracle(q, pos_pred, dinfo, card, "gas-halo")
 
 
-def gas_breakdown(sim, rows, card):
-    """One more gas-halo step under torch.profiler: its device busy time
-    and idle share against the unprofiled walls of its kind (``rows``),
-    the device time of the SPH pass's kernels (H1, H5, H6) and the top
-    device kernels; "not measured" when the profiler sees no device
-    event."""
+SPH_KERNELS = {"hash": ("hash_knn_kernel", "sph_density_kernel",
+                        "sph_hydro_kernel"),
+               "tree": ("range_walk_kernel", "tree_weight",
+                        "tree_sph_kernel")}
+
+
+def gas_breakdown(sim, rows, card, label="gas-halo"):
+    """One more step of a gas run under torch.profiler: its device busy
+    time and idle share against the unprofiled walls of its kind
+    (``rows``), the device time of the SPH pass's kernels (``SPH_KERNELS``
+    of its engine: H1, H5, H6 or T1-T3) and the top device kernels; "not
+    measured" when the profiler sees no device event."""
     from torch.profiler import ProfilerActivity, profile
     from sidm_tpu_torch.profile_step import _device_us
     torch.cuda.synchronize()
@@ -4721,14 +4823,13 @@ def gas_breakdown(sim, rows, card):
     busy = sum(_device_us(e) for e in avg) / 1e3
     walls = sorted(r["wall_ms"] for r in rows if r["kind"] == kind)
     if not avg or not walls:
-        print(f"gas-halo {kind} step under the profiler: device busy not "
+        print(f"{label} {kind} step under the profiler: device busy not "
               f"measured (no device event or no unprofiled {kind} step) "
               f"[{card}]", flush=True)
         return
     sph = {k: round(sum(_device_us(e) for e in avg if k in e.key) / 1e3, 4)
-           for k in ("hash_knn_kernel", "sph_density_kernel",
-                     "sph_hydro_kernel")}
-    print(f"gas-halo {kind} step under the profiler: device busy "
+           for k in SPH_KERNELS[sim.last_sph_info["engine"]]}
+    print(f"{label} {kind} step under the profiler: device busy "
           f"{busy:.1f} ms against unprofiled {kind} walls "
           f"{walls[0]:.1f}-{walls[-1]:.1f} ms: idle share "
           f"{1 - busy / walls[-1]:.3f}-{1 - busy / walls[0]:.3f}; the SPH "
@@ -4777,6 +4878,289 @@ def gas_box_kernels(res, n, dev, card):
                            f"the periodic comoving box, N {n}", tag="box")
     sph_oracle(q, p.pos, dinfo, card, "the periodic comoving box")
 
+
+# ---- phase 18: SPH on the tree (gas-halo-tree) -------------------------------
+
+GAS_TREE_STEPS = 4     # gas-halo-tree's steps after prepare (its record)
+TREE_SPH_GROUPS = 1023  # groups of T2's and T3's plain checks (the longest
+                        # among them)
+TREE_BOX_N = None      # the periodic box's N in place of GAS_BOX_N (a
+                       # rehearsal's)
+
+
+def next_gas_pass(sim):
+    """The next phased step's SPH inputs on a gas run's end state: (p,
+    pos_pred, vel_pred, t_next, active, tree), the tree the force phase's
+    (the cached one's moments refreshed on pos_pred, as a list step
+    does)."""
+    from sidm_tpu_torch import integrate
+    from sidm_tpu_torch.ops.tree import refresh_octree
+    p = sim.particles
+    t_next = torch.clamp(integrate.find_next_time(p), max=sim.cfg.TimeMax)
+    active = integrate.active_mask(p, t_next)
+    pos_pred, vel_pred = integrate.predict_positions(p, t_next, sim.consts)
+    eps = sim._timestep_params().softening_table[
+        torch.clamp(p.ptype, 0, 5).long()]
+    mass = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    tree = refresh_octree(sim._tree_cache, pos_pred, mass, eps, p.valid,
+                          box=sim._box())
+    return p, pos_pred, vel_pred, t_next, active, tree
+
+
+def group_kw(kw, sub):
+    """T2's or T3's arguments on the groups ``sub`` (the rows whole)."""
+    return {k: (v[sub].contiguous() if isinstance(v, torch.Tensor)
+                and k not in ("rows",) else v) for k, v in kw.items()}
+
+
+def tree_scaled(a, b):
+    """p99.9 of |a - b| / max(|b|, median |b|), and max |a - b|."""
+    a, b = a.double().flatten(), b.double().flatten()
+    if not b.numel():
+        return 0.0, 0.0
+    ref = torch.clamp(torch.abs(b), min=float(torch.median(torch.abs(b))))
+    d = torch.abs(a - b)
+    return q999(d / torch.clamp(ref, min=1e-300)), float(torch.max(d))
+
+
+def tree_sums_check(res, name, kw, card, label, tag=None):
+    """T2 (``name`` tree_density or tree_density_count) or T3
+    (tree_hydro) on one pass's arguments ``kw``: the kernel on all groups
+    timed (CUDA events, one call) beside its bound; against its plain
+    version on TREE_SPH_GROUPS groups with the 8 that stage the most
+    particles among them: counts (pairs) equal, the float64 sums p99.9 of
+    |a - b| / max(|b|, median |b|) <= 1e-12 on live slots (the same float32
+    terms summed in another order); the plain version timed on those
+    groups (one call). ``tag``: another input's, its times into the row's
+    ``{tag}_*`` keys. Returns the kernel's result on all groups."""
+    from sidm_tpu_torch.bounds import (bound_ms, tree_density_work,
+                                       tree_hydro_work)
+    from sidm_tpu_torch.ops import fused_sph as fs
+    from sidm_tpu_torch.ops.fused_range import segment_totals
+    hydro = name == "tree_hydro"
+    kern = fs.tree_hydro_sums if hydro else fs.tree_density_sums
+    plain = fs.tree_hydro_sums_plain if hydro else fs.tree_density_sums_plain
+    out = kern(**kw)
+    ng = kw["keys"].shape[0]
+    tot = segment_totals(kw["keys"], kw["nn"])
+    sub = with_longest(subset(ng, TREE_SPH_GROUPS - LONGEST, kw["keys"]
+                              .device), tot)
+    skw = group_kw(kw, sub)
+    got = kern(**skw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain(**skw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    live = fs._live(skw["gidx"], skw["gq"][..., 0] if hydro else skw["gh"])
+    cnt = "pairs" if hydro else "cnt"
+    assert torch.equal(getattr(got, cnt), getattr(ref, cnt)), (name, cnt)
+    fields = (("acc", "dt_egy") if hydro else
+              () if kw.get("count_only") else ("rho", "divv", "rot"))
+    errs = {f: tree_scaled(getattr(got, f)[live], getattr(ref, f)[live])
+            for f in fields}
+    ms = cuda_ms(lambda: kern(**kw), 5)
+    work = tree_hydro_work if hydro else tree_density_work
+    ops, nb = work(kw, getattr(out, cnt))
+    bms, by = bound_ms(ops, nb)
+    print(f"kernel {name} ({'T3' if hydro else 'T2'}, {label}: {ng} groups, "
+          f"{int(torch.sum(tot))} staged particles, the most in a group "
+          f"{int(tot.max())}, {int(torch.sum(getattr(out, cnt).long()))} "
+          f"{'pairs' if hydro else 'neighbours'}): {cnt} equal to the "
+          f"plain version on {sub.numel()} groups"
+          + "".join(f", {f} p99.9 {e[0]:.3e} (max |diff| {e[1]:.3e})"
+                    for f, e in errs.items())
+          + f"; kernel {ms:.3f} ms (all groups, one call), plain "
+          f"{plain_ms:.1f} ms ({sub.numel()} groups, one call), bound "
+          f"{bms:.4f} ms ({by}), at {bms / ms:.1%} of the bound's speed; "
+          f"ptxas {usage_of('tree_sph_kernel')} [{card}]", flush=True)
+    assert all(e[0] <= 1e-12 for e in errs.values()), (name, errs)
+    max_abs = max([e[1] for e in errs.values()] + [0.0])
+    if tag:
+        res.add(name, max_abs, 0.0, 0.0, 0.0, 0.0)
+        res.rows[name].update(**{f"{tag}_{k}": v for k, v in (
+            ("ms", ms), ("bound_ms", bms), ("plain_ms", plain_ms),
+            ("plain_groups", int(sub.numel())), ("groups", ng))})
+        return out
+    res.add(name, max_abs, ms, plain_ms, ops, nb)
+    res.rows[name].update(groups=ng, plain_groups=int(sub.numel()),
+                          share=bms / ms,
+                          **{f"{f}_p999": e[0] for f, e in errs.items()})
+    return out
+
+
+def tree_walks_check(res, tree, hsml, p, box, walk_cfg, seg_cap, card,
+                     label, tag=None):
+    """The range walks of one tree-engine pass on all groups against the
+    plain walk, keys, counts and telemetry bit-equal: the density walk
+    (the range walk's plain mode) and the hydro walk (T1, the hmax mode),
+    each timed beside its bound (``range_walk_check``)."""
+    from sidm_tpu_torch.ops import fused_sph as fs
+    from sidm_tpu_torch.ops.fused_range import range_levels
+    hs = torch.where(p.is_gas, hsml, torch.zeros_like(hsml))[tree.perm]
+    pidx, gvalid = fs._gas_windows(tree, hs)
+    gt = torch.where(gvalid[..., None], p.pos[tree.perm][pidx], 0.0)
+    gh = torch.where(gvalid, hs[pidx], 0.0).contiguous()
+    glo, ghi, pad = fs._group_bbox(gt, gvalid & (gh > 0), gh, tree, box)
+    out = {}
+    for hmax in (False, True):
+        kw = dict(tree=tree, rlev=range_levels(tree, hs if hmax else None),
+                  glo=glo, ghi=ghi, pad=pad, seg_cap=seg_cap, cfg=walk_cfg,
+                  box=box, use_hmax=hmax)
+        what = "hydro walk (T1)" if hmax else "density walk"
+        t, _, dks = range_walk_check(res, card, kw, f"{label}, its {what}")
+        assert sum(dks.values()) == 0, (label, what, dks)
+        out[hmax] = t
+    t = out[True]
+    pre = f"{tag}_" if tag else ""
+    side_row(res, "range_walk", **{f"{pre}gas_tree_{k}": out[False][k]
+                                   for k in ("ms", "bound_ms", "plain_ms")})
+    if tag:
+        side_row(res, "range_walk_hmax", **{f"{tag}_{k}": t[k] for k in
+                                            ("ms", "bound_ms", "plain_ms")})
+    else:
+        res.add("range_walk_hmax", 0.0, t["ms"], t["plain_ms"], t["ops"],
+                t["bytes"])
+        res.rows["range_walk_hmax"].update(groups=int(pidx.shape[0]),
+                                           call_ms=t["call_ms"])
+
+
+def tree_pass_checks(res, p, pos_pred, vel_pred, t, active, tree, params,
+                     box, walk, card, label, tag=None):
+    """One tree-engine pass (``sph_density_fused`` then
+    ``hydro_force_fused``) on the kernels with each T2 and T3 call
+    captured; the walks against the plain walk (``tree_walks_check``); T2
+    on its last count pass and its density pass and T3 on the hydro pass
+    against their plain versions (``tree_sums_check``). Returns (q, acc,
+    dt_egy, dinfo, hinfo)."""
+    from sidm_tpu_torch.ops.fused_sph import (hydro_force_fused,
+                                              sph_density_fused)
+    cfg, seg_cap = walk
+    dens, hyd = [], []
+    q, dinfo = sph_density_fused(p, pos_pred, vel_pred, tree, t, active,
+                                 params, cfg=cfg, box=box, seg_cap=seg_cap,
+                                 on_pass=dens.append)
+    acc, de, hinfo = hydro_force_fused(q, pos_pred, vel_pred, tree, t,
+                                       active, params, cfg=dinfo["cfg"],
+                                       box=box, seg_cap=dinfo["seg_cap"],
+                                       on_pass=hyd.append)
+    assert dinfo["drops"] == 0 and hinfo["drops"] == 0, (dinfo, hinfo)
+    assert len(dens) == dinfo["passes"] and len(hyd) == 1
+    tp = dataclasses.replace(p, pos=pos_pred)
+    tree_walks_check(res, tree, q.hsml, tp, box, hinfo["cfg"],
+                     hinfo["seg_cap"], card, label, tag)
+    if len(dens) > 1:
+        tree_sums_check(res, "tree_density_count", dens[-2], card,
+                        f"{label}, the controller's last count pass", tag)
+    tree_sums_check(res, "tree_density", dens[-1], card,
+                    f"{label}, the density pass", tag)
+    tree_sums_check(res, "tree_hydro", hyd[0], card,
+                    f"{label}, the hydro pass", tag)
+    return q, acc, de, dinfo, hinfo
+
+
+def hash_oracle(q, acc, pos_pred, vel_pred, t, active, params, box, card,
+                label):
+    """The hash engine as a full-size oracle of the tree engine's pass: at
+    the tree engine's smoothing lengths (``q``), H5 (``sph_density_sums``,
+    its cap and levels grown until no bucket is read past the cap and no
+    level clipped) gives the same neighbour counts and rho within 1e-6
+    relative; H6 (``hydro_pairs``, via ``hydro_force`` on the same
+    particles) gives acc within 1e-6 of the largest |a|."""
+    from sidm_tpu_torch.ops.neighbors import (build_table, grown_cap,
+                                              grown_levels, make_payload)
+    from sidm_tpu_torch.ops.sph import hydro_force, sph_density_sums
+    gas = q.is_gas & active
+    sel = torch.nonzero(gas).flatten()
+    hmin = torch.min(torch.where(q.is_gas, q.hsml,
+                                 torch.full_like(q.hsml, float("inf"))))
+    s0 = torch.clamp(hmin / 2, min=1e-12)
+    cap, levels = 96, 10
+    for _ in range(8):
+        table = build_table(pos_pred, q.ptype, q.valid, s0=s0, box=box,
+                            n_levels=levels, payload=make_payload(
+                                pos_pred, vel_pred, q.mass, q.ptype))
+        s = sph_density_sums(table, pos_pred[sel].contiguous(),
+                             vel_pred[sel].contiguous(),
+                             q.ptype[sel].contiguous(),
+                             q.hsml[sel].contiguous(), cap=cap)
+        need, clip = int(torch.max(s.need)), int(torch.sum(s.clip))
+        ratio = float(torch.max(q.hsml[sel]) / s0)
+        sizes = (grown_cap(cap, need), grown_levels(levels, clip, ratio))
+        if sizes == (cap, levels):
+            break
+        cap, levels = sizes
+    assert need <= cap and clip == 0, (need, cap, clip)
+    assert torch.equal(s.cnt, q.ngb_sph[sel]), "H5 counts"
+    rho_err = float(torch.max(torch.abs(q.density[sel].double() - s.rho)
+                              / s.rho))
+    acc_h, _, hinfo = hydro_force(q, pos_pred, vel_pred, t, active, params,
+                                  table, box=box, cap=cap)
+    assert int(hinfo["ngb_ovf"]) == 0 and int(hinfo["lvl_clip"]) == 0
+    a_err = float(torch.max(torch.abs(acc[sel] - acc_h[sel]))
+                  / torch.max(torch.abs(acc_h[sel])))
+    print(f"hash oracle ({label}): at the tree engine's smoothing lengths "
+          f"H5 (cap {cap}, {levels} levels) gives the same counts on "
+          f"{sel.numel()} gas targets, rho max rel err {rho_err:.3e}; H6's "
+          f"acc within {a_err:.3e} of the largest [{card}]", flush=True)
+    assert rho_err <= 1e-6 and a_err <= 1e-6, (rho_err, a_err)
+
+
+def gas_tree_kernels(res, sim, dev, card):
+    """On gas-halo-tree's end state, the next step's pass
+    (``tree_pass_checks``), the hash engine as its oracle
+    (``hash_oracle``) and the hydro momentum |sum m a| <= 1e-5 sum m
+    |a|."""
+    p, pos_pred, vel_pred, t, active, tree = next_gas_pass(sim)
+    params, box = sim._sph_params(), sim._box()
+    q, acc, de, dinfo, hinfo = tree_pass_checks(
+        res, p, pos_pred, vel_pred, t, active, tree, params, box,
+        sim._sph_walk, card, "gas-halo-tree's next pass")
+    hash_oracle(q, acc, pos_pred, vel_pred, t, active, params, box, card,
+                "gas-halo-tree")
+    gas = p.is_gas & active
+    ma = p.mass[gas].double()[:, None] * acc[gas].double()
+    mom = float(torch.linalg.norm(ma.sum(0))
+                / torch.sum(torch.linalg.norm(ma, dim=1)))
+    print(f"gas-halo-tree hydro momentum: |sum m a| / sum m |a| {mom:.3e} "
+          f"over {int(gas.sum())} active gas [{card}]", flush=True)
+    assert mom <= 1e-5, mom
+    res.rows["tree_hydro"].update(momentum=mom)
+
+
+def gas_tree_box_kernels(res, n, dev, card):
+    """T1-T3 against their plain versions on phase 17's periodic comoving
+    gas box (cosmo_ics(n, a_vel=0.1) all gas in cosmo-box's box at a =
+    0.1, half a step since the last kick), on its tree built on the box,
+    from no smoothing length: the pass (``tree_pass_checks``, times into
+    the rows' ``box_*`` keys)."""
+    from sidm_tpu_torch.constants import (BOLTZMANN_CGS, GAMMA_MINUS1,
+                                          PROTONMASS_CGS)
+    from sidm_tpu_torch.flagship import COSMO, COSMO_BOX, cosmo_ics
+    from sidm_tpu_torch.ops.fused_sph import SEG_CAP
+    from sidm_tpu_torch.ops.sph import SphParams
+    from sidm_tpu_torch.ops.tree import build_octree
+    from sidm_tpu_torch.state import make_particles
+
+    a = COSMO["TimeBegin"]
+    pos, vel, mass = cosmo_ics(n, a_vel=a)
+    u = (1.0 / GAMMA_MINUS1) * (BOLTZMANN_CGS / PROTONMASS_CGS) * 1e4 / 1e10
+    p = make_particles(pos, vel, mass, np.zeros(n, np.int32),
+                       egy_spec=np.full(n, u), pad_to_multiple=4096,
+                       device=dev)
+    p = dataclasses.replace(p, current_time=torch.full_like(
+        p.current_time, a - 0.001))
+    t = torch.tensor(a, dtype=torch.float32, device=dev)
+    params = SphParams(des_num_ngb=30, max_num_ngb_dev=2, art_bulk_visc=0.75,
+                       min_egy_spec=0.0, min_gas_hsml=0.0, comoving=True,
+                       hubble=0.1, omega0=COSMO["Omega0"],
+                       omega_lambda=COSMO["OmegaLambda"])
+    mass_t = torch.where(p.valid, p.mass, torch.zeros_like(p.mass))
+    tree = build_octree(p.pos, mass_t, torch.full_like(mass_t, 1.0),
+                        p.valid, box=COSMO_BOX, depth=13)
+    tree_pass_checks(res, p, p.pos, p.vel, t, p.valid, tree, params,
+                     COSMO_BOX, (None, SEG_CAP), card,
+                     f"the periodic comoving box, N {n}", tag="box")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -12,10 +12,11 @@ interface, loaded with ``ctypes``:
 edited file builds anew and an unchanged one is reused. ``-fmad=false`` is
 given to ``far_kernel.cu``, ``range_walk.cu``, ``sidm_emit.cu``,
 ``sidm_gated.cu``, ``sidm_near.cu``, ``hash_knn.cu``, ``hash_scan.cu``,
-``hash_veldisp.cu`` and ``hash_sph.cu``: it keeps every product and sum rounded as in the
-plain PyTorch version (beside explicit ``__fmul_rn``/``__fadd_rn``), so
-that the walks' classifications, the candidate tests, the DSMC keys and the
-hash grid's cells, levels, distances and pair terms, and hence every
+``hash_veldisp.cu``, ``hash_sph.cu`` and ``tree_sph.cu``: it keeps every
+product and sum rounded as in the plain PyTorch version (beside explicit ``__fmul_rn``/``__fadd_rn``), so
+that the walks' classifications, the candidate tests, the DSMC keys, the
+hash grid's cells, levels, distances and pair terms and the tree SPH
+pair terms, and hence every
 emitted id, key, radius, count and chosen partner, match the plain
 version's exactly.
 The other sources are built with FMA: the peak of 67 TFLOP/s that ``bounds.py``
@@ -49,7 +50,8 @@ _SOURCE_FLAGS = {"far_kernel": ["-fmad=false"], "range_walk": ["-fmad=false"],
                  "sidm_near": ["-fmad=false"], "hash_knn": ["-fmad=false"],
                  "hash_scan": ["-fmad=false"],
                  "hash_veldisp": ["-fmad=false"],
-                 "hash_sph": ["-fmad=false"]}
+                 "hash_sph": ["-fmad=false"],
+                 "tree_sph": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -62,7 +64,7 @@ _SIGNATURES = {
         _P]),
     "range_walk_launch": ("range_walk", [
         _P, _IP, _IP, _IP, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I,
-        _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+        _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P]),
     "near_level_launch": ("near_kernel", [
         _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _F, _F,
         _F, _P, _I, _I, _P]),
@@ -99,6 +101,12 @@ _SIGNATURES = {
     "sph_hydro_launch": ("hash_sph", [
         _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _I, _I, _F,
         _F, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P]),
+    "tree_density_launch": ("tree_sph", [
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P,
+        _P]),
+    "tree_hydro_launch": ("tree_sph", [
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _I, _F, _F, _F, _F, _F, _F,
+        _F, _I, _I, _P, _P, _P, _P, _P]),
     "direct_launch": ("direct", [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F,
                                  _I, _I, _P]),
 }

@@ -140,6 +140,31 @@ HYDRO_PAIR_OPS = 1 + 6 + 1 + 3 + 5 + 6 + 5 + 10 + 11 + 4 + 4 + 1 + 5 + 5 \
     + 4 + 5 + 2 * 8
 HYDRO_ROW_BYTES = 48 + 4
 HYDRO_QUERY_BYTES = 68 + 16 + 32
+# the tree SPH engine (csrc/range_walk.cu's hmax mode, csrc/tree_sph.cu):
+# T1 adds to the range test hmax + drift, its square and the max with pad^2
+RANGE_HMAX_OPS = RANGE_OPS + 3
+# T2 and T3 per (live slot, staged particle) pair: the gas test; per
+# (live slot, staged gas particle) pair: d 3, r^2 5, sqrt, r < h (T3: the
+# clamp of h_j and two compares, 12)
+TREE_STAGE_OPS = 1
+TREE_DENS_GAS_OPS = 10
+TREE_HYDRO_GAS_OPS = 12
+# ... T2 per neighbour: H5's neighbour terms (SPH_NGB_OPS); its count
+# mode the count's add
+TREE_DENS_NGB_OPS = SPH_NGB_OPS
+TREE_COUNT_NGB_OPS = 1
+# ... T3 per pair: both halves' dW 2 x (division, dW 6, / h^4) and h_j^4
+# 2, dv 3, d.dv 5, h_ij, c_ij, rho_ij 6, mu 5, f_ij 2, the viscosity 9,
+# msum 2, r_safe, two limiters 2 x 10, P/rho^2 of j 4, pp 4, the term 8,
+# its 4 products and the 4 float64 adds, each counted twice
+TREE_HYDRO_PAIR_OPS = (2 * 8 + 2 + 3 + 5 + 6 + 5 + 2 + 9 + 2 + 1 + 2 * 10
+                       + 4 + 4 + 8 + 4 + 2 * 4)
+# bytes: per staged particle its first 16 B [x y z aux] (T3 also its h);
+# per neighbour (T2) the row's second 16 B, per pair (T3) its other 48 B;
+# per slot its inputs (T2: position, velocity, h, id 32 B; T3: position,
+# velocity, 8 scalars, id 60 B) and its float64 outputs (T2 6, T3 5)
+TREE_DENS_SLOT_BYTES = 32 + 48
+TREE_HYDRO_SLOT_BYTES = 60 + 40
 
 
 # The periodic modes (the TreePM split's short range, the Ewald direct
@@ -253,11 +278,12 @@ def range_level_rows(kw: dict):
     return _n(torch.sum(live)), _n(torch.unique(real).numel())
 
 
-def range_walk_work(levels, ng: int, seg_cap: int):
+def range_walk_work(levels, ng: int, seg_cap: int, hmax: bool = False):
     """(ops, bytes) of one whole range walk (``fused_range.
     range_segments``) of ng groups into (ng, seg_cap) lists; ``levels``:
-    ``range_level_rows`` of each of its levels. Operations: RANGE_OPS per
-    classified cell. Bytes: each level's distinct range rows once, each
+    ``range_level_rows`` of each of its levels. Operations: RANGE_OPS
+    (RANGE_HMAX_OPS in the hmax mode, ``hmax``, kernel T1) per classified
+    cell. Bytes: each level's distinct range rows once, each
     group's box and pad once, the whole key lists (IMAX tails included)
     and each group's count and telemetry written once; no frontier is
     counted (a level's frontier is not an input or an output of the
@@ -266,7 +292,7 @@ def range_walk_work(levels, ng: int, seg_cap: int):
     distinct = sum(d for _, d in levels)
     nbytes = (RANGE_ROW_BYTES * distinct + RANGE_GROUP_BYTES * ng
               + 4 * ng * seg_cap + RANGE_TELE_BYTES * ng)
-    return RANGE_OPS * classified, nbytes
+    return (RANGE_HMAX_OPS if hmax else RANGE_OPS) * classified, nbytes
 
 
 def far_level_dense_work(kw: dict):
@@ -598,3 +624,71 @@ def direct_work(n: int, T: int, need_pot: bool, en: int = 0):
         tables = 0
     return per * n * T, (PART_BYTES * n + 4 * T + (16 if need_pot else 12) * T
                          + tables)
+
+
+def _tree_pairs(keys, nn, rows, live):
+    """Per group its live slots and, over its segment keys, the staged
+    particles, the staged gas ones and the distinct covered particles
+    (each once, from the keys' ranges): (slot x staged pairs, slot x gas
+    pairs, distinct particles, distinct gas particles)."""
+    from .ops.fused_force import IMAX
+    n, L = rows.shape[0], keys.shape[1]
+    dev = keys.device
+    ok = ((torch.arange(L, device=dev)[None, :] < nn[:, None].long())
+          & (keys != IMAX))
+    k = torch.where(ok, keys, torch.zeros_like(keys)).long()
+    start = k >> 5
+    end = start + torch.where(ok, k & 31, torch.zeros_like(k))
+    gas = torch.remainder(rows[:, 3], 8.0) == 0
+    gcum = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                      torch.cumsum(gas.long(), 0)])
+    nv = torch.sum(live, dim=1).long()
+    staged = _n(torch.sum(torch.sum(end - start, dim=1) * nv))
+    staged_gas = _n(torch.sum(torch.sum(gcum[end] - gcum[start], dim=1)
+                              * nv))
+    diff = torch.zeros(n + 1, dtype=torch.long, device=dev)
+    diff.index_add_(0, start[ok], torch.ones_like(start[ok]))
+    diff.index_add_(0, end[ok], -torch.ones_like(end[ok]))
+    cov = torch.cumsum(diff, 0)[:n] > 0
+    return staged, staged_gas, _n(torch.sum(cov)), _n(torch.sum(cov & gas))
+
+
+def tree_density_work(kw: dict, cnt):
+    """(ops, bytes) of one ``fused_sph.tree_density_sums`` call (T2) with
+    the keyword arguments ``kw`` (``sph_density_fused``'s ``on_pass``) and
+    the neighbour counts ``cnt`` it returned: TREE_STAGE_OPS per (live slot,
+    staged particle), TREE_DENS_GAS_OPS per (live slot, staged gas
+    particle), TREE_DENS_NGB_OPS (TREE_COUNT_NGB_OPS in the count mode) per
+    neighbour; bytes: the live keys, each distinct staged particle's first
+    16 B and each distinct gas particle's second 16 B (not in the count
+    mode) once, every slot's inputs and outputs."""
+    from .ops.fused_sph import _live
+    keys, nn = kw["keys"], kw["nn"]
+    live = _live(kw["gidx"], kw["gh"])
+    staged, staged_gas, u, ug = _tree_pairs(keys, nn, kw["rows"], live)
+    ngb = TREE_COUNT_NGB_OPS if kw["count_only"] else TREE_DENS_NGB_OPS
+    ops = (TREE_STAGE_OPS * staged + TREE_DENS_GAS_OPS * staged_gas
+           + ngb * _n(torch.sum(cnt.long())))
+    nbytes = (4 * _n(torch.sum(torch.clamp(nn.long(), max=keys.shape[1])))
+              + 16 * u + (0 if kw["count_only"] else 16 * ug)
+              + TREE_DENS_SLOT_BYTES * live.numel())
+    return ops, nbytes
+
+
+def tree_hydro_work(kw: dict, pairs):
+    """(ops, bytes) of one ``fused_sph.tree_hydro_sums`` call (T3) with the
+    keyword arguments ``kw`` and the pairs ``pairs`` it returned:
+    TREE_STAGE_OPS per (live slot, staged particle), TREE_HYDRO_GAS_OPS
+    per (live slot, staged gas particle), TREE_HYDRO_PAIR_OPS per pair;
+    bytes: the live keys, each distinct staged particle's first 16 B and
+    h, each distinct gas particle's other 48 B once, every slot's inputs
+    and outputs."""
+    from .ops.fused_sph import _live
+    keys, nn = kw["keys"], kw["nn"]
+    live = _live(kw["gidx"], kw["gq"][..., 0])
+    staged, staged_gas, u, ug = _tree_pairs(keys, nn, kw["rows"], live)
+    ops = (TREE_STAGE_OPS * staged + TREE_HYDRO_GAS_OPS * staged_gas
+           + TREE_HYDRO_PAIR_OPS * _n(torch.sum(pairs.long())))
+    nbytes = (4 * _n(torch.sum(torch.clamp(nn.long(), max=keys.shape[1])))
+              + 20 * u + 48 * ug + TREE_HYDRO_SLOT_BYTES * live.numel())
+    return ops, nbytes

@@ -39,6 +39,7 @@
 #include <stdint.h>
 
 #include "hash_grid.cuh"
+#include "sph_kernel.cuh"
 
 namespace {
 
@@ -54,32 +55,7 @@ struct WarpShared {
     int st[kCells];
 };
 
-// sph_kernel(u) and sph_kernel_deriv(u) of sidm_tpu_torch/kernels.py, each
-// product in its order; 0 for u >= 1
-__device__ __forceinline__ float sph_w(float u) {
-    const float c = (float)(8.0 / 3.14159265358979323846);
-    const float c2 = (float)(2.0 * (8.0 / 3.14159265358979323846));
-    const float inner = c * (1.0f - 6.0f * u * u * (1.0f - u));
-    const float om = 1.0f - u;
-    const float outer = c2 * om * om * om;
-    const float w = u < 0.5f ? inner : outer;
-    return u < 1.0f ? w : 0.0f;
-}
-
-__device__ __forceinline__ float sph_dw(float u) {
-    const float c = (float)(8.0 / 3.14159265358979323846);
-    const float inner = c * (-12.0f * u + 18.0f * u * u);
-    const float om = 1.0f - u;
-    const float outer = c * (-6.0f * om * om);
-    const float d = u < 0.5f ? inner : outer;
-    return u < 1.0f ? d : 0.0f;
-}
-
-__device__ __forceinline__ double warp_sum_d(double x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-    return x;
-}
+using sph_kernel::warp_sum;
 
 __device__ __forceinline__ void load_geom(Grid& g, const float* geom) {
     g.ox = __ldg(geom);
@@ -137,10 +113,11 @@ sph_density_kernel(Grid g, const float* __restrict__ geom,
         const float r = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
         if (!(r < hb)) continue;
         const float u = r / hb;
-        rho += (double)(b1.z * (sph_w(u) * hinv3));
+        rho += (double)(b1.z * (sph_kernel::w(u) * hinv3));
         ++c;
         if (!(r > 0.0f)) continue;
-        const float fac = b1.z * (sph_dw(u) * hinv4) / fmaxf(r, 1e-30f);
+        const float fac =
+            b1.z * (sph_kernel::dw(u) * hinv4) / fmaxf(r, 1e-30f);
         const float e0 = vx - b0.w, e1 = vy - b1.x, e2 = vz - b1.y;
         divv -= (double)(fac * (d0 * e0 + d1 * e1 + d2 * e2));
         r0 += (double)(fac * (d1 * e2 - d2 * e1));
@@ -148,11 +125,11 @@ sph_density_kernel(Grid g, const float* __restrict__ geom,
         r2s += (double)(fac * (d0 * e1 - d1 * e0));
     }
     c = hash_grid::warp_sum(c);
-    rho = warp_sum_d(rho);
-    divv = warp_sum_d(divv);
-    r0 = warp_sum_d(r0);
-    r1 = warp_sum_d(r1);
-    r2s = warp_sum_d(r2s);
+    rho = warp_sum(rho);
+    divv = warp_sum(divv);
+    r0 = warp_sum(r0);
+    r1 = warp_sum(r1);
+    r2s = warp_sum(r2s);
     if (lane == 0) {
         cnt_out[q] = c;
         rho_out[q] = rho;
@@ -236,7 +213,7 @@ sph_hydro_kernel(Grid g, const float* __restrict__ geom,
         if (!(r < hb)) continue;
         ++np;
         const float4 b2 = __ldg(wide + 3 * (int64_t)e + 2);
-        const float dwk = sph_dw(r / hb) / h4;
+        const float dwk = sph_kernel::dw(r / hb) / h4;
         const float e0 = vx - b0.w, e1 = vy - b1.x, e2 = vz - b1.y;
         float vdotr2 = d0 * e0 + d1 * e1 + d2 * e2;
         if (f.comoving) vdotr2 = vdotr2 / f.sqrt_a + f.hubble_a * r2;
@@ -279,10 +256,10 @@ sph_hydro_kernel(Grid g, const float* __restrict__ geom,
     }
     np = hash_grid::warp_sum(np);
     if (act_q) {
-        ax = warp_sum_d(ax);
-        ay = warp_sum_d(ay);
-        az = warp_sum_d(az);
-        de = warp_sum_d(de);
+        ax = warp_sum(ax);
+        ay = warp_sum(ay);
+        az = warp_sum(az);
+        de = warp_sum(de);
         if (lane == 0) {
             double* aq = acc + 3 * (int64_t)iq;
             atomicAdd(aq, ax);

@@ -17,8 +17,14 @@
 // appended after the level's segment keys. With a periodic box (box > 0)
 // the distance is taken from the group box's centre by the minimum image,
 // d - box*rint(d/box) (rint rounds half to even, as torch.round does).
-// Every product and sum is rounded explicitly (and the file builds with
-// -fmad=false), so the decisions equal the plain version's.
+// The hmax mode (T1, the tree SPH engine's hydro walk, port of
+// sidm_tpu/ops/fused_sph.py:_sph_classify with use_hmax, :116-144) takes a
+// cell within max(pad, hmax + drift) of the group box, hmax the cell's
+// largest smoothing length (the range row's column 3) and drift the tree's
+// refresh drift: d^2 <= max(pad^2, (hmax + drift)^2), the same decision as
+// the plain version's d^2 <= max(pad, hmax + drift)^2 (a rounded square is
+// monotone). Every product and sum is rounded explicitly (and the file
+// builds with -fmad=false), so the decisions equal the plain version's.
 //
 // Design (what bounds it on the H100: bytes, the range rows of the
 // classified cells and the (ng, seg_cap) key lists written). The live
@@ -84,6 +90,8 @@ struct Args {
     const float* glo;          // (ng, 3) group boxes
     const float* ghi;
     const float* pad;          // (ng,)
+    const float* drift;        // () the tree's drift: the hmax mode; null:
+                               // the plain range test
     int* keys;                 // (ng, seg_cap) out, IMAX past nn
     int* nn;                   // (ng,) out
     long long* tele;           // (kNTele, ng) out
@@ -115,7 +123,7 @@ __device__ __forceinline__ float gap(float c, float lo, float hi,
 }
 
 struct Row {
-    float4 r0, r1;     // centre xyz, 0 | count, node start, child start,
+    float4 r0, r1;     // centre xyz, hmax | count, node start, child start,
                        // child count
 };
 
@@ -170,6 +178,8 @@ __global__ void __launch_bounds__(kT) range_walk_kernel(const Args a) {
     const int ngb = min(a.gb, a.ng - g0);
     const float ext = *a.extent;
     const bool periodic = a.box > 0.0f;
+    const bool use_hmax = a.drift != nullptr;
+    const float drift = use_hmax ? *a.drift : 0.0f;
     const unsigned le = (2u << lane) - 1u;      // lanes <= this one
 
     if (tid < kGB) {
@@ -247,7 +257,12 @@ __global__ void __launch_bounds__(kT) range_walk_kernel(const Args a) {
                 const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0),
                                                      __fmul_rn(e1, e1)),
                                            __fmul_rn(e2, e2));
-                const bool live = r1.x > 0.0f && d2 <= b[kPad2];
+                float thr = b[kPad2];
+                if (use_hmax) {
+                    const float e = __fadd_rn(r0.w, drift);
+                    thr = fmaxf(thr, __fmul_rn(e, e));
+                }
+                const bool live = r1.x > 0.0f && d2 <= thr;
                 const bool leaf = r1.x <= a.leaf_cap;
                 seg = live && leaf;
                 opn = live && !leaf && !last;
@@ -455,7 +470,9 @@ __global__ void __launch_bounds__(kT) range_walk_kernel(const Args a) {
 // (ng, seg_cap), nn (ng,), tele (8, ng) int64, all written whole, and sums
 // (5,) int64 [dropped entries, largest demand, cap drops open, big_over,
 // big_drop], zeroed here first; scratch (2, ng, sw) int32 holds the
-// frontier ids past fs (<= 256) of each group. A block walks gb groups:
+// frontier ids past fs (<= 256) of each group; drift the tree's drift
+// (a device scalar) for the hmax mode, null for the plain range test. A
+// block walks gb groups:
 // 8, or fewer when that leaves the card less than four blocks for each it
 // holds at once (so that the blocks of the widest groups do not start
 // last).
@@ -468,7 +485,8 @@ extern "C" int range_walk_launch(const float* tbl, const int* level_off,
                                  int big_chunks, int lvl_cap, int seg_cap,
                                  int* keys, int* nn, long long* tele,
                                  long long* sums, int* scratch, int sw,
-                                 int fs, void* stream) {
+                                 int fs, const float* drift,
+                                 void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
     cudaError_t e = cudaMemsetAsync(sums, 0, kNSums * sizeof(long long), st);
     if (e != cudaSuccess || ng <= 0) return (int)e;
@@ -481,6 +499,7 @@ extern "C" int range_walk_launch(const float* tbl, const int* level_off,
     a.glo = glo;
     a.ghi = ghi;
     a.pad = pad;
+    a.drift = drift;
     a.keys = keys;
     a.nn = nn;
     a.tele = tele;

@@ -76,15 +76,19 @@ rebuilt and walked every step.
 halo with a seeded random sixth of its particles made gas (type 0, the
 same positions, velocities and masses: a baryon fraction of 1/6, near the
 cosmic 0.16) on the lists, gravity plus SPH on the hash grid (``SphEngine
-cell``, the engine the phased step runs: ``auto`` would take the tree
-engine of ROADMAP item 12.2), no DSMC. ``SofteningGas`` is the halo's 0.3
+cell``), no DSMC. ``SofteningGas`` is the halo's 0.3
 (one softening across types, so node eps_max stays a broadcast),
 ``DesNumNgb 30`` is the flagship's, ``ArtBulkViscConst 0.75`` and
 ``CourantFac 0.15`` are ``SimConfig``'s defaults, and ``InitGasTemp
 5e4`` K gives the gas that a Gadget IC writes with u = 0 a u of 620
 (km/s)^2, a sound speed of 26 km/s against the halo's v_max of about 46
 km/s. gas-small is the same on the single-program step
-(``mode="synchronized"``) at ``GAS_SMALL_N``.
+(``mode="synchronized"``) at ``GAS_SMALL_N``. ``flagship_config(
+**GAS_TREE)`` on ``gas_ics(n)`` is gas-halo-tree: gas-halo with JAX's
+default engine, ``SphEngine auto``, which with ``ForceMethod tree`` runs
+the tree SPH engine (``ops/fused_sph.py``) on the force phase's octree on
+the phased step (N = 1e6 with 166667 gas, the moments refreshed each
+list step).
 
 The configuration is bench.py:44-56 (NFW halo, relative opening criterion,
 ``ErrTolForceAcc 0.005``, reflection boundary, synchronized steps) with
@@ -153,6 +157,8 @@ VACUUM = dict(PMVacuum=1)
 GAS = dict(SphEngine="cell", SofteningGas=0.3, SofteningGasMaxPhys=0.3,
            DesNumNgb=30, ArtBulkViscConst=0.75, CourantFac=0.15,
            InitGasTemp=5e4)
+# gas-halo-tree: the same with SPH on the tree (JAX's default engine)
+GAS_TREE = dict(GAS, SphEngine="auto")
 GAS_FRACTION = 1.0 / 6.0
 GAS_SMALL_N = 1 << 17   # gas-small, on the single-program step
 

@@ -56,7 +56,10 @@ overfull cell are not counted as drops (the JAX range walk does not count
 them). With a periodic ``box`` the distance is taken from the group box's
 centre by the minimum image, ``d - box*round(d/box)``
 (``_range_classify``'s periodic branch; dead groups are parked with an
-inverted huge box, so no cell is in range of them). That level is a step of
+inverted huge box, so no cell is in range of them). Its hydro mode
+(``use_hmax``, the tree SPH engine's hydro walk) takes a cell within
+max(pad, hmax + drift) of the group box, hmax the cell's largest smoothing
+length in the range rows' column 3. That level is a step of
 ``fused_range.range_walk_plain``, the plain version of the whole range
 walk; on the card the walk is one launch of its own kernel
 (``csrc/range_walk.cu``, ``fused_range.range_segments``), not a
@@ -149,13 +152,15 @@ def list_buf(ng: int, LF: int, LN: int, device) -> ListBuf:
 def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                  theta2: float, use_relative: bool, leaf_cap: int,
                  last: bool, range_walk: bool = False, box: float = 0.0,
-                 pbc=None):
+                 pbc=None, use_hmax: bool = False, drift=0.0):
     """The TPU kernel's classification in plain PyTorch: the dense
     (ng, W) int32 planes of far (level-local id), segment, open
     (``cstart*16+ccnt``) and big (id) keys, IMAX elsewhere. Live (group,
     chunk) items run in batches of ITEM_BLOCK. ``range_walk``: the range
     test on range rows, oac the pad (no far keys), minimum-image with a
-    periodic ``box`` > 0; ``pbc``: the walk's periodic classification."""
+    periodic ``box`` > 0, ``use_hmax``/``drift`` its hydro mode
+    (``fused_force.range_classify``); ``pbc``: the walk's periodic
+    classification."""
     ng, W = fids.shape
     wc = min(WC, W)
     maxc = W // wc
@@ -177,7 +182,8 @@ def level_planes(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
         rows = torch.where(dead[..., None], torch.zeros_like(rows), rows)
         if range_walk:
             far, seg, opn, big = range_classify(rows, glo[g], ghi[g], oac[g],
-                                                s_l, leaf_cap, last, box)
+                                                s_l, leaf_cap, last, box,
+                                                use_hmax, drift)
         else:
             far, seg, opn, big = classify(rows, glo[g], ghi[g], oac[g], s_l,
                                           theta2, use_relative, leaf_cap,
@@ -271,7 +277,7 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
                     lists: Optional[ListBuf] = None, lvl_base: int = 0,
                     lvl_cap: Optional[int] = None,
                     range_walk: bool = False, box: float = 0.0,
-                    pbc=None) -> Level:
+                    pbc=None, use_hmax: bool = False, drift=0.0) -> Level:
     """Plain PyTorch version of ``far_level``: ``level_planes`` compacted
     and appended step by step, as the JAX package does."""
     ng, W = fids.shape
@@ -279,7 +285,8 @@ def far_level_plain(fids, n_live, tbl, nl_real: int, s_l, glo, ghi, oac, *,
     fark, segk, openk, bigk = level_planes(
         fids, n_live, tbl, nl_real, s_l, glo, ghi, oac, theta2=theta2,
         use_relative=use_relative, leaf_cap=leaf_cap, last=last,
-        range_walk=range_walk, box=box, pbc=pbc)
+        range_walk=range_walk, box=box, pbc=pbc, use_hmax=use_hmax,
+        drift=drift)
     zeros = torch.zeros(ng, dtype=torch.int32, device=dev)
     far, n_far = compact_plane(fark)
     seg, n_seg = compact_plane(segk)
@@ -415,3 +422,5 @@ far_level.vacuum_record_launches = 0     # ... of its free-space mode
 far_level.ewald_record_launches = 0      # (no path records the Ewald walk)
 far_level.range_launches = 0    # launches of the whole range walk
                                 # (fused_range.range_segments, one a walk)
+far_level.range_hmax_launches = 0   # ... of its hmax mode (the tree SPH
+                                    # engine's hydro walk, kernel T1)

@@ -251,12 +251,17 @@ def min_image(d, box: float):
 
 
 def range_classify(rows, glo, ghi, pad, s_l, leaf_cap, last_level,
-                   box: float = 0.0):
+                   box: float = 0.0, use_hmax: bool = False, drift=0.0):
     """In-range decision per (group, slot) of the SIDM range walk
     (``sidm_tpu/ops/fused_range.py:_range_classify`` :99): the cell box
     (geometric centre ``rows[..., 0:3]`` +- s_l/2) within ``pad`` of the
     group box; ``box`` > 0: by minimum-image distances from the group
-    box's centre. rows (B, WC, >= 8) range rows; pad (B,).
+    box's centre. ``use_hmax``: the hydro walk's test of
+    ``sidm_tpu/ops/fused_sph.py:_sph_classify`` :116-144, within
+    max(pad, hmax + drift) of the group box, hmax the cell's largest
+    smoothing length (``rows[..., 3]``, ``fused_range.range_levels``) and
+    ``drift`` the tree's refresh drift (a 0-d float32 tensor or a float).
+    rows (B, WC, >= 8) range rows; pad (B,).
     Returns far (none), seg, opn, big boolean (B, WC) planes."""
     ctr = rows[..., R_COM]
     cnt = rows[..., R_CNT]
@@ -272,7 +277,10 @@ def range_classify(rows, glo, ghi, pad, s_l, leaf_cap, last_level,
                                          ctr - ghi[:, None, :]) - half, zero)
     d2 = (dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1]
           + dx[..., 2] * dx[..., 2])
-    live = (cnt > 0) & (d2 <= (pad * pad)[:, None])
+    eff = pad[:, None]
+    if use_hmax:
+        eff = torch.maximum(eff, rows[..., R_MASS] + drift)
+    live = (cnt > 0) & (d2 <= eff * eff)
     is_leaf = cnt <= float(leaf_cap)
     seg = live & is_leaf
     deep = live & ~is_leaf

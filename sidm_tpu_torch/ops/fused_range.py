@@ -75,9 +75,10 @@ from .tree import Octree, level_offsets
 @dataclasses.dataclass(frozen=True)
 class RangeRows:
     """The range rows of every level in one table: ``table`` (M, 8)
-    float32 [geometric centre xyz, 0, count, node start, level-local child
-    start, child count], level l at rows ``offs[l]:offs[l + 1]``
-    (``level_offsets``); ``rows[l]`` is that level's view."""
+    float32 [geometric centre xyz, hmax, count, node start, level-local
+    child start, child count], level l at rows ``offs[l]:offs[l + 1]``
+    (``level_offsets``); ``rows[l]`` is that level's view. hmax is 0
+    unless ``range_levels`` was given smoothing lengths."""
     table: torch.Tensor
     offs: List[int]
 
@@ -85,15 +86,27 @@ class RangeRows:
         return self.table[self.offs[l]:self.offs[l + 1]]
 
 
-def range_levels(tree: Octree) -> RangeRows:
+def range_levels(tree: Octree, hmax_sorted=None) -> RangeRows:
     """The range rows of every level (``RangeRows``), built in one pass
-    over the tree's node arrays."""
+    over the tree's node arrays. hmax_sorted: optional (N,) smoothing
+    lengths in sorted order (0 where a particle has none); each node's
+    hmax is then their largest over its Morton segment (JAX's sparse-table
+    range max, ``sidm_tpu/ops/fused_sph.py:pack_sph_tree`` :79-91: the
+    particles of a node are one contiguous run, so it is the same number),
+    0 for a node with no particle."""
     n = tree.pos_s.shape[0]
     depth = tree.depth
     offs = level_offsets(n, depth)
     M = offs[-1]
     dtype, dev = tree.pos_s.dtype, tree.pos_s.device
     mac = tree.mac_rows[:M]
+    hmax = torch.zeros_like(mac[:, 7:8])
+    if hmax_sorted is not None:
+        # a segment max per level: each particle's node is seg_of's (the
+        # particles without a smoothing length add 0)
+        for l in range(depth + 1):
+            hmax[offs[l]:offs[l + 1], 0].scatter_reduce_(
+                0, tree.seg_of[l], hmax_sorted.to(dtype), "amax")
     # each node's next level offset: children are level-local
     nxt = torch.repeat_interleave(
         torch.tensor([offs[l + 1] if l < depth else 0
@@ -102,7 +115,7 @@ def range_levels(tree: Octree) -> RangeRows:
                      device=dev), output_size=M)
     child_local = torch.clamp(tree.child_start[:M] - nxt, min=0)
     table = torch.cat([
-        mac[:, 4:7], torch.zeros_like(mac[:, 7:8]), mac[:, 7:8],
+        mac[:, 4:7], hmax, mac[:, 7:8],
         tree.node_start[:M, None].to(dtype), child_local[:, None].to(dtype),
         tree.child_count[:M, None].to(dtype)], dim=1).contiguous()
     return RangeRows(table, offs)
@@ -120,7 +133,8 @@ RANGE_SHARED_IDS = 256   # frontier ids per group kept in shared memory
 def range_walk_plain(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
                      seg_cap: int, lvl_cap: Optional[int] = None,
                      cfg: Optional[FusedConfig] = None, box: float = 0.0,
-                     on_level=None, drops: Optional[dict] = None):
+                     on_level=None, drops: Optional[dict] = None,
+                     use_hmax: bool = False):
     """Plain PyTorch version of ``range_segments``: the walk level by
     level, each level a ``far_level_plain`` call in its range mode.
     on_level: optional observer ``on_level(level, kw)`` before every
@@ -145,7 +159,8 @@ def range_walk_plain(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
                   leaf_cap=LEAF_CAP, last=last, Wn=0 if last else ws[l + 1],
                   open_cap=cfg.open_cap, big_cap=cfg.big_cap,
                   big_chunks=cfg.big_chunks, lists=buf, lvl_base=0,
-                  lvl_cap=lvl_cap, range_walk=True, box=box)
+                  lvl_cap=lvl_cap, range_walk=True, box=box,
+                  use_hmax=use_hmax, drift=tree.drift)
         if on_level is not None:
             on_level(l, kw)
         out = far_level_plain(**kw)
@@ -166,7 +181,8 @@ def range_segments(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
                    seg_cap: int, lvl_cap: Optional[int] = None,
                    cfg: Optional[FusedConfig] = None, box: float = 0.0,
                    on_level=None, drops: Optional[dict] = None,
-                   shared_ids: int = RANGE_SHARED_IDS):
+                   shared_ids: int = RANGE_SHARED_IDS,
+                   use_hmax: bool = False):
     """The range walk of every group (``_record_segments`` :94-202):
     segment and chunk keys appended in frontier order to (ng, seg_cap)
     lists (IMAX past each count) under the level cap (None: none) and
@@ -180,6 +196,11 @@ def range_segments(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
     levels), ``big_over`` (overfull deepest cells past ``big_cap``) and
     ``big_drop`` (particles past ``big_chunks`` chunks of those cells; JAX's
     walk counts them in ``ovf_big``, its list record does not).
+    ``use_hmax``: the hydro walk of the tree SPH engine (kernel T1, the
+    hmax mode of the same kernel, counted in ``far_level.
+    range_hmax_launches``): a cell is in range within max(pad, hmax +
+    tree.drift) of the group box, hmax the rows' column 3
+    (``range_levels(tree, hmax_sorted)``).
 
     On a CUDA tensor one launch of ``csrc/range_walk.cu`` walks every
     level of every group (counted in ``far_level.range_launches``); its
@@ -192,7 +213,8 @@ def range_segments(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
     if not glo.is_cuda:
         return range_walk_plain(tree, rlev, glo, ghi, pad, seg_cap=seg_cap,
                                 lvl_cap=lvl_cap, cfg=cfg, box=box,
-                                on_level=on_level, drops=drops)
+                                on_level=on_level, drops=drops,
+                                use_hmax=use_hmax)
     if on_level is not None:
         raise ValueError("range_segments: on_level observes the plain walk "
                          "(range_walk_plain) only")
@@ -213,7 +235,8 @@ def range_segments(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
                extent=(tree.extent, torch.float32, ()),
                glo=(glo, torch.float32, (ng, 3)),
                ghi=(ghi, torch.float32, (ng, 3)),
-               pad=(pad, torch.float32, (ng,)))
+               pad=(pad, torch.float32, (ng,)),
+               drift=(tree.drift, torch.float32, ()))
     ws = w_schedule(cfg, depth, n, 0.5, True)
     w = [ws.get(l, 0) for l in range(depth + 1)]
     sw = max([0] + w[START_LEVEL + 1:]) - shared_ids
@@ -229,11 +252,15 @@ def range_segments(tree: Octree, rlev: RangeRows, glo, ghi, pad, *,
         depth, tree.extent, glo, ghi, pad, ng, float(box), float(LEAF_CAP),
         int(cfg.open_cap), int(cfg.big_cap), int(cfg.big_chunks),
         -1 if lvl_cap is None else int(lvl_cap), int(seg_cap), keys, nn,
-        tele, tot, scratch, max(sw, 0), int(shared_ids)))
+        tele, tot, scratch, max(sw, 0), int(shared_ids),
+        tree.drift if use_hmax else None))
     if err:
         raise RuntimeError(f"range_segments kernel launch failed: CUDA "
                            f"error {err}")
-    far_level.range_launches += 1
+    if use_hmax:
+        far_level.range_hmax_launches += 1
+    else:
+        far_level.range_launches += 1
     if drops is not None:
         drops.update(open=tot[R_OPEN], big_over=tot[R_BIG_OVER],
                      big_drop=tot[R_BIG_DROP])
@@ -326,7 +353,8 @@ MAX_GROW = 5    # cap doublings of the walk's caps in sized_segments
 
 def sized_segments(tree: Octree, rlev, glo, ghi, pad, seg_cap: int, *,
                    cfg: Optional[FusedConfig] = None, box: float = 0.0,
-                   drops: Optional[dict] = None, on_walk=None):
+                   drops: Optional[dict] = None, on_walk=None,
+                   use_hmax: bool = False):
     """``range_segments`` with the segment lists and the walk's caps sized
     from the walk's own demand: when ``seg_cap`` was short, once more at
     the demand rounded up to 1024 (JAX walks without a segment cap); a
@@ -336,13 +364,13 @@ def sized_segments(tree: Octree, rlev, glo, ghi, pad, seg_cap: int, *,
     still drops is left in ``drops``. Returns range_segments' five
     outputs, the segment cap and the FusedConfig used. on_walk: optional
     observer ``on_walk(kw)`` of each ``range_segments`` call's
-    arguments."""
+    arguments. ``use_hmax``: the hydro walk (``range_segments``)."""
     cfg = cfg or FusedConfig()
     drops = {} if drops is None else drops
     grown = 0
     while True:
         kw = dict(tree=tree, rlev=rlev, glo=glo, ghi=ghi, pad=pad,
-                  seg_cap=seg_cap, cfg=cfg, box=box)
+                  seg_cap=seg_cap, cfg=cfg, box=box, use_hmax=use_hmax)
         if on_walk is not None:
             on_walk(kw)
         keys, nn, ovf, need, stat = range_segments(**kw, drops=drops)

@@ -21,12 +21,14 @@ comoving and periodic terms :1550-1575; the free-space TreePM mesh
 ``_use_vacuum_pm`` :216-222 and ``_pm_kernel_free`` :224-252 on the phased
 step :506-514; the per-pair Ewald walk of ``PMGrid -1``, ``tree_gravity``
 of ``_make_force_fn`` :333-344 and the phased step's ``eval_targets``
-:616-632 with the DSMC walk on its tree :1242-1253; SPH on the hash grid:
+:616-632 with the DSMC walk on its tree :1242-1253; SPH:
 ``_sph_params`` :360, the single-program step's gas half :416-433, the
-phased step's ``phase_gas`` under ``SphEngine cell`` :675-723 and
-:1265-1269, ``_check_ngb_overflow`` :1370, the gas parts of ``load_ic``
-:130-144 and ``write_snapshot_file`` :1536-1543, gas turning the lists'
-drift mode off :526-528, :1000-1001).
+phased step's ``phase_gas`` :675-723 and :1265-1269 (the tree engine
+``ops/fused_sph.py`` under ``SphEngine fused``, or ``auto`` with
+``ForceMethod tree``, the hash engine under ``cell``),
+``_check_ngb_overflow`` :1370, the gas parts of ``load_ic`` :130-144 and
+``write_snapshot_file`` :1536-1543, gas turning the lists' drift mode off
+:526-528, :1000-1001).
 
 A periodic box (``PeriodicBoundariesOn 1``) runs TreePM on ``ForceMethod
 tree`` (``PMGrid`` >= 0, 0 choosing the mesh by N): the walk's periodic
@@ -122,16 +124,19 @@ the initial smoothing lengths by ``tree_hsml_init_fused``.
 With ``VelDispOn 1`` the velocity-dispersion pass follows the force on
 both steps (JAX runs it right after the force phase).
 
-Gas (type 0) takes the SPH pass (``ops/sph.py``) after the force and the
-DSMC pass on both steps, on the force phase's predicted positions and
-velocities: the density pass (the active gas's smoothing lengths, rho, div
-v, curl v and their rates) and the hydro force (the pressure and viscous
-acceleration added, du/dt set, where gas and active), with the pass's
-rows per bucket and grid levels grown to its demand. The single-program
-step runs it whatever ``SphEngine`` says; the phased step under
-``SphEngine cell``, and it refuses the tree engine (``fused``, or
-``auto`` with ``ForceMethod tree``; ROADMAP.md A, item 12.2). With gas
-the list steps refresh the tree's moments instead of drifting its nodes.
+Gas (type 0) takes the SPH pass after the force and the DSMC pass on both
+steps, on the force phase's predicted positions and velocities: the
+density pass (the active gas's smoothing lengths, rho, div v, curl v and
+their rates) and the hydro force (the pressure and viscous acceleration
+added, du/dt set, where gas and active). The single-program step runs the
+hash engine (``ops/sph.py``, its rows per bucket and grid levels grown to
+the pass's demand) whatever ``SphEngine`` says; the phased step runs it
+under ``SphEngine cell``, and the tree engine (``ops/fused_sph.py``, on
+the force phase's octree, its walk's caps grown to the demand) under
+``fused``, or ``auto`` with ``ForceMethod tree``: one engine never takes
+the other's place. With gas the list steps refresh the tree's moments
+instead of drifting its nodes, so the tree engine never walks a
+drift-mode tree.
 
 Then: kick factors -> DKD advance (which applies the scattering kicks) ->
 reflection -> new timesteps (the global minimum unless
@@ -180,6 +185,7 @@ from .ops.direct import direct_sum
 from .ops.ewald import PSI0, build_ewald_table
 from .ops.fused_force import default_depth
 from .ops.fused_range import cell_count_hsml_seed, tree_hsml_init_fused
+from .ops.fused_sph import SEG_CAP, hydro_force_fused, sph_density_fused
 from .ops.list_force import (ListConfig, advance_tree, eval_lists,
                              max_displacement, record_lists)
 from .ops.list_range import (RangeListConfig,
@@ -374,6 +380,9 @@ class Simulation:
         self.last_veldisp_info = None
         self._sph_cap = SphParams._field_defaults["cap"]     # JAX's 96
         self._sph_levels = HASH_LEVELS
+        self._sph_walk = (None, SEG_CAP)  # the tree engine's walk caps and
+                                          # segment lists, grown to its
+                                          # demand
         self.last_sph_info = None
         self.ngb_overflow_total = 0     # SPH queries that still dropped
         self._gas_of = None             # the ptype tensor _has_gas read
@@ -419,14 +428,11 @@ class Simulation:
                                   pad_to_multiple: int = 256,
                                   egy_spec=None):
         """The particles from host arrays (``egy_spec``: the gas's specific
-        internal energy, 0 where not given). Gas on the phased step with
-        the tree SPH engine (``SphEngine fused``, or ``auto`` with
-        ``ForceMethod tree``) is refused."""
+        internal energy, 0 where not given)."""
         p = make_particles(pos, vel, mass, ptype, pid=pid, egy_spec=egy_spec,
                            pad_to_multiple=pad_to_multiple, dtype=self.dtype,
                            device=self.device)
         self.particles = self._init_particle_times(p)
-        self._check_sph_engine()
 
     def load_ic(self, path: Optional[str] = None):
         """read_ic (nbody/read_ic.c): a Gadget snapshot (``ICFormat 1``) or
@@ -636,19 +642,16 @@ class Simulation:
             self._gas_of, self._gas_present = pt, bool(torch.any(pt == 0))
         return self._gas_present
 
-    def _check_sph_engine(self):
-        """JAX's SPH rule (simulation.py:675-690): the single-program step
-        runs the hash engine whatever ``SphEngine`` says; the phased step
-        runs it under ``SphEngine cell``, and the tree engine
-        (``fused_sph.py``) under ``fused``, or ``auto`` with ``ForceMethod
-        tree``: refused, never replaced by the hash engine."""
+    def _sph_engine(self, phased: bool) -> str:
+        """JAX's SPH rule (simulation.py:675-690): "tree" (``ops/
+        fused_sph.py``) on the phased step under ``SphEngine fused``, or
+        ``auto`` with ``ForceMethod tree``; else "hash" (``ops/sph.py``:
+        the phased step under ``cell``, the single-program step whatever
+        ``SphEngine`` says)."""
         cfg = self.cfg
-        if self._has_gas() and self._use_phased() and (
-                cfg.SphEngine == "fused" or (cfg.SphEngine == "auto"
-                                             and cfg.ForceMethod == "tree")):
-            _refuse(f"gas on the phased step with SphEngine {cfg.SphEngine} "
-                    f"(the tree SPH engine, ops/fused_sph.py)",
-                    "A, item 12.2")
+        tree = cfg.SphEngine == "fused" or (cfg.SphEngine == "auto"
+                                            and cfg.ForceMethod == "tree")
+        return "tree" if phased and tree else "hash"
 
     def _check_uniform_eps(self) -> bool:
         """One softening value across the particle types present: node
@@ -778,7 +781,6 @@ class Simulation:
     def _step_phased(self, first: bool):
         """The phased step (see the module docstring)."""
         cfg, consts = self.cfg, self.consts
-        self._check_sph_engine()
         if self._uniform_eps is None:
             self._uniform_eps = self._check_uniform_eps()
         params = self._timestep_params()
@@ -808,7 +810,8 @@ class Simulation:
         box = self._box()
         pbc = self._phased_pbc()
         # gas runs refresh the moments instead of the node drift, as comoving
-        # runs do (JAX simulation.py:526-528, 1000-1001)
+        # runs do (JAX simulation.py:526-528, 1000-1001): the tree SPH
+        # engine walks the refreshed tree
         drift_mode = (use_lists and not cfg.ComovingIntegrationOn
                       and not self._has_gas())
         if reuse and use_lists:
@@ -948,8 +951,9 @@ class Simulation:
                            0x7FFFFFFF if first else self.step_count)
             p, n_scat = self._sidm(p, pos_pred, tree, t_next, active, vmax,
                                    key, use_lists, clock)
-        # the gas phase on the force phase's predictions (JAX :1265-1269)
-        p = self._sph(p, pos_pred, vel_pred, t_next, active, clock)
+        # the gas phase on the force phase's predictions and octree (JAX
+        # :1265-1269)
+        p = self._sph(p, pos_pred, vel_pred, t_next, active, clock, tree)
         return self._finish(p, t_next, active, vmax, params, first, clock,
                             n_scat)
 
@@ -1187,20 +1191,30 @@ class Simulation:
             hubble=self.units.Hubble, omega0=cfg.Omega0,
             omega_lambda=cfg.OmegaLambda)
 
-    def _sph(self, p, pos_pred, vel_pred, t_next, active, clock):
+    def _sph(self, p, pos_pred, vel_pred, t_next, active, clock,
+             tree=None):
         """The SPH pass (gas only; JAX's density() and hydro_force(), the
-        gas half of compute_accelerations, accel.c:71-116): ``grown_pass``
-        (``sph_density``, kernels H1 and H5, then ``hydro_force``, H6) at
-        the force phase's predicted positions and velocities, its rows per
-        bucket (``_sph_cap``) and its grid's levels (``_sph_levels``) grown
-        to the pass's demand, up to HASH_TRIES passes, and kept for the
-        next step. What still drops is warned about and counted
-        (``ngb_overflow_total``). Adds the hydro acceleration and sets
-        dt_egy where gas and active; returns the particles, the pass's
-        numbers in ``last_sph_info``."""
+        gas half of compute_accelerations, accel.c:71-116) at the force
+        phase's predicted positions and velocities, on the engine of
+        ``_sph_engine`` (``tree``: the phased step's octree). The hash
+        engine: ``grown_pass`` (``sph_density``, kernels H1 and H5, then
+        ``hydro_force``, H6), its rows per bucket (``_sph_cap``) and its
+        grid's levels (``_sph_levels``) grown to the pass's demand, up to
+        HASH_TRIES passes, and kept for the next step; the tree engine:
+        ``sph_density_fused`` (the smoothing-length controller's count
+        passes and the density pass, kernels T1's plain mode and T2) then
+        ``hydro_force_fused`` (T1, T3) on ``tree``, its walk's caps and
+        segment lists grown to their demand and kept (``_sph_walk``). What
+        still drops is warned about and counted (``ngb_overflow_total``).
+        Adds the hydro acceleration and sets dt_egy where gas and active;
+        returns the particles, the pass's numbers in ``last_sph_info``
+        (``engine`` "tree" or "hash")."""
         if not self._has_gas():
             self.last_sph_info = None
             return p
+        if self._sph_engine(tree is not None) == "tree":
+            return self._sph_tree(p, pos_pred, vel_pred, t_next, active,
+                                  clock, tree)
         old = (self._sph_cap, self._sph_levels)
         r = grown_pass(p, pos_pred, vel_pred, t_next, active,
                        self._sph_params(), box=self._box(), cap=old[0],
@@ -1220,12 +1234,48 @@ class Simulation:
                   f"{r.cap}, levels {r.levels}).", file=sys.stderr,
                   flush=True)
         self.last_sph_info = dict(
-            cap=r.cap, levels=r.levels, tries=r.tries,
+            engine="hash", cap=r.cap, levels=r.levels, tries=r.tries,
             queries=r.dinfo["queries"], hydro_queries=r.hinfo["queries"],
             **s)
         clock.mark("gas")
         return dataclasses.replace(r.p, accel=r.p.accel + r.acc,
                                    dt_egy=r.dt_egy)
+
+    def _sph_tree(self, p, pos_pred, vel_pred, t_next, active, clock, tree):
+        """The tree engine's pass (``_sph``) on the force phase's ``tree``
+        (built or moments-refreshed on ``pos_pred``, never node-drifted):
+        ``last_sph_info`` has its walks, the walk's caps and segment cap
+        after growth, the drops still left (cells past the caps, particles
+        past the overfull cells' chunks, segment entries), the controller's
+        passes, the gas targets and the pairs."""
+        params, box = self._sph_params(), self._box()
+        cfg, seg_cap = self._sph_walk
+        q, dinfo = sph_density_fused(p, pos_pred, vel_pred, tree, t_next,
+                                     active, params, cfg=cfg, box=box,
+                                     seg_cap=seg_cap)
+        acc, dt_egy, hinfo = hydro_force_fused(
+            q, pos_pred, vel_pred, tree, t_next, active, params,
+            cfg=dinfo["cfg"], box=box, seg_cap=dinfo["seg_cap"])
+        self._sph_walk = (hinfo["cfg"], hinfo["seg_cap"])
+        drops = dinfo["drops"] + hinfo["drops"]
+        if drops:
+            self.ngb_overflow_total += drops
+            print(f"WARNING: the tree SPH engine's walks still dropped "
+                  f"{drops} entries past their caps this step (pairs "
+                  f"dropped; density {dinfo['drops']}, hydro "
+                  f"{hinfo['drops']}).", file=sys.stderr, flush=True)
+        c = hinfo["cfg"]
+        self.last_sph_info = dict(
+            engine="tree", passes=dinfo["passes"],
+            walks=dinfo["walks"] + hinfo["walks"],
+            seg_cap=hinfo["seg_cap"], w_max=c.w_max, open_cap=c.open_cap,
+            big_cap=c.big_cap, big_chunks=c.big_chunks, drops=drops,
+            density_drops=dinfo["drops"], hydro_drops=hinfo["drops"],
+            groups=dinfo["groups"], queries=dinfo["targets"],
+            hydro_queries=hinfo["targets"], pairs=dinfo["pairs"],
+            hydro_pairs=hinfo["pairs"])
+        clock.mark("gas")
+        return dataclasses.replace(q, accel=q.accel + acc, dt_egy=dt_egy)
 
     def _sidm_walk(self, p, pos_pred, tree, t_next, active, vmax, key,
                    params, info, clock):

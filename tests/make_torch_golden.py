@@ -149,15 +149,26 @@ per-file budget of the test suite, so their outputs are committed:
   part-full lists by ``_walk_level_keys`` and ``_append_plane`` with the
   demand, the drops and the next frontier.
 
+* ``tests/data/torch_tree_sph_golden.npz`` (tests/test_torch_tree_sph.py):
+  JAX's tree SPH engine (``sph_density_fused``, ``hydro_force_fused``) on
+  tests/test_fused_sph.py's six cases and a periodic comoving box
+  (``tree_sph_inputs``, ``{tag}_``): the density pass's fields and
+  ``ovf``, the hydro ``acc``, ``dt_egy`` and ``ovf_h``, the hydro walk's
+  node hmax; ``tests/data/torch_tree_sph_steps_golden.npz``
+  (tests/test_torch_gas_steps.py): the JAX ``Simulation`` of
+  SPH_STEPS_CONFIG with ``SphEngine fused`` on the phased step (``f{k}_``).
+
 Each test file has a ``slow`` test that reruns its JAX outputs and holds the
 file to them. Rerun this script to regenerate the files (all, or the ones
 named: ``slice``, ``list_slice``, ``list``, ``sidm``, ``sidm_slice``,
 ``sidm_walk``, ``run``, ``hash``, ``veldisp``, ``periodic``,
-``cosmo_sidm``, ``walk``, ``gather``, ``tree``, ``far``):
+``cosmo_sidm``, ``walk``, ``gather``, ``tree``, ``far``, and the others
+of ``GOLDENS``, such as ``tree_sph`` and ``tree_sph_steps``):
 
     python -m tests.make_torch_golden [slice] [list_slice] [list] [sidm]
         [sidm_slice] [sidm_walk] [run] [hash] [veldisp] [periodic]
-        [cosmo_sidm] [walk] [gather] [tree] [far]
+        [cosmo_sidm] [walk] [gather] [tree] [far] [tree_sph]
+        [tree_sph_steps] ...
 """
 
 import os
@@ -3021,6 +3032,163 @@ def jax_sph_steps() -> dict:
     return out
 
 
+# ---- SPH on the tree --------------------------------------------------------
+
+TREE_SPH_GOLDEN = os.path.join(_DATA, "torch_tree_sph_golden.npz")
+TREE_SPH_STEPS_GOLDEN = os.path.join(_DATA,
+                                     "torch_tree_sph_steps_golden.npz")
+# tests/test_fused_sph.py's six cases: ``d`` density and ``h`` hydro against
+# the brute force, ``p`` periodic, ``m`` momentum, ``c`` the controller's
+# convergence, ``x`` mixed types with inactive gas; and ``k``,
+# tests/test_torch_sph.py's periodic comoving box (SPH_X: dark matter and
+# padding among the gas, warm state, 60 % active in both passes, the
+# controller's 4 passes); its FusedConfig and tree depth
+TREE_SPH_TAGS = ("d", "h", "p", "m", "c", "x", "k")
+TREE_SPH_CFG = dict(group_size=16, group_block=8, break_level=3)
+TREE_SPH_DEPTH = 6
+TREE_SPH_EPS = 1e-3
+TREE_SPH_TIME = 0.05
+TREE_SPH_FIELDS = ("hsml", "density", "div_vel", "curl_vel", "dt_density",
+                   "dt_hsml", "ngb_sph")
+
+
+def tree_sph_inputs(tag: str) -> dict:
+    """Input ``tag`` as numpy: make_particles' ``pos``, ``vel``, ``mass``,
+    ``ptype``, ``egy_spec`` and ``pad``; ``state`` (fields to set after
+    make_particles, padded), ``time``, the SphParams changes ``params``,
+    ``box``, the controller's ``iters``, the hydro pass's ``active``
+    (padded), whether the density pass takes it too (``dens_active``; else
+    every valid particle) and whether the case runs the hydro pass
+    (``hydro``)."""
+    if tag == "k":
+        x = sph_inputs("x")
+        return dict(x, iters=4, dens_active=True, hydro=True)
+    def gas_box(n, seed, k=32):
+        rng = np.random.default_rng(seed)
+        pos = rng.uniform(0, 1, (n, 3))
+        vel = rng.normal(0, 0.1, (n, 3))
+        h0 = (3.0 * k / (4 * np.pi * n)) ** (1 / 3)
+        return dict(pos=pos, vel=vel, mass=np.full(n, 1.0 / n),
+                    ptype=np.zeros(n, np.int32), egy_spec=np.full(n, 1.0),
+                    pad=n, state=dict(hsml=h0 * rng.uniform(0.8, 1.3, n)),
+                    time=TREE_SPH_TIME, params={}, box=0.0, iters=0,
+                    active=np.ones(n, bool), dens_active=False, hydro=True)
+
+    if tag == "d":
+        return dict(gas_box(400, 1), hydro=False)
+    if tag == "h":
+        return gas_box(300, 2)
+    if tag == "p":
+        return dict(gas_box(256, 3, k=24), box=1.0,
+                    params=dict(des_num_ngb=24))
+    if tag == "m":
+        return gas_box(300, 4)
+    if tag == "c":
+        x = gas_box(400, 5)
+        return dict(x, state=dict(hsml=np.full(400, 0.2)), iters=8,
+                    hydro=False)
+    rng = np.random.default_rng(6)
+    n = 256
+    pos = rng.uniform(0, 1, (n, 3))
+    ptype = np.zeros(n, np.int32)
+    ptype[128:] = 1                                   # half dark matter
+    vel = rng.normal(0, 0.1, (n, 3))
+    h0 = (3.0 * 16 / (4 * np.pi * 128)) ** (1 / 3)
+    active = np.ones(n, bool)
+    active[:32] = False                               # inactive gas
+    return dict(pos=pos, vel=vel, mass=np.full(n, 1.0 / n), ptype=ptype,
+                egy_spec=np.full(n, 1.0), pad=n,
+                state=dict(hsml=np.where(ptype == 0, h0, 0.0)),
+                time=TREE_SPH_TIME, params=dict(des_num_ngb=16), box=0.0,
+                iters=0, active=active, dens_active=False, hydro=True)
+
+
+def jax_tree_sph_ops() -> dict:
+    """JAX's ``sph_density_fused`` and ``hydro_force_fused`` on each of
+    TREE_SPH_TAGS (``{tag}_``): the density pass's fields and ``ovf``; for
+    the hydro cases ``acc``, ``dt_egy`` and ``ovf_h`` (on the density
+    pass's particles), and the hydro walk's node hmax of every level
+    (``hmax``: ``pack_sph_tree``'s column 7, levels concatenated)."""
+    import dataclasses
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from sidm_tpu.ops.fused_force import FusedConfig
+    from sidm_tpu.ops.fused_sph import (hydro_force_fused, pack_sph_tree,
+                                        sph_density_fused)
+    from sidm_tpu.ops.sph import SphParams
+    from sidm_tpu.ops.tree import build_octree
+    from sidm_tpu.state import make_particles
+
+    cfg = FusedConfig(**TREE_SPH_CFG)
+    out = {}
+    for tag in TREE_SPH_TAGS:
+        x = tree_sph_inputs(tag)
+        p = make_particles(x["pos"], x["vel"], x["mass"], x["ptype"],
+                           egy_spec=x["egy_spec"], pad_to_multiple=x["pad"])
+        p = dataclasses.replace(p, **{
+            k: jnp.asarray(v, getattr(p, k).dtype)
+            for k, v in x["state"].items()})
+        n = p.pos.shape[0]
+        eps = jnp.full(n, TREE_SPH_EPS, p.pos.dtype)
+        tree = build_octree(p.pos, p.mass, eps, p.mass > 0, box=x["box"],
+                            depth=TREE_SPH_DEPTH)
+        prm = SphParams(**{**SPH_PARAMS, **x["params"], "block": 256})
+        t = jnp.float32(x["time"])
+        active = jnp.asarray(x["active"]) & p.valid
+        p2, ovf = sph_density_fused(p, p.pos, p.vel, tree, t,
+                                    active if x["dens_active"] else p.valid,
+                                    prm, cfg=cfg, box=x["box"],
+                                    hsml_iters=x["iters"])
+        for f in TREE_SPH_FIELDS:
+            out[f"{tag}_{f}"] = np.asarray(getattr(p2, f))
+        out[f"{tag}_ovf"] = np.asarray(ovf)
+        if not x["hydro"]:
+            continue
+        acc, de, ovf_h = hydro_force_fused(p2, p.pos, p.vel, tree, t,
+                                           active, prm, cfg=cfg,
+                                           box=x["box"])
+        out[f"{tag}_acc"] = np.asarray(acc)
+        out[f"{tag}_dt_egy"] = np.asarray(de)
+        out[f"{tag}_ovf_h"] = np.asarray(ovf_h)
+        hs = jnp.where(p2.is_gas, jnp.maximum(p2.hsml, prm.min_gas_hsml),
+                       0.0)[tree.perm]
+        st = pack_sph_tree(tree, jnp.zeros((n, 1), p.pos.dtype),
+                           hmax_sorted=hs)
+        out[f"{tag}_hmax"] = np.concatenate(
+            [np.asarray(lv[:, 7]) for lv in st.levels])
+    return out
+
+
+def jax_tree_sph_steps() -> dict:
+    """The JAX Simulation on SPH_STEPS_CONFIG with ``SphEngine fused`` on
+    the phased step (``f{k}_``, after prepare and each step, as
+    jax_sph_steps' runs)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from sidm_tpu.config import SimConfig
+    from sidm_tpu.io import ics
+    from sidm_tpu.simulation import Simulation
+
+    out = {}
+    n = SPH_STEPS["n"]
+    pos, vel, mass = ics.plummer(n, seed=SPH_STEPS["seed"])
+    sim = Simulation(SimConfig(**{**SPH_STEPS_CONFIG, "SphEngine": "fused"}),
+                     mode="phased", quiet=True)
+    sim.set_particles_from_arrays(pos, vel, mass, sph_steps_ptype(n),
+                                  pad_to_multiple=SPH_STEPS["pad"])
+    sim.prepare()
+    for k in range(SPH_STEPS["steps"] + 1):
+        if k:
+            sim.step()
+        for f in SPH_STEP_FIELDS + ("ngb_sph",):
+            out[f"f{k}_{f}"] = np.asarray(getattr(sim.particles, f))
+        out[f"f{k}_time"] = np.float64(sim.time)
+        out[f"f{k}_ngb_overflow"] = np.int64(
+            getattr(sim, "ngb_overflow_total", 0))
+    return out
+
+
 GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "list_slice": (LIST_SLICE_GOLDEN, jax_list_trajectory),
            "list": (LIST_GOLDEN, jax_list_ops),
@@ -3041,7 +3209,9 @@ GOLDENS = {"slice": (GOLDEN, jax_trajectory),
            "foundation": (FOUNDATION_GOLDEN, jax_foundation),
            "ewald_walk": (EWALD_WALK_GOLDEN, jax_ewald_walk),
            "sph": (SPH_GOLDEN, jax_sph_ops),
-           "sph_steps": (SPH_STEPS_GOLDEN, jax_sph_steps)}
+           "sph_steps": (SPH_STEPS_GOLDEN, jax_sph_steps),
+           "tree_sph": (TREE_SPH_GOLDEN, jax_tree_sph_ops),
+           "tree_sph_steps": (TREE_SPH_STEPS_GOLDEN, jax_tree_sph_steps)}
 
 
 def main(names):

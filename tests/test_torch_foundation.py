@@ -188,11 +188,12 @@ def test_unported_modes_and_inputs_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(cfg.replace(Precision="f64"), mode="phased",
                    device=torch.device("cuda"))
-    # gas on the phased step with SphEngine auto: the tree SPH engine
+    # gas on the phased step with SphEngine auto: no longer refused, the
+    # tree SPH engine (ROADMAP.md A, item 12.2, ported) runs it
     sim = Simulation(cfg, mode="phased", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A, item 12.2"):
-        sim.set_particles_from_arrays(np.zeros((4, 3)), np.zeros((4, 3)),
-                                      np.ones(4), np.array([0, 1, 1, 1]))
+    sim.set_particles_from_arrays(np.zeros((4, 3)), np.zeros((4, 3)),
+                                  np.ones(4), np.array([0, 1, 1, 1]))
+    assert sim._sph_engine(sim._use_phased()) == "tree"
     # ForceMethod direct on the phased step (the single-program step of
     # mode="synchronized" below PHASE_THRESHOLD runs it)
     sim = Simulation(cfg.replace(ForceMethod="direct"), mode="synchronized",

@@ -9,10 +9,15 @@ single-program step (``mode="synchronized"``) and the phased step
 and 10 levels (``HASH_CAP_GROWTH`` off: JAX drops rows here, the port
 counts them), each held to JAX's run in the same mode after every step at
 JAX's own bars (positions to 5e-6, egy_spec to 1e-4 relative and 1e-4
-absolute), and the two to each other at the same bars. Then the SPH rule
-(``SphEngine auto`` or ``fused`` with ``ForceMethod tree`` on the phased
-step raises naming ROADMAP item 12.2; the single-program step runs the
-hash engine whatever ``SphEngine`` says) and a CLI run: gas-halo's
+absolute), and the two to each other at the same bars. The phased step
+with ``SphEngine fused`` (the tree engine, ``ops/fused_sph.py``, on the
+force phase's octree), prepare + 3 steps, held to JAX's run of the same
+(tests/data/torch_tree_sph_steps_golden.npz, ``python -m
+tests.make_torch_golden tree_sph_steps``) at the same bars, with no walk
+drop (JAX's ``ngb_overflow_total`` 0 too). Then the SPH rule (``SphEngine
+auto`` or ``fused`` with ``ForceMethod tree`` on the phased step runs the
+tree engine; ``cell`` runs the hash engine; the single-program step runs
+the hash engine whatever ``SphEngine`` says) and a CLI run: gas-halo's
 settings on ``gas_ics(512)`` from a Gadget IC whose gas has u = 0, with
 ``InitGasTemp``: the loaded egy_spec of the gas is the u that JAX's
 ``load_ic`` gives the IC's all-gas twin (JAX's raises on the mixed IC,
@@ -34,8 +39,9 @@ from sidm_tpu_torch.io.gadget import (GadgetHeader, Snapshot, read_snapshot,
 from sidm_tpu_torch.simulation import Simulation
 from tests.make_torch_golden import (GAS_CLI, SPH_STEP_FIELDS, SPH_STEPS,
                                      SPH_STEPS_CONFIG, SPH_STEPS_GOLDEN,
-                                     SPH_STEPS_MODES, gas_cli_config,
-                                     gas_cli_ic, jax_sph_steps,
+                                     SPH_STEPS_MODES, TREE_SPH_STEPS_GOLDEN,
+                                     gas_cli_config, gas_cli_ic,
+                                     jax_sph_steps, jax_tree_sph_steps,
                                      sph_steps_ptype)
 
 torch.set_num_threads(2)
@@ -101,6 +107,42 @@ def test_gas_steps_match_jax(runs, golden, tag):
     assert sim.ngb_overflow_total > 0
 
 
+@pytest.fixture(scope="module")
+def tree_golden():
+    return dict(np.load(TREE_SPH_STEPS_GOLDEN))
+
+
+def test_tree_engine_steps_match_jax(tree_golden):
+    """The phased step on the tree engine (``SphEngine fused``) against
+    JAX's, after prepare and each of 3 steps, at the file's bars."""
+    sim = _sim("phased", SphEngine="fused")
+    sim.prepare()
+    for k in range(SPH_STEPS["steps"] + 1):
+        if k:
+            sim.step()
+        info = sim.last_sph_info
+        st = {f: getattr(sim.particles, f).numpy() for f in
+              SPH_STEP_FIELDS + ("ngb_sph", "ptype")}
+        want = {f: tree_golden[f"f{k}_{f}"] for f in
+                SPH_STEP_FIELDS + ("ngb_sph",)}
+        gas = st["ptype"] == 0
+        print(f"tree step {k}: {info}; pos max diff "
+              f"{np.max(np.abs(st['pos'] - want['pos'])):.2e}, egy_spec "
+              f"{np.max(np.abs(st['egy_spec'] - want['egy_spec'])):.2e}, "
+              f"ngb flips {int(np.sum(st['ngb_sph'] != want['ngb_sph']))}")
+        assert info["engine"] == "tree" and info["drops"] == 0
+        assert info["queries"] == int(gas.sum())
+        assert int(tree_golden[f"f{k}_ngb_overflow"]) == 0
+        np.testing.assert_allclose(st["pos"], want["pos"], atol=5e-6)
+        np.testing.assert_allclose(st["egy_spec"], want["egy_spec"],
+                                   rtol=1e-4, atol=1e-4)
+        for f in ("hsml", "density", "max_pred_time"):
+            np.testing.assert_allclose(st[f], want[f], rtol=1e-4, err_msg=f)
+        assert sim.time == pytest.approx(float(tree_golden[f"f{k}_time"]),
+                                         rel=1e-6)
+    assert sim.ngb_overflow_total == 0
+
+
 def test_gas_phased_matches_synchronized(runs):
     a, b = runs["s"][1][-1], runs["p"][1][-1]
     np.testing.assert_allclose(a["pos"], b["pos"], atol=5e-6)
@@ -108,23 +150,21 @@ def test_gas_phased_matches_synchronized(runs):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("mode,engine,method,refused", [
+@pytest.mark.parametrize("mode,engine,method,tree", [
     ("phased", "auto", "tree", True), ("phased", "fused", "tree", True),
     ("phased", "cell", "tree", False), ("synchronized", "auto", "tree",
                                         False),
     ("synchronized", "fused", "direct", False)])
-def test_sph_engine_rule(mode, engine, method, refused):
-    """The phased step refuses the tree SPH engine (ROADMAP item 12.2)
-    and never replaces it by the hash engine; the single-program step runs
-    the hash engine whatever SphEngine says."""
-    if refused:
-        with pytest.raises(NotImplementedError, match="A, item 12.2"):
-            _sim(mode, SphEngine=engine, ForceMethod=method)
-        return
+def test_sph_engine_rule(mode, engine, method, tree):
+    """The phased step runs the tree SPH engine under ``SphEngine fused``
+    or ``auto`` with ``ForceMethod tree`` and the hash engine under
+    ``cell``; the single-program step runs the hash engine whatever
+    SphEngine says."""
     sim = _sim(mode, SphEngine=engine, ForceMethod=method,
                TimeMax=SPH_STEPS_CONFIG["MaxSizeTimestep"])
     sim.prepare()
     sim.step()
+    assert sim.last_sph_info["engine"] == ("tree" if tree else "hash")
     assert sim.last_sph_info["queries"] == SPH_STEPS["n"] // 2
     assert "gas" in sim.last_phase_wall
 
@@ -189,3 +229,12 @@ def test_golden_is_current_jax_output(golden):
     live = jax_sph_steps()
     for k, v in live.items():
         np.testing.assert_array_equal(v, golden[k], err_msg=k)
+
+
+@pytest.mark.slow
+def test_tree_golden_is_current_jax_output(tree_golden):
+    """The committed tree-engine golden file is what the JAX package gives
+    now."""
+    live = jax_tree_sph_steps()
+    for k, v in live.items():
+        np.testing.assert_array_equal(v, tree_golden[k], err_msg=k)

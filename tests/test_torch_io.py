@@ -286,9 +286,9 @@ def test_scatter_log_matches_jax_records(tmp_path):
 def test_load_ic_gadget_zic_and_gas_refused(tmp_path):
     """``Simulation.load_ic``: a Gadget file (ICFormat 1) and ZIC ICs
     (ICFormat 3) become the particles JAX's readers give; a gas IC loads
-    with the u block at its gas (the single-program step runs SPH), and is
-    refused on the phased step with ``SphEngine auto`` (the tree engine,
-    ROADMAP item 12.2)."""
+    with the u block at its gas (the single-program step runs SPH), and
+    loads the same on the phased step with ``SphEngine auto``, whose SPH
+    pass is the tree engine (ROADMAP item 12.2, no longer refused)."""
     from sidm_tpu_torch.config import SimConfig
     snap = _snapshot(tgadget, gas=False)
     (path,) = tgadget.write_snapshot(str(tmp_path / "ic"), snap)
@@ -336,8 +336,10 @@ def test_load_ic_gadget_zic_and_gas_refused(tmp_path):
     assert ng == 40 and not d["egy_spec"][ng:].any()
     sim = Simulation(SimConfig(InitCondFile=gas, TreeWalkEngine="wq"),
                      mode="phased", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12.2"):
-        sim.load_ic()
+    sim.load_ic()
+    d = tstate.state_dict(sim.particles)
+    np.testing.assert_array_equal(d["egy_spec"][:ng], want.u)
+    assert sim._sph_engine(sim._use_phased()) == "tree"
 
 
 def test_events_past_the_cap_are_counted():
